@@ -1,0 +1,318 @@
+"""The port's fault-tolerant training slice against the JAX package's.
+
+Two replica groups run as threads against an in-process lighthouse in each
+package: the debug Llama config, the serial fp8-quantized managed
+allreduce (``stream_buckets=False`` on the JAX side, the port's only
+path), SGD, the same initial parameters and batches, and a crash of
+replica 1 after its backward pass at step 2 that restarts and heals over
+HTTP. The lighthouse needs both replicas for a quorum, so the survivor
+waits for the restart and the rejoin always heals.
+
+Held: the per-replica commit/discard sequences are identical across
+packages; replicas are bitwise equal within each package; final params
+agree across packages within ``LR * (steps) * 2 * 32 * s_max``, i.e. per
+committed step at most one e4m3 code step (32 units of the scale at the
+top of the range) of the largest row scale ``s_max`` in each of the two
+quantization stages, times the learning rate. The allreduce itself is
+bitwise equal across packages when both get identical gradients.
+"""
+
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchft_tpu.coordination import LighthouseServer as JaxLighthouse
+from torchft_tpu.manager import Manager as JaxManager
+from torchft_tpu.models import llama as jl
+from torchft_tpu.process_group import ProcessGroupHost as JaxPGHost
+from torchft_tpu_torch import convert
+from torchft_tpu_torch.checkpointing import HTTPTransport
+from torchft_tpu_torch.checkpointing._serialization import flatten_state, unflatten_state
+from torchft_tpu_torch.coordination import LighthouseServer
+from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.models import llama as tl
+from torchft_tpu_torch.optim import OptimizerWrapper
+from torchft_tpu_torch.process_group import ProcessGroupHost
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes gain nothing from intra-op threads; one keeps these
+    tests from crowding the timing-sensitive tests of parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+STEPS = 4
+FAIL_AT = 2
+LR = 0.05
+TIMEOUT = 30.0
+
+
+class Crash(Exception):
+    pass
+
+
+def _lighthouse(cls):
+    return cls(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=500,
+               quorum_tick_ms=20, heartbeat_timeout_ms=3000)
+
+
+def _init_trees():
+    cfg = jl.CONFIGS["debug"]
+    return [
+        jax.tree_util.tree_map(np.asarray, jl.llama_init(jax.random.PRNGKey(r), cfg))
+        for r in range(2)
+    ]
+
+
+def _batch(rid: int, step: int):
+    rng = np.random.RandomState(1000 * rid + step)
+    toks = rng.randint(0, 256, (2, 17)).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _run(replica_fn):
+    failed = threading.Event()
+    logs = [[], []]
+
+    def replica(rid):
+        while True:
+            try:
+                return replica_fn(rid, failed, logs[rid])
+            except Crash:
+                continue
+
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        finals = [f.result(timeout=180) for f in [ex.submit(replica, r) for r in range(2)]]
+    return finals, logs
+
+
+def _jax_slice(addr, inits):
+    cfg = jl.CONFIGS["debug"]
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, t, y: jl.llama_loss(p, t, y, cfg)))
+    scales = []
+
+    def replica(rid, failed, log):
+        state = {"params": jax.tree_util.tree_map(jnp.asarray, inits[rid])}
+
+        def load(sd):
+            state["params"] = jax.tree_util.tree_map(jnp.asarray, sd["params"])
+
+        manager = JaxManager(
+            pg=JaxPGHost(timeout=TIMEOUT), load_state_dict=load,
+            state_dict=lambda: {"params": state["params"]}, min_replica_size=1,
+            replica_id=f"replica_{rid}", lighthouse_addr=addr, timeout=TIMEOUT,
+            quorum_timeout=TIMEOUT, stream_buckets=False,
+        )
+        try:
+            while manager.current_step() < STEPS:
+                step = manager.current_step()
+                manager.start_quorum()
+                tokens, targets = _batch(rid, step)
+                _, grads = grad_fn(state["params"], jnp.asarray(tokens), jnp.asarray(targets))
+                if rid == 1 and step == FAIL_AT and not failed.is_set():
+                    failed.set()
+                    raise Crash()
+                reduced = manager.allreduce(grads, should_quantize=True).get_future().wait(TIMEOUT)
+                committed = manager.should_commit()
+                if committed:
+                    scales.append(max(float(jnp.abs(g).max()) for g in jax.tree_util.tree_leaves(reduced)))
+                    state["params"] = jax.tree_util.tree_map(
+                        lambda p, g: p - LR * g, state["params"], reduced
+                    )
+                log.append((step, committed))
+            return jax.tree_util.tree_map(np.asarray, state["params"])
+        finally:
+            manager.shutdown(wait=False)
+
+    finals, logs = _run(replica)
+    return finals, logs, max(scales) / 448.0
+
+
+def _torch_slice(addr, inits):
+    cfg = tl.CONFIGS["debug"]
+
+    def replica(rid, failed, log):
+        model = tl.Llama(cfg, device="cpu", attention="xla")
+        model.load_state_dict(convert.llama_params_from_jax(inits[rid]))
+        optim = torch.optim.SGD(model.parameters(), lr=LR)
+        manager = Manager(
+            pg=ProcessGroupHost(timeout=TIMEOUT),
+            load_state_dict=lambda sd: model.load_state_dict(sd["model"]),
+            state_dict=lambda: {"model": model.state_dict()}, min_replica_size=1,
+            replica_id=f"replica_{rid}", lighthouse_addr=addr, timeout=TIMEOUT,
+            quorum_timeout=TIMEOUT,
+        )
+        optimizer = OptimizerWrapper(manager, optim)
+        try:
+            while manager.current_step() < STEPS:
+                step = manager.current_step()
+                optimizer.zero_grad()
+                tokens, targets = (torch.from_numpy(a).long() for a in _batch(rid, step))
+                model.loss(tokens, targets).backward()
+                if rid == 1 and step == FAIL_AT and not failed.is_set():
+                    failed.set()
+                    raise Crash()
+                grads = {n: p.grad for n, p in model.named_parameters()}
+                avg = manager.allreduce(grads, should_quantize=True).get_future().wait(TIMEOUT)
+                for n, p in model.named_parameters():
+                    p.grad = avg[n]
+                log.append((step, optimizer.step()))
+            return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+        finally:
+            manager.shutdown(wait=False)
+
+    return _run(replica)
+
+
+def _as_state_dict(tree):
+    return {k: v.numpy() for k, v in convert.llama_params_from_jax(tree).items()}
+
+
+def test_crash_heal_slice_matches_reference():
+    inits = _init_trees()
+    jlh = _lighthouse(JaxLighthouse)
+    try:
+        jfinals, jlogs, s_max = _jax_slice(f"127.0.0.1:{jlh.port}", inits)
+    finally:
+        jlh.shutdown()
+    tlh = _lighthouse(LighthouseServer)
+    try:
+        tfinals, tlogs = _torch_slice(f"127.0.0.1:{tlh.port}", inits)
+    finally:
+        tlh.shutdown()
+
+    assert tlogs == jlogs
+    # replica 0 discarded the step replica 1 crashed in, then committed it
+    assert (FAIL_AT, False) in tlogs[0] and (FAIL_AT, True) in tlogs[0]
+    assert tlogs[1][-1] == (STEPS - 1, True)
+
+    j0, j1 = _as_state_dict(jfinals[0]), _as_state_dict(jfinals[1])
+    for k in j0:
+        np.testing.assert_array_equal(j0[k], j1[k])
+        np.testing.assert_array_equal(tfinals[0][k], tfinals[1][k])
+    bound = LR * STEPS * 2 * 32 * s_max
+    worst = max(float(np.abs(tfinals[0][k] - j0[k]).max()) for k in j0)
+    assert worst <= bound, (worst, bound)
+
+
+def _one_step(make_manager, lighthouse_cls, grads, to_leaves):
+    lh = _lighthouse(lighthouse_cls)
+    addr = f"127.0.0.1:{lh.port}"
+
+    def replica(rid):
+        manager = make_manager(rid, addr)
+        try:
+            manager.start_quorum()
+            out = manager.allreduce(to_leaves(grads[rid]), should_quantize=True)
+            out = out.get_future().wait(TIMEOUT)
+            assert manager.should_commit()
+            return {k: np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
+                    for k, v in out.items()}
+        finally:
+            manager.shutdown(wait=False)
+
+    try:
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            return [f.result(timeout=120) for f in [ex.submit(replica, r) for r in range(2)]]
+    finally:
+        lh.shutdown()
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_same_gradients_allreduce_bitwise(engine):
+    """Identical gradients into both packages' Manager.allreduce: bitwise
+    equal results (device engine: JAX arrays vs torch tensors; host
+    engine: numpy in both). init_sync is off so both replicas participate."""
+    rng = np.random.RandomState(11)
+    grads = [{"a": rng.randn(300, 7).astype(np.float32),
+              "b": (rng.randn(1025) * 1e3).astype(np.float32)} for _ in range(2)]
+    common = dict(min_replica_size=2, timeout=TIMEOUT, quorum_timeout=TIMEOUT, init_sync=False)
+
+    def jax_manager(rid, addr):
+        return JaxManager(pg=JaxPGHost(timeout=TIMEOUT), load_state_dict=lambda sd: None,
+                          state_dict=lambda: {}, replica_id=f"r{rid}", lighthouse_addr=addr,
+                          stream_buckets=False, **common)
+
+    def torch_manager(rid, addr):
+        return Manager(pg=ProcessGroupHost(timeout=TIMEOUT), load_state_dict=lambda sd: None,
+                       state_dict=lambda: {}, replica_id=f"r{rid}", lighthouse_addr=addr,
+                       **common)
+
+    if engine == "device":
+        jleaves = lambda g: {k: jnp.asarray(v) for k, v in g.items()}  # noqa: E731
+        tleaves = lambda g: {k: torch.from_numpy(v) for k, v in g.items()}  # noqa: E731
+    else:
+        jleaves = tleaves = lambda g: {k: v.copy() for k, v in g.items()}  # noqa: E731
+    jout = _one_step(jax_manager, JaxLighthouse, grads, jleaves)
+    tout = _one_step(torch_manager, LighthouseServer, grads, tleaves)
+    for r in range(2):
+        for k in grads[0]:
+            np.testing.assert_array_equal(tout[r][k].view(np.uint32), jout[r][k].view(np.uint32))
+
+
+def test_state_serialization_round_trip():
+    """Model and optimizer state (tensors of several dtypes, ints, floats,
+    tuples, None) survive flatten/unflatten; a template lands tensor
+    leaves on its devices."""
+    model = tl.Llama(tl.CONFIGS["debug"], device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    optim = torch.optim.AdamW(model.parameters())
+    model.loss(torch.zeros(1, 4, dtype=torch.long), torch.ones(1, 4, dtype=torch.long)).backward()
+    optim.step()
+    state = {"model": model.state_dict(), "optim": optim.state_dict(),
+             "extra": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)}
+    spec, payloads = flatten_state(state)
+    wire = [bytearray(p.tobytes()) if hasattr(p, "tobytes") else p for p in payloads]
+    back = unflatten_state(spec, wire, template=state)
+    assert torch.equal(back["extra"], state["extra"])
+    for k, v in state["model"].items():
+        assert torch.equal(back["model"][k], v)
+    assert back["optim"]["param_groups"] == state["optim"]["param_groups"]
+    for pid, s in state["optim"]["state"].items():
+        for name, t in s.items():
+            assert torch.equal(back["optim"]["state"][pid][name], t)
+
+
+def test_http_transport_round_trip():
+    state = {"w": torch.randn(1000, 37), "h": torch.arange(10, dtype=torch.bfloat16),
+             "step": 3}
+    sender, receiver = HTTPTransport(timeout=10), HTTPTransport(timeout=10)
+    try:
+        sender.send_checkpoint([1], step=7, state_dict=state, timeout=10)
+        got = receiver.recv_checkpoint(0, sender.metadata(), step=7, timeout=10)
+        sender.disallow_checkpoint()
+    finally:
+        sender.shutdown()
+        receiver.shutdown()
+    assert got["step"] == 3
+    assert torch.equal(got["w"], state["w"]) and torch.equal(got["h"], state["h"])
+
+
+def test_lighthouse_client_sees_heartbeats():
+    from torchft_tpu_torch.coordination import LighthouseClient
+
+    lh = _lighthouse(LighthouseServer)
+    try:
+        client = LighthouseClient(f"127.0.0.1:{lh.port}")
+        client.heartbeat("replica_x")
+        assert "quorum_id" in client.status()
+    finally:
+        lh.shutdown()
+
+
+def test_dummy_process_group_passes_through():
+    from torchft_tpu_torch.collectives import allreduce_quantized
+    from torchft_tpu_torch.process_group import ProcessGroupDummy, ReduceOp
+
+    x = [torch.randn(5, 3), torch.randn(7)]
+    out = allreduce_quantized(x, ReduceOp.SUM, ProcessGroupDummy()).get_future().wait(10)
+    assert all(torch.equal(a, b) for a, b in zip(out, x))

@@ -1,0 +1,461 @@
+"""ctypes binding to the repo's native C++ control plane.
+
+Counterpart of ``torchft_tpu/coordination.py``: ``LighthouseServer`` /
+``LighthouseClient``, ``ManagerServer`` / ``ManagerClient``, the rendezvous
+``KvStoreServer`` / ``KvClient`` and the ``QuorumResult`` type. The native
+side speaks length-framed JSON over TCP; ctypes releases the GIL around
+every blocking call.
+
+This package builds its OWN shared library from ``native/*.cc`` (the
+Makefile's sources plus ``capi.cc``) straight into
+``torchft_tpu_torch/_native/``, one ``g++`` per source started together,
+under its own file lock. The library's name carries a hash of the native
+sources, headers and flags, so an edited source rebuilds. It never loads the JAX package's library and never
+runs ``make`` (which writes ``native/*.o`` and would race that package's
+build). RPCs are single attempts: the reference's jittered retry policy is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import json
+import os
+import subprocess
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import List, Optional, Tuple
+
+__all__ = [
+    "QuorumResult",
+    "LighthouseServer",
+    "LighthouseClient",
+    "ManagerServer",
+    "ManagerClient",
+    "KvStoreServer",
+    "KvClient",
+    "ensure_native_built",
+]
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NATIVE_SRC = os.path.join(_REPO_ROOT, "native")
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native")
+# native/Makefile's SRCS, plus the C API the bindings call
+_SOURCES = (
+    "json", "net", "wire", "quorum", "healthwatch", "history", "kvstore",
+    "lighthouse", "aggregator", "manager_server", "capi",
+)
+_CXXFLAGS = ("-std=c++17", "-O2", "-fPIC", "-pthread")
+
+# status codes from native/capi.cc
+_OK, _TIMEOUT, _ERROR, _NOT_FOUND, _INVALID, _UNAVAILABLE = range(6)
+
+
+def _so_path(cxx: str) -> str:
+    """The library's path, named by a hash of every native source and
+    header, the compiler and the flags."""
+    h = hashlib.sha256(" ".join((cxx, *_CXXFLAGS)).encode())
+    files = [os.path.join(_NATIVE_SRC, f"{name}.cc") for name in _SOURCES]
+    files += sorted(glob.glob(os.path.join(_NATIVE_SRC, "*.h")))
+    for path in files:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(_NATIVE_DIR, f"libtorchft_tpu_torch-{h.hexdigest()[:16]}.so")
+
+
+def ensure_native_built() -> str:
+    """Build the control-plane library into ``_native/`` if it is missing.
+
+    One ``g++ -c`` per source runs in parallel, then one link to a
+    temporary name that is renamed into place, all under a file lock so
+    concurrent processes (pytest workers) build it once."""
+    cxx = os.environ.get("CXX", "g++")
+    so_path = _so_path(cxx)
+    if os.path.exists(so_path):
+        return so_path
+    import fcntl
+
+    os.makedirs(_NATIVE_DIR, exist_ok=True)
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(so_path):
+                _build(cxx, so_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return so_path
+
+
+def _build(cxx: str, so_path: str) -> None:
+    objs = []
+    procs = []
+    for name in _SOURCES:
+        obj = os.path.join(_NATIVE_DIR, f"{name}.{os.getpid()}.o")
+        objs.append(obj)
+        procs.append((name, subprocess.Popen(
+            [cxx, *_CXXFLAGS, "-c", os.path.join(_NATIVE_SRC, f"{name}.cc"),
+             "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )))
+    failed = []
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cc:\n{out.decode(errors='replace')}")
+    if failed:
+        raise RuntimeError("native control-plane build failed:\n" + "\n".join(failed))
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    subprocess.run([cxx, "-shared", "-pthread", "-o", tmp, *objs], check=True)
+    os.replace(tmp, so_path)
+    for obj in objs:
+        os.remove(obj)
+
+
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.POINTER
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(ensure_native_built())
+    vp, cp, i64 = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64
+    sigs = {
+        "tft_free": ([cp], None),
+        "tft_lighthouse_new_v2": ([cp, _P(vp), _P(cp)], ctypes.c_int),
+        "tft_lighthouse_address": ([vp], vp),
+        "tft_lighthouse_port": ([vp], ctypes.c_int),
+        "tft_lighthouse_shutdown": ([vp], None),
+        "tft_lighthouse_free": ([vp], None),
+        "tft_manager_new": ([cp, _P(vp), _P(cp)], ctypes.c_int),
+        "tft_manager_address": ([vp], vp),
+        "tft_manager_port": ([vp], ctypes.c_int),
+        "tft_manager_shutdown": ([vp], None),
+        "tft_manager_free": ([vp], None),
+        "tft_client_new": ([cp, i64, _P(vp), _P(cp)], ctypes.c_int),
+        "tft_client_free": ([vp], None),
+        "tft_client_call": ([vp, cp, cp, i64, _P(cp), _P(cp)], ctypes.c_int),
+        "tft_kvstore_new": ([cp, _P(vp), _P(cp)], ctypes.c_int),
+        "tft_kvstore_port": ([vp], ctypes.c_int),
+        "tft_kvstore_shutdown": ([vp], None),
+        "tft_kvstore_free": ([vp], None),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _lib = lib
+    return lib
+
+
+def _take_str(lib: ctypes.CDLL, ptr: "ctypes.c_char_p | int | None") -> str:
+    if not ptr:
+        return ""
+    try:
+        raw = ctypes.cast(ptr, ctypes.c_char_p).value or b""
+        return raw.decode("utf-8", errors="replace")
+    finally:
+        lib.tft_free(ctypes.cast(ptr, ctypes.c_char_p))
+
+
+def _raise_for_status(status: int, err: str, what: str) -> None:
+    if status == _OK:
+        return
+    msg = f"{what}: {err}" if err else what
+    if status == _TIMEOUT:
+        raise TimeoutError(msg)
+    if status == _NOT_FOUND:
+        raise LookupError(msg)
+    if status == _INVALID:
+        raise ValueError(msg)
+    raise RuntimeError(msg)
+
+
+def _ms(timeout: "float | timedelta") -> int:
+    if isinstance(timeout, timedelta):
+        return int(timeout.total_seconds() * 1000)
+    return int(timeout * 1000)
+
+
+def _new_handle(ctor: str, arg: bytes, what: str) -> Tuple[ctypes.CDLL, ctypes.c_void_p]:
+    lib = _load()
+    handle = ctypes.c_void_p()
+    err = ctypes.c_char_p()
+    status = getattr(lib, ctor)(arg, ctypes.byref(handle), ctypes.byref(err))
+    _raise_for_status(status, _take_str(lib, err), what)
+    return lib, handle
+
+
+# --------------------------------------------------------------------- types
+@dataclass
+class QuorumResult:
+    """Per-rank manager quorum response (same fields as the reference's)."""
+
+    quorum_id: int
+    replica_rank: int
+    replica_world_size: int
+    recover_src_manager_address: str
+    recover_src_replica_rank: Optional[int]
+    recover_dst_replica_ranks: List[int]
+    store_address: str
+    max_step: int
+    max_replica_rank: Optional[int]
+    max_world_size: int
+    heal: bool
+    commit_failures: int = 0
+    replica_ids: List[str] = field(default_factory=list)
+
+    @staticmethod
+    def _from_json(d: dict) -> "QuorumResult":
+        return QuorumResult(
+            quorum_id=d["quorum_id"],
+            replica_rank=d["replica_rank"],
+            replica_world_size=d["replica_world_size"],
+            recover_src_manager_address=d.get("recover_src_manager_address", ""),
+            recover_src_replica_rank=d.get("recover_src_replica_rank"),
+            recover_dst_replica_ranks=list(d.get("recover_dst_replica_ranks", [])),
+            store_address=d.get("store_address", ""),
+            max_step=d.get("max_step", 0),
+            max_replica_rank=d.get("max_replica_rank"),
+            max_world_size=d.get("max_world_size", 0),
+            heal=d.get("heal", False),
+            commit_failures=d.get("commit_failures", 0),
+            replica_ids=list(d.get("replica_ids", [])),
+        )
+
+
+# ------------------------------------------------------------------- servers
+class _Server:
+    _prefix = ""
+
+    def __init__(self, lib: ctypes.CDLL, handle: ctypes.c_void_p) -> None:
+        self._lib = lib
+        self._handle = handle
+
+    @property
+    def port(self) -> int:
+        return getattr(self._lib, f"tft_{self._prefix}_port")(self._handle)
+
+    def shutdown(self) -> None:
+        if self._handle:
+            getattr(self._lib, f"tft_{self._prefix}_shutdown")(self._handle)
+
+    def __del__(self) -> None:
+        try:
+            if getattr(self, "_handle", None):
+                getattr(self._lib, f"tft_{self._prefix}_free")(self._handle)
+                self._handle = None
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass
+
+
+class LighthouseServer(_Server):
+    """In-process lighthouse quorum server (native C++), with the native
+    health ledger at its defaults (observe mode)."""
+
+    _prefix = "lighthouse"
+
+    def __init__(
+        self,
+        bind: str = "0.0.0.0:0",
+        min_replicas: int = 1,
+        join_timeout_ms: int = 60000,
+        quorum_tick_ms: int = 100,
+        heartbeat_timeout_ms: int = 5000,
+    ) -> None:
+        opts = {
+            "bind": bind,
+            "min_replicas": min_replicas,
+            "join_timeout_ms": join_timeout_ms,
+            "quorum_tick_ms": quorum_tick_ms,
+            "heartbeat_timeout_ms": heartbeat_timeout_ms,
+        }
+        super().__init__(*_new_handle(
+            "tft_lighthouse_new_v2", json.dumps(opts).encode(),
+            "lighthouse start failed",
+        ))
+
+    def address(self) -> str:
+        return _take_str(self._lib, self._lib.tft_lighthouse_address(self._handle))
+
+
+class ManagerServer(_Server):
+    """Per-replica-group manager server (native C++): forwards quorum
+    requests to the lighthouse, heartbeats, and gathers commit votes."""
+
+    _prefix = "manager"
+
+    def __init__(
+        self,
+        replica_id: str,
+        lighthouse_addr: str,
+        hostname: str = "",
+        bind: str = "0.0.0.0:0",
+        store_addr: str = "",
+        world_size: int = 1,
+        heartbeat_interval: "float | timedelta" = 0.1,
+        connect_timeout: "float | timedelta" = 10.0,
+        quorum_retries: int = 0,
+    ) -> None:
+        opts = {
+            "replica_id": replica_id,
+            "lighthouse_addr": lighthouse_addr,
+            "hostname": hostname,
+            "bind": bind,
+            "store_addr": store_addr,
+            "world_size": world_size,
+            "heartbeat_interval_ms": _ms(heartbeat_interval),
+            "connect_timeout_ms": _ms(connect_timeout),
+            "quorum_retries": quorum_retries,
+            "aggregator_addr": "",
+        }
+        super().__init__(*_new_handle(
+            "tft_manager_new", json.dumps(opts).encode(), "manager start failed"
+        ))
+
+    def address(self) -> str:
+        return _take_str(self._lib, self._lib.tft_manager_address(self._handle))
+
+
+class KvStoreServer(_Server):
+    """Rendezvous key-value store server (native C++)."""
+
+    _prefix = "kvstore"
+
+    def __init__(self, bind: str = "0.0.0.0:0") -> None:
+        super().__init__(*_new_handle(
+            "tft_kvstore_new", bind.encode(), "kvstore start failed"
+        ))
+
+
+# ------------------------------------------------------------------- clients
+class _RawClient:
+    """Framed-JSON RPC client over the native transport (one attempt per
+    call; the caller's timeout is the deadline)."""
+
+    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
+        self._lib = _load()
+        handle = ctypes.c_void_p()
+        err = ctypes.c_char_p()
+        status = self._lib.tft_client_new(
+            addr.encode(), _ms(connect_timeout), ctypes.byref(handle),
+            ctypes.byref(err),
+        )
+        _raise_for_status(status, _take_str(self._lib, err), "client create failed")
+        self._handle = handle
+        self.addr = addr
+
+    def call(self, method: str, params: dict, timeout: "float | timedelta") -> dict:
+        result = ctypes.c_char_p()
+        err = ctypes.c_char_p()
+        status = self._lib.tft_client_call(
+            self._handle, method.encode(), json.dumps(params).encode(),
+            _ms(timeout), ctypes.byref(result), ctypes.byref(err),
+        )
+        err_s = _take_str(self._lib, err)
+        result_s = _take_str(self._lib, result)
+        _raise_for_status(status, err_s, f"{method} to {self.addr} failed")
+        return json.loads(result_s) if result_s else {}
+
+    def __del__(self) -> None:
+        try:
+            if getattr(self, "_handle", None):
+                self._lib.tft_client_free(self._handle)
+                self._handle = None
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass
+
+
+class LighthouseClient:
+    """Client for the lighthouse service (status and heartbeats)."""
+
+    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
+        self._client = _RawClient(addr, connect_timeout)
+
+    def heartbeat(self, replica_id: str, timeout: "float | timedelta" = 5.0) -> dict:
+        return self._client.call("heartbeat", {"replica_id": replica_id}, timeout)
+
+    def status(self, timeout: "float | timedelta" = 5.0) -> dict:
+        return self._client.call("status", {}, timeout)
+
+
+class ManagerClient:
+    """Client for a replica group's manager service."""
+
+    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
+        self._client = _RawClient(addr, connect_timeout)
+
+    def _quorum(
+        self,
+        group_rank: int,
+        step: int,
+        checkpoint_metadata: str,
+        shrink_only: bool,
+        timeout: "float | timedelta",
+        init_sync: bool = True,
+        commit_failures: int = 0,
+    ) -> QuorumResult:
+        resp = self._client.call(
+            "quorum",
+            {
+                "group_rank": group_rank,
+                "step": step,
+                "checkpoint_metadata": checkpoint_metadata,
+                "shrink_only": shrink_only,
+                "init_sync": init_sync,
+                "commit_failures": commit_failures,
+            },
+            timeout,
+        )
+        return QuorumResult._from_json(resp)
+
+    def _checkpoint_metadata(self, rank: int, timeout: "float | timedelta") -> str:
+        resp = self._client.call("checkpoint_metadata", {"rank": rank}, timeout)
+        return resp["checkpoint_metadata"]
+
+    def should_commit(
+        self,
+        group_rank: int,
+        step: int,
+        should_commit: bool,
+        timeout: "float | timedelta",
+    ) -> bool:
+        resp = self._client.call(
+            "should_commit",
+            {"group_rank": group_rank, "should_commit": should_commit, "step": step},
+            timeout,
+        )
+        return resp["should_commit"]
+
+
+class KvClient:
+    """Client for the rendezvous KV store (values are bytes, carried as
+    ``b64:``-prefixed base64 on the wire)."""
+
+    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
+        self._client = _RawClient(addr, connect_timeout)
+
+    def set(self, key: str, value: "bytes | str", timeout: "float | timedelta" = 10.0) -> None:
+        import base64
+
+        if isinstance(value, str):
+            value = value.encode()
+        self._client.call(
+            "set",
+            {"key": key, "value": "b64:" + base64.b64encode(value).decode()},
+            timeout,
+        )
+
+    def get(
+        self, key: str, timeout: "float | timedelta" = 10.0, wait: bool = True
+    ) -> bytes:
+        import base64
+
+        value = self._client.call("get", {"key": key, "wait": wait}, timeout)["value"]
+        if value.startswith("b64:"):
+            return base64.b64decode(value[4:])
+        return value.encode()
