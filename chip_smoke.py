@@ -2,20 +2,33 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernels from ``torchft_tpu_torch/ops/csrc`` and
-   times the build.
-2. Holds each kernel against its plain PyTorch version on the card, bit for
-   bit, from a single element up to the full bench_1b gradient count, and
-   times kernel, plain version and the device-memory bound at that size;
-   quantize is also timed at the reduced-chunk shape the two-replica
+1. Builds the port's CUDA kernels from ``torchft_tpu_torch/ops/csrc`` (one
+   nvcc per source, started together) and times the build.
+2. Holds each fp8 kernel against its plain PyTorch version on the card, bit
+   for bit, from a single element up to the full bench_1b gradient count,
+   and times kernel, plain version and the device-memory bound at that
+   size; quantize is also timed at the reduced-chunk shape the two-replica
    allreduce gives its second launch.
 3. Checks the fp8-quantized allreduce on CUDA tensors against the same
    allreduce on CPU tensors (the plain versions), bit for bit.
-4. Trains Llama bench_1b at full width and depth as two fault-tolerant
+4. Holds the attention kernels (forward, dq, dkv) of K1 (splash) and K2
+   (flash) against their plain versions at the bench_1b shapes (GQA 16/8,
+   and 16/16 for K2) and at head dims 64 and 256 with batch 2: each kernel
+   output's max abs error against an f32 evaluation of the same bf16 inputs
+   must be at most twice the plain bf16 version's. Times each kernel, its
+   plain version and torch's scaled_dot_product_attention (the yardstick
+   only) at the bench_1b GQA shape, beside the tensor-core bound.
+5. Drives K2's path: a 2-layer bench_1b-width Llama with
+   ``attention="flash"``, forward and backward, its loss compared with
+   ``attention="xla"``, and K2's kernels counted on that run. Then times
+   one replica's full bench_1b forward + backward through the
+   materialized attention and through the kernels, in turns.
+6. Trains Llama bench_1b at full width and depth as two fault-tolerant
    replica groups (threads on one card) with an in-process lighthouse, the
    fp8-quantized managed allreduce and a scripted crash of replica 1 at
    step 3 that restarts and heals over HTTP. It checks finite losses, the
-   discarded step, the heal, bitwise-equal replicas, and that both kernels
+   discarded step, the heal, bitwise-equal replicas, that attention
+   dispatched to splash, and that the fp8 kernels and K1's three kernels
    launched on this run.
 
 Any failed check raises, so the exit code is non-zero. The last line of
@@ -25,6 +38,7 @@ kernel table as JSON. Without CUDA it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -33,11 +47,13 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet peak
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 ROW = 512
 
 
@@ -203,12 +219,229 @@ def check_allreduce(device: torch.device) -> None:
     log("quantized allreduce: CUDA kernels == CPU plain versions, bitwise (world 2, AVG)")
 
 
+# attention shapes: (label, B, S, Hq, Hkv, hd, paths); bench_1b first, and
+# its GQA shape is the one timed
+ATTN_SHAPES = (
+    ("bench_1b", 1, 2048, 16, 8, 128, ("splash", "flash")),
+    ("bench_1b_mha", 1, 2048, 16, 16, 128, ("flash",)),
+    ("hd64_b2", 2, 256, 4, 2, 64, ("splash", "flash")),
+    ("hd256_b2", 2, 256, 4, 2, 256, ("splash", "flash")),
+)
+# K1 (splash_attention_tpu) and K2 (flash_attention_tpu) in the reference
+ATTN_REPLACES = {"splash": 144, "flash": 55}
+# matmuls of causal size each kernel does (2 * B * Hq * hd flops per
+# (query, key) pair each): fwd Q K^T, P V; dq Q K^T, dO V^T, dS K; dkv
+# K Q^T, P^T dO, V dO^T, dS^T Q
+ATTN_MATMULS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+
+def attention_bound_ms(kernel: str, B: int, S: int, hq: int, hkv: int, hd: int):
+    """(ms, "operations" | "bytes"): the larger of the kernel's causal
+    tensor-core flops over the bf16 peak and its bytes (inputs read once,
+    outputs written once) over the memory rate."""
+    pairs = B * hq * S * (S + 1) // 2
+    flops = ATTN_MATMULS[kernel] * 2 * hd * pairs
+    q_bytes, kv_bytes, stat_bytes = 2 * B * S * hq * hd, 2 * B * S * hkv * hd, 4 * B * hq * S
+    nbytes = {
+        "fwd": q_bytes + 2 * kv_bytes + q_bytes + stat_bytes,
+        "dq": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + q_bytes,
+        "dkv": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * kv_bytes,
+    }[kernel]
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_attention(device: torch.device):
+    """Each attention kernel against its plain version; returns per-path
+    stats (max abs error against the plain version, worst error ratio
+    against the f32 evaluation) and the bench_1b GQA timings."""
+    import torch.nn.functional as F
+    from torchft_tpu_torch.ops import attention as ta
+
+    stats = {impl: {k: {"err": 0.0, "ratio": 0.0} for k in ATTN_MATMULS}
+             for impl in ("splash", "flash")}
+    timing = {}
+    for label, B, S, hq, hkv, hd, paths in ATTN_SHAPES:
+        g = torch.Generator(device=device).manual_seed(S + 10 * hq + hkv + hd + B)
+        q, k, v = (torch.randn(B, S, h, hd, generator=g, device=device).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        for impl in paths:
+            if impl == "splash":
+                qi, sm = q * ta.splash_scale(hd, q.dtype), 1.0
+            else:
+                qi, sm = q, 1.0 / math.sqrt(hd)
+            f32 = [x.float() for x in (qi, k, v)]
+            o_k, lse_k = ta.attention_fwd(qi, k, v, sm, impl)
+            o_p, lse_p = ta.attention_fwd_plain(qi, k, v, sm, impl == "splash")
+            o_32, lse_32 = ta.attention_fwd_plain(*f32, sm, True)
+            # the gradient of sum(out.float() ** 2)
+            do = (2 * o_p.float()).to(torch.bfloat16)
+            delta = ta.attention_delta(o_p, do)
+            args = (qi, k, v, lse_p, delta, do, sm)
+            args_32 = (*f32, lse_32, ta.attention_delta(o_32, do.float()), do.float(), sm)
+            dq_k = ta.attention_dq(*args, impl)
+            dk_k, dv_k = ta.attention_dkv(*args, impl)
+            dq_p = ta.attention_dq_plain(*args)
+            dk_p, dv_p = ta.attention_dkv_plain(*args)
+            dq_32 = ta.attention_dq_plain(*args_32)
+            dk_32, dv_32 = ta.attention_dkv_plain(*args_32)
+            torch.cuda.synchronize()
+            lse_err = max_abs_err(lse_k, lse_32)
+            if not lse_err <= 1e-3:
+                raise RuntimeError(f"{impl} lse at {label}: max abs error {lse_err} > 1e-3")
+            for kernel, outs in (("fwd", [(o_k, o_p, o_32)]),
+                                 ("dq", [(dq_k, dq_p, dq_32)]),
+                                 ("dkv", [(dk_k, dk_p, dk_32), (dv_k, dv_p, dv_32)])):
+                for got, plain, ref in outs:
+                    if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
+                        raise RuntimeError(f"{impl}_{kernel} at {label}: bad shape or non-finite")
+                    e_k, e_p = max_abs_err(got.float(), ref), max_abs_err(plain.float(), ref)
+                    ratio = e_k / e_p if e_p > 0 else (0.0 if e_k == 0 else math.inf)
+                    st = stats[impl][kernel]
+                    st["err"] = max(st["err"], max_abs_err(got.float(), plain.float()))
+                    st["ratio"] = max(st["ratio"], ratio)
+                    log(f"attention {impl}_{kernel} {label} B={B} S={S} Hq={hq} Hkv={hkv} "
+                        f"hd={hd}: kernel err {e_k:.3e}, plain bf16 err {e_p:.3e} (vs f32), "
+                        f"kernel-plain {max_abs_err(got.float(), plain.float()):.3e}")
+                    if not e_k <= 2 * e_p:
+                        raise RuntimeError(
+                            f"{impl}_{kernel} at {label}: error {e_k} against f32 exceeds "
+                            f"twice the plain bf16 version's {e_p}")
+            if label == "bench_1b":
+                t = {}
+                t["fwd"] = (timed_ms(lambda: ta.attention_fwd(qi, k, v, sm, impl), 10),
+                            timed_ms(lambda: ta.attention_fwd_plain(qi, k, v, sm, impl == "splash"), 3))
+                t["dq"] = (timed_ms(lambda: ta.attention_dq(*args, impl), 10),
+                           timed_ms(lambda: ta.attention_dq_plain(*args), 3))
+                t["dkv"] = (timed_ms(lambda: ta.attention_dkv(*args, impl), 10),
+                            timed_ms(lambda: ta.attention_dkv_plain(*args), 3))
+                qt, kt, vt = (x.transpose(1, 2) for x in (qi, k, v))
+                sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=sm, enable_gqa=True), 10)
+                leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+                out = F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, scale=sm, enable_gqa=True)
+                do_t = do.transpose(1, 2)
+                sdpa_bwd = timed_ms(lambda: torch.autograd.grad(
+                    out, leaves, do_t, retain_graph=True), 10)
+                del out, leaves
+                for kernel, (ms, plain_ms) in t.items():
+                    bound, by = attention_bound_ms(kernel, B, S, hq, hkv, hd)
+                    timing[f"{impl}_{kernel}"] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        # SDPA's backward computes dq, dk and dv in one call
+                        "library_ms": sdpa_fwd if kernel == "fwd" else sdpa_bwd,
+                    }
+                    log(f"attention {impl}_{kernel} bench_1b timing: kernel {ms:.3f} ms, "
+                        f"plain {plain_ms:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
+                        f"{timing[f'{impl}_{kernel}']['library_ms']:.3f} ms, bound {bound:.4f} ms ({by})")
+            del o_k, o_p, o_32, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p, dq_32, dk_32, dv_32
+            torch.cuda.empty_cache()
+    for impl, kernels in stats.items():
+        for kernel, st in kernels.items():
+            log(f"attention {impl}_{kernel}: max abs error vs plain {st['err']:.3e}, "
+                f"worst error ratio vs plain (against f32) {st['ratio']:.3f}")
+    return stats, timing
+
+
+def check_flash_model(device: torch.device) -> dict:
+    """K2's path: a 2-layer bench_1b-width Llama through attention="flash",
+    forward and backward, against attention="xla"; K2's launches counted
+    on that run only."""
+    from torchft_tpu_torch.models.llama import CONFIGS, Llama
+    from torchft_tpu_torch.ops import attention as ta
+
+    cfg = dataclasses.replace(CONFIGS["bench_1b"], n_layers=2)
+    model = Llama(cfg, device=device, attention="flash")
+    model.init_weights(torch.Generator(device=device).manual_seed(11))
+    g = torch.Generator(device=device).manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2049), generator=g, device=device)
+    inputs, targets = toks[:, :-1], toks[:, 1:]
+    ta.reset_launches()
+    loss = model.loss(inputs, targets)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in ta.LAUNCHES.items() if k.startswith("flash_")}
+    dispatch = ta.LAST_DISPATCH
+    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    for layer in model.layers:
+        layer.attention = "xla"
+    with torch.no_grad():
+        ref = model.loss(inputs, targets)
+    diff = abs(loss.item() - ref.item())
+    log(f"K2 model path (2-layer bench_1b, attention=flash): loss {loss.item():.5f}, "
+        f"xla {ref.item():.5f}, |diff| {diff:.2e}, launches {launches}")
+    if dispatch != "flash" or not grads_finite:
+        raise RuntimeError(f"flash model path: dispatch {dispatch}, finite grads {grads_finite}")
+    # bf16 activations round at other places on the two paths (as the
+    # port's bf16 Llama against the reference's, tests/test_torch_llama.py)
+    if not diff <= 2e-2 * abs(ref.item()):
+        raise RuntimeError(f"flash model loss {loss.item()} differs from xla {ref.item()}")
+    for kernel, count in launches.items():
+        if count == 0:
+            raise RuntimeError(f"{kernel} never launched on the flash model path")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_model_fwd_bwd(device: torch.device) -> dict:
+    """One replica's bench_1b forward + backward at full width and depth
+    (batch 1, seq 2048, per-layer remat, as the trainer runs it) through
+    the materialized attention ("xla") and the kernels ("auto" -> splash),
+    in turns xla, auto, auto, xla; each turn the median of 5 steps by CUDA
+    events after a warm-up step. Then one step of each under
+    torch.profiler: device busy time, the attention kernels' share and the
+    kernel count. Also each path's peak device memory."""
+    from torch.profiler import ProfilerActivity, profile
+    from torchft_tpu_torch.models.llama import CONFIGS, Llama
+
+    cfg = CONFIGS["bench_1b"]
+    model = Llama(cfg, device=device, remat=True)
+    model.init_weights(torch.Generator(device=device).manual_seed(13))
+    g = torch.Generator(device=device).manual_seed(14)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2049), generator=g, device=device)
+
+    def step(impl: str) -> None:
+        for layer in model.layers:
+            layer.attention = impl
+        model.zero_grad(set_to_none=True)
+        model.loss(toks[:, :-1], toks[:, 1:]).backward()
+
+    out = {impl: {"ms": [], "peak_gib": 0.0} for impl in ("xla", "auto")}
+    for impl in ("xla", "auto", "auto", "xla"):
+        torch.cuda.reset_peak_memory_stats()
+        out[impl]["ms"].append(timed_ms(lambda: step(impl), 5))
+        out[impl]["peak_gib"] = max(out[impl]["peak_gib"],
+                                    torch.cuda.max_memory_allocated() / 2**30)
+    for impl, r in out.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(impl)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        r["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        r["attention_ms"] = sum(e.self_device_time_total for e in events
+                                if "attention_" in e.key) / 1e3
+        r["kernels"] = sum(e.count for e in events if e.self_device_time_total > 0)
+        log(f"one replica bench_1b forward+backward, attention={impl}: "
+            f"turns {[round(t, 1) for t in r['ms']]} ms, peak {r['peak_gib']:.2f} GiB; "
+            f"profiled step: wall {wall:.1f} ms, device busy {r['busy_ms']:.1f} ms "
+            f"({r['kernels']} kernels), attention kernels {r['attention_ms']:.1f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from torchft_tpu_torch.models.llama import CONFIGS
+    from torchft_tpu_torch.ops import attention as ta
     from torchft_tpu_torch.ops import quantization as q
     from torchft_tpu_torch.ops._build import build
     from torchft_tpu_torch.train import REPLICAS, TrainConfig, run_replicas
@@ -223,8 +456,12 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build("fp8_rowwise.cu")
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    sources = ("fp8_rowwise.cu", "attention.cu")
+    # one nvcc per source, started together; a failed build raises here
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build, sources))
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {len(sources)} sources "
+        "in parallel)")
 
     cfg = TrainConfig(config="bench_1b", steps=6, batch_size=1, seq_len=2048,
                       quantize=True, fail_at=3)
@@ -234,17 +471,24 @@ def main() -> int:
         f"{timing['quantize']['chunk_ms']:.3f} ms; at the full gradient: "
         f"{timing['quantize']['ms']:.3f} ms, dequantize {timing['dequantize']['ms']:.3f} ms")
     check_allreduce(device)
+    attn_stats, attn_timing = check_attention(device)
+    flash_launches = check_flash_model(device)
+    time_model_fwd_bwd(device)
 
     q.reset_launches()
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = run_replicas(cfg, device, on_step=lambda e: log(
         f"step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
         f"participants={e['participants']} committed={e['committed']} "
-        f"healed={e['healed']} step_ms={e['step_ms']:.1f} "
+        f"healed={e['healed']} attention={e['attention']} step_ms={e['step_ms']:.1f} "
         f"compute_ms={e['compute_ms']:.1f} allreduce_ms={e['allreduce_ms']:.1f} "
         f"tokens_per_s={e['tokens_per_s']:.1f}"))
-    launches = dict(q.LAUNCHES)
-    log(f"training: {time.perf_counter() - t0:.1f} s, launches {launches}, "
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    dispatch = {e["attention"] for r in results for e in r["log"]}
+    log(f"training: {time.perf_counter() - t0:.1f} s, attention {sorted(dispatch)}, "
+        f"launches {launches}, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     # steady: both replicas contributing, no heal served or received (step
@@ -277,8 +521,12 @@ def main() -> int:
         f"replica 0 staged its state in "
         f"{results[0]['timings'].get('heal_send_s', float('nan')):.2f} s, replica 1 "
         f"received it in {results[1]['timings'].get('heal_recv_s', float('nan')):.2f} s")
-    for kernel, count in launches.items():
-        if count == 0:
+    if dispatch != {"splash"}:
+        raise RuntimeError(f"training attention dispatched to {dispatch}, not splash")
+    on_path = ("quantize_fp8_rowwise", "dequantize_fp8_rowwise",
+               "splash_fwd", "splash_dq", "splash_dkv")
+    for kernel in on_path:
+        if launches[kernel] == 0:
             raise RuntimeError(f"{kernel} never launched on the training path")
 
     kernels = []
@@ -300,6 +548,19 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+    for impl in ("splash", "flash"):
+        for kernel in ATTN_MATMULS:
+            key = f"{impl}_{kernel}"
+            kernels.append({
+                "name": f"attention_{kernel}_kernel ({impl})",
+                "route": "cuda",
+                "source": "torchft_tpu_torch/ops/csrc/attention.cu",
+                "replaces": f"torchft_tpu/ops/attention.py:{ATTN_REPLACES[impl]}",
+                # K2 runs on its own path (check_flash_model), K1 in training
+                "launches": flash_launches[key] if impl == "flash" else launches[key],
+                "max_abs_err": attn_stats[impl][kernel]["err"],
+                **attn_timing[key],
+            })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

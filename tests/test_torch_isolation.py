@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points run on CUDA unless the caller asks for the CPU."""
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -59,3 +60,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         train.main(["--config", "debug", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert Llama(CONFIGS["debug"], device="cpu").embed.device.type == "cpu"
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    """Every import in chip_smoke.py, at top level or inside a function."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "torchft_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}

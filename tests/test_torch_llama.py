@@ -107,8 +107,21 @@ def test_remat_keeps_grads():
 
 
 @pytest.mark.parametrize("impl", ["splash", "flash"])
-def test_fused_attention_is_not_a_silent_fallback(impl):
-    q = torch.zeros(1, 8, 4, 16)
-    k = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="K1" if impl == "splash" else "K2"):
-        tattn.causal_attention(q, k, k, impl=impl)
+def test_fused_attention_is_not_a_silent_fallback(impl, monkeypatch):
+    """An explicit fused impl runs that kernel's path (its plain version on
+    CPU tensors, which launches nothing), never the materialized one, and
+    LAST_DISPATCH says so."""
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError("fell back to the materialized path")
+
+    monkeypatch.setattr(tattn, "xla_attention", no_fallback)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 4, 16, generator=g)
+    k = torch.randn(1, 8, 2, 16, generator=g)
+    tattn.reset_launches()
+    out = tattn.causal_attention(q, k, k, impl=impl)
+    assert tattn.LAST_DISPATCH == impl
+    assert not any(tattn.LAUNCHES.values())
+    plain = tattn.splash_attention_plain if impl == "splash" else tattn.flash_attention_plain
+    assert torch.equal(out, plain(q, k, k))

@@ -4,8 +4,9 @@ A source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into the
 git-ignored ``torchft_tpu_torch/_build/`` (the file name carries a hash of
 the source and flags, so an edited source rebuilds), and loaded with
-ctypes. A file lock makes concurrent processes build once. Nothing is
-downloaded; nothing is built when a module is imported.
+ctypes. A file lock per source makes concurrent processes build it once
+while different sources build in parallel. Nothing is downloaded; nothing
+is built when a module is imported.
 
 No PyTorch headers are compiled (the kernels take raw pointers and a
 stream), which keeps a build at seconds instead of the minutes
@@ -59,7 +60,7 @@ def build(source: str) -> str:
     import fcntl
 
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    with open(os.path.join(_BUILD_DIR, ".build.lock"), "w") as lock:
+    with open(os.path.join(_BUILD_DIR, f".{os.path.basename(target)}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not os.path.exists(target):

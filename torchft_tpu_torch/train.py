@@ -31,6 +31,7 @@ import torch
 from torchft_tpu_torch.coordination import LighthouseServer
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models.llama import CONFIGS, Llama
+from torchft_tpu_torch.ops import attention as attn_ops
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.process_group import ProcessGroupHost
 from torchft_tpu_torch.utils import resolve_device
@@ -67,9 +68,9 @@ def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
     (replica, step) only, so a restarted replica sees the batches it would
     have seen."""
     model_cfg = CONFIGS[cfg.config]
-    # materialized attention: the fused kernels (ROADMAP K1/K2) are not
-    # ported yet; per-layer recompute keeps two bench_1b replicas on a card
-    model = Llama(model_cfg, device=device, attention="xla", remat=True)
+    # the reference's dispatch (splash for GQA on the card) and its bench's
+    # remat="full": per-layer recompute keeps two bench_1b replicas on a card
+    model = Llama(model_cfg, device=device, attention="auto", remat=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(replica_id)
     model.init_weights(gen)
@@ -155,6 +156,9 @@ def _train_replica(
                 "participants": manager.num_participants(),
                 "committed": committed,
                 "healed": manager.last_quorum_healed(),
+                # the attention this step's layers resolved to, so a silent
+                # "xla" shows
+                "attention": attn_ops.LAST_DISPATCH,
                 "step_ms": (t3 - t0) * 1e3,
                 # quorum join + forward + backward
                 "compute_ms": (t1 - t0) * 1e3,
