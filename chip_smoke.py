@@ -3,7 +3,11 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels from ``torchft_tpu_torch/ops/csrc`` (one
-   nvcc per source, started together) and times the build.
+   nvcc per source, started together), times the build, and prints per
+   kernel what ptxas reported (registers, stack, spills, wgmma serialized)
+   and its HGMMA (wgmma) and UTMALDG (TMA load) SASS instructions. The
+   attention forward and dK/dV kernels must have both at every head dim
+   and no spill at head dim 128.
 2. Holds each fp8 kernel against its plain PyTorch version on the card, bit
    for bit, from a single element up to the full bench_1b gradient count,
    and times kernel, plain version and the device-memory bound at that
@@ -13,11 +17,14 @@
    allreduce on CPU tensors (the plain versions), bit for bit.
 4. Holds the attention kernels (forward, dq, dkv) of K1 (splash) and K2
    (flash) against their plain versions at the bench_1b shapes (GQA 16/8,
-   and 16/16 for K2) and at head dims 64 and 256 with batch 2: each kernel
-   output's max abs error against an f32 evaluation of the same bf16 inputs
-   must be at most twice the plain bf16 version's. Times each kernel, its
-   plain version and torch's scaled_dot_product_attention (the yardstick
-   only) at the bench_1b GQA shape, beside the tensor-core bound.
+   also with K/V as strided views of one fused tensor, and 16/16 for K2),
+   at S 384 (an odd number of tiles) and at head dims 64 and 256 with
+   batch 2: each kernel output's max abs error against an f32 evaluation
+   of the same bf16 inputs must be at most twice the plain bf16 version's,
+   and lse within 1e-3. Times each kernel, its plain version and torch's
+   scaled_dot_product_attention (the yardstick only) at the bench_1b GQA
+   shape beside the tensor-core bound, by device time (``device_ms``), and
+   the kernels and SDPA alone at the llama3_8b attention shape.
 5. Drives K2's path: a 2-layer bench_1b-width Llama with
    ``attention="flash"``, forward and backward, its loss compared with
    ``attention="xla"``, and K2's kernels counted on that run. Then times
@@ -32,8 +39,11 @@
    launched on this run.
 
 Any failed check raises, so the exit code is non-zero. The last line of
-stdout is ``{"ok": true, "device": {...}}``; the line before it is the
-kernel table as JSON. Without CUDA it exits non-zero and prints no result.
+stdout is ``{"ok": true, "device": {...}}``; the line before the card's
+name and power limit is the kernel table as JSON. In it every ``ms``,
+``plain_ms`` and ``library_ms`` is device time by ``device_ms``, and
+``call_ms`` is one call through the kernel's wrapper by CUDA events around
+it, the host's time to launch included. Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -62,7 +74,8 @@ def log(msg: str) -> None:
 
 
 def timed_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events
+    around each run: the device time plus whatever the host adds."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -74,6 +87,28 @@ def timed_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, launches: int, reps: int = 3) -> float:
+    """Device milliseconds of one ``fn``: the median over ``reps`` of CUDA
+    events around ``launches`` back-to-back runs, divided by their count.
+    Each group is queued behind a ~20 ms spin of the card, so the host's
+    own time to launch them (the Python wrapper, tile maps, ctypes) is not
+    counted as long as it stays under the spin."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(40_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -118,6 +153,101 @@ def chunk_elems(n: int, world: int) -> int:
     return max(1, -(-per_rank // ROW)) * ROW
 
 
+# SASS instructions counted per kernel: Hopper's tensor-core product
+# (wgmma) and its TMA tile load
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def _demangle(names):
+    """``attention_fwd_kernel<128, true>`` for each mangled kernel name."""
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", n) for n in out]
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the one Triton bundles."""
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if os.path.exists(cand):
+        return cand
+    if shutil.which("cuobjdump"):
+        return shutil.which("cuobjdump")
+    import triton
+
+    return os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump")
+
+
+def kernel_build_report(sources) -> dict:
+    """Per kernel of the built libraries: what ptxas reported (registers,
+    stack and spill bytes, wgmma serialized for want of registers) and the
+    count of each of ``SASS_OPS`` in its SASS (cuobjdump). Logs a line per
+    kernel."""
+    from torchft_tpu_torch.ops._build import build, build_log
+
+    report = {}
+    for source in sources:
+        mangled, current = {}, None
+        for line in build_log(source).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                current = mangled.setdefault(m.group(1), {"serialized": False})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and current is not None:
+                current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and current is not None:
+                current["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                current["static_smem"] = int(sm.group(1)) if sm else 0
+            if "C7512" in line:
+                for name, entry in mangled.items():
+                    if name in line:
+                        entry["serialized"] = True
+        sass = subprocess.run([_cuobjdump(), "-sass", build(source)], capture_output=True,
+                              text=True, check=True).stdout
+        counts, current = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+            elif current is not None:
+                for op in SASS_OPS:
+                    current[op] += op in line
+        for name, short in zip(mangled, _demangle(list(mangled))):
+            report[short] = {**mangled[name], **counts.get(name, dict.fromkeys(SASS_OPS, 0))}
+    for name, r in report.items():
+        log(f"ptxas {name}: {r.get('registers')} registers, {r.get('static_smem')} bytes static smem, "
+            f"{r.get('stack')} bytes stack, spill stores {r.get('spill_stores')} loads "
+            f"{r.get('spill_loads')} bytes{', wgmma serialized' if r['serialized'] else ''}; "
+            + ", ".join(f"{op} {r[op]}" for op in SASS_OPS))
+    return report
+
+
+# the kernel instance each path runs at the bench_1b head dim
+ATTN_INSTANCE = {"fwd": "attention_fwd_kernel<128, {split}>", "dq": "attention_dq_kernel<128>",
+                 "dkv": "attention_dkv_kernel<128>"}
+
+
+def sass_counts(entry: dict) -> dict:
+    return {op.lower(): entry[op] for op in SASS_OPS}
+
+
+def check_hopper_kernels(report: dict) -> None:
+    """The forward and dK/dV kernels run on wgmma fed by TMA at every head
+    dim, and do not spill at the bench_1b head dim 128."""
+    for name, r in report.items():
+        if not name.startswith(("attention_fwd_kernel", "attention_dkv_kernel")):
+            continue
+        if not all(r[op] for op in SASS_OPS):
+            raise RuntimeError(f"{name} has no {'/'.join(op for op in SASS_OPS if not r[op])} "
+                               "instruction in its SASS")
+        if name.startswith(("attention_fwd_kernel<128", "attention_dkv_kernel<128")) and (
+                r["spill_stores"] or r["spill_loads"]):
+            raise RuntimeError(f"{name} spills registers: {r}")
+
+
 def check_kernels(device: torch.device, full_n: int, world: int):
     from torchft_tpu_torch.ops import quantization as q
 
@@ -153,16 +283,18 @@ def check_kernels(device: torch.device, full_n: int, world: int):
             rows = qk.shape[0]
             chunk = x[:chunk_elems(n, world)]
             timing["quantize"] = {
-                "ms": timed_ms(lambda: q.fused_quantize_fp8(x), 10),
-                "plain_ms": timed_ms(lambda: q.quantize_fp8_plain(x), 3),
+                "ms": device_ms(lambda: q.fused_quantize_fp8(x), 10),
+                "call_ms": timed_ms(lambda: q.fused_quantize_fp8(x), 10),
+                "plain_ms": device_ms(lambda: q.quantize_fp8_plain(x), 3),
                 "bytes": 4 * n + rows * ROW + 4 * rows,
                 "chunk_n": chunk.numel(),
-                "chunk_ms": timed_ms(lambda: q.fused_quantize_fp8(chunk), 10),
+                "chunk_ms": device_ms(lambda: q.fused_quantize_fp8(chunk), 10),
             }
             del chunk
             timing["dequantize"] = {
-                "ms": timed_ms(lambda: q.fused_dequantize_fp8(qk, sk, nk), 10),
-                "plain_ms": timed_ms(lambda: q.dequantize_fp8_plain(qk, sk, nk), 3),
+                "ms": device_ms(lambda: q.fused_dequantize_fp8(qk, sk, nk), 10),
+                "call_ms": timed_ms(lambda: q.fused_dequantize_fp8(qk, sk, nk), 10),
+                "plain_ms": device_ms(lambda: q.dequantize_fp8_plain(qk, sk, nk), 3),
                 "bytes": rows * ROW + 4 * rows + 4 * n,
             }
         del x, qk, sk, qp, sp, deq_k, deq_p
@@ -219,14 +351,21 @@ def check_allreduce(device: torch.device) -> None:
     log("quantized allreduce: CUDA kernels == CPU plain versions, bitwise (world 2, AVG)")
 
 
-# attention shapes: (label, B, S, Hq, Hkv, hd, paths); bench_1b first, and
-# its GQA shape is the one timed
+# attention shapes: (label, B, S, Hq, Hkv, hd, paths, K/V as strided views
+# of one fused [B, S, 2 Hkv, hd] tensor); bench_1b first, and its GQA shape
+# is the one timed
+BOTH = ("splash", "flash")
 ATTN_SHAPES = (
-    ("bench_1b", 1, 2048, 16, 8, 128, ("splash", "flash")),
-    ("bench_1b_mha", 1, 2048, 16, 16, 128, ("flash",)),
-    ("hd64_b2", 2, 256, 4, 2, 64, ("splash", "flash")),
-    ("hd256_b2", 2, 256, 4, 2, 256, ("splash", "flash")),
+    ("bench_1b", 1, 2048, 16, 8, 128, BOTH, False),
+    ("bench_1b_fused_kv", 1, 2048, 16, 8, 128, BOTH, True),
+    ("bench_1b_mha", 1, 2048, 16, 16, 128, ("flash",), False),
+    ("s384", 1, 384, 16, 8, 128, BOTH, False),  # an odd number of 128-row tiles
+    ("hd64_b2", 2, 256, 4, 2, 64, BOTH, False),
+    ("hd256_b2", 2, 256, 4, 2, 256, BOTH, False),
 )
+# timed only (the plain versions would materialize ~8.6 GB f32 scores per
+# tensor): the attention of the repo's llama3_8b config
+LLAMA3_8B_ATTN = (1, 8192, 32, 8, 128)
 # K1 (splash_attention_tpu) and K2 (flash_attention_tpu) in the reference
 ATTN_REPLACES = {"splash": 144, "flash": 55}
 # matmuls of causal size each kernel does (2 * B * Hq * hd flops per
@@ -255,16 +394,20 @@ def check_attention(device: torch.device):
     """Each attention kernel against its plain version; returns per-path
     stats (max abs error against the plain version, worst error ratio
     against the f32 evaluation) and the bench_1b GQA timings."""
-    import torch.nn.functional as F
     from torchft_tpu_torch.ops import attention as ta
 
     stats = {impl: {k: {"err": 0.0, "ratio": 0.0} for k in ATTN_MATMULS}
              for impl in ("splash", "flash")}
     timing = {}
-    for label, B, S, hq, hkv, hd, paths in ATTN_SHAPES:
+    for label, B, S, hq, hkv, hd, paths, fused in ATTN_SHAPES:
         g = torch.Generator(device=device).manual_seed(S + 10 * hq + hkv + hd + B)
-        q, k, v = (torch.randn(B, S, h, hd, generator=g, device=device).to(torch.bfloat16)
-                   for h in (hq, hkv, hkv))
+        q = torch.randn(B, S, hq, hd, generator=g, device=device).to(torch.bfloat16)
+        if fused:
+            kv = torch.randn(B, S, 2 * hkv, hd, generator=g, device=device).to(torch.bfloat16)
+            k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+        else:
+            k, v = (torch.randn(B, S, hkv, hd, generator=g, device=device).to(torch.bfloat16)
+                    for _ in range(2))
         for impl in paths:
             if impl == "splash":
                 qi, sm = q * ta.splash_scale(hd, q.dtype), 1.0
@@ -308,40 +451,83 @@ def check_attention(device: torch.device):
                             f"{impl}_{kernel} at {label}: error {e_k} against f32 exceeds "
                             f"twice the plain bf16 version's {e_p}")
             if label == "bench_1b":
-                t = {}
-                t["fwd"] = (timed_ms(lambda: ta.attention_fwd(qi, k, v, sm, impl), 10),
-                            timed_ms(lambda: ta.attention_fwd_plain(qi, k, v, sm, impl == "splash"), 3))
-                t["dq"] = (timed_ms(lambda: ta.attention_dq(*args, impl), 10),
-                           timed_ms(lambda: ta.attention_dq_plain(*args), 3))
-                t["dkv"] = (timed_ms(lambda: ta.attention_dkv(*args, impl), 10),
-                            timed_ms(lambda: ta.attention_dkv_plain(*args), 3))
-                qt, kt, vt = (x.transpose(1, 2) for x in (qi, k, v))
-                sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=sm, enable_gqa=True), 10)
-                leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-                out = F.scaled_dot_product_attention(
-                    *leaves, is_causal=True, scale=sm, enable_gqa=True)
-                do_t = do.transpose(1, 2)
-                sdpa_bwd = timed_ms(lambda: torch.autograd.grad(
-                    out, leaves, do_t, retain_graph=True), 10)
-                del out, leaves
-                for kernel, (ms, plain_ms) in t.items():
+                fns = {
+                    "fwd": (lambda: ta.attention_fwd(qi, k, v, sm, impl),
+                            lambda: ta.attention_fwd_plain(qi, k, v, sm, impl == "splash")),
+                    "dq": (lambda: ta.attention_dq(*args, impl),
+                           lambda: ta.attention_dq_plain(*args)),
+                    "dkv": (lambda: ta.attention_dkv(*args, impl),
+                            lambda: ta.attention_dkv_plain(*args)),
+                }
+                sdpa_fwd, sdpa_bwd = sdpa_ms(qi, k, v, do, sm)
+                for kernel, (fn, plain_fn) in fns.items():
                     bound, by = attention_bound_ms(kernel, B, S, hq, hkv, hd)
-                    timing[f"{impl}_{kernel}"] = {
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    r = timing[f"{impl}_{kernel}"] = {
+                        "ms": device_ms(fn, 20), "call_ms": timed_ms(fn, 20),
+                        "plain_ms": device_ms(plain_fn, 3), "bound_ms": bound, "bound_by": by,
                         # SDPA's backward computes dq, dk and dv in one call
                         "library_ms": sdpa_fwd if kernel == "fwd" else sdpa_bwd,
                     }
-                    log(f"attention {impl}_{kernel} bench_1b timing: kernel {ms:.3f} ms, "
-                        f"plain {plain_ms:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
-                        f"{timing[f'{impl}_{kernel}']['library_ms']:.3f} ms, bound {bound:.4f} ms ({by})")
+                    log(f"attention {impl}_{kernel} bench_1b timing: kernel {r['ms']:.4f} ms "
+                        f"(one call with its host time {r['call_ms']:.4f} ms), plain "
+                        f"{r['plain_ms']:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
+                        f"{r['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
             del o_k, o_p, o_32, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p, dq_32, dk_32, dv_32
             torch.cuda.empty_cache()
     for impl, kernels in stats.items():
         for kernel, st in kernels.items():
             log(f"attention {impl}_{kernel}: max abs error vs plain {st['err']:.3e}, "
                 f"worst error ratio vs plain (against f32) {st['ratio']:.3f}")
+    time_llama3_8b_attention(device)
     return stats, timing
+
+
+def sdpa_ms(q, k, v, do, sm: float):
+    """Device ms of torch's scaled_dot_product_attention forward and of its
+    backward (dq, dk and dv in one call) on the same [B, S, H, hd] inputs:
+    the yardstick, never called by the port."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=sm, enable_gqa=True), 20)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=sm, enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    bwd = device_ms(lambda: torch.autograd.grad(out, leaves, do_t, retain_graph=True), 20)
+    return fwd, bwd
+
+
+def time_llama3_8b_attention(device: torch.device) -> dict:
+    """Times K1's and K2's forward, dq and dkv at the llama3_8b attention
+    shape beside SDPA (no reference there: the plain versions would need
+    tens of GB)."""
+    from torchft_tpu_torch.ops import attention as ta
+
+    B, S, hq, hkv, hd = LLAMA3_8B_ATTN
+    g = torch.Generator(device=device).manual_seed(8)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=device).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    sm = 1.0 / math.sqrt(hd)
+    o, lse = ta.attention_fwd(q, k, v, sm, "flash")
+    do = torch.randn_like(o)
+    delta = ta.attention_delta(o, do)
+    out = {}
+    for impl in ("splash", "flash"):
+        for kernel, fn in (
+            ("fwd", lambda: ta.attention_fwd(q, k, v, sm, impl)),
+            ("dq", lambda: ta.attention_dq(q, k, v, lse, delta, do, sm, impl)),
+            ("dkv", lambda: ta.attention_dkv(q, k, v, lse, delta, do, sm, impl)),
+        ):
+            bound, _ = attention_bound_ms(kernel, B, S, hq, hkv, hd)
+            ms = device_ms(fn, 5)
+            out[f"{impl}_{kernel}"] = {"ms": ms, "bound_ms": bound}
+    out["sdpa_fwd"], out["sdpa_bwd"] = sdpa_ms(q, k, v, do, sm)
+    log(f"attention at llama3_8b (B={B} S={S} Hq={hq} Hkv={hkv} hd={hd}), device ms: " + ", ".join(
+        f"{key} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, {r['bound_ms'] / r['ms']:.1%})"
+        for key, r in out.items() if isinstance(r, dict))
+        + f"; sdpa fwd {out['sdpa_fwd']:.4f}, bwd {out['sdpa_bwd']:.4f}")
+    return out
 
 
 def check_flash_model(device: torch.device) -> dict:
@@ -462,6 +648,8 @@ def main() -> int:
         list(pool.map(build, sources))
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {len(sources)} sources "
         "in parallel)")
+    build_report = kernel_build_report(sources)
+    check_hopper_kernels(build_report)
 
     cfg = TrainConfig(config="bench_1b", steps=6, batch_size=1, seq_len=2048,
                       quantize=True, fail_at=3)
@@ -469,7 +657,9 @@ def main() -> int:
     stats, timing = check_kernels(device, n_params, world=REPLICAS)
     log(f"quantize at the reduced-chunk shape (n={timing['quantize']['chunk_n']}): "
         f"{timing['quantize']['chunk_ms']:.3f} ms; at the full gradient: "
-        f"{timing['quantize']['ms']:.3f} ms, dequantize {timing['dequantize']['ms']:.3f} ms")
+        f"{timing['quantize']['ms']:.3f} ms, dequantize {timing['dequantize']['ms']:.3f} ms "
+        f"(device ms; one call with its host time: quantize {timing['quantize']['call_ms']:.3f} ms, "
+        f"dequantize {timing['dequantize']['call_ms']:.3f} ms)")
     check_allreduce(device)
     attn_stats, attn_timing = check_attention(device)
     flash_launches = check_flash_model(device)
@@ -543,10 +733,12 @@ def main() -> int:
             "launches": launches[kname],
             "max_abs_err": stats[key]["err"],
             "ms": t["ms"],
+            "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None,
+            **sass_counts(build_report[f"{kname}_kernel"]),
         })
     for impl in ("splash", "flash"):
         for kernel in ATTN_MATMULS:
@@ -560,6 +752,9 @@ def main() -> int:
                 "launches": flash_launches[key] if impl == "flash" else launches[key],
                 "max_abs_err": attn_stats[impl][kernel]["err"],
                 **attn_timing[key],
+                # the head-dim-128 instance that bench_1b runs
+                **sass_counts(build_report[ATTN_INSTANCE[kernel].format(
+                    split=str(impl == "splash").lower())]),
             })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {smi}", flush=True)

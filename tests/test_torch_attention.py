@@ -165,33 +165,95 @@ def test_llama_layer_through_splash_matches_jax():
         )
 
 
-# (impl, S, hd, Hq, Hkv, cuda) -> what the reference's rule runs
+# (impl, S, hd, Hq, Hkv, cuda, dtype) -> what the reference's rule runs
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 DISPATCH = [
-    ("auto", 2048, 128, 16, 8, True, "splash"),
-    ("auto", 2048, 128, 16, 16, True, "flash"),
-    ("auto", 256, 64, 4, 1, True, "splash"),
-    ("auto", 2048, 128, 16, 8, False, "xla"),
-    ("auto", 2048, 96, 16, 8, True, "xla"),
-    ("auto", 100, 128, 16, 8, True, "xla"),
-    ("xla", 2048, 128, 16, 8, True, "xla"),
-    ("splash", 2048, 128, 16, 16, True, "splash"),
-    ("flash", 2048, 128, 16, 8, True, "flash"),
-    ("splash", 16, 16, 4, 2, False, "splash"),
-    ("flash", 16, 16, 4, 4, False, "flash"),
-    ("splash", 16, 16, 4, 2, True, "xla"),
+    ("auto", 2048, 128, 16, 8, True, BF16, "splash"),
+    ("auto", 2048, 128, 16, 16, True, BF16, "flash"),
+    ("auto", 256, 64, 4, 1, True, BF16, "splash"),
+    ("auto", 2048, 128, 16, 8, False, BF16, "xla"),
+    ("auto", 2048, 96, 16, 8, True, BF16, "xla"),
+    ("auto", 100, 128, 16, 8, True, BF16, "xla"),
+    ("xla", 2048, 128, 16, 8, True, BF16, "xla"),
+    ("splash", 2048, 128, 16, 16, True, BF16, "splash"),
+    ("flash", 2048, 128, 16, 8, True, BF16, "flash"),
+    ("splash", 16, 16, 4, 2, False, BF16, "splash"),
+    ("flash", 16, 16, 4, 4, False, BF16, "flash"),
+    ("splash", 16, 16, 4, 2, True, BF16, "xla"),
+    # the kernels take bf16 only: any other dtype on the card at a shape
+    # they tile raises rather than run the materialized path in their place
+    ("auto", 2048, 128, 16, 8, True, F32, TypeError),
+    ("auto", 2048, 128, 16, 16, True, F16, TypeError),
+    ("splash", 2048, 128, 16, 8, True, F32, TypeError),
+    ("splash", 256, 64, 4, 2, True, F16, TypeError),
+    ("flash", 2048, 128, 16, 16, True, F32, TypeError),
+    ("flash", 2048, 256, 16, 8, True, F16, TypeError),
+    # ... while "xla" and the shapes they do not tile take any dtype
+    ("xla", 2048, 128, 16, 8, True, F32, "xla"),
+    ("splash", 2048, 96, 16, 8, True, F16, "xla"),
+    # on the CPU an explicit choice runs its plain version in any dtype
+    ("splash", 16, 16, 4, 2, False, F32, "splash"),
+    ("flash", 16, 16, 4, 4, False, F16, "flash"),
+    ("auto", 2048, 128, 16, 8, False, F32, "xla"),
 ]
 
 
-@pytest.mark.parametrize("impl,seq,hd,hq,hkv,cuda,want", DISPATCH)
-def test_dispatch_follows_the_reference_rule(impl, seq, hd, hq, hkv, cuda, want):
-    assert ta.resolve_impl(impl, (1, seq, hq, hd), hkv, cuda) == want
+@pytest.mark.parametrize("impl,seq,hd,hq,hkv,cuda,dtype,want", DISPATCH)
+def test_dispatch_follows_the_reference_rule(impl, seq, hd, hq, hkv, cuda, dtype, want):
+    if want is TypeError:
+        with pytest.raises(TypeError, match="bf16"):
+            ta.resolve_impl(impl, (1, seq, hq, hd), hkv, cuda, dtype)
+    else:
+        assert ta.resolve_impl(impl, (1, seq, hq, hd), hkv, cuda, dtype) == want
 
 
 def test_tileable_cuda_never_resolves_to_xla():
+    """bf16 at every tileable shape runs a kernel on the card."""
     for impl, seq, hd, (hq, hkv) in itertools.product(
         ("auto", "splash", "flash"), (128, 256, 2048, 8192), ta.KERNEL_HEAD_DIMS,
         ((16, 8), (16, 16), (32, 8), (4, 1)),
     ):
-        assert ta.resolve_impl(impl, (2, seq, hq, hd), hkv, True) != "xla"
+        assert ta.resolve_impl(impl, (2, seq, hq, hd), hkv, True, torch.bfloat16) != "xla"
     with pytest.raises(ValueError, match="unknown attention impl"):
-        ta.resolve_impl("cudnn", (1, 128, 4, 64), 4, True)
+        ta.resolve_impl("cudnn", (1, 128, 4, 64), 4, True, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_causal_attention_resolves_with_the_dtype_of_its_q(monkeypatch, dtype):
+    """causal_attention hands resolve_impl the dtype of its own q (no
+    argument carries it), so an f32/f16 model on the card is refused at
+    dispatch, with the remedy named, instead of inside a kernel wrapper."""
+    seen = []
+
+    def record(impl, q_shape, kv_heads, cuda, dtype_):
+        seen.append((impl, tuple(q_shape), kv_heads, cuda, dtype_))
+        return "xla"
+
+    monkeypatch.setattr(ta, "resolve_impl", record)
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 16, h, 16).astype(np.float32)).to(dtype)
+               for h in (4, 2, 2))
+    out = ta.causal_attention(q, k, v, impl="splash")
+    assert seen == [("splash", (1, 16, 4, 16), 2, False, dtype)]
+    assert ta.LAST_DISPATCH == "xla"
+    assert out.dtype == dtype and out.shape == q.shape
+
+
+def test_row_statistics_are_checked_and_made_kernel_ready():
+    """The dq and dK/dV kernels read lse and delta as f32 [B, Hq, S] rows on
+    q's device, contiguous and 16-byte aligned: anything else of the wrong
+    dtype, shape or device raises, a strided or misaligned one is copied."""
+    q = torch.zeros(2, 128, 4, 64, dtype=torch.bfloat16)
+    good = torch.zeros(2, 4, 128)
+    assert ta._stat(good, q) is good
+    for bad in (good.double(), good.to(torch.bfloat16), good[:, :2], good.reshape(2, 128, 4),
+                good.transpose(1, 2)):
+        with pytest.raises(ValueError, match="row statistics"):
+            ta._stat(bad, q)
+    strided = torch.zeros(2, 4, 256)[:, :, ::2]
+    fixed = ta._stat(strided, q)
+    assert fixed.is_contiguous() and fixed.data_ptr() % 16 == 0 and torch.equal(fixed, strided)
+    misaligned = torch.arange(2 * 4 * 128 + 1, dtype=torch.float32)[1:].view(2, 4, 128)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
+    fixed = ta._stat(misaligned, q)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, misaligned)

@@ -107,3 +107,86 @@ def test_cuda_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path)
             ta.attention_fwd(q, q, q, 1.0, "flash")
     finally:
         ta._kernels.cache_clear()
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# (B, S, Hq, Hkv, hd, K/V as strided views of one fused [B, S, 2 Hkv, hd])
+ERROR_RATIO_CASES = [
+    (1, 128, 4, 2, 128, False),   # one tile
+    (1, 384, 4, 2, 128, False),   # an odd number of 128-row tiles
+    (2, 256, 4, 2, 128, False),
+    (1, 256, 16, 8, 128, True),   # strided K/V views
+    (2, 256, 4, 2, 64, False),
+    (2, 256, 4, 4, 64, True),
+    (2, 256, 4, 2, 256, False),
+    (1, 384, 4, 1, 256, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["splash", "flash"])
+@pytest.mark.parametrize("batch,seq,hq,hkv,hd,fused", ERROR_RATIO_CASES)
+def test_cuda_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd, fused):
+    """Forward, dq and dk/dv kernels against an f32 evaluation of the same
+    bf16 inputs: each output's max abs error is at most twice the plain
+    bf16 version's (the two round at the same places), and lse is within
+    1e-3."""
+    g = torch.Generator().manual_seed(batch * 1000 + seq + hq * 10 + hd)
+    q = torch.randn(batch, seq, hq, hd, generator=g).to(cuda_device, torch.bfloat16)
+    if fused:
+        kv = torch.randn(batch, seq, 2 * hkv, hd, generator=g).to(cuda_device, torch.bfloat16)
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+        assert not k.is_contiguous()
+    else:
+        k, v = (torch.randn(batch, seq, hkv, hd, generator=g).to(cuda_device, torch.bfloat16)
+                for _ in range(2))
+    if impl == "splash":
+        q, sm = q * ta.splash_scale(hd, q.dtype), 1.0
+    else:
+        sm = hd ** -0.5
+    f32 = [x.float() for x in (q, k, v)]
+    o_p, lse_p = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
+    o_32, lse_32 = ta.attention_fwd_plain(*f32, sm, True)
+    do = (2 * o_p.float()).to(torch.bfloat16)
+    args = (q, k, v, lse_p, ta.attention_delta(o_p, do), do, sm)
+    args_32 = (*f32, lse_32, ta.attention_delta(o_32, do.float()), do.float(), sm)
+    ta.reset_launches()
+    o_k, lse_k = ta.attention_fwd(q, k, v, sm, impl)
+    dq_k = ta.attention_dq(*args, impl)
+    dk_k, dv_k = ta.attention_dkv(*args, impl)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ta.LAUNCHES.items() if c} == {
+        f"{impl}_fwd": 1, f"{impl}_dq": 1, f"{impl}_dkv": 1}
+    assert _max_err(lse_k, lse_32) <= 1e-3
+    dk_p, dv_p = ta.attention_dkv_plain(*args)
+    dk_32, dv_32 = ta.attention_dkv_plain(*args_32)
+    for name, got, plain, ref in (
+        ("o", o_k, o_p, o_32),
+        ("dq", dq_k, ta.attention_dq_plain(*args), ta.attention_dq_plain(*args_32)),
+        ("dk", dk_k, dk_p, dk_32),
+        ("dv", dv_k, dv_p, dv_32),
+    ):
+        assert got.shape == plain.shape and bool(torch.isfinite(got).all()), name
+        assert _max_err(got, ref) <= 2 * _max_err(plain, ref), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("impl", ["auto", "splash", "flash"])
+def test_cuda_non_bf16_attention_raises_at_dispatch(cuda_device, dtype, impl):
+    """An f32/f16 model on the card at a shape the kernels tile is refused
+    at dispatch: the kernels are bf16 only, and the materialized path does
+    not stand in for them. impl="xla" still runs it, and equals
+    xla_attention."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(1, 128, h, 64, generator=g).to(cuda_device, dtype) for h in (4, 2, 2))
+    ta.reset_launches()
+    with pytest.raises(TypeError, match="bf16"):
+        ta.causal_attention(q, k, v, impl=impl)
+    out = ta.causal_attention(q, k, v, impl="xla")
+    assert ta.LAST_DISPATCH == "xla"
+    assert not any(ta.LAUNCHES.values())
+    torch.testing.assert_close(out, ta.xla_attention(q, k, v), rtol=0, atol=0)

@@ -3,8 +3,10 @@
 A source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into the
 git-ignored ``torchft_tpu_torch/_build/`` (the file name carries a hash of
-the source and flags, so an edited source rebuilds), and loaded with
-ctypes. A file lock per source makes concurrent processes build it once
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header rebuilds), and loaded with ctypes. ptxas reports each
+kernel's registers, shared memory and spills; the report is kept beside
+the library (``build_log``). A file lock per source makes concurrent processes build it once
 while different sources build in parallel. Nothing is downloaded; nothing
 is built when a module is imported.
 
@@ -16,12 +18,13 @@ stream), which keeps a build at seconds instead of the minutes
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 
-__all__ = ["build", "load_library"]
+__all__ = ["build", "build_log", "load_library"]
 
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_OPS_DIR, "csrc")
@@ -30,7 +33,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(_OPS_DIR), "_build")
 # tuned for Hopper; no fast-math, so divides and denormals stay IEEE
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -45,10 +48,12 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> str:
-    with open(os.path.join(_CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(_CSRC, source), *sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(_BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
+    return os.path.join(_BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def build(source: str) -> str:
@@ -69,14 +74,26 @@ def build(source: str) -> str:
                     [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 )
+                output = proc.stdout.decode(errors="replace")
                 if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {source}:\n{proc.stdout.decode(errors='replace')}"
-                    )
+                    raise RuntimeError(f"nvcc failed for {source}:\n{output}")
+                with open(_log_path(target), "w") as f:
+                    f.write(output)
                 os.replace(tmp, target)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return target
+
+
+def _log_path(target: str) -> str:
+    return os.path.splitext(target)[0] + ".log"
+
+
+def build_log(source: str) -> str:
+    """What nvcc and ptxas printed when the library of ``csrc/<source>``
+    was built (registers, shared memory and spills per kernel)."""
+    with open(_log_path(build(source))) as f:
+        return f.read()
 
 
 def load_library(source: str) -> ctypes.CDLL:

@@ -13,14 +13,19 @@ output [B, S, Hq, hd].
   forward and backward, reading GQA K/V heads in place (no repeat);
 - ``"auto"``: on a CUDA tensor ``"splash"`` when Hq != Hkv, else
   ``"flash"``; ``"xla"`` on a CPU tensor (as the reference does off the
-  TPU) and on any shape the kernels do not tile (S % 128, hd not in
-  64/128/256), as the reference does for every choice.
+  TPU).
+- On a CUDA tensor at a shape the kernels do not tile (S % 128, hd not
+  in 64/128/256), every choice resolves to ``"xla"``, as the reference's
+  rule does. At a shape they tile, a dtype other than bf16 raises
+  ``TypeError`` for every choice but ``"xla"``: the kernels are bf16 only,
+  and the materialized path does not stand in for them.
 
 The kernel wrappers (``attention_fwd``, ``attention_dq``,
 ``attention_dkv``) launch the CUDA kernels on a CUDA tensor, counting each
 launch in ``LAUNCHES``, and run the plain torch version below on a CPU
-tensor. A failed build or launch raises; a CUDA tensor the kernels do not
-take (not bf16, misaligned) raises rather than falling back.
+tensor. A failed build, tile map or launch raises; a CUDA tensor the
+kernels do not take (not bf16, misaligned) raises rather than falling
+back.
 
 The two fused paths differ where the references do:
 
@@ -70,10 +75,15 @@ __all__ = [
 ]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# head dims the kernels are built for, and the sequence tiling they need
-# (the reference's rule, attention.py:218)
+# head dims and the dtype the kernels are built for, and the sequence
+# tiling they need (the reference's rule, attention.py:218); SEQ_TILE is a
+# multiple of the kernels' own tile (``tft_attention_tile``)
 KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_DTYPE = torch.bfloat16
 SEQ_TILE = 128
+# what a kernel entry point returns, besides CUDA error codes
+_STATUS = {-1: "a head dim it was not built for", -2: "libcuda has no cuTensorMapEncodeTiled",
+           -3: "cuTensorMapEncodeTiled refused a tile map"}
 
 # which implementation the last causal_attention call resolved to
 LAST_DISPATCH: Optional[str] = None
@@ -214,12 +224,16 @@ def _kernels() -> ctypes.CDLL:
     for fn in (lib.tft_attention_fwd, lib.tft_attention_dq, lib.tft_attention_dkv,
                lib.tft_attention_tile):
         fn.restype = ci
+    if SEQ_TILE % lib.tft_attention_tile():
+        raise RuntimeError(f"SEQ_TILE {SEQ_TILE} is not a multiple of the kernels' tile "
+                           f"{lib.tft_attention_tile()}")
     return lib
 
 
 def _check_inputs(*tensors: torch.Tensor) -> None:
     """Raise on what the kernels do not take: bf16 [B, S, H, hd] on one
-    CUDA device, head dim contiguous, 16-byte aligned rows."""
+    CUDA device, head dim contiguous, 16-byte aligned rows and strides (as
+    TMA needs)."""
     q = tensors[0]
     B, S, _, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
@@ -228,7 +242,7 @@ def _check_inputs(*tensors: torch.Tensor) -> None:
     if S % tile != 0:
         raise ValueError(f"the attention kernels need seq_len % {tile} == 0, got {S}")
     for x in tensors:
-        if x.dtype != torch.bfloat16:
+        if x.dtype != KERNEL_DTYPE:
             raise TypeError(f"the attention kernels take bf16 tensors, got {x.dtype}")
         if x.device != q.device or x.dim() != 4 or x.shape[0] != B or x.shape[1] != S or x.shape[3] != hd:
             raise ValueError("attention tensors must be [B, S, H, hd] on one CUDA device")
@@ -243,7 +257,8 @@ def _strides(*tensors: torch.Tensor):
 
 def _launch(status: int, name: str) -> None:
     if status != 0:
-        raise RuntimeError(f"attention kernel {name} failed with CUDA error {status}")
+        raise RuntimeError(f"attention kernel {name} failed: "
+                           f"{_STATUS.get(status, f'CUDA error {status}')}")
     _count(name)
 
 
@@ -311,11 +326,15 @@ def attention_dkv(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> Tuple[
 
 
 def _stat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """A per-row statistic (lse, delta) as the kernels read it."""
+    """A per-row statistic (lse, delta) as the kernels read it: f32
+    [B, Hq, S] on q's device, contiguous and 16-byte aligned (the dK/dV
+    kernel loads its rows by TMA); a strided or misaligned one is copied."""
     shape = (q.shape[0], q.shape[2], q.shape[1])
     if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device:
-        raise ValueError(f"row statistics must be f32 {shape} on {q.device}")
-    return x.contiguous()
+        raise ValueError(f"row statistics must be f32 {shape} on {q.device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 class _CausalAttention(torch.autograd.Function):
@@ -377,16 +396,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return flash_attention(q, k, v, plain=True)
 
 
-def resolve_impl(impl: str, q_shape, kv_heads: int, cuda: bool) -> str:
+def resolve_impl(impl: str, q_shape, kv_heads: int, cuda: bool, dtype: torch.dtype) -> str:
     """The implementation ``causal_attention`` runs for ``impl`` on a q of
-    ``q_shape`` [B, S, Hq, hd] with ``kv_heads`` K/V heads, on a CUDA
-    tensor or not."""
+    ``q_shape`` [B, S, Hq, hd] and ``dtype`` with ``kv_heads`` K/V heads,
+    on a CUDA tensor or not. Raises ``TypeError`` where a kernel would run
+    on a CUDA tensor that is not bf16."""
     if impl not in ("auto", "xla", "splash", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     S, hq, hd = q_shape[1], q_shape[2], q_shape[3]
     tileable = S % SEQ_TILE == 0 and hd in KERNEL_HEAD_DIMS
     if impl == "xla" or (cuda and not tileable) or (impl == "auto" and not cuda):
         return "xla"
+    if cuda and dtype != KERNEL_DTYPE:
+        raise TypeError(f"the attention kernels take bf16 tensors, got {dtype}: cast the "
+                        "model to bf16, or pass impl='xla' for the materialized path")
     if impl == "auto":
         return "splash" if hq != kv_heads else "flash"
     return impl
@@ -400,7 +423,7 @@ def causal_attention(
     ``resolve_impl``; an explicit "splash"/"flash" on a CPU tensor runs
     that kernel's plain version."""
     global LAST_DISPATCH
-    LAST_DISPATCH = resolve_impl(impl, q.shape, k.shape[2], q.is_cuda)
+    LAST_DISPATCH = resolve_impl(impl, q.shape, k.shape[2], q.is_cuda, q.dtype)
     if LAST_DISPATCH == "xla":
         return xla_attention(q, k, v, cfg)
     if LAST_DISPATCH == "splash":
