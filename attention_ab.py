@@ -21,8 +21,10 @@ bf16):
   under ``torch.profiler``, the device time of the attention kernels and of
   all kernels.
 
-Each turn prints one JSON line; the last line holds, per tree, the median of
-its turns. Needs one CUDA card; exits non-zero without one.
+Each turn prints one JSON line and a line with dq's ``ms`` and ``call_ms``
+(K1 and K2); the last line holds, per tree, the median of its turns, and
+each kernel's median ``ms`` in NEW over that in OLD. Needs one CUDA card;
+exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -122,6 +124,10 @@ def main() -> int:
             raise RuntimeError(f"turn {label} ({trees[label]}) failed with exit code {r.returncode}")
         turn = {"tree": label, "path": trees[label], **json.loads(r.stdout.strip().splitlines()[-1])}
         print(json.dumps(turn), flush=True)
+        print(f"turn {label}: dq " + ", ".join(
+            f"{impl} ms {turn['kernels'][f'{impl}_dq']['ms']:.4f} call_ms "
+            f"{turn['kernels'][f'{impl}_dq']['call_ms']:.4f}" for impl in ("splash", "flash")),
+            flush=True)
         turns.append(turn)
 
     def med(rows, get):
@@ -136,6 +142,8 @@ def main() -> int:
             **{m: med(rows, lambda t: t[m]) for m in ("step_ms", "busy_ms", "attention_device_ms")},
             "step_ms_turns": [t["step_ms"] for t in rows],
         }
+    summary["new_over_old_ms"] = {key: r["ms"] / summary["old"]["kernels"][key]["ms"]
+                                  for key, r in summary["new"]["kernels"].items()}
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

@@ -6,8 +6,8 @@
    nvcc per source, started together), times the build, and prints per
    kernel what ptxas reported (registers, stack, spills, wgmma serialized)
    and its HGMMA (wgmma) and UTMALDG (TMA load) SASS instructions. The
-   attention forward and dK/dV kernels must have both at every head dim
-   and no spill at head dim 128.
+   bf16 attention forward, dq and dK/dV kernels must have both at every
+   head dim and no spill at head dim 128.
 2. Holds each fp8 kernel against its plain PyTorch version on the card, bit
    for bit, from a single element up to the full bench_1b gradient count,
    and times kernel, plain version and the device-memory bound at that
@@ -19,17 +19,26 @@
    (flash) against their plain versions at the bench_1b shapes (GQA 16/8,
    also with K/V as strided views of one fused tensor, and 16/16 for K2),
    at S 384 (an odd number of tiles) and at head dims 64 and 256 with
-   batch 2: each kernel output's max abs error against an f32 evaluation
-   of the same bf16 inputs must be at most twice the plain bf16 version's,
-   and lse within 1e-3. Times each kernel, its plain version and torch's
-   scaled_dot_product_attention (the yardstick only) at the bench_1b GQA
-   shape beside the tensor-core bound, by device time (``device_ms``), and
-   the kernels and SDPA alone at the llama3_8b attention shape.
-5. Drives K2's path: a 2-layer bench_1b-width Llama with
-   ``attention="flash"``, forward and backward, its loss compared with
-   ``attention="xla"``, and K2's kernels counted on that run. Then times
-   one replica's full bench_1b forward + backward through the
-   materialized attention and through the kernels, in turns.
+   batch 2, in bf16 (``attention.cu``) and in f16 and f32
+   (``attention_simt.cu``). bf16 and f16: each kernel output's max abs
+   error against an f32 evaluation of the same inputs must be at most
+   twice the plain version's in that dtype. f32: at most 4x the plain f32
+   version's against an f64 evaluation (autograd through a softmax
+   attention in f64; 4x because the forward's online softmax rescales its
+   sums once per key tile, which the plain version never does), with TF32
+   matmuls off. lse within 1e-3 everywhere. Times each kernel, its plain
+   version and torch's scaled_dot_product_attention in the same dtype (the
+   yardstick only) at the bench_1b GQA shape beside its bound, by device
+   time (``device_ms``), and the bf16 kernels and SDPA alone at the
+   llama3_8b attention shape.
+5. Drives the model paths of the attention kernels, each with the launch
+   counts set to 0 just before it and read just after: a 2-layer
+   bench_1b-width Llama, forward and backward, through K2 in bf16
+   (``attention="flash"``, loss within 2% of ``attention="xla"``), and in
+   f32 and f16 through ``attention="auto"`` (which resolves to splash) and
+   ``"flash"``; f32 losses within 1e-4 (relative) of ``"xla"`` in f32, f16
+   within 0.25%. Then times one replica's full bench_1b forward + backward
+   through the materialized attention and through the kernels, in turns.
 6. Trains Llama bench_1b at full width and depth as two fault-tolerant
    replica groups (threads on one card) with an in-process lighthouse, the
    fp8-quantized managed allreduce and a scripted crash of replica 1 at
@@ -65,7 +74,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet peak
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 and fp16 tensor-core peak
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak on the CUDA cores (FMA as 2 flops)
 ROW = 512
 
 
@@ -225,27 +235,40 @@ def kernel_build_report(sources) -> dict:
     return report
 
 
-# the kernel instance each path runs at the bench_1b head dim
-ATTN_INSTANCE = {"fwd": "attention_fwd_kernel<128, {split}>", "dq": "attention_dq_kernel<128>",
-                 "dkv": "attention_dkv_kernel<128>"}
+# the kernel instance each path runs at the bench_1b head dim, per dtype
+ATTN_INSTANCE = {
+    torch.bfloat16: {"fwd": "attention_fwd_kernel<128, {split}>", "dq": "attention_dq_kernel<128>",
+                     "dkv": "attention_dkv_kernel<128>"},
+    **{dtype: {k: f"simt_{k}_kernel<{ctype}, 128>" for k in ("fwd", "dq", "dkv")}
+       for dtype, ctype in ((torch.float32, "float"), (torch.float16, "__half"))},
+}
 
 
 def sass_counts(entry: dict) -> dict:
     return {op.lower(): entry[op] for op in SASS_OPS}
 
 
+HOPPER_KERNELS = ("attention_fwd_kernel", "attention_dq_kernel", "attention_dkv_kernel")
+
+
 def check_hopper_kernels(report: dict) -> None:
-    """The forward and dK/dV kernels run on wgmma fed by TMA at every head
-    dim, and do not spill at the bench_1b head dim 128."""
+    """The bf16 forward, dq and dK/dV kernels run on wgmma fed by TMA at
+    every head dim, and do not spill at the bench_1b head dim 128."""
+    found = {prefix: 0 for prefix in HOPPER_KERNELS}
     for name, r in report.items():
-        if not name.startswith(("attention_fwd_kernel", "attention_dkv_kernel")):
+        prefix = name.split("<")[0]
+        if prefix not in found:
             continue
+        found[prefix] += 1
         if not all(r[op] for op in SASS_OPS):
             raise RuntimeError(f"{name} has no {'/'.join(op for op in SASS_OPS if not r[op])} "
                                "instruction in its SASS")
-        if name.startswith(("attention_fwd_kernel<128", "attention_dkv_kernel<128")) and (
+        if name.startswith(tuple(f"{p}<128" for p in HOPPER_KERNELS)) and (
                 r["spill_stores"] or r["spill_loads"]):
             raise RuntimeError(f"{name} spills registers: {r}")
+    missing = [p for p, n in found.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"no instance of {missing} in the build report")
 
 
 def check_kernels(device: torch.device, full_n: int, world: int):
@@ -363,6 +386,14 @@ ATTN_SHAPES = (
     ("hd64_b2", 2, 256, 4, 2, 64, BOTH, False),
     ("hd256_b2", 2, 256, 4, 2, 256, BOTH, False),
 )
+# the dtypes the kernels take, with the suffix of their launch counts and
+# the source of their kernels: bf16 on the tensor cores, f16 and f32 on the
+# CUDA cores
+ATTN_DTYPES = {
+    torch.bfloat16: ("", "attention.cu"),
+    torch.float16: ("_f16", "attention_simt.cu"),
+    torch.float32: ("_f32", "attention_simt.cu"),
+}
 # timed only (the plain versions would materialize ~8.6 GB f32 scores per
 # tensor): the attention of the repo's llama3_8b config
 LLAMA3_8B_ATTN = (1, 8192, 32, 8, 128)
@@ -374,112 +405,158 @@ ATTN_REPLACES = {"splash": 144, "flash": 55}
 ATTN_MATMULS = {"fwd": 2, "dq": 3, "dkv": 4}
 
 
-def attention_bound_ms(kernel: str, B: int, S: int, hq: int, hkv: int, hd: int):
-    """(ms, "operations" | "bytes"): the larger of the kernel's causal
-    tensor-core flops over the bf16 peak and its bytes (inputs read once,
-    outputs written once) over the memory rate."""
+def attention_bound_ms(kernel: str, B: int, S: int, hq: int, hkv: int, hd: int,
+                       dtype: torch.dtype = torch.bfloat16):
+    """(ms, "operations" | "bytes"): the larger of the kernel's causal flops
+    over the card's peak for that work (bf16/f16: the tensor-core peak; f32:
+    the CUDA cores' f32 peak, where an f32 product runs without TF32) and
+    its bytes (inputs read once, outputs written once) over the memory
+    rate."""
     pairs = B * hq * S * (S + 1) // 2
     flops = ATTN_MATMULS[kernel] * 2 * hd * pairs
-    q_bytes, kv_bytes, stat_bytes = 2 * B * S * hq * hd, 2 * B * S * hkv * hd, 4 * B * hq * S
+    el = torch.finfo(dtype).bits // 8
+    q_bytes, kv_bytes, stat_bytes = el * B * S * hq * hd, el * B * S * hkv * hd, 4 * B * hq * S
     nbytes = {
         "fwd": q_bytes + 2 * kv_bytes + q_bytes + stat_bytes,
         "dq": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + q_bytes,
         "dkv": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * kv_bytes,
     }[kernel]
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def attention_f64(q, k, v, do, sm: float):
+    """(o, lse, (dq, dk, dv)) in f64: autograd through a causal softmax
+    attention (K/V repeated per group) on the f64 values of the inputs,
+    the f32 kernels' reference."""
+    group = q.shape[2] // k.shape[2]
+    leaves = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    qf = leaves[0].transpose(1, 2)
+    kf, vf = (x.transpose(1, 2).repeat_interleave(group, 1) for x in leaves[1:])
+    s = (qf @ kf.transpose(-1, -2)) * sm
+    S = s.shape[-1]
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool, device=s.device).tril(), float("-inf"))
+    o = (torch.softmax(s, -1) @ vf).transpose(1, 2)
+    grads = torch.autograd.grad(o, leaves, do.double())
+    return o.detach(), torch.logsumexp(s, -1).detach(), grads
+
+
 def check_attention(device: torch.device):
-    """Each attention kernel against its plain version; returns per-path
-    stats (max abs error against the plain version, worst error ratio
-    against the f32 evaluation) and the bench_1b GQA timings."""
+    """Each attention kernel against its plain version in each dtype;
+    returns per (path, kernel, dtype) stats (max abs error against the
+    plain version, worst error ratio against the reference) and the
+    bench_1b GQA timings, keyed as ``LAUNCHES`` is."""
     from torchft_tpu_torch.ops import attention as ta
 
-    stats = {impl: {k: {"err": 0.0, "ratio": 0.0} for k in ATTN_MATMULS}
-             for impl in ("splash", "flash")}
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on: the plain f32 versions would not be f32")
+    stats = {f"{impl}_{kernel}{suffix}": {"err": 0.0, "ratio": 0.0}
+             for suffix, _ in ATTN_DTYPES.values() for impl in BOTH for kernel in ATTN_MATMULS}
     timing = {}
     for label, B, S, hq, hkv, hd, paths, fused in ATTN_SHAPES:
-        g = torch.Generator(device=device).manual_seed(S + 10 * hq + hkv + hd + B)
-        q = torch.randn(B, S, hq, hd, generator=g, device=device).to(torch.bfloat16)
-        if fused:
-            kv = torch.randn(B, S, 2 * hkv, hd, generator=g, device=device).to(torch.bfloat16)
-            k, v = kv[:, :, :hkv], kv[:, :, hkv:]
-        else:
-            k, v = (torch.randn(B, S, hkv, hd, generator=g, device=device).to(torch.bfloat16)
-                    for _ in range(2))
-        for impl in paths:
-            if impl == "splash":
-                qi, sm = q * ta.splash_scale(hd, q.dtype), 1.0
+        for dtype, (suffix, _) in ATTN_DTYPES.items():
+            g = torch.Generator(device=device).manual_seed(S + 10 * hq + hkv + hd + B)
+            q = torch.randn(B, S, hq, hd, generator=g, device=device).to(dtype)
+            if fused:
+                kv = torch.randn(B, S, 2 * hkv, hd, generator=g, device=device).to(dtype)
+                k, v = kv[:, :, :hkv], kv[:, :, hkv:]
             else:
-                qi, sm = q, 1.0 / math.sqrt(hd)
-            f32 = [x.float() for x in (qi, k, v)]
-            o_k, lse_k = ta.attention_fwd(qi, k, v, sm, impl)
-            o_p, lse_p = ta.attention_fwd_plain(qi, k, v, sm, impl == "splash")
-            o_32, lse_32 = ta.attention_fwd_plain(*f32, sm, True)
-            # the gradient of sum(out.float() ** 2)
-            do = (2 * o_p.float()).to(torch.bfloat16)
-            delta = ta.attention_delta(o_p, do)
-            args = (qi, k, v, lse_p, delta, do, sm)
-            args_32 = (*f32, lse_32, ta.attention_delta(o_32, do.float()), do.float(), sm)
-            dq_k = ta.attention_dq(*args, impl)
-            dk_k, dv_k = ta.attention_dkv(*args, impl)
-            dq_p = ta.attention_dq_plain(*args)
-            dk_p, dv_p = ta.attention_dkv_plain(*args)
-            dq_32 = ta.attention_dq_plain(*args_32)
-            dk_32, dv_32 = ta.attention_dkv_plain(*args_32)
-            torch.cuda.synchronize()
-            lse_err = max_abs_err(lse_k, lse_32)
-            if not lse_err <= 1e-3:
-                raise RuntimeError(f"{impl} lse at {label}: max abs error {lse_err} > 1e-3")
-            for kernel, outs in (("fwd", [(o_k, o_p, o_32)]),
-                                 ("dq", [(dq_k, dq_p, dq_32)]),
-                                 ("dkv", [(dk_k, dk_p, dk_32), (dv_k, dv_p, dv_32)])):
-                for got, plain, ref in outs:
-                    if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
-                        raise RuntimeError(f"{impl}_{kernel} at {label}: bad shape or non-finite")
-                    e_k, e_p = max_abs_err(got.float(), ref), max_abs_err(plain.float(), ref)
-                    ratio = e_k / e_p if e_p > 0 else (0.0 if e_k == 0 else math.inf)
-                    st = stats[impl][kernel]
-                    st["err"] = max(st["err"], max_abs_err(got.float(), plain.float()))
-                    st["ratio"] = max(st["ratio"], ratio)
-                    log(f"attention {impl}_{kernel} {label} B={B} S={S} Hq={hq} Hkv={hkv} "
-                        f"hd={hd}: kernel err {e_k:.3e}, plain bf16 err {e_p:.3e} (vs f32), "
-                        f"kernel-plain {max_abs_err(got.float(), plain.float()):.3e}")
-                    if not e_k <= 2 * e_p:
-                        raise RuntimeError(
-                            f"{impl}_{kernel} at {label}: error {e_k} against f32 exceeds "
-                            f"twice the plain bf16 version's {e_p}")
-            if label == "bench_1b":
-                fns = {
-                    "fwd": (lambda: ta.attention_fwd(qi, k, v, sm, impl),
-                            lambda: ta.attention_fwd_plain(qi, k, v, sm, impl == "splash")),
-                    "dq": (lambda: ta.attention_dq(*args, impl),
-                           lambda: ta.attention_dq_plain(*args)),
-                    "dkv": (lambda: ta.attention_dkv(*args, impl),
-                            lambda: ta.attention_dkv_plain(*args)),
-                }
-                sdpa_fwd, sdpa_bwd = sdpa_ms(qi, k, v, do, sm)
-                for kernel, (fn, plain_fn) in fns.items():
-                    bound, by = attention_bound_ms(kernel, B, S, hq, hkv, hd)
-                    r = timing[f"{impl}_{kernel}"] = {
-                        "ms": device_ms(fn, 20), "call_ms": timed_ms(fn, 20),
-                        "plain_ms": device_ms(plain_fn, 3), "bound_ms": bound, "bound_by": by,
-                        # SDPA's backward computes dq, dk and dv in one call
-                        "library_ms": sdpa_fwd if kernel == "fwd" else sdpa_bwd,
-                    }
-                    log(f"attention {impl}_{kernel} bench_1b timing: kernel {r['ms']:.4f} ms "
-                        f"(one call with its host time {r['call_ms']:.4f} ms), plain "
-                        f"{r['plain_ms']:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
-                        f"{r['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
-            del o_k, o_p, o_32, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p, dq_32, dk_32, dv_32
-            torch.cuda.empty_cache()
-    for impl, kernels in stats.items():
-        for kernel, st in kernels.items():
-            log(f"attention {impl}_{kernel}: max abs error vs plain {st['err']:.3e}, "
-                f"worst error ratio vs plain (against f32) {st['ratio']:.3f}")
+                k, v = (torch.randn(B, S, hkv, hd, generator=g, device=device).to(dtype)
+                        for _ in range(2))
+            for impl in paths:
+                check_attention_case(ta, label, impl, q, k, v, suffix, stats,
+                                     timing if label == "bench_1b" else None)
+    for key, st in stats.items():
+        log(f"attention {key}: max abs error vs plain {st['err']:.3e}, "
+            f"worst error ratio vs plain (against the reference) {st['ratio']:.3f}")
     time_llama3_8b_attention(device)
     return stats, timing
+
+
+def check_attention_case(ta, label, impl, q, k, v, suffix, stats, timing) -> None:
+    """One (shape, dtype, path): the three kernels against their plain
+    versions, each output's error against the reference within its bar;
+    with ``timing``, also times them beside their bound and SDPA."""
+    B, S, hq, hd = q.shape
+    hkv, dtype = k.shape[2], q.dtype
+    if impl == "splash":
+        qi, sm = q * ta.splash_scale(hd, dtype), 1.0
+    else:
+        qi, sm = q, 1.0 / math.sqrt(hd)
+    o_k, lse_k = ta.attention_fwd(qi, k, v, sm, impl)
+    o_p, lse_p = ta.attention_fwd_plain(qi, k, v, sm, impl == "splash")
+    # the gradient of sum(out.float() ** 2)
+    do = (2 * o_p.float()).to(dtype)
+    delta = ta.attention_delta(o_p, do)
+    args = (qi, k, v, lse_p, delta, do, sm)
+    if dtype == torch.float32:
+        # f32 against f64; 4x: one more rounding of the sums per key tile
+        ref_name, bar = "f64", 4
+        o_r, lse_r, (dq_r, dk_r, dv_r) = attention_f64(qi, k, v, do, sm)
+    else:
+        ref_name, bar = "f32", 2
+        f32 = [x.float() for x in (qi, k, v)]
+        o_r, lse_r = ta.attention_fwd_plain(*f32, sm, True)
+        args_32 = (*f32, lse_r, ta.attention_delta(o_r, do.float()), do.float(), sm)
+        dq_r = ta.attention_dq_plain(*args_32)
+        dk_r, dv_r = ta.attention_dkv_plain(*args_32)
+    dq_k = ta.attention_dq(*args, impl)
+    dk_k, dv_k = ta.attention_dkv(*args, impl)
+    dq_p = ta.attention_dq_plain(*args)
+    dk_p, dv_p = ta.attention_dkv_plain(*args)
+    torch.cuda.synchronize()
+    lse_err = max_abs_err(lse_k.double(), lse_r.double())
+    if not lse_err <= 1e-3:
+        raise RuntimeError(f"{impl} lse at {label} {dtype}: max abs error {lse_err} > 1e-3")
+    for kernel, outs in (("fwd", [(o_k, o_p, o_r)]),
+                         ("dq", [(dq_k, dq_p, dq_r)]),
+                         ("dkv", [(dk_k, dk_p, dk_r), (dv_k, dv_p, dv_r)])):
+        key = f"{impl}_{kernel}{suffix}"
+        for got, plain, ref in outs:
+            if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"{key} at {label}: bad shape or non-finite")
+            ref = ref.double()
+            e_k, e_p = max_abs_err(got.double(), ref), max_abs_err(plain.double(), ref)
+            ratio = e_k / e_p if e_p > 0 else (0.0 if e_k == 0 else math.inf)
+            e_kp = max_abs_err(got.double(), plain.double())
+            st = stats[key]
+            st["err"] = max(st["err"], e_kp)
+            st["ratio"] = max(st["ratio"], ratio)
+            log(f"attention {key} {label} B={B} S={S} Hq={hq} Hkv={hkv} hd={hd}: kernel err "
+                f"{e_k:.3e}, plain {str(dtype).replace('torch.', '')} err {e_p:.3e} (vs "
+                f"{ref_name}), kernel-plain {e_kp:.3e}")
+            if not e_k <= bar * e_p:
+                raise RuntimeError(
+                    f"{key} at {label}: error {e_k} against {ref_name} exceeds {bar}x the plain "
+                    f"version's {e_p}")
+    del o_k, o_p, o_r, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p, dq_r, dk_r, dv_r
+    torch.cuda.empty_cache()
+    if timing is None:
+        return
+    fns = {
+        "fwd": (lambda: ta.attention_fwd(qi, k, v, sm, impl),
+                lambda: ta.attention_fwd_plain(qi, k, v, sm, impl == "splash")),
+        "dq": (lambda: ta.attention_dq(*args, impl),
+               lambda: ta.attention_dq_plain(*args)),
+        "dkv": (lambda: ta.attention_dkv(*args, impl),
+                lambda: ta.attention_dkv_plain(*args)),
+    }
+    sdpa_fwd, sdpa_bwd = sdpa_ms(qi, k, v, do, sm)
+    for kernel, (fn, plain_fn) in fns.items():
+        key = f"{impl}_{kernel}{suffix}"
+        bound, by = attention_bound_ms(kernel, B, S, hq, hkv, hd, dtype)
+        r = timing[key] = {
+            "ms": device_ms(fn, 20), "call_ms": timed_ms(fn, 20),
+            "plain_ms": device_ms(plain_fn, 3), "bound_ms": bound, "bound_by": by,
+            # SDPA's backward computes dq, dk and dv in one call
+            "library_ms": sdpa_fwd if kernel == "fwd" else sdpa_bwd,
+        }
+        log(f"attention {key} bench_1b timing: kernel {r['ms']:.4f} ms "
+            f"(one call with its host time {r['call_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
+            f"{r['library_ms']:.4f} ms in the same dtype, bound {bound:.4f} ms ({by}"
+            f"{', f32 CUDA-core peak' if dtype == torch.float32 else ''})")
 
 
 def sdpa_ms(q, k, v, do, sm: float):
@@ -530,24 +607,44 @@ def time_llama3_8b_attention(device: torch.device) -> dict:
     return out
 
 
-def check_flash_model(device: torch.device) -> dict:
-    """K2's path: a 2-layer bench_1b-width Llama through attention="flash",
-    forward and backward, against attention="xla"; K2's launches counted
-    on that run only."""
+# the model paths of the attention kernels: (dtype, impl, the path the
+# dispatch resolves to, the loss's relative bar against attention="xla" in
+# the same dtype). bf16 activations round at other places on the two paths
+# (as the port's bf16 Llama against the reference's,
+# tests/test_torch_llama.py); f16 rounds 8x finer than bf16; f32 differs
+# only in the order of its f32 sums.
+MODEL_PATHS = (
+    (torch.bfloat16, "flash", "flash", 2e-2),
+    (torch.float32, "auto", "splash", 1e-4),
+    (torch.float32, "flash", "flash", 1e-4),
+    (torch.float16, "auto", "splash", 2.5e-3),
+    (torch.float16, "flash", "flash", 2.5e-3),
+)
+
+
+def check_model_path(device: torch.device, dtype: torch.dtype, impl: str, want: str,
+                     tol: float) -> dict:
+    """A 2-layer bench_1b-width Llama in ``dtype`` through
+    ``attention=impl``, forward and backward, against attention="xla";
+    returns the launches of the dtype's kernels on that run (counts set to
+    0 just before it and read just after), each of which must be > 0."""
     from torchft_tpu_torch.models.llama import CONFIGS, Llama
     from torchft_tpu_torch.ops import attention as ta
 
-    cfg = dataclasses.replace(CONFIGS["bench_1b"], n_layers=2)
-    model = Llama(cfg, device=device, attention="flash")
+    cfg = dataclasses.replace(CONFIGS["bench_1b"], n_layers=2, dtype=dtype)
+    model = Llama(cfg, device=device, attention=impl)
     model.init_weights(torch.Generator(device=device).manual_seed(11))
     g = torch.Generator(device=device).manual_seed(12)
     toks = torch.randint(0, cfg.vocab_size, (1, 2049), generator=g, device=device)
     inputs, targets = toks[:, :-1], toks[:, 1:]
+    suffix = ATTN_DTYPES[dtype][0]
     ta.reset_launches()
     loss = model.loss(inputs, targets)
     loss.backward()
     torch.cuda.synchronize()
-    launches = {k: n for k, n in ta.LAUNCHES.items() if k.startswith("flash_")}
+    launches = {f"{want}_{kernel}{suffix}": ta.LAUNCHES[f"{want}_{kernel}{suffix}"]
+                for kernel in ATTN_MATMULS}
+    others = {k: n for k, n in ta.LAUNCHES.items() if n and k not in launches}
     dispatch = ta.LAST_DISPATCH
     grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
     for layer in model.layers:
@@ -555,17 +652,18 @@ def check_flash_model(device: torch.device) -> dict:
     with torch.no_grad():
         ref = model.loss(inputs, targets)
     diff = abs(loss.item() - ref.item())
-    log(f"K2 model path (2-layer bench_1b, attention=flash): loss {loss.item():.5f}, "
-        f"xla {ref.item():.5f}, |diff| {diff:.2e}, launches {launches}")
-    if dispatch != "flash" or not grads_finite:
-        raise RuntimeError(f"flash model path: dispatch {dispatch}, finite grads {grads_finite}")
-    # bf16 activations round at other places on the two paths (as the
-    # port's bf16 Llama against the reference's, tests/test_torch_llama.py)
-    if not diff <= 2e-2 * abs(ref.item()):
-        raise RuntimeError(f"flash model loss {loss.item()} differs from xla {ref.item()}")
+    name = str(dtype).replace("torch.", "")
+    log(f"model path (2-layer bench_1b, {name}, attention={impl} -> {dispatch}): loss "
+        f"{loss.item():.6f}, xla {ref.item():.6f}, |diff| {diff:.2e} "
+        f"({diff / abs(ref.item()):.1e} relative, bar {tol:g}), launches {launches}")
+    if dispatch != want or not grads_finite or others:
+        raise RuntimeError(f"{name} {impl} model path: dispatch {dispatch}, finite grads "
+                           f"{grads_finite}, other kernels launched {others}")
+    if not diff <= tol * abs(ref.item()):
+        raise RuntimeError(f"{name} {impl} model loss {loss.item()} differs from xla {ref.item()}")
     for kernel, count in launches.items():
         if count == 0:
-            raise RuntimeError(f"{kernel} never launched on the flash model path")
+            raise RuntimeError(f"{kernel} never launched on the {name} {impl} model path")
     del model
     torch.cuda.empty_cache()
     return launches
@@ -642,7 +740,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    sources = ("fp8_rowwise.cu", "attention.cu")
+    sources = ("fp8_rowwise.cu", "attention.cu", "attention_simt.cu")
     # one nvcc per source, started together; a failed build raises here
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build, sources))
@@ -662,7 +760,10 @@ def main() -> int:
         f"dequantize {timing['dequantize']['call_ms']:.3f} ms)")
     check_allreduce(device)
     attn_stats, attn_timing = check_attention(device)
-    flash_launches = check_flash_model(device)
+    # each model path's launches, from its own run
+    path_launches = {}
+    for dtype, impl, want, tol in MODEL_PATHS:
+        path_launches.update(check_model_path(device, dtype, impl, want, tol))
     time_model_fwd_bwd(device)
 
     q.reset_launches()
@@ -740,22 +841,25 @@ def main() -> int:
             "library_ms": None,
             **sass_counts(build_report[f"{kname}_kernel"]),
         })
-    for impl in ("splash", "flash"):
-        for kernel in ATTN_MATMULS:
-            key = f"{impl}_{kernel}"
-            kernels.append({
-                "name": f"attention_{kernel}_kernel ({impl})",
-                "route": "cuda",
-                "source": "torchft_tpu_torch/ops/csrc/attention.cu",
-                "replaces": f"torchft_tpu/ops/attention.py:{ATTN_REPLACES[impl]}",
-                # K2 runs on its own path (check_flash_model), K1 in training
-                "launches": flash_launches[key] if impl == "flash" else launches[key],
-                "max_abs_err": attn_stats[impl][kernel]["err"],
-                **attn_timing[key],
-                # the head-dim-128 instance that bench_1b runs
-                **sass_counts(build_report[ATTN_INSTANCE[kernel].format(
-                    split=str(impl == "splash").lower())]),
-            })
+    for dtype, (suffix, source) in ATTN_DTYPES.items():
+        for impl in ("splash", "flash"):
+            for kernel in ATTN_MATMULS:
+                key = f"{impl}_{kernel}{suffix}"
+                kernels.append({
+                    "name": f"{ATTN_INSTANCE[dtype][kernel].split('<')[0]} ({impl}"
+                            f"{', ' + str(dtype).replace('torch.', '') if suffix else ''})",
+                    "route": "cuda",
+                    "source": f"torchft_tpu_torch/ops/csrc/{source}",
+                    "replaces": f"torchft_tpu/ops/attention.py:{ATTN_REPLACES[impl]}",
+                    # K1 in bf16 runs in training, every other one on its
+                    # model path (check_model_path)
+                    "launches": launches[key] if key in on_path else path_launches[key],
+                    "max_abs_err": attn_stats[key]["err"],
+                    **attn_timing[key],
+                    # the head-dim-128 instance that bench_1b runs
+                    **sass_counts(build_report[ATTN_INSTANCE[dtype][kernel].format(
+                        split=str(impl == "splash").lower())]),
+                })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

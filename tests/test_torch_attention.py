@@ -8,8 +8,10 @@
   within atol/rtol 3e-2 (bf16 rounding of O, dq, dk, dv at one ulp of
   values up to ~4, and of the scaled q, P and dS, at places that differ
   between the frameworks; the JAX tests' own bf16 xla-vs-splash gap is of
-  this size).
-- K2: ``flash_attention_plain`` against ``xla_attention`` at f32.
+  this size); f16 inputs within 4e-3 (the same roundings in a format with
+  three more mantissa bits: an eighth of bf16's, rounded up).
+- K2: ``flash_attention_plain`` against ``xla_attention`` at f32, and in
+  f16 against ``xla_attention`` in f32 on the same f16-rounded inputs.
   ``flash_attention_tpu`` has no interpret mode: its Pallas kernel runs on
   a TPU only, so the reference here is the function it computes.
 - A 1-layer Llama through splash in both packages, weights carried across
@@ -45,7 +47,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+TOL = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 4e-3}
 HEADS = [(4, 4), (4, 2), (8, 2)]
 S, HD = 256, 128
 
@@ -81,7 +83,7 @@ def _assert_close(got, ref, tol):
 
 
 @pytest.mark.parametrize("block", [None, "128"], ids=["one_tile", "multi_tile"])
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("hq,hkv", HEADS)
 def test_splash_plain_matches_jax_splash(monkeypatch, hq, hkv, dtype_name, block):
     monkeypatch.delenv("TORCHFT_TPU_SPLASH_BLOCK", raising=False)
@@ -102,6 +104,19 @@ def test_flash_plain_matches_jax_xla_f32(hq, hkv):
     ref = _jax_value_and_grads(lambda q, k, v: xla_attention(q, k, v, None), arrays, "float32")
     got = _torch_value_and_grads(ta.flash_attention_plain, arrays, "float32")
     _assert_close(got, ref, TOL["float32"])
+
+
+@pytest.mark.parametrize("hq,hkv", HEADS)
+def test_flash_plain_f16_matches_jax_xla(hq, hkv):
+    """K2's plain version in f16 against the materialized reference in f32
+    on the same f16-rounded inputs. atol/rtol 1e-2: the plain version
+    rounds P, dS and its outputs to f16 (2^-11 relative each), which the
+    f32 reference does not; dq and dk, sums of 256 such products, show it
+    most (~5e-3)."""
+    arrays = [a.astype(np.float16).astype(np.float32) for a in _inputs(hq, hkv, batch=2)]
+    ref = _jax_value_and_grads(lambda q, k, v: xla_attention(q, k, v, None), arrays, "float32")
+    got = _torch_value_and_grads(ta.flash_attention_plain, arrays, "float16")
+    _assert_close(got, ref, 1e-2)
 
 
 def test_plain_backward_is_the_autograd_of_plain_forward():
@@ -166,7 +181,7 @@ def test_llama_layer_through_splash_matches_jax():
 
 
 # (impl, S, hd, Hq, Hkv, cuda, dtype) -> what the reference's rule runs
-BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+BF16, F16, F32, F64 = torch.bfloat16, torch.float16, torch.float32, torch.float64
 DISPATCH = [
     ("auto", 2048, 128, 16, 8, True, BF16, "splash"),
     ("auto", 2048, 128, 16, 16, True, BF16, "flash"),
@@ -180,17 +195,23 @@ DISPATCH = [
     ("splash", 16, 16, 4, 2, False, BF16, "splash"),
     ("flash", 16, 16, 4, 4, False, BF16, "flash"),
     ("splash", 16, 16, 4, 2, True, BF16, "xla"),
-    # the kernels take bf16 only: any other dtype on the card at a shape
-    # they tile raises rather than run the materialized path in their place
-    ("auto", 2048, 128, 16, 8, True, F32, TypeError),
-    ("auto", 2048, 128, 16, 16, True, F16, TypeError),
-    ("splash", 2048, 128, 16, 8, True, F32, TypeError),
-    ("splash", 256, 64, 4, 2, True, F16, TypeError),
-    ("flash", 2048, 128, 16, 16, True, F32, TypeError),
-    ("flash", 2048, 256, 16, 8, True, F16, TypeError),
+    # the rule has no dtype clause: f32 and f16 on the card at a shape the
+    # kernels tile run a kernel too (attention_simt.cu) ...
+    ("auto", 2048, 128, 16, 8, True, F32, "splash"),
+    ("auto", 2048, 128, 16, 16, True, F16, "flash"),
+    ("splash", 2048, 128, 16, 8, True, F32, "splash"),
+    ("splash", 256, 64, 4, 2, True, F16, "splash"),
+    ("flash", 2048, 128, 16, 16, True, F32, "flash"),
+    ("flash", 2048, 256, 16, 8, True, F16, "flash"),
+    # ... a dtype no kernel takes raises rather than run the materialized
+    # path in a kernel's place ...
+    ("auto", 2048, 128, 16, 8, True, F64, TypeError),
+    ("splash", 256, 64, 4, 2, True, F64, TypeError),
+    ("flash", 2048, 128, 16, 16, True, F64, TypeError),
     # ... while "xla" and the shapes they do not tile take any dtype
     ("xla", 2048, 128, 16, 8, True, F32, "xla"),
     ("splash", 2048, 96, 16, 8, True, F16, "xla"),
+    ("auto", 100, 128, 16, 8, True, F64, "xla"),
     # on the CPU an explicit choice runs its plain version in any dtype
     ("splash", 16, 16, 4, 2, False, F32, "splash"),
     ("flash", 16, 16, 4, 4, False, F16, "flash"),
@@ -201,19 +222,21 @@ DISPATCH = [
 @pytest.mark.parametrize("impl,seq,hd,hq,hkv,cuda,dtype,want", DISPATCH)
 def test_dispatch_follows_the_reference_rule(impl, seq, hd, hq, hkv, cuda, dtype, want):
     if want is TypeError:
-        with pytest.raises(TypeError, match="bf16"):
+        with pytest.raises(TypeError, match="kernels take bfloat16, float16, float32"):
             ta.resolve_impl(impl, (1, seq, hq, hd), hkv, cuda, dtype)
     else:
         assert ta.resolve_impl(impl, (1, seq, hq, hd), hkv, cuda, dtype) == want
 
 
 def test_tileable_cuda_never_resolves_to_xla():
-    """bf16 at every tileable shape runs a kernel on the card."""
-    for impl, seq, hd, (hq, hkv) in itertools.product(
+    """Every dtype the kernels take, at every tileable shape, runs a kernel
+    on the card."""
+    assert set(ta.KERNEL_DTYPES) == {torch.bfloat16, torch.float16, torch.float32}
+    for impl, seq, hd, (hq, hkv), dtype in itertools.product(
         ("auto", "splash", "flash"), (128, 256, 2048, 8192), ta.KERNEL_HEAD_DIMS,
-        ((16, 8), (16, 16), (32, 8), (4, 1)),
+        ((16, 8), (16, 16), (32, 8), (4, 1)), ta.KERNEL_DTYPES,
     ):
-        assert ta.resolve_impl(impl, (2, seq, hq, hd), hkv, True, torch.bfloat16) != "xla"
+        assert ta.resolve_impl(impl, (2, seq, hq, hd), hkv, True, dtype) != "xla"
     with pytest.raises(ValueError, match="unknown attention impl"):
         ta.resolve_impl("cudnn", (1, 128, 4, 64), 4, True, torch.bfloat16)
 
@@ -221,8 +244,9 @@ def test_tileable_cuda_never_resolves_to_xla():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_causal_attention_resolves_with_the_dtype_of_its_q(monkeypatch, dtype):
     """causal_attention hands resolve_impl the dtype of its own q (no
-    argument carries it), so an f32/f16 model on the card is refused at
-    dispatch, with the remedy named, instead of inside a kernel wrapper."""
+    argument carries it), so a model in a dtype no kernel takes is refused
+    at dispatch, with the remedy named, instead of inside a kernel
+    wrapper."""
     seen = []
 
     def record(impl, q_shape, kv_heads, cuda, dtype_):
@@ -257,3 +281,35 @@ def test_row_statistics_are_checked_and_made_kernel_ready():
     assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
     fixed = ta._stat(misaligned, q)
     assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, misaligned)
+
+
+def test_launches_are_counted_per_dtype_family():
+    """bf16 launches count under the path's own keys, the f32/f16 kernels'
+    under keys ending in _f32/_f16, so a run shows which family ran."""
+    want = {f"{impl}_{kernel}{suffix}" for impl in ("splash", "flash")
+            for kernel in ("fwd", "dq", "dkv") for suffix in ("", "_f32", "_f16")}
+    assert set(ta.LAUNCHES) == want
+    assert ta._launch_name("splash", "dq", torch.bfloat16) == "splash_dq"
+    assert ta._launch_name("flash", "dkv", torch.float32) == "flash_dkv_f32"
+    assert ta._launch_name("splash", "fwd", torch.float16) == "splash_fwd_f16"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("impl", ["splash", "flash"])
+def test_cpu_wrappers_run_the_plain_versions_in_every_dtype(impl, dtype):
+    """On CPU tensors the three wrappers return their plain versions'
+    results in the input dtype, and launch nothing."""
+    rng = np.random.RandomState(9)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 128, h, 64).astype(np.float32)).to(dtype)
+                   for h in (4, 2, 2, 4))
+    sm = 1.0 if impl == "splash" else 64 ** -0.5
+    ta.reset_launches()
+    o, lse = ta.attention_fwd(q, k, v, sm, impl)
+    o_p, lse_p = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
+    delta = ta.attention_delta(o, do)
+    dq = ta.attention_dq(q, k, v, lse, delta, do, sm, impl)
+    dk, dv = ta.attention_dkv(q, k, v, lse, delta, do, sm, impl)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype and lse.dtype == torch.float32
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    assert torch.equal(dq, ta.attention_dq_plain(q, k, v, lse, delta, do, sm))
+    assert not any(ta.LAUNCHES.values())

@@ -81,8 +81,10 @@ def test_cuda_attention_kernels_match_plain(cuda_device, impl, hq, hkv, hd):
 @pytest.mark.cuda
 def test_cuda_attention_rejects_what_the_kernels_do_not_take(cuda_device):
     q = torch.randn(1, 128, 2, 64, device=cuda_device)
-    with pytest.raises(TypeError, match="bf16"):
-        ta.attention_fwd(q, q, q, 1.0, "flash")
+    with pytest.raises(TypeError, match="kernels take"):
+        ta.attention_fwd(q.double(), q.double(), q.double(), 1.0, "flash")
+    with pytest.raises(TypeError, match="share one dtype"):
+        ta.attention_fwd(q, q.half(), q, 1.0, "flash")
     q = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         ta.attention_fwd(q[..., :48], q[..., :48], q[..., :48], 1.0, "flash")
@@ -107,6 +109,26 @@ def test_cuda_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path)
             ta.attention_fwd(q, q, q, 1.0, "flash")
     finally:
         ta._kernels.cache_clear()
+
+
+@pytest.mark.cuda
+def test_cuda_simt_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path):
+    """A broken attention_simt.cu fails an f32 call with nvcc's output; no
+    other path runs in its place."""
+    from torchft_tpu_torch.ops import _build
+
+    (tmp_path / "attention_simt.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "_BUILD_DIR", str(tmp_path / "build"))
+    ta._simt_kernels.cache_clear()
+    try:
+        q = torch.randn(1, 128, 2, 64, device=cuda_device)
+        ta.reset_launches()
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ta.causal_attention(q, q, q, impl="flash")
+        assert not any(ta.LAUNCHES.values())
+    finally:
+        ta._simt_kernels.cache_clear()
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -173,19 +195,115 @@ def test_cuda_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, h
         assert _max_err(got, ref) <= 2 * _max_err(plain, ref), name
 
 
+def _attention_f64(q, k, v, do, sm):
+    """(o, lse, (dq, dk, dv)) in f64 by autograd through a causal softmax
+    attention with K/V repeated per group: the f32 kernels' reference."""
+    group = q.shape[2] // k.shape[2]
+    leaves = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    qf = leaves[0].transpose(1, 2)
+    kf, vf = (x.transpose(1, 2).repeat_interleave(group, 1) for x in leaves[1:])
+    s = (qf @ kf.transpose(-1, -2)) * sm
+    S = s.shape[-1]
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool, device=s.device).tril(), float("-inf"))
+    o = (torch.softmax(s, -1) @ vf).transpose(1, 2)
+    return o.detach(), torch.logsumexp(s, -1).detach(), torch.autograd.grad(o, leaves, do.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("batch,seq,hq,hkv,hd,fused", ERROR_RATIO_CASES)
+@pytest.mark.parametrize("impl", ["splash", "flash"])
+def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd,
+                                                 fused, dtype):
+    """The f32/f16 forward, dq and dk/dv kernels (attention_simt.cu): f16
+    within twice the plain f16 version's error against an f32 evaluation
+    of the same inputs; f32 within 4x the plain f32 version's against an
+    f64 evaluation (the forward's online softmax rounds its sums once more
+    per key tile than the plain version), TF32 off; lse within 1e-3."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator().manual_seed(batch * 1000 + seq + hq * 10 + hd)
+    q = torch.randn(batch, seq, hq, hd, generator=g).to(cuda_device, dtype)
+    if fused:
+        kv = torch.randn(batch, seq, 2 * hkv, hd, generator=g).to(cuda_device, dtype)
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+    else:
+        k, v = (torch.randn(batch, seq, hkv, hd, generator=g).to(cuda_device, dtype)
+                for _ in range(2))
+    if impl == "splash":
+        q, sm = q * ta.splash_scale(hd, q.dtype), 1.0
+    else:
+        sm = hd ** -0.5
+    o_p, lse_p = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
+    do = (2 * o_p.float()).to(dtype)
+    args = (q, k, v, lse_p, ta.attention_delta(o_p, do), do, sm)
+    if dtype == torch.float32:
+        bar = 4
+        o_r, lse_r, (dq_r, dk_r, dv_r) = _attention_f64(q, k, v, do, sm)
+    else:
+        bar = 2
+        f32 = [x.float() for x in (q, k, v)]
+        o_r, lse_r = ta.attention_fwd_plain(*f32, sm, True)
+        args_32 = (*f32, lse_r, ta.attention_delta(o_r, do.float()), do.float(), sm)
+        dq_r = ta.attention_dq_plain(*args_32)
+        dk_r, dv_r = ta.attention_dkv_plain(*args_32)
+    ta.reset_launches()
+    o_k, lse_k = ta.attention_fwd(q, k, v, sm, impl)
+    dq_k = ta.attention_dq(*args, impl)
+    dk_k, dv_k = ta.attention_dkv(*args, impl)
+    torch.cuda.synchronize()
+    suffix = "_f32" if dtype == torch.float32 else "_f16"
+    assert {n: c for n, c in ta.LAUNCHES.items() if c} == {
+        f"{impl}_fwd{suffix}": 1, f"{impl}_dq{suffix}": 1, f"{impl}_dkv{suffix}": 1}
+    assert _max_err(lse_k, lse_r) <= 1e-3
+    dk_p, dv_p = ta.attention_dkv_plain(*args)
+    for name, got, plain, ref in (
+        ("o", o_k, o_p, o_r),
+        ("dq", dq_k, ta.attention_dq_plain(*args), dq_r),
+        ("dk", dk_k, dk_p, dk_r),
+        ("dv", dv_k, dv_p, dv_r),
+    ):
+        assert got.shape == plain.shape and got.dtype == dtype, name
+        assert bool(torch.isfinite(got).all()), name
+        e_k = float((got.double() - ref.double()).abs().max())
+        e_p = float((plain.double() - ref.double()).abs().max())
+        assert e_k <= bar * e_p, (name, e_k, e_p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("impl", ["auto", "splash", "flash"])
-def test_cuda_non_bf16_attention_raises_at_dispatch(cuda_device, dtype, impl):
-    """An f32/f16 model on the card at a shape the kernels tile is refused
-    at dispatch: the kernels are bf16 only, and the materialized path does
-    not stand in for them. impl="xla" still runs it, and equals
-    xla_attention."""
-    g = torch.Generator().manual_seed(7)
-    q, k, v = (torch.randn(1, 128, h, 64, generator=g).to(cuda_device, dtype) for h in (4, 2, 2))
+def test_cuda_non_bf16_attention_runs_the_simt_kernels(cuda_device, dtype, impl):
+    """An f32/f16 model on the card at a shape the kernels tile runs the
+    f32/f16 kernels, forward and backward, as the reference's rule runs its
+    kernels on any dtype; output and gradients match the plain path's.
+    Tolerance: f32 1e-4 (f32 sums in another order), f16 1e-2 (both round
+    O, P, dS and the gradients to f16 at values up to ~8, and may round
+    one element to neighbouring f16 values). impl="xla" still runs the
+    materialized path, launching nothing."""
+    want = "splash" if impl == "auto" else impl
+    plain = ta.splash_attention_plain if want == "splash" else ta.flash_attention_plain
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    results = []
+    for fn in (lambda q, k, v: ta.causal_attention(q, k, v, impl=impl), plain):
+        g = torch.Generator().manual_seed(7)
+        q, k, v = (torch.randn(1, 128, h, 64, generator=g).to(cuda_device, dtype).requires_grad_()
+                   for h in (4, 2, 2))
+        ta.reset_launches()
+        out = fn(q, k, v)
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        results.append((dict(ta.LAUNCHES), [out.detach(), q.grad, k.grad, v.grad]))
+    (launched, got), (plain_launched, ref) = results
+    assert ta.LAST_DISPATCH == want
+    suffix = "_f32" if dtype == torch.float32 else "_f16"
+    assert {n: c for n, c in launched.items() if c} == {
+        f"{want}_fwd{suffix}": 1, f"{want}_dq{suffix}": 1, f"{want}_dkv{suffix}": 1}
+    assert not any(plain_launched.values())
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol, msg=name)
+    q, k, v = (x.detach() for x in (q, k, v))
     ta.reset_launches()
-    with pytest.raises(TypeError, match="bf16"):
-        ta.causal_attention(q, k, v, impl=impl)
     out = ta.causal_attention(q, k, v, impl="xla")
     assert ta.LAST_DISPATCH == "xla"
     assert not any(ta.LAUNCHES.values())

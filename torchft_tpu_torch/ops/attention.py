@@ -9,33 +9,38 @@ output [B, S, Hq, hd].
 - ``"xla"``: the materialized path (f32 scores and softmax, repeated K/V),
   the counterpart of ``xla_attention``;
 - ``"splash"`` (K1, ``splash_attention_tpu``) and ``"flash"`` (K2,
-  ``flash_attention_tpu``): the fused kernels of ``csrc/attention.cu``,
-  forward and backward, reading GQA K/V heads in place (no repeat);
+  ``flash_attention_tpu``): the fused kernels, forward and backward,
+  reading GQA K/V heads in place (no repeat): ``csrc/attention.cu`` (wgmma
+  and TMA) for bf16, ``csrc/attention_simt.cu`` (f32 multiply-adds on the
+  CUDA cores) for f16 and f32;
 - ``"auto"``: on a CUDA tensor ``"splash"`` when Hq != Hkv, else
   ``"flash"``; ``"xla"`` on a CPU tensor (as the reference does off the
   TPU).
 - On a CUDA tensor at a shape the kernels do not tile (S % 128, hd not
   in 64/128/256), every choice resolves to ``"xla"``, as the reference's
-  rule does. At a shape they tile, a dtype other than bf16 raises
-  ``TypeError`` for every choice but ``"xla"``: the kernels are bf16 only,
-  and the materialized path does not stand in for them.
+  rule does. The rule has no dtype clause: at a shape they tile, bf16,
+  f16 and f32 run a kernel, and a dtype no kernel takes (f64, ...) raises
+  ``TypeError`` for every choice but ``"xla"``; the materialized path
+  never stands in for a kernel.
 
 The kernel wrappers (``attention_fwd``, ``attention_dq``,
 ``attention_dkv``) launch the CUDA kernels on a CUDA tensor, counting each
 launch in ``LAUNCHES``, and run the plain torch version below on a CPU
-tensor. A failed build, tile map or launch raises; a CUDA tensor the
-kernels do not take (not bf16, misaligned) raises rather than falling
-back.
+tensor; the launches of the f32/f16 kernels are counted under keys ending
+in ``_f32``/``_f16``. A failed build, tile map or launch raises; a CUDA
+tensor the kernels do not take (another dtype, mixed dtypes, misaligned)
+raises rather than falling back.
 
 The two fused paths differ where the references do:
 
 - K1 rounds 1/sqrt(hd) to q's dtype and multiplies q by it before the
   kernel (``attention.py:161-163``; the product stays on the autograd graph,
   so dq is scaled by the same constant), then runs the kernel with
-  ``sm_scale`` 1; the forward keeps P in f32 for P.V (the kernel carries it
-  as a bf16 hi + lo pair);
+  ``sm_scale`` 1; the forward keeps P in f32 for P.V (the bf16 kernel
+  carries it as a bf16 hi + lo pair);
 - K2 multiplies the f32 scores by ``sm_scale`` = 1/sqrt(hd) inside the
-  kernel, rounds P to bf16 for P.V, and scales dS by ``sm_scale``.
+  kernel, rounds P to the input dtype for P.V, and scales dS by
+  ``sm_scale``.
 
 Both backwards recompute P = exp(s - lse) from the forward's f32
 logsumexp, take delta = rowsum(O * dO) in f32 (``splash_attention_kernel.py
@@ -69,28 +74,34 @@ __all__ = [
     "attention_delta",
     "resolve_impl",
     "KERNEL_HEAD_DIMS",
+    "KERNEL_DTYPES",
     "LAST_DISPATCH",
     "LAUNCHES",
     "reset_launches",
 ]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# head dims and the dtype the kernels are built for, and the sequence
-# tiling they need (the reference's rule, attention.py:218); SEQ_TILE is a
-# multiple of the kernels' own tile (``tft_attention_tile``)
+# head dims and dtypes the kernels are built for, and the sequence tiling
+# they need (the reference's rule, attention.py:218); SEQ_TILE is a multiple
+# of both kernel families' own tiles. bf16 runs attention.cu, f16 and f32
+# attention_simt.cu (its entry points take the dtype code below).
 KERNEL_HEAD_DIMS = (64, 128, 256)
-KERNEL_DTYPE = torch.bfloat16
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SEQ_TILE = 128
+_SIMT_DTYPE = {torch.float32: 0, torch.float16: 1}
+_LAUNCH_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
 # what a kernel entry point returns, besides CUDA error codes
 _STATUS = {-1: "a head dim it was not built for", -2: "libcuda has no cuTensorMapEncodeTiled",
-           -3: "cuTensorMapEncodeTiled refused a tile map"}
+           -3: "cuTensorMapEncodeTiled refused a tile map", -4: "a dtype it was not built for"}
 
 # which implementation the last causal_attention call resolved to
 LAST_DISPATCH: Optional[str] = None
 
-# kernel launches per (path, kernel), counted only where a kernel launches
+# kernel launches per (path, kernel, dtype family: "" for bf16, "_f32",
+# "_f16"), counted only where a kernel launches
 LAUNCHES: Dict[str, int] = {
-    f"{impl}_{kernel}": 0 for impl in ("splash", "flash") for kernel in ("fwd", "dq", "dkv")
+    f"{impl}_{kernel}{suffix}": 0 for suffix in _LAUNCH_SUFFIX.values()
+    for impl in ("splash", "flash") for kernel in ("fwd", "dq", "dkv")
 }
 _launch_lock = threading.Lock()
 
@@ -213,6 +224,7 @@ def attention_dkv_plain(q, k, v, lse, delta, do, sm_scale: float) -> Tuple[torch
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=1)
 def _kernels() -> ctypes.CDLL:
+    """attention.cu: the bf16 kernels."""
     from torchft_tpu_torch.ops._build import load_library
 
     lib = load_library("attention.cu")
@@ -224,30 +236,76 @@ def _kernels() -> ctypes.CDLL:
     for fn in (lib.tft_attention_fwd, lib.tft_attention_dq, lib.tft_attention_dkv,
                lib.tft_attention_tile):
         fn.restype = ci
-    if SEQ_TILE % lib.tft_attention_tile():
-        raise RuntimeError(f"SEQ_TILE {SEQ_TILE} is not a multiple of the kernels' tile "
-                           f"{lib.tft_attention_tile()}")
+    _check_tile(lib.tft_attention_tile())
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def _simt_kernels() -> ctypes.CDLL:
+    """attention_simt.cu: the f32 and f16 kernels (a dtype code first)."""
+    from torchft_tpu_torch.ops._build import load_library
+
+    lib = load_library("attention_simt.cu")
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [ci, ci, ci, ci, ci, cf]  # B, S, Hq, Hkv, hd, sm_scale
+    lib.tft_simt_attention_fwd.argtypes = [ci] + [vp] * 6 + dims + [ci, vp]
+    lib.tft_simt_attention_dq.argtypes = [ci] + [vp] * 8 + dims + [vp]
+    lib.tft_simt_attention_dkv.argtypes = [ci] + [vp] * 9 + dims + [vp]
+    for fn in (lib.tft_simt_attention_fwd, lib.tft_simt_attention_dq,
+               lib.tft_simt_attention_dkv, lib.tft_simt_attention_tile):
+        fn.restype = ci
+    _check_tile(lib.tft_simt_attention_tile())
+    return lib
+
+
+def _check_tile(tile: int) -> None:
+    """A library's kernels tile the sequence by ``tile`` rows: every S
+    the dispatch rule (``SEQ_TILE``) admits must be a multiple of it."""
+    if SEQ_TILE % tile:
+        raise RuntimeError(f"SEQ_TILE {SEQ_TILE} is not a multiple of the kernels' tile {tile}")
+
+
+def _entry(kernel: str, dtype: torch.dtype):
+    """The C entry point of ``kernel`` ("fwd", "dq", "dkv") for ``dtype``:
+    attention.cu's for bf16, attention_simt.cu's with the dtype code bound
+    for f32/f16. Builds the library at first use."""
+    if dtype == torch.bfloat16:
+        return getattr(_kernels(), f"tft_attention_{kernel}")
+    return functools.partial(getattr(_simt_kernels(), f"tft_simt_attention_{kernel}"),
+                             _SIMT_DTYPE[dtype])
+
+
+def _dtype_names() -> str:
+    return ", ".join(str(d).replace("torch.", "") for d in KERNEL_DTYPES)
+
+
 def _check_inputs(*tensors: torch.Tensor) -> None:
-    """Raise on what the kernels do not take: bf16 [B, S, H, hd] on one
-    CUDA device, head dim contiguous, 16-byte aligned rows and strides (as
-    TMA needs)."""
+    """Raise on what the kernels do not take: [B, S, H, hd] tensors of one
+    dtype of ``KERNEL_DTYPES`` on one CUDA device, head dim contiguous.
+    bf16 tensors are read by TMA, which needs a 16-byte aligned base and
+    batch/sequence/head strides of whole 16 bytes (8 elements); f32/f16
+    tensors are read an element at a time, so an element-aligned base is
+    enough."""
     q = tensors[0]
     B, S, _, hd = q.shape
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the attention kernels take {_dtype_names()} tensors, got {q.dtype}")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the attention kernels take head dims {KERNEL_HEAD_DIMS}, got {hd}")
-    tile = _kernels().tft_attention_tile()
-    if S % tile != 0:
-        raise ValueError(f"the attention kernels need seq_len % {tile} == 0, got {S}")
+    if S % SEQ_TILE != 0:
+        raise ValueError(f"the attention kernels need seq_len % {SEQ_TILE} == 0, got {S}")
     for x in tensors:
-        if x.dtype != KERNEL_DTYPE:
-            raise TypeError(f"the attention kernels take bf16 tensors, got {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"attention tensors must share one dtype, got {q.dtype} and {x.dtype}")
         if x.device != q.device or x.dim() != 4 or x.shape[0] != B or x.shape[1] != S or x.shape[3] != hd:
             raise ValueError("attention tensors must be [B, S, H, hd] on one CUDA device")
-        if x.stride(3) != 1 or x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
-            raise ValueError("attention tensors need a contiguous, 16-byte aligned head dim")
+        if x.stride(3) != 1:
+            raise ValueError("attention tensors need a contiguous head dim")
+        if q.dtype == torch.bfloat16:
+            if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+                raise ValueError("bf16 attention tensors need a 16-byte aligned base and strides")
+        elif x.data_ptr() % x.element_size():
+            raise ValueError("attention tensors need an element-aligned base")
 
 
 def _strides(*tensors: torch.Tensor):
@@ -266,12 +324,17 @@ def _dims(q: torch.Tensor, k: torch.Tensor, sm_scale: float):
     return (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], sm_scale)
 
 
+def _launch_name(impl: str, kernel: str, dtype: torch.dtype) -> str:
+    return f"{impl}_{kernel}{_LAUNCH_SUFFIX[dtype]}"
+
+
 def attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, impl: str
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of causal attention: ``attention_fwd_kernel`` on CUDA
-    (counted as ``{impl}_fwd``), the plain version on the CPU. ``impl``
-    "splash" keeps P in f32 for P.V, "flash" rounds it to bf16."""
+    """(o, lse) of causal attention: ``attention_fwd_kernel`` (bf16) or
+    ``simt_fwd_kernel`` (f32/f16) on CUDA, counted as ``{impl}_fwd`` plus
+    the dtype's suffix, the plain version on the CPU. ``impl`` "splash"
+    keeps P in f32 for P.V, "flash" rounds it to the input dtype."""
     p_f32 = impl == "splash"
     if not q.is_cuda:
         return attention_fwd_plain(q, k, v, sm_scale, p_f32)
@@ -280,35 +343,37 @@ def attention_fwd(
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = _kernels().tft_attention_fwd(
+        status = _entry("fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, o), *_dims(q, k, sm_scale), int(p_f32), stream,
         )
-    _launch(status, f"{impl}_fwd")
+    _launch(status, _launch_name(impl, "fwd", q.dtype))
     return o, lse
 
 
 def attention_dq(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> torch.Tensor:
-    """dq: ``attention_dq_kernel`` on CUDA (counted as ``{impl}_dq``), the
-    plain version on the CPU."""
+    """dq: ``attention_dq_kernel`` (bf16) or ``simt_dq_kernel`` (f32/f16)
+    on CUDA, counted as ``{impl}_dq`` plus the dtype's suffix, the plain
+    version on the CPU."""
     if not q.is_cuda:
         return attention_dq_plain(q, k, v, lse, delta, do, sm_scale)
     _check_inputs(q, k, v, do)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = _kernels().tft_attention_dq(
+        status = _entry("dq", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             _stat(lse, q).data_ptr(), _stat(delta, q).data_ptr(), dq.data_ptr(),
             _strides(q, k, v, do, dq), *_dims(q, k, sm_scale), stream,
         )
-    _launch(status, f"{impl}_dq")
+    _launch(status, _launch_name(impl, "dq", q.dtype))
     return dq
 
 
 def attention_dkv(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv): ``attention_dkv_kernel`` on CUDA (counted as
-    ``{impl}_dkv``), the plain version on the CPU."""
+    """(dk, dv): ``attention_dkv_kernel`` (bf16) or ``simt_dkv_kernel``
+    (f32/f16) on CUDA, counted as ``{impl}_dkv`` plus the dtype's suffix,
+    the plain version on the CPU."""
     if not q.is_cuda:
         return attention_dkv_plain(q, k, v, lse, delta, do, sm_scale)
     _check_inputs(q, k, v, do)
@@ -316,19 +381,20 @@ def attention_dkv(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> Tuple[
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = _kernels().tft_attention_dkv(
+        status = _entry("dkv", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             _stat(lse, q).data_ptr(), _stat(delta, q).data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _strides(q, k, v, do, dk, dv), *_dims(q, k, sm_scale), stream,
         )
-    _launch(status, f"{impl}_dkv")
+    _launch(status, _launch_name(impl, "dkv", q.dtype))
     return dk, dv
 
 
 def _stat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """A per-row statistic (lse, delta) as the kernels read it: f32
-    [B, Hq, S] on q's device, contiguous and 16-byte aligned (the dK/dV
-    kernel loads its rows by TMA); a strided or misaligned one is copied."""
+    [B, Hq, S] on q's device, contiguous (the dq kernels read each query
+    row's value at its index) and 16-byte aligned (the bf16 dK/dV kernel
+    loads a tile's rows by TMA); a strided or misaligned one is copied."""
     shape = (q.shape[0], q.shape[2], q.shape[1])
     if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device:
         raise ValueError(f"row statistics must be f32 {shape} on {q.device}, "
@@ -400,16 +466,17 @@ def resolve_impl(impl: str, q_shape, kv_heads: int, cuda: bool, dtype: torch.dty
     """The implementation ``causal_attention`` runs for ``impl`` on a q of
     ``q_shape`` [B, S, Hq, hd] and ``dtype`` with ``kv_heads`` K/V heads,
     on a CUDA tensor or not. Raises ``TypeError`` where a kernel would run
-    on a CUDA tensor that is not bf16."""
+    on a CUDA tensor of a dtype no kernel takes (not in ``KERNEL_DTYPES``).
+    Like the reference's rule, it has no other dtype clause."""
     if impl not in ("auto", "xla", "splash", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     S, hq, hd = q_shape[1], q_shape[2], q_shape[3]
     tileable = S % SEQ_TILE == 0 and hd in KERNEL_HEAD_DIMS
     if impl == "xla" or (cuda and not tileable) or (impl == "auto" and not cuda):
         return "xla"
-    if cuda and dtype != KERNEL_DTYPE:
-        raise TypeError(f"the attention kernels take bf16 tensors, got {dtype}: cast the "
-                        "model to bf16, or pass impl='xla' for the materialized path")
+    if cuda and dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the attention kernels take {_dtype_names()} tensors, got {dtype}: "
+                        "cast the model, or pass impl='xla' for the materialized path")
     if impl == "auto":
         return "splash" if hq != kv_heads else "flash"
     return impl

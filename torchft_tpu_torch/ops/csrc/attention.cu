@@ -13,20 +13,21 @@
 //
 // Layout: q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D] in bf16, read through
 // their batch/sequence/head strides (the head-dim stride is 1); lse and
-// delta [B, Hq, S] f32.
+// delta [B, Hq, S] f32. f32 and f16 tensors go to attention_simt.cu.
 //
 // What bounds them on this card: tensor-core operations. At the bench_1b
 // shape (S 2048, D 128) each block does ~S*D multiply-adds per byte it
 // loads, far above the ~295 FLOP/B ridge, so every matmul runs on the
 // tensor cores and the S x S scores never reach device memory.
 //
-// Forward and dK/dV (the Hopper pieces of hopper.cuh):
+// All three kernels are built from the Hopper pieces of hopper.cuh:
 //   * A 384-thread block: warpgroup 0 is the producer (one thread issues
 //     every TMA load; setmaxnreg gives its registers to the others), and
 //     warpgroups 1 and 2 are consumers that run wgmma.
 //   * Tiles arrive by TMA, 128-byte swizzled, through a ring of full/empty
-//     mbarriers (forward 3 stages, 2 at D 256; dK/dV 4, 3 at D 256: what
-//     fits in 227 KB), so later tiles' loads overlap this tile's products.
+//     mbarriers (forward 3 stages, 2 at D 256; dq and dK/dV 4, 3 at D 256:
+//     what fits in 227 KB), so later tiles' loads overlap this tile's
+//     products.
 //   * Forward: a block owns 128 query rows, 64 per consumer warpgroup,
 //     loads its Q tile once and streams K/V tiles (128 keys at D 64/128,
 //     64 at D 256). S = Q K^T is an SS wgmma, O += P V an RS wgmma: P stays
@@ -36,6 +37,15 @@
 //     log(sum). p_split (K1): P = hi + lo, both bf16, two RS products into
 //     one f32 accumulator, so P.V carries ~16 bits of P as the reference's
 //     f32 P does.
+//   * dq: a block owns 128 query rows of one query head, 64 per consumer
+//     warpgroup, loads its Q and dO tiles once and streams K/V tiles (64
+//     keys at D 64/128, 32 at D 256: dQ, S and dP accumulators must share
+//     the registers) through a 4-stage ring (3 at D 256). S = Q K^T and
+//     dP = dO V^T are SS wgmmas; dS = P (dP - delta) sm_scale, with P
+//     recomputed from lse, stays in the registers it was computed in,
+//     rounded to bf16 fragments, for dQ += dS K, an RS wgmma that reads
+//     the same K tile MN-major. Each thread reads its two rows' lse and
+//     delta once; dQ is written once from registers (no atomics).
 //   * dK/dV: a block owns one KV head's 64-key tile, loads its K/V once and
 //     streams Q/dO tiles with their lse and delta rows (64 queries at D
 //     64/128, 32 at D 256) for every query head of the group. Both
@@ -50,18 +60,15 @@
 //     so the result is the same from run to run.
 //   * exp runs on the MUFU unit alone (ex2.approx, the log2(e) factor
 //     folded into the argument).
-//   * Causality is a loop bound: a forward block visits only the key tiles
-//     at or below its diagonal, a dK/dV block only the query tiles at or
-//     after it; a forward warpgroup whose 64 rows lie wholly above a key
-//     tile skips its products, and elements above the diagonal get the
-//     reference's mask value -0.7 * FLT_MAX before the exp. Every forward
+//   * Causality is a loop bound: a forward or dq block visits only the key
+//     tiles at or below its diagonal, a dK/dV block only the query tiles at
+//     or after it; a forward or dq warpgroup whose 64 rows lie wholly above
+//     a key tile skips its products (but still frees the stage), and
+//     elements above the diagonal get the reference's mask value
+//     -0.7 * FLT_MAX before the exp. Every forward
 //     block starts at key tile 0, which holds key 0 for every row, so no
 //     row's running max stays at the mask value. Blocks are numbered so
 //     the longest (the last query tiles, the first key tiles) start first.
-//
-// dq keeps its first design: 4 warps of mma.sync m16n8k16, each owning 16
-// rows of a 64-row tile, fragments from padded shared memory, tiles loaded
-// synchronously.
 //
 // Plain C interface, bound with ctypes: each entry point builds its tile
 // maps, launches on the caller's stream and returns cudaError_t, or one of
@@ -531,190 +538,171 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The dq kernel's mma.sync pieces
+// dq: one block per (128-row query tile, q head, batch), looping over the
+// key tiles at or below its diagonal. Each consumer warpgroup owns 64 query
+// rows, computes S = Q K^T and dP = dO V^T (SS), dS = P (dP - delta)
+// sm_scale with P = exp(S sm_scale - lse), and sums dQ += dS K (RS, K read
+// MN-major from the same tile its K-major S product read).
 // ---------------------------------------------------------------------------
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = kWarps * 16;  // rows a block owns: 16 per warp
-constexpr int kPad = 8;             // bf16 elements of padding per smem row
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A * B + D, A 16x16 (row-major fragment), B 16x8 (column fragment)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment loads from a row-major smem matrix M with leading dimension LD.
-// g = lane / 4 (row group), t = lane % 4 (thread in group).
-
-// A[m][k] = M[r0 + m][c0 + k]
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* M, int r0,
-                                       int c0, int g, int t) {
-  const bf16* p = M + (r0 + g) * LD + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// B[k][n] = M[n0 + n][k0 + k]   (M holds B transposed, e.g. K for Q K^T)
-template <int LD>
-__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const bf16* M, int n0, int k0, int g,
-                                          int t) {
-  const bf16* p = M + (n0 + g) * LD + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B[k][n] = M[k0 + k][n0 + n]   (M holds B, e.g. V for P V)
-template <int LD>
-__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const bf16* M, int k0, int n0, int g,
-                                          int t) {
-  const bf16* p = M + (k0 + 2 * t) * LD + n0 + g;
-  b0 = pack_raw(p[0], p[LD]);
-  b1 = pack_raw(p[8 * LD], p[9 * LD]);
-}
-
-// The A fragment of columns [16c, 16c + 16) of a 16 x N accumulator held as
-// N/8 mma result tiles, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// rows x D tile from global (row stride `stride` elements) into smem rows
-// of D + kPad; 16-byte vectors (the wrapper checks alignment)
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t stride, int rows) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) =
-        *reinterpret_cast<const uint4*>(src + r * stride + c);
+struct DqShape {
+  static constexpr int kKeys = D <= 128 ? 64 : 32;  // keys per K/V tile
+  static constexpr int kQBytes = kRows * D * 2;     // one of Q or dO
+  static constexpr int kKVBytes = kKeys * D * 2;    // one of K or V
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kStages = D <= 128 ? 4 : 3;  // ring depth that fits
+  static constexpr int kBarOffset = 2 * kQBytes + kStages * kStageBytes;
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    attention_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        Strides sdq, int S, int Hq, int group, float sm_scale) {
+  using Shape = DqShape<D>;
+  constexpr int BK = Shape::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + Shape::kQBytes;
+  unsigned char* stages = smem + 2 * Shape::kQBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Shape::kBarOffset);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + Shape::kStages;
+
+  // longest rows first across the whole grid, as the forward's blocks
+  const int n_qt = S / kRows, heads = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - blockIdx.x / heads;
+  const int h = blockIdx.x % heads % Hq, b = blockIdx.x % heads / Hq;
+  const int kvh = h / group;
+  const int q0 = qt * kRows;
+  const int n_kt = (q0 + kRows - 1) / BK + 1;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < Shape::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
   }
-}
+  __syncthreads();
 
-// ---------------------------------------------------------------------------
-// dq: one block per (64-row query tile, q head, batch), mma.sync
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads) attention_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-    Strides sdq, int S, int Hq, int group, float sm_scale) {
-  constexpr int LD = D + kPad;
-  constexpr int BK = kTile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Ks = dOs + kTile * LD;
-  bf16* Vs = Ks + BK * LD;
+  if (wg == 0) {
+    // producer: Q and dO once, then K and V per key tile
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * Shape::kQBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(Qs + c * kRows * kSubRow, &tq, q_full, c * 64, h, q0, b);
+        tma_load_4d(dOs + c * kRows * kSubRow, &tdo, q_full, c * 64, h, q0, b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % Shape::kStages;
+        mbar_wait(&empty[s], ((kt / Shape::kStages) & 1) ^ 1);
+        unsigned char* Ks = stages + s * Shape::kStageBytes;
+        unsigned char* Vs = Ks + Shape::kKVBytes;
+        mbar_arrive_expect_tx(&full[s], Shape::kStageBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(Ks + c * BK * kSubRow, &tk, &full[s], c * 64, kvh,
+                      kt * BK, b);
+          tma_load_4d(Vs + c * BK * kSubRow, &tv, &full[s], c * 64, kvh,
+                      kt * BK, b);
+        }
+      }
+    }
+    return;
+  }
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // consumers: warpgroup w owns rows q0 + 64w .. q0 + 64w + 63
+  reg_alloc<kConsumerRegs>();
+  const int w = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int first = q0 + kWgRows * w;
+  const int row[2] = {first + warp * 16 + g, first + warp * 16 + g + 8};
+  const uint32_t q_base = smem_u32(Qs) + kWgRows * w * kSubRow;
+  const uint32_t do_base = smem_u32(dOs) + kWgRows * w * kSubRow;
   const int64_t stat = (static_cast<int64_t>(b) * Hq + h) * S;
-  const float row_lse[2] = {lse[stat + row[0]], lse[stat + row[1]]};
+  const float lse2[2] = {lse[stat + row[0]] * kLog2e, lse[stat + row[1]] * kLog2e};
   const float row_delta[2] = {delta[stat + row[0]], delta[stat + row[1]]};
 
-  load_tile<D>(Qs, q + offset(sq, b, q0, h), sq.s, kTile);
-  load_tile<D>(dOs, dout + offset(sdo, b, q0, h), sdo.s, kTile);
-
-  float acc[D / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  const int n_kt = (q0 + kTile - 1) / BK + 1;
+  mbar_wait(q_full, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % Shape::kStages;
     const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(Ks, k + offset(sk, b, k0, kvh), sk.s, BK);
-    load_tile<D>(Vs, v + offset(sv, b, k0, kvh), sv.s, BK);
-    __syncthreads();
+    mbar_wait(&full[s], (kt / Shape::kStages) & 1);
+    if (k0 <= first + kWgRows - 1) {  // else every key is above our rows
+      const uint32_t k_base = smem_u32(stages + s * Shape::kStageBytes);
+      const uint32_t v_base = k_base + Shape::kKVBytes;
 
-    float s[BK / 8][4], dp[BK / 8][4];
+      // S = Q K^T and dP = dO V^T
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BK>(sc, desc_k_major(q_base + k_step(kk, kRows)),
+                     desc_k_major(k_base + k_step(kk, BK)), kk > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BK>(dp, desc_k_major(do_base + k_step(kk, kRows)),
+                     desc_k_major(v_base + k_step(kk, BK)), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(sc);
+      fence_operand(dp);
+
+      // dS = P (dP - delta) sm_scale, P = exp(S sm_scale - lse), the mask
+      // value above the diagonal (its exp2 argument may overflow to -inf,
+      // which gives 0)
+      const bool diagonal = k0 + BK - 1 > first;
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4], ado[4];
-      load_a<LD>(aq, Qs, warp * 16, kk, g, t);
-      load_a<LD>(ado, dOs, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        uint32_t b0, b1;
-        load_b_nk<LD>(b0, b1, Ks, j * 8, kk, g, t);
-        mma(s[j], aq, b0, b1);
-        load_b_nk<LD>(b0, b1, Vs, j * 8, kk, g, t);
-        mma(dp[j], ado, b0, b1);
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float x = sc[i] * sm_scale;
+        if (diagonal && k0 + (i >> 2) * 8 + 2 * t + (i & 1) > row[r])
+          x = kMaskValue;
+        const float p = exp2_approx(fmaf(x, kLog2e, -lse2[r]));
+        sc[i] = (dp[i] - row_delta[r]) * p * sm_scale;
       }
+
+      // dQ += dS K, dS rounded to bf16 fragments, K MN-major
+      uint32_t frag[BK / 16][4];
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c) acc_to_frag(frag[c], sc, c);
+      wgmma_fence();
+      fence_operand(acc);
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c)
+        wgmma_rs<D>(acc, frag[c],
+                    desc_mn_major(k_base + c * 16 * kSubRow, BK * kSubRow));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
     }
-    // dS = (dP - delta) * P * sm_scale, with P = exp(s - lse)
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, col = k0 + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * sm_scale;
-        if (col > row[i]) x = kMaskValue;
-        const float p = expf(x - row_lse[i]);
-        dp[j][e] = (dp[j][e] - row_delta[i]) * p * sm_scale;
-      }
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      uint32_t a[4];
-      acc_to_a(a, dp[2 * c], dp[2 * c + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_kn<LD>(b0, b1, Ks, c * 16, n * 8, g, t);
-        mma(acc[n], a, b0, b1);
-      }
-    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint32_t*>(dq + offset(sdq, b, row[i], h) + col) =
-          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(dq + offset(sdq, b, row[r], h) + col) =
+          pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
   }
-}
-
-template <int D>
-constexpr int dq_smem() {
-  return 4 * kTile * (D + kPad) * 2;
 }
 
 Strides strides_at(const int64_t* s, int i) {
@@ -762,13 +750,17 @@ template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const float* lse, const float* delta, void* dqp, const int64_t* st,
        int B, int S, int Hq, int Hkv, float sm_scale, cudaStream_t stream) {
-  return launch(attention_dq_kernel<D>, kThreads, dq_smem<D>(),
-                dim3(S / kTile, Hq, B), stream, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                static_cast<const bf16*>(dout), lse, delta,
-                static_cast<bf16*>(dqp), strides_at(st, 0), strides_at(st, 1),
-                strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), S, Hq,
-                Hq / Hkv, sm_scale);
+  using Shape = DqShape<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = map_at(&tq, q, st, 0, B, S, Hq, D, kRows);
+  if (err == 0) err = map_at(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
+  if (err == 0) err = map_at(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
+  if (err == 0) err = map_at(&tdo, dout, st, 3, B, S, Hq, D, kRows);
+  if (err != 0) return err;
+  return launch(attention_dq_kernel<D>, kHopperThreads, Shape::kSmem,
+                dim3(S / kRows * Hq * B), stream, tq, tk, tv, tdo, lse, delta,
+                static_cast<bf16*>(dqp), strides_at(st, 4), S, Hq, Hq / Hkv,
+                sm_scale);
 }
 
 template <int D>
@@ -794,8 +786,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Rows per block tile of the forward kernel: S must be a multiple of it
-// (the dK/dV and dq kernels' 64-row tiles divide it).
+// Rows per block tile of the forward and dq kernels: S must be a multiple
+// of it (the dK/dV kernel's 64-key tiles divide it).
 int tft_attention_tile() { return kRows; }
 
 // strides: 3 per tensor (batch, sequence, head) for q, k, v, o
