@@ -5,9 +5,11 @@
 1. Builds the port's CUDA kernels from ``torchft_tpu_torch/ops/csrc`` (one
    nvcc per source, started together), times the build, and prints per
    kernel what ptxas reported (registers, stack, spills, wgmma serialized)
-   and its HGMMA (wgmma) and UTMALDG (TMA load) SASS instructions. The
-   bf16 attention forward, dq and dK/dV kernels must have both at every
-   head dim and no spill at head dim 128.
+   and its HGMMA (wgmma) and UTMALDG (TMA load) SASS instructions. Every
+   instance of ``attention.cu`` (the bf16 forward with and without
+   p_split; dq and dK/dV in bf16 and in f16) must be built at every head
+   dim, have both, compile at the 168 registers its setmaxnreg split
+   assumes, and not spill at head dim 128.
 2. Holds each fp8 kernel against its plain PyTorch version on the card, bit
    for bit, from a single element up to the full bench_1b gradient count,
    and times kernel, plain version and the device-memory bound at that
@@ -19,8 +21,10 @@
    (flash) against their plain versions at the bench_1b shapes (GQA 16/8,
    also with K/V as strided views of one fused tensor, and 16/16 for K2),
    at S 384 (an odd number of tiles) and at head dims 64 and 256 with
-   batch 2, in bf16 (``attention.cu``) and in f16 and f32
-   (``attention_simt.cu``). bf16 and f16: each kernel output's max abs
+   batch 2, in bf16, f16 and f32 (``ATTN_DTYPES`` names each kernel's
+   source: ``attention.cu`` on the tensor cores runs bf16 and the f16 dq
+   and dK/dV, ``attention_simt.cu`` on the CUDA cores the f16 forward and
+   all of f32). bf16 and f16: each kernel output's max abs
    error against an f32 evaluation of the same inputs must be at most
    twice the plain version's in that dtype. f32: at most 4x the plain f32
    version's against an f64 evaluation (autograd through a softmax
@@ -37,7 +41,9 @@
    (``attention="flash"``, loss within 2% of ``attention="xla"``), and in
    f32 and f16 through ``attention="auto"`` (which resolves to splash) and
    ``"flash"``; f32 losses within 1e-4 (relative) of ``"xla"`` in f32, f16
-   within 0.25%. Then times one replica's full bench_1b forward + backward
+   within 0.25%; a profile of each run shows that exactly the kernel
+   instances of ``ATTN_INSTANCE`` ran (no CUDA-core f16 backward). Then
+   times one replica's full bench_1b forward + backward
    through the materialized attention and through the kernels, in turns.
 6. Trains Llama bench_1b at full width and depth as two fault-tolerant
    replica groups (threads on one card) with an in-process lighthouse, the
@@ -237,10 +243,12 @@ def kernel_build_report(sources) -> dict:
 
 # the kernel instance each path runs at the bench_1b head dim, per dtype
 ATTN_INSTANCE = {
-    torch.bfloat16: {"fwd": "attention_fwd_kernel<128, {split}>", "dq": "attention_dq_kernel<128>",
-                     "dkv": "attention_dkv_kernel<128>"},
-    **{dtype: {k: f"simt_{k}_kernel<{ctype}, 128>" for k in ("fwd", "dq", "dkv")}
-       for dtype, ctype in ((torch.float32, "float"), (torch.float16, "__half"))},
+    torch.bfloat16: {"fwd": "attention_fwd_kernel<128, {split}>",
+                     "dq": "attention_dq_kernel<128, __nv_bfloat16>",
+                     "dkv": "attention_dkv_kernel<128, __nv_bfloat16>"},
+    torch.float16: {"fwd": "simt_fwd_kernel<__half, 128>", "dq": "attention_dq_kernel<128, __half>",
+                    "dkv": "attention_dkv_kernel<128, __half>"},
+    torch.float32: {k: f"simt_{k}_kernel<float, 128>" for k in ("fwd", "dq", "dkv")},
 }
 
 
@@ -248,27 +256,34 @@ def sass_counts(entry: dict) -> dict:
     return {op.lower(): entry[op] for op in SASS_OPS}
 
 
-HOPPER_KERNELS = ("attention_fwd_kernel", "attention_dq_kernel", "attention_dkv_kernel")
+# every instance of attention.cu: the bf16 forward with and without
+# p_split, dq and dK/dV in bf16 and f16, at each head dim
+HOPPER_INSTANCES = tuple(
+    [f"attention_fwd_kernel<{d}, {split}>" for d in (64, 128, 256) for split in ("true", "false")]
+    + [f"attention_{k}_kernel<{d}, {ctype}>" for k in ("dq", "dkv") for d in (64, 128, 256)
+       for ctype in ("__nv_bfloat16", "__half")])
+# what __launch_bounds__(384, 1) gives and the setmaxnreg split (24 + 2 x
+# 240 a thread) assumes
+HOPPER_REGISTERS = 168
 
 
 def check_hopper_kernels(report: dict) -> None:
-    """The bf16 forward, dq and dK/dV kernels run on wgmma fed by TMA at
-    every head dim, and do not spill at the bench_1b head dim 128."""
-    found = {prefix: 0 for prefix in HOPPER_KERNELS}
-    for name, r in report.items():
-        prefix = name.split("<")[0]
-        if prefix not in found:
-            continue
-        found[prefix] += 1
+    """Every instance of attention.cu is built, runs on wgmma fed by TMA,
+    compiles at the registers its setmaxnreg split assumes, and does not
+    spill at the bench_1b head dim 128."""
+    missing = [name for name in HOPPER_INSTANCES if name not in report]
+    if missing:
+        raise RuntimeError(f"no {missing} in the build report")
+    for name in HOPPER_INSTANCES:
+        r = report[name]
         if not all(r[op] for op in SASS_OPS):
             raise RuntimeError(f"{name} has no {'/'.join(op for op in SASS_OPS if not r[op])} "
                                "instruction in its SASS")
-        if name.startswith(tuple(f"{p}<128" for p in HOPPER_KERNELS)) and (
-                r["spill_stores"] or r["spill_loads"]):
+        if r["registers"] != HOPPER_REGISTERS:
+            raise RuntimeError(f"{name} compiled at {r['registers']} registers, not "
+                               f"{HOPPER_REGISTERS}")
+        if "<128," in name and (r["spill_stores"] or r["spill_loads"]):
             raise RuntimeError(f"{name} spills registers: {r}")
-    missing = [p for p, n in found.items() if n == 0]
-    if missing:
-        raise RuntimeError(f"no instance of {missing} in the build report")
 
 
 def check_kernels(device: torch.device, full_n: int, world: int):
@@ -387,12 +402,14 @@ ATTN_SHAPES = (
     ("hd256_b2", 2, 256, 4, 2, 256, BOTH, False),
 )
 # the dtypes the kernels take, with the suffix of their launch counts and
-# the source of their kernels: bf16 on the tensor cores, f16 and f32 on the
-# CUDA cores
+# the source of each kernel: attention.cu on the tensor cores (bf16, and the
+# f16 dq and dK/dV), attention_simt.cu on the CUDA cores (the f16 forward,
+# all of f32)
+HOPPER, SIMT = "attention.cu", "attention_simt.cu"
 ATTN_DTYPES = {
-    torch.bfloat16: ("", "attention.cu"),
-    torch.float16: ("_f16", "attention_simt.cu"),
-    torch.float32: ("_f32", "attention_simt.cu"),
+    torch.bfloat16: ("", {"fwd": HOPPER, "dq": HOPPER, "dkv": HOPPER}),
+    torch.float16: ("_f16", {"fwd": SIMT, "dq": HOPPER, "dkv": HOPPER}),
+    torch.float32: ("_f32", {"fwd": SIMT, "dq": SIMT, "dkv": SIMT}),
 }
 # timed only (the plain versions would materialize ~8.6 GB f32 scores per
 # tensor): the attention of the repo's llama3_8b config
@@ -622,12 +639,30 @@ MODEL_PATHS = (
 )
 
 
+# an attention kernel instance in a profiler key (either source's)
+ATTN_KERNEL = re.compile(r"(?:attention|simt)_(?:fwd|dq|dkv)_kernel<[^>]*>")
+
+
+def attention_instances(prof) -> set:
+    """The attention kernel instances (``attention_dq_kernel<128,__half>``,
+    ..., spaces dropped) that ran on the card under ``prof``."""
+    found = set()
+    for e in prof.key_averages():
+        m = ATTN_KERNEL.search(e.key)
+        if m and e.self_device_time_total > 0:
+            found.add(m.group(0).replace(" ", ""))
+    return found
+
+
 def check_model_path(device: torch.device, dtype: torch.dtype, impl: str, want: str,
                      tol: float) -> dict:
     """A 2-layer bench_1b-width Llama in ``dtype`` through
     ``attention=impl``, forward and backward, against attention="xla";
     returns the launches of the dtype's kernels on that run (counts set to
-    0 just before it and read just after), each of which must be > 0."""
+    0 just before it and read just after), each of which must be > 0. The
+    run is profiled, and the attention kernels that ran on the card must be
+    exactly the dtype's instances in ``ATTN_INSTANCE``."""
+    from torch.profiler import ProfilerActivity, profile
     from torchft_tpu_torch.models.llama import CONFIGS, Llama
     from torchft_tpu_torch.ops import attention as ta
 
@@ -639,9 +674,13 @@ def check_model_path(device: torch.device, dtype: torch.dtype, impl: str, want: 
     inputs, targets = toks[:, :-1], toks[:, 1:]
     suffix = ATTN_DTYPES[dtype][0]
     ta.reset_launches()
-    loss = model.loss(inputs, targets)
-    loss.backward()
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss = model.loss(inputs, targets)
+        loss.backward()
+        torch.cuda.synchronize()
+    ran = attention_instances(prof)
+    want_ran = {ATTN_INSTANCE[dtype][kernel].format(split=str(want == "splash").lower()).replace(" ", "")
+                for kernel in ATTN_MATMULS}
     launches = {f"{want}_{kernel}{suffix}": ta.LAUNCHES[f"{want}_{kernel}{suffix}"]
                 for kernel in ATTN_MATMULS}
     others = {k: n for k, n in ta.LAUNCHES.items() if n and k not in launches}
@@ -655,7 +694,11 @@ def check_model_path(device: torch.device, dtype: torch.dtype, impl: str, want: 
     name = str(dtype).replace("torch.", "")
     log(f"model path (2-layer bench_1b, {name}, attention={impl} -> {dispatch}): loss "
         f"{loss.item():.6f}, xla {ref.item():.6f}, |diff| {diff:.2e} "
-        f"({diff / abs(ref.item()):.1e} relative, bar {tol:g}), launches {launches}")
+        f"({diff / abs(ref.item()):.1e} relative, bar {tol:g}), launches {launches}, "
+        f"kernels {sorted(ran)}")
+    if ran != want_ran:
+        raise RuntimeError(f"{name} {impl} model path ran the attention kernels {sorted(ran)}, "
+                           f"not {sorted(want_ran)}")
     if dispatch != want or not grads_finite or others:
         raise RuntimeError(f"{name} {impl} model path: dispatch {dispatch}, finite grads "
                            f"{grads_finite}, other kernels launched {others}")
@@ -708,7 +751,7 @@ def time_model_fwd_bwd(device: torch.device) -> dict:
         events = prof.key_averages()
         r["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
         r["attention_ms"] = sum(e.self_device_time_total for e in events
-                                if "attention_" in e.key) / 1e3
+                                if ATTN_KERNEL.search(e.key)) / 1e3
         r["kernels"] = sum(e.count for e in events if e.self_device_time_total > 0)
         log(f"one replica bench_1b forward+backward, attention={impl}: "
             f"turns {[round(t, 1) for t in r['ms']]} ms, peak {r['peak_gib']:.2f} GiB; "
@@ -748,6 +791,11 @@ def main() -> int:
         "in parallel)")
     build_report = kernel_build_report(sources)
     check_hopper_kernels(build_report)
+    routed = {key: source for key, (source, _) in ta.ROUTES.items()}
+    stated = {(kernel, dtype): source for dtype, (_, sources) in ATTN_DTYPES.items()
+              for kernel, source in sources.items()}
+    if routed != stated:
+        raise RuntimeError(f"ops/attention.py routes {routed}, chip_smoke.py expects {stated}")
 
     cfg = TrainConfig(config="bench_1b", steps=6, batch_size=1, seq_len=2048,
                       quantize=True, fail_at=3)
@@ -841,7 +889,7 @@ def main() -> int:
             "library_ms": None,
             **sass_counts(build_report[f"{kname}_kernel"]),
         })
-    for dtype, (suffix, source) in ATTN_DTYPES.items():
+    for dtype, (suffix, sources) in ATTN_DTYPES.items():
         for impl in ("splash", "flash"):
             for kernel in ATTN_MATMULS:
                 key = f"{impl}_{kernel}{suffix}"
@@ -849,7 +897,7 @@ def main() -> int:
                     "name": f"{ATTN_INSTANCE[dtype][kernel].split('<')[0]} ({impl}"
                             f"{', ' + str(dtype).replace('torch.', '') if suffix else ''})",
                     "route": "cuda",
-                    "source": f"torchft_tpu_torch/ops/csrc/{source}",
+                    "source": f"torchft_tpu_torch/ops/csrc/{sources[kernel]}",
                     "replaces": f"torchft_tpu/ops/attention.py:{ATTN_REPLACES[impl]}",
                     # K1 in bf16 runs in training, every other one on its
                     # model path (check_model_path)

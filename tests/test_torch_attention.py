@@ -22,7 +22,9 @@ Inputs are made from a seed with numpy and handed to both packages.
 """
 
 import dataclasses
+import functools
 import itertools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -52,9 +54,9 @@ HEADS = [(4, 4), (4, 2), (8, 2)]
 S, HD = 256, 128
 
 
-def _inputs(hq, hkv, batch=1, seed=0):
+def _inputs(hq, hkv, batch=1, seed=0, hd=HD):
     rng = np.random.RandomState(seed + 10 * hq + hkv)
-    return [rng.randn(batch, S, h, HD).astype(np.float32) for h in (hq, hkv, hkv)]
+    return [rng.randn(batch, S, h, hd).astype(np.float32) for h in (hq, hkv, hkv)]
 
 
 def _jax_value_and_grads(fn, arrays, dtype_name):
@@ -106,14 +108,15 @@ def test_flash_plain_matches_jax_xla_f32(hq, hkv):
     _assert_close(got, ref, TOL["float32"])
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256], ids=["hd64", "hd128", "hd256"])
 @pytest.mark.parametrize("hq,hkv", HEADS)
-def test_flash_plain_f16_matches_jax_xla(hq, hkv):
+def test_flash_plain_f16_matches_jax_xla(hq, hkv, hd):
     """K2's plain version in f16 against the materialized reference in f32
-    on the same f16-rounded inputs. atol/rtol 1e-2: the plain version
-    rounds P, dS and its outputs to f16 (2^-11 relative each), which the
-    f32 reference does not; dq and dk, sums of 256 such products, show it
-    most (~5e-3)."""
-    arrays = [a.astype(np.float16).astype(np.float32) for a in _inputs(hq, hkv, batch=2)]
+    on the same f16-rounded inputs, at every head dim the f16 kernels are
+    built for. atol/rtol 1e-2: the plain version rounds P, dS and its
+    outputs to f16 (2^-11 relative each), which the f32 reference does not;
+    dq and dk, sums of 256 such products, show it most (~5e-3)."""
+    arrays = [a.astype(np.float16).astype(np.float32) for a in _inputs(hq, hkv, batch=2, hd=hd)]
     ref = _jax_value_and_grads(lambda q, k, v: xla_attention(q, k, v, None), arrays, "float32")
     got = _torch_value_and_grads(ta.flash_attention_plain, arrays, "float16")
     _assert_close(got, ref, 1e-2)
@@ -313,3 +316,63 @@ def test_cpu_wrappers_run_the_plain_versions_in_every_dtype(impl, dtype):
     assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
     assert torch.equal(dq, ta.attention_dq_plain(q, k, v, lse, delta, do, sm))
     assert not any(ta.LAUNCHES.values())
+
+
+# (kernel, dtype) -> (source, dtype code its entry point takes, None for
+# none): the tensor-core kernels of attention.cu run bf16 and the f16
+# backward; the CUDA-core kernels of attention_simt.cu the f16 forward and
+# every f32 kernel
+WANT_ROUTES = {
+    ("fwd", BF16): ("attention.cu", None), ("dq", BF16): ("attention.cu", 0),
+    ("dkv", BF16): ("attention.cu", 0),
+    ("fwd", F16): ("attention_simt.cu", 1), ("dq", F16): ("attention.cu", 1),
+    ("dkv", F16): ("attention.cu", 1),
+    ("fwd", F32): ("attention_simt.cu", 0), ("dq", F32): ("attention_simt.cu", 0),
+    ("dkv", F32): ("attention_simt.cu", 0),
+}
+
+
+@pytest.mark.parametrize("kernel,dtype", list(WANT_ROUTES), ids=lambda x: str(x).replace("torch.", ""))
+def test_each_kernel_and_dtype_calls_its_sources_entry_point(monkeypatch, kernel, dtype):
+    """_entry resolves (kernel, dtype) to the C entry point of its source
+    with its dtype code bound first; stub libraries stand in for the built
+    ones, so nothing is compiled."""
+    def library(source, prefix):
+        return types.SimpleNamespace(**{
+            f"{prefix}_{k}": functools.partial(lambda k, *args: (source, k, args), k)
+            for k in ("fwd", "dq", "dkv")})
+
+    monkeypatch.setattr(ta, "_kernels", lambda: library("attention.cu", "tft_attention"))
+    monkeypatch.setattr(ta, "_simt_kernels", lambda: library("attention_simt.cu", "tft_simt_attention"))
+    source, code = WANT_ROUTES[(kernel, dtype)]
+    assert ta.ROUTES[(kernel, dtype)] == (source, code)
+    got = ta._entry(kernel, dtype)("q", "k")
+    assert got == (source, kernel, ("q", "k") if code is None else (code, "q", "k"))
+
+
+def test_every_kernel_dtype_has_one_route():
+    assert set(ta.ROUTES) == {(k, d) for k in ("fwd", "dq", "dkv") for d in ta.KERNEL_DTYPES}
+
+
+def _tensor_with_seq_stride(dtype, pad):
+    """[1, 128, 2, 64] whose sequence stride is 128 + pad elements."""
+    return torch.zeros(1, 128, 128 + pad, dtype=dtype)[:, :, :128].unflatten(2, (2, 64))
+
+
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+def test_tma_rule_holds_for_the_dtypes_attention_cu_reads(dtype):
+    """bf16 and f16 tensors (read by TMA in attention.cu) need a 16-byte
+    aligned base and batch/sequence/head strides of 8 elements, in every
+    wrapper's check, so an f16 tensor the backward would refuse is refused
+    at the forward; an f32 one is read an element at a time and passes."""
+    fine = _tensor_with_seq_stride(dtype, 8)
+    ta._check_inputs(fine, fine, fine)
+    odd = _tensor_with_seq_stride(dtype, 4)
+    assert odd.stride()[1] % 8
+    shifted = torch.zeros(1 * 128 * 2 * 64 + 1, dtype=dtype)[1:].view(1, 128, 2, 64)
+    for x in (odd, shifted):
+        if dtype == F32:
+            ta._check_inputs(x, x, x)
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned base and strides"):
+                ta._check_inputs(x, x, x)

@@ -25,7 +25,7 @@ def test_library_name_follows_the_source_and_the_shared_headers(monkeypatch, tmp
 
 @pytest.mark.parametrize("status,words", [
     (-1, "head dim"), (-2, "cuTensorMapEncodeTiled"), (-3, "refused a tile map"),
-    (700, "CUDA error 700"),
+    (-4, "a dtype it was not built for"), (700, "CUDA error 700"),
 ])
 def test_a_refused_launch_raises_and_is_not_counted(status, words):
     ta.reset_launches()

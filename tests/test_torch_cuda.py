@@ -90,6 +90,13 @@ def test_cuda_attention_rejects_what_the_kernels_do_not_take(cuda_device):
         ta.attention_fwd(q[..., :48], q[..., :48], q[..., :48], 1.0, "flash")
     with pytest.raises(ValueError, match="seq_len"):
         ta.attention_fwd(q[:, :96], q[:, :96], q[:, :96], 1.0, "flash")
+    # f16 tensors are read by TMA in the backward: one whose sequence stride
+    # (132 elements) is not whole 16 bytes is refused at the forward
+    h = torch.randn(1, 128, 132, device=cuda_device, dtype=torch.float16)[:, :, :128].unflatten(2, (2, 64))
+    ta.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned base and strides"):
+        ta.attention_fwd(h, h, h, 1.0, "flash")
+    assert not any(ta.LAUNCHES.values())
     # auto on a tileable CUDA shape runs the kernel, never the xla path
     ta.causal_attention(q, q, q)
     assert ta.LAST_DISPATCH == "flash"
@@ -149,21 +156,24 @@ ERROR_RATIO_CASES = [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("impl", ["splash", "flash"])
 @pytest.mark.parametrize("batch,seq,hq,hkv,hd,fused", ERROR_RATIO_CASES)
-def test_cuda_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd, fused):
+def test_cuda_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd, fused,
+                                            dtype):
     """Forward, dq and dk/dv kernels against an f32 evaluation of the same
-    bf16 inputs: each output's max abs error is at most twice the plain
-    bf16 version's (the two round at the same places), and lse is within
-    1e-3."""
+    bf16 or f16 inputs (attention.cu's wgmma kernels; the f16 forward is
+    attention_simt.cu's): each output's max abs error is at most twice the
+    plain version's in that dtype (the two round at the same places), and
+    lse is within 1e-3."""
     g = torch.Generator().manual_seed(batch * 1000 + seq + hq * 10 + hd)
-    q = torch.randn(batch, seq, hq, hd, generator=g).to(cuda_device, torch.bfloat16)
+    q = torch.randn(batch, seq, hq, hd, generator=g).to(cuda_device, dtype)
     if fused:
-        kv = torch.randn(batch, seq, 2 * hkv, hd, generator=g).to(cuda_device, torch.bfloat16)
+        kv = torch.randn(batch, seq, 2 * hkv, hd, generator=g).to(cuda_device, dtype)
         k, v = kv[:, :, :hkv], kv[:, :, hkv:]
         assert not k.is_contiguous()
     else:
-        k, v = (torch.randn(batch, seq, hkv, hd, generator=g).to(cuda_device, torch.bfloat16)
+        k, v = (torch.randn(batch, seq, hkv, hd, generator=g).to(cuda_device, dtype)
                 for _ in range(2))
     if impl == "splash":
         q, sm = q * ta.splash_scale(hd, q.dtype), 1.0
@@ -172,7 +182,7 @@ def test_cuda_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, h
     f32 = [x.float() for x in (q, k, v)]
     o_p, lse_p = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
     o_32, lse_32 = ta.attention_fwd_plain(*f32, sm, True)
-    do = (2 * o_p.float()).to(torch.bfloat16)
+    do = (2 * o_p.float()).to(dtype)
     args = (q, k, v, lse_p, ta.attention_delta(o_p, do), do, sm)
     args_32 = (*f32, lse_32, ta.attention_delta(o_32, do.float()), do.float(), sm)
     ta.reset_launches()
@@ -180,8 +190,9 @@ def test_cuda_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, h
     dq_k = ta.attention_dq(*args, impl)
     dk_k, dv_k = ta.attention_dkv(*args, impl)
     torch.cuda.synchronize()
+    suffix = "_f16" if dtype == torch.float16 else ""
     assert {n: c for n, c in ta.LAUNCHES.items() if c} == {
-        f"{impl}_fwd": 1, f"{impl}_dq": 1, f"{impl}_dkv": 1}
+        f"{impl}_fwd{suffix}": 1, f"{impl}_dq{suffix}": 1, f"{impl}_dkv{suffix}": 1}
     assert _max_err(lse_k, lse_32) <= 1e-3
     dk_p, dv_p = ta.attention_dkv_plain(*args)
     dk_32, dv_32 = ta.attention_dkv_plain(*args_32)
@@ -191,7 +202,8 @@ def test_cuda_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, h
         ("dk", dk_k, dk_p, dk_32),
         ("dv", dv_k, dv_p, dv_32),
     ):
-        assert got.shape == plain.shape and bool(torch.isfinite(got).all()), name
+        assert got.shape == plain.shape and got.dtype == dtype, name
+        assert bool(torch.isfinite(got).all()), name
         assert _max_err(got, ref) <= 2 * _max_err(plain, ref), name
 
 
@@ -210,17 +222,18 @@ def _attention_f64(q, k, v, do, sm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("batch,seq,hq,hkv,hd,fused", ERROR_RATIO_CASES)
 @pytest.mark.parametrize("impl", ["splash", "flash"])
 def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd,
-                                                 fused, dtype):
-    """The f32/f16 forward, dq and dk/dv kernels (attention_simt.cu): f16
-    within twice the plain f16 version's error against an f32 evaluation
-    of the same inputs; f32 within 4x the plain f32 version's against an
-    f64 evaluation (the forward's online softmax rounds its sums once more
-    per key tile than the plain version), TF32 off; lse within 1e-3."""
+                                                 fused):
+    """The f32 forward, dq and dk/dv kernels (attention_simt.cu) within 4x
+    the plain f32 version's error against an f64 evaluation (the forward's
+    online softmax rounds its sums once more per key tile than the plain
+    version), TF32 off; lse within 1e-3. (The f16 forward, the other
+    kernel of this file, is held in test_cuda_attention_kernels_error_ratio
+    beside the f16 backward.)"""
     assert not torch.backends.cuda.matmul.allow_tf32
+    dtype = torch.float32
     g = torch.Generator().manual_seed(batch * 1000 + seq + hq * 10 + hd)
     q = torch.randn(batch, seq, hq, hd, generator=g).to(cuda_device, dtype)
     if fused:
@@ -236,24 +249,14 @@ def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, 
     o_p, lse_p = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
     do = (2 * o_p.float()).to(dtype)
     args = (q, k, v, lse_p, ta.attention_delta(o_p, do), do, sm)
-    if dtype == torch.float32:
-        bar = 4
-        o_r, lse_r, (dq_r, dk_r, dv_r) = _attention_f64(q, k, v, do, sm)
-    else:
-        bar = 2
-        f32 = [x.float() for x in (q, k, v)]
-        o_r, lse_r = ta.attention_fwd_plain(*f32, sm, True)
-        args_32 = (*f32, lse_r, ta.attention_delta(o_r, do.float()), do.float(), sm)
-        dq_r = ta.attention_dq_plain(*args_32)
-        dk_r, dv_r = ta.attention_dkv_plain(*args_32)
+    o_r, lse_r, (dq_r, dk_r, dv_r) = _attention_f64(q, k, v, do, sm)
     ta.reset_launches()
     o_k, lse_k = ta.attention_fwd(q, k, v, sm, impl)
     dq_k = ta.attention_dq(*args, impl)
     dk_k, dv_k = ta.attention_dkv(*args, impl)
     torch.cuda.synchronize()
-    suffix = "_f32" if dtype == torch.float32 else "_f16"
     assert {n: c for n, c in ta.LAUNCHES.items() if c} == {
-        f"{impl}_fwd{suffix}": 1, f"{impl}_dq{suffix}": 1, f"{impl}_dkv{suffix}": 1}
+        f"{impl}_fwd_f32": 1, f"{impl}_dq_f32": 1, f"{impl}_dkv_f32": 1}
     assert _max_err(lse_k, lse_r) <= 1e-3
     dk_p, dv_p = ta.attention_dkv_plain(*args)
     for name, got, plain, ref in (
@@ -266,7 +269,7 @@ def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, 
         assert bool(torch.isfinite(got).all()), name
         e_k = float((got.double() - ref.double()).abs().max())
         e_p = float((plain.double() - ref.double()).abs().max())
-        assert e_k <= bar * e_p, (name, e_k, e_p)
+        assert e_k <= 4 * e_p, (name, e_k, e_p)
 
 
 @pytest.mark.cuda
@@ -274,8 +277,9 @@ def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, 
 @pytest.mark.parametrize("impl", ["auto", "splash", "flash"])
 def test_cuda_non_bf16_attention_runs_the_simt_kernels(cuda_device, dtype, impl):
     """An f32/f16 model on the card at a shape the kernels tile runs the
-    f32/f16 kernels, forward and backward, as the reference's rule runs its
-    kernels on any dtype; output and gradients match the plain path's.
+    f32/f16 kernels, forward and backward (f16's backward on attention.cu's
+    wgmma kernels), as the reference's rule runs its kernels on any dtype;
+    output and gradients match the plain path's.
     Tolerance: f32 1e-4 (f32 sums in another order), f16 1e-2 (both round
     O, P, dS and the gradients to f16 at values up to ~8, and may round
     one element to neighbouring f16 values). impl="xla" still runs the

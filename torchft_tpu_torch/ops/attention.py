@@ -10,9 +10,11 @@ output [B, S, Hq, hd].
   the counterpart of ``xla_attention``;
 - ``"splash"`` (K1, ``splash_attention_tpu``) and ``"flash"`` (K2,
   ``flash_attention_tpu``): the fused kernels, forward and backward,
-  reading GQA K/V heads in place (no repeat): ``csrc/attention.cu`` (wgmma
-  and TMA) for bf16, ``csrc/attention_simt.cu`` (f32 multiply-adds on the
-  CUDA cores) for f16 and f32;
+  reading GQA K/V heads in place (no repeat). ``ROUTES`` says which source
+  runs each (kernel, dtype): ``csrc/attention.cu`` (wgmma and TMA) the bf16
+  forward and the bf16 and f16 dq and dK/dV, ``csrc/attention_simt.cu``
+  (f32 multiply-adds on the CUDA cores) the f16 forward and every f32
+  kernel;
 - ``"auto"``: on a CUDA tensor ``"splash"`` when Hq != Hkv, else
   ``"flash"``; ``"xla"`` on a CPU tensor (as the reference does off the
   TPU).
@@ -27,9 +29,9 @@ The kernel wrappers (``attention_fwd``, ``attention_dq``,
 ``attention_dkv``) launch the CUDA kernels on a CUDA tensor, counting each
 launch in ``LAUNCHES``, and run the plain torch version below on a CPU
 tensor; the launches of the f32/f16 kernels are counted under keys ending
-in ``_f32``/``_f16``. A failed build, tile map or launch raises; a CUDA
-tensor the kernels do not take (another dtype, mixed dtypes, misaligned)
-raises rather than falling back.
+in ``_f32``/``_f16``, whichever source runs them. A failed build, tile map
+or launch raises; a CUDA tensor the kernels do not take (another dtype,
+mixed dtypes, misaligned) raises rather than falling back.
 
 The two fused paths differ where the references do:
 
@@ -75,6 +77,7 @@ __all__ = [
     "resolve_impl",
     "KERNEL_HEAD_DIMS",
     "KERNEL_DTYPES",
+    "ROUTES",
     "LAST_DISPATCH",
     "LAUNCHES",
     "reset_launches",
@@ -83,12 +86,27 @@ __all__ = [
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # head dims and dtypes the kernels are built for, and the sequence tiling
 # they need (the reference's rule, attention.py:218); SEQ_TILE is a multiple
-# of both kernel families' own tiles. bf16 runs attention.cu, f16 and f32
-# attention_simt.cu (its entry points take the dtype code below).
+# of both kernel families' own tiles.
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SEQ_TILE = 128
-_SIMT_DTYPE = {torch.float32: 0, torch.float16: 1}
+# (kernel, dtype) -> (source, the dtype code its entry point takes first;
+# None: the entry point has no code). attention.cu: 0 bf16, 1 f16 (dq and
+# dK/dV; its forward is bf16 only); attention_simt.cu: 0 f32, 1 f16
+# (forward only).
+ROUTES = {
+    ("fwd", torch.bfloat16): ("attention.cu", None),
+    ("dq", torch.bfloat16): ("attention.cu", 0),
+    ("dkv", torch.bfloat16): ("attention.cu", 0),
+    ("fwd", torch.float16): ("attention_simt.cu", 1),
+    ("dq", torch.float16): ("attention.cu", 1),
+    ("dkv", torch.float16): ("attention.cu", 1),
+    ("fwd", torch.float32): ("attention_simt.cu", 0),
+    ("dq", torch.float32): ("attention_simt.cu", 0),
+    ("dkv", torch.float32): ("attention_simt.cu", 0),
+}
+# dtypes some kernel of which reads its tensors by TMA (attention.cu)
+_TMA_DTYPES = {dtype for (_, dtype), (source, _) in ROUTES.items() if source == "attention.cu"}
 _LAUNCH_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
 # what a kernel entry point returns, besides CUDA error codes
 _STATUS = {-1: "a head dim it was not built for", -2: "libcuda has no cuTensorMapEncodeTiled",
@@ -224,15 +242,16 @@ def attention_dkv_plain(q, k, v, lse, delta, do, sm_scale: float) -> Tuple[torch
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=1)
 def _kernels() -> ctypes.CDLL:
-    """attention.cu: the bf16 kernels."""
+    """attention.cu: the Hopper kernels (dq and dK/dV take a dtype code
+    first)."""
     from torchft_tpu_torch.ops._build import load_library
 
     lib = load_library("attention.cu")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [ci, ci, ci, ci, ci, cf]  # B, S, Hq, Hkv, hd, sm_scale
     lib.tft_attention_fwd.argtypes = [vp] * 6 + dims + [ci, vp]
-    lib.tft_attention_dq.argtypes = [vp] * 8 + dims + [vp]
-    lib.tft_attention_dkv.argtypes = [vp] * 9 + dims + [vp]
+    lib.tft_attention_dq.argtypes = [ci] + [vp] * 8 + dims + [vp]
+    lib.tft_attention_dkv.argtypes = [ci] + [vp] * 9 + dims + [vp]
     for fn in (lib.tft_attention_fwd, lib.tft_attention_dq, lib.tft_attention_dkv,
                lib.tft_attention_tile):
         fn.restype = ci
@@ -242,7 +261,7 @@ def _kernels() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def _simt_kernels() -> ctypes.CDLL:
-    """attention_simt.cu: the f32 and f16 kernels (a dtype code first)."""
+    """attention_simt.cu: the CUDA-core kernels (a dtype code first)."""
     from torchft_tpu_torch.ops._build import load_library
 
     lib = load_library("attention_simt.cu")
@@ -266,26 +285,29 @@ def _check_tile(tile: int) -> None:
 
 
 def _entry(kernel: str, dtype: torch.dtype):
-    """The C entry point of ``kernel`` ("fwd", "dq", "dkv") for ``dtype``:
-    attention.cu's for bf16, attention_simt.cu's with the dtype code bound
-    for f32/f16. Builds the library at first use."""
-    if dtype == torch.bfloat16:
-        return getattr(_kernels(), f"tft_attention_{kernel}")
-    return functools.partial(getattr(_simt_kernels(), f"tft_simt_attention_{kernel}"),
-                             _SIMT_DTYPE[dtype])
+    """The C entry point of ``kernel`` ("fwd", "dq", "dkv") for ``dtype``
+    by ``ROUTES``, its dtype code bound. Builds the library at first use."""
+    source, code = ROUTES[(kernel, dtype)]
+    if source == "attention.cu":
+        fn = getattr(_kernels(), f"tft_attention_{kernel}")
+    else:
+        fn = getattr(_simt_kernels(), f"tft_simt_attention_{kernel}")
+    return fn if code is None else functools.partial(fn, code)
 
 
-def _dtype_names() -> str:
-    return ", ".join(str(d).replace("torch.", "") for d in KERNEL_DTYPES)
+def _dtype_names(dtypes=KERNEL_DTYPES) -> str:
+    return ", ".join(str(d).replace("torch.", "") for d in dtypes)
 
 
 def _check_inputs(*tensors: torch.Tensor) -> None:
     """Raise on what the kernels do not take: [B, S, H, hd] tensors of one
     dtype of ``KERNEL_DTYPES`` on one CUDA device, head dim contiguous.
-    bf16 tensors are read by TMA, which needs a 16-byte aligned base and
-    batch/sequence/head strides of whole 16 bytes (8 elements); f32/f16
-    tensors are read an element at a time, so an element-aligned base is
-    enough."""
+    bf16 and f16 tensors are read by TMA (``attention.cu``: the bf16
+    kernels, the f16 dq and dK/dV), which needs a 16-byte aligned base and
+    batch/sequence/head strides of whole 16 bytes (8 elements); the rule
+    holds in all three wrappers, so a tensor the backward would refuse is
+    refused at the forward. f32 tensors are read an element at a time, so
+    an element-aligned base is enough."""
     q = tensors[0]
     B, S, _, hd = q.shape
     if q.dtype not in KERNEL_DTYPES:
@@ -301,9 +323,10 @@ def _check_inputs(*tensors: torch.Tensor) -> None:
             raise ValueError("attention tensors must be [B, S, H, hd] on one CUDA device")
         if x.stride(3) != 1:
             raise ValueError("attention tensors need a contiguous head dim")
-        if q.dtype == torch.bfloat16:
+        if q.dtype in _TMA_DTYPES:
             if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
-                raise ValueError("bf16 attention tensors need a 16-byte aligned base and strides")
+                raise ValueError(f"{_dtype_names((q.dtype,))} attention tensors need a 16-byte "
+                                 "aligned base and strides")
         elif x.data_ptr() % x.element_size():
             raise ValueError("attention tensors need an element-aligned base")
 
@@ -332,7 +355,7 @@ def attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, impl: str
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of causal attention: ``attention_fwd_kernel`` (bf16) or
-    ``simt_fwd_kernel`` (f32/f16) on CUDA, counted as ``{impl}_fwd`` plus
+    ``simt_fwd_kernel`` (f16/f32) on CUDA, counted as ``{impl}_fwd`` plus
     the dtype's suffix, the plain version on the CPU. ``impl`` "splash"
     keeps P in f32 for P.V, "flash" rounds it to the input dtype."""
     p_f32 = impl == "splash"
@@ -352,7 +375,7 @@ def attention_fwd(
 
 
 def attention_dq(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> torch.Tensor:
-    """dq: ``attention_dq_kernel`` (bf16) or ``simt_dq_kernel`` (f32/f16)
+    """dq: ``attention_dq_kernel`` (bf16/f16) or ``simt_dq_kernel`` (f32)
     on CUDA, counted as ``{impl}_dq`` plus the dtype's suffix, the plain
     version on the CPU."""
     if not q.is_cuda:
@@ -371,8 +394,8 @@ def attention_dq(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> torch.T
 
 
 def attention_dkv(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv): ``attention_dkv_kernel`` (bf16) or ``simt_dkv_kernel``
-    (f32/f16) on CUDA, counted as ``{impl}_dkv`` plus the dtype's suffix,
+    """(dk, dv): ``attention_dkv_kernel`` (bf16/f16) or ``simt_dkv_kernel``
+    (f32) on CUDA, counted as ``{impl}_dkv`` plus the dtype's suffix,
     the plain version on the CPU."""
     if not q.is_cuda:
         return attention_dkv_plain(q, k, v, lse, delta, do, sm_scale)
@@ -393,7 +416,7 @@ def attention_dkv(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> Tuple[
 def _stat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """A per-row statistic (lse, delta) as the kernels read it: f32
     [B, Hq, S] on q's device, contiguous (the dq kernels read each query
-    row's value at its index) and 16-byte aligned (the bf16 dK/dV kernel
+    row's value at its index) and 16-byte aligned (the bf16/f16 dK/dV kernel
     loads a tile's rows by TMA); a strided or misaligned one is copied."""
     shape = (q.shape[0], q.shape[2], q.shape[1])
     if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device:

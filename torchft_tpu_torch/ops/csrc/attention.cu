@@ -7,13 +7,17 @@
 //     _flash_attention_dkv_kernel): q arrives pre-scaled by the caller,
 //     sm_scale = 1, and P stays f32 for P.V (p_split below);
 //   * K2, flash_attention_tpu (pallas/ops/tpu/flash_attention.py): the
-//     scores are scaled by sm_scale in f32, P is rounded to bf16 for P.V,
-//     and dS is scaled by sm_scale before its matmuls. K/V are read per
-//     query-head group, never repeated.
+//     scores are scaled by sm_scale in f32, P is rounded to the input type
+//     for P.V, and dS is scaled by sm_scale before its matmuls. K/V are
+//     read per query-head group, never repeated.
 //
-// Layout: q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D] in bf16, read through
-// their batch/sequence/head strides (the head-dim stride is 1); lse and
-// delta [B, Hq, S] f32. f32 and f16 tensors go to attention_simt.cu.
+// Layout: q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D], read through their
+// batch/sequence/head strides (the head-dim stride is 1); lse and delta
+// [B, Hq, S] f32. Element types: the forward takes bf16; dq and dK/dV take
+// bf16 or f16 (T, a dtype code at the entry point: the same TMA boxes,
+// swizzle, descriptors and fragment layouts, only the wgmma operand type and
+// the rounding of P, dS and the outputs differ). The f16 forward and every
+// f32 kernel are attention_simt.cu's.
 //
 // What bounds them on this card: tensor-core operations. At the bench_1b
 // shape (S 2048, D 128) each block does ~S*D multiply-adds per byte it
@@ -43,7 +47,7 @@
 //     the registers) through a 4-stage ring (3 at D 256). S = Q K^T and
 //     dP = dO V^T are SS wgmmas; dS = P (dP - delta) sm_scale, with P
 //     recomputed from lse, stays in the registers it was computed in,
-//     rounded to bf16 fragments, for dQ += dS K, an RS wgmma that reads
+//     rounded to T fragments, for dQ += dS K, an RS wgmma that reads
 //     the same K tile MN-major. Each thread reads its two rows' lse and
 //     delta once; dQ is written once from registers (no atomics).
 //   * dK/dV: a block owns one KV head's 64-key tile, loads its K/V once and
@@ -72,9 +76,11 @@
 //
 // Plain C interface, bound with ctypes: each entry point builds its tile
 // maps, launches on the caller's stream and returns cudaError_t, or one of
-// hopper::kErr* for a head dim it was not built for or a refused tile map.
+// hopper::kErr* for a head dim or dtype code it was not built for or a
+// refused tile map.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -98,13 +104,23 @@ __device__ __forceinline__ int64_t offset(const Strides& st, int b, int s,
   return b * st.b + s * st.s + h * st.h;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
+// Two floats rounded to T, `lo` in the low half (.x), as one register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack<bf16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 2^x on the MUFU unit alone: ~2^-22 relative error and subnormal results
-// flushed to 0, far below the bf16 rounding P goes through; -inf gives 0
+// 2^x on the MUFU unit alone: ~2^-22 relative error and results below
+// 2^-126 flushed to 0, far below the bf16 or f16 rounding P goes through
+// (f16's least subnormal is 2^-24); -inf gives 0
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -116,14 +132,14 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // The RS A fragment of columns [16c, 16c + 16) of an f32 accumulator
-// (layout in hopper.cuh), rounded to bf16.
-template <int N>
+// (layout in hopper.cuh), rounded to T.
+template <typename T, int N>
 __device__ __forceinline__ void acc_to_frag(uint32_t (&a)[4],
                                             const float (&d)[N], int c) {
-  a[0] = pack_bf16(d[8 * c + 0], d[8 * c + 1]);
-  a[1] = pack_bf16(d[8 * c + 2], d[8 * c + 3]);
-  a[2] = pack_bf16(d[8 * c + 4], d[8 * c + 5]);
-  a[3] = pack_bf16(d[8 * c + 6], d[8 * c + 7]);
+  a[0] = pack<T>(d[8 * c + 0], d[8 * c + 1]);
+  a[1] = pack<T>(d[8 * c + 2], d[8 * c + 3]);
+  a[2] = pack<T>(d[8 * c + 4], d[8 * c + 5]);
+  a[3] = pack<T>(d[8 * c + 6], d[8 * c + 7]);
 }
 
 // The same columns' residual after rounding to bf16, itself rounded: the lo
@@ -134,10 +150,10 @@ __device__ __forceinline__ void acc_to_frag_lo(uint32_t (&a)[4],
   float r[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) r[e] = d[8 * c + e] - round_bf16(d[8 * c + e]);
-  a[0] = pack_bf16(r[0], r[1]);
-  a[1] = pack_bf16(r[2], r[3]);
-  a[2] = pack_bf16(r[4], r[5]);
-  a[3] = pack_bf16(r[6], r[7]);
+  a[0] = pack<bf16>(r[0], r[1]);
+  a[1] = pack<bf16>(r[2], r[3]);
+  a[2] = pack<bf16>(r[4], r[5]);
+  a[3] = pack<bf16>(r[6], r[7]);
 }
 
 // ---------------------------------------------------------------------------
@@ -147,7 +163,7 @@ constexpr int kRows = 128;            // query rows of a forward block
 constexpr int kWgRows = 64;           // rows of one consumer warpgroup
 constexpr int kHopperThreads = 384;   // producer warpgroup + 2 consumers
 constexpr int kConsumerWarps = 8;     // arrivals that free a ring stage
-constexpr int kSubRow = 128;          // bytes per sub-tile row (64 bf16)
+constexpr int kSubRow = 128;          // bytes per sub-tile row (64 elements)
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
@@ -261,8 +277,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BK>(sc, desc_k_major(q_base + k_step(kk, kRows)),
-                     desc_k_major(k_base + k_step(kk, BK)), kk > 0);
+        wgmma_ss<BK, bf16>(sc, desc_k_major(q_base + k_step(kk, kRows)),
+                           desc_k_major(k_base + k_step(kk, BK)), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(sc);
@@ -303,7 +319,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       uint32_t p_hi[BK / 16][4], p_lo[kSplit ? BK / 16 : 1][4];
 #pragma unroll
       for (int c = 0; c < BK / 16; ++c) {
-        acc_to_frag(p_hi[c], sc, c);
+        acc_to_frag<bf16>(p_hi[c], sc, c);
         if constexpr (kSplit) acc_to_frag_lo(p_lo[c], sc, c);
       }
       wgmma_fence();
@@ -311,8 +327,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 #pragma unroll
       for (int c = 0; c < BK / 16; ++c) {
         const uint64_t dv = desc_mn_major(v_base + c * 16 * kSubRow, BK * kSubRow);
-        wgmma_rs<D>(acc, p_hi[c], dv);
-        if constexpr (kSplit) wgmma_rs<D>(acc, p_lo[c], dv);
+        wgmma_rs<D, bf16>(acc, p_hi[c], dv);
+        if constexpr (kSplit) wgmma_rs<D, bf16>(acc, p_lo[c], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -335,7 +351,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<uint32_t*>(o + offset(so, b, row[r], h) + col) =
-          pack_bf16(acc[4 * n + 2 * r] * inv[r], acc[4 * n + 2 * r + 1] * inv[r]);
+          pack<bf16>(acc[4 * n + 2 * r] * inv[r], acc[4 * n + 2 * r + 1] * inv[r]);
   }
   if (t == 0) {
 #pragma unroll
@@ -368,15 +384,15 @@ struct DkvShape {
   static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     attention_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, Strides sdk, Strides sdv, int S,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, Strides sdk, Strides sdv, int S,
                          int Hq, int group, float sm_scale) {
   using Shape = DkvShape<D>;
   constexpr int BQ = Shape::kQueries;
@@ -467,13 +483,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BQ>(st, desc_k_major(k_tile + k_step(kk, kDkvKeys)),
-                   desc_k_major(q_base + k_step(kk, BQ)), kk > 0);
+      wgmma_ss<BQ, T>(st, desc_k_major(k_tile + k_step(kk, kDkvKeys)),
+                      desc_k_major(q_base + k_step(kk, BQ)), kk > 0);
     if (!dv_group) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BQ>(dpt, desc_k_major(v_tile + k_step(kk, kDkvKeys)),
-                     desc_k_major(do_base + k_step(kk, BQ)), kk > 0);
+        wgmma_ss<BQ, T>(dpt, desc_k_major(v_tile + k_step(kk, kDkvKeys)),
+                        desc_k_major(do_base + k_step(kk, BQ)), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -507,17 +523,17 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       }
     }
 
-    // dV += P^T dO or dK += dS^T Q, the A operand rounded to bf16
+    // dV += P^T dO or dK += dS^T Q, the A operand rounded to T
     uint32_t frag[BQ / 16][4];
 #pragma unroll
-    for (int c = 0; c < BQ / 16; ++c) acc_to_frag(frag[c], st, c);
+    for (int c = 0; c < BQ / 16; ++c) acc_to_frag<T>(frag[c], st, c);
     const uint32_t bt_tile = dv_group ? do_base : q_base;
     wgmma_fence();
     fence_operand(acc);
 #pragma unroll
     for (int c = 0; c < BQ / 16; ++c)
-      wgmma_rs<D>(acc, frag[c],
-                  desc_mn_major(bt_tile + c * 16 * kSubRow, BQ * kSubRow));
+      wgmma_rs<D, T>(acc, frag[c],
+                     desc_mn_major(bt_tile + c * 16 * kSubRow, BQ * kSubRow));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(acc);
@@ -525,7 +541,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  bf16* out = dv_group ? dv : dk;
+  T* out = dv_group ? dv : dk;
   const Strides so = dv_group ? sdv : sdk;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -533,7 +549,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<uint32_t*>(out + offset(so, b, key + 8 * r, kvh) + col) =
-          pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+          pack<T>(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
   }
 }
 
@@ -555,14 +571,14 @@ struct DqShape {
   static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     attention_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const __grid_constant__ CUtensorMap tdo,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        const float* __restrict__ delta, T* __restrict__ dq,
                         Strides sdq, int S, int Hq, int group, float sm_scale) {
   using Shape = DqShape<D>;
   constexpr int BK = Shape::kKeys;
@@ -652,12 +668,12 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BK>(sc, desc_k_major(q_base + k_step(kk, kRows)),
-                     desc_k_major(k_base + k_step(kk, BK)), kk > 0);
+        wgmma_ss<BK, T>(sc, desc_k_major(q_base + k_step(kk, kRows)),
+                        desc_k_major(k_base + k_step(kk, BK)), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BK>(dp, desc_k_major(do_base + k_step(kk, kRows)),
-                     desc_k_major(v_base + k_step(kk, BK)), kk > 0);
+        wgmma_ss<BK, T>(dp, desc_k_major(do_base + k_step(kk, kRows)),
+                        desc_k_major(v_base + k_step(kk, BK)), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(sc);
@@ -677,16 +693,16 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         sc[i] = (dp[i] - row_delta[r]) * p * sm_scale;
       }
 
-      // dQ += dS K, dS rounded to bf16 fragments, K MN-major
+      // dQ += dS K, dS rounded to T fragments, K MN-major
       uint32_t frag[BK / 16][4];
 #pragma unroll
-      for (int c = 0; c < BK / 16; ++c) acc_to_frag(frag[c], sc, c);
+      for (int c = 0; c < BK / 16; ++c) acc_to_frag<T>(frag[c], sc, c);
       wgmma_fence();
       fence_operand(acc);
 #pragma unroll
       for (int c = 0; c < BK / 16; ++c)
-        wgmma_rs<D>(acc, frag[c],
-                    desc_mn_major(k_base + c * 16 * kSubRow, BK * kSubRow));
+        wgmma_rs<D, T>(acc, frag[c],
+                       desc_mn_major(k_base + c * 16 * kSubRow, BK * kSubRow));
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(acc);
@@ -701,7 +717,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<uint32_t*>(dq + offset(sdq, b, row[r], h) + col) =
-          pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+          pack<T>(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
   }
 }
 
@@ -721,11 +737,12 @@ int launch(Kernel kernel, int threads, int smem, dim3 grid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile map of tensor `i` of the strides array, `rows` rows a box.
+// The tile map of tensor `i` (of T) of the strides array, `rows` rows a box.
+template <typename T>
 int map_at(CUtensorMap* map, const void* p, const int64_t* st, int i, int B,
            int S, int H, int D, int rows) {
   const Strides s = strides_at(st, i);
-  return tile_map(map, p, B, S, H, D, s.b, s.s, s.h, rows);
+  return tile_map<T>(map, p, B, S, H, D, s.b, s.s, s.h, rows);
 }
 
 template <int D>
@@ -734,9 +751,9 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int p_split, cudaStream_t stream) {
   using Shape = FwdShape<D>;
   CUtensorMap tq, tk, tv;
-  int err = map_at(&tq, q, st, 0, B, S, Hq, D, kRows);
-  if (err == 0) err = map_at(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
-  if (err == 0) err = map_at(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
+  int err = map_at<bf16>(&tq, q, st, 0, B, S, Hq, D, kRows);
+  if (err == 0) err = map_at<bf16>(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
+  if (err == 0) err = map_at<bf16>(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
   if (err != 0) return err;
   const dim3 grid(S / kRows * Hq * B);
   auto kernel = p_split ? attention_fwd_kernel<D, true>
@@ -746,41 +763,53 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                 Hq / Hkv, sm_scale);
 }
 
-template <int D>
+template <int D, typename T>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const float* lse, const float* delta, void* dqp, const int64_t* st,
        int B, int S, int Hq, int Hkv, float sm_scale, cudaStream_t stream) {
   using Shape = DqShape<D>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = map_at(&tq, q, st, 0, B, S, Hq, D, kRows);
-  if (err == 0) err = map_at(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
-  if (err == 0) err = map_at(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
-  if (err == 0) err = map_at(&tdo, dout, st, 3, B, S, Hq, D, kRows);
+  int err = map_at<T>(&tq, q, st, 0, B, S, Hq, D, kRows);
+  if (err == 0) err = map_at<T>(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
+  if (err == 0) err = map_at<T>(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
+  if (err == 0) err = map_at<T>(&tdo, dout, st, 3, B, S, Hq, D, kRows);
   if (err != 0) return err;
-  return launch(attention_dq_kernel<D>, kHopperThreads, Shape::kSmem,
+  return launch(attention_dq_kernel<D, T>, kHopperThreads, Shape::kSmem,
                 dim3(S / kRows * Hq * B), stream, tq, tk, tv, tdo, lse, delta,
-                static_cast<bf16*>(dqp), strides_at(st, 4), S, Hq, Hq / Hkv,
+                static_cast<T*>(dqp), strides_at(st, 4), S, Hq, Hq / Hkv,
                 sm_scale);
 }
 
-template <int D>
+template <int D, typename T>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* dkp, void* dvp,
         const int64_t* st, int B, int S, int Hq, int Hkv, float sm_scale,
         cudaStream_t stream) {
   using Shape = DkvShape<D>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = map_at(&tq, q, st, 0, B, S, Hq, D, Shape::kQueries);
-  if (err == 0) err = map_at(&tk, k, st, 1, B, S, Hkv, D, kDkvKeys);
-  if (err == 0) err = map_at(&tv, v, st, 2, B, S, Hkv, D, kDkvKeys);
-  if (err == 0) err = map_at(&tdo, dout, st, 3, B, S, Hq, D, Shape::kQueries);
+  int err = map_at<T>(&tq, q, st, 0, B, S, Hq, D, Shape::kQueries);
+  if (err == 0) err = map_at<T>(&tk, k, st, 1, B, S, Hkv, D, kDkvKeys);
+  if (err == 0) err = map_at<T>(&tv, v, st, 2, B, S, Hkv, D, kDkvKeys);
+  if (err == 0) err = map_at<T>(&tdo, dout, st, 3, B, S, Hq, D, Shape::kQueries);
   if (err != 0) return err;
-  return launch(attention_dkv_kernel<D>, kHopperThreads, Shape::kSmem,
+  return launch(attention_dkv_kernel<D, T>, kHopperThreads, Shape::kSmem,
                 dim3(S / kDkvKeys * Hkv * B), stream, tq, tk, tv, tdo, lse, delta,
-                static_cast<bf16*>(dkp), static_cast<bf16*>(dvp),
+                static_cast<T*>(dkp), static_cast<T*>(dvp),
                 strides_at(st, 4), strides_at(st, 5), S, Hq, Hq / Hkv,
                 sm_scale);
 }
+
+// fn<D, T>(args...) for dtype code 0 (bf16) or 1 (__half) and D 64/128/256
+#define TFT_DISPATCH(fn, dtype, D, ...)                              \
+  switch ((dtype) * 1000 + (D)) {                                    \
+    case 64: return fn<64, bf16>(__VA_ARGS__);                       \
+    case 128: return fn<128, bf16>(__VA_ARGS__);                     \
+    case 256: return fn<256, bf16>(__VA_ARGS__);                     \
+    case 1064: return fn<64, __half>(__VA_ARGS__);                   \
+    case 1128: return fn<128, __half>(__VA_ARGS__);                  \
+    case 1256: return fn<256, __half>(__VA_ARGS__);                  \
+  }                                                                  \
+  return (dtype) == 0 || (dtype) == 1 ? kErrHeadDim : kErrDtype;
 
 }  // namespace
 
@@ -809,43 +838,23 @@ int tft_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return kErrHeadDim;
 }
 
-// strides for q, k, v, do, dq
-int tft_attention_dq(const void* q, const void* k, const void* v,
+// dtype: 0 bf16, 1 f16. strides for q, k, v, do, dq
+int tft_attention_dq(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dqp, const int64_t* strides, int B, int S, int Hq,
                      int Hkv, int D, float sm_scale, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return dq<64>(q, k, v, dout, lse, delta, dqp, strides, B, S, Hq, Hkv,
-                    sm_scale, stream);
-    case 128:
-      return dq<128>(q, k, v, dout, lse, delta, dqp, strides, B, S, Hq, Hkv,
-                     sm_scale, stream);
-    case 256:
-      return dq<256>(q, k, v, dout, lse, delta, dqp, strides, B, S, Hq, Hkv,
-                     sm_scale, stream);
-  }
-  return kErrHeadDim;
+  TFT_DISPATCH(dq, dtype, D, q, k, v, dout, lse, delta, dqp, strides, B, S, Hq,
+               Hkv, sm_scale, stream)
 }
 
-// strides for q, k, v, do, dk, dv
-int tft_attention_dkv(const void* q, const void* k, const void* v,
+// dtype: 0 bf16, 1 f16. strides for q, k, v, do, dk, dv
+int tft_attention_dkv(int dtype, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dkp, void* dvp, const int64_t* strides, int B,
                       int S, int Hq, int Hkv, int D, float sm_scale,
                       cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return dkv<64>(q, k, v, dout, lse, delta, dkp, dvp, strides, B, S, Hq,
-                     Hkv, sm_scale, stream);
-    case 128:
-      return dkv<128>(q, k, v, dout, lse, delta, dkp, dvp, strides, B, S, Hq,
-                      Hkv, sm_scale, stream);
-    case 256:
-      return dkv<256>(q, k, v, dout, lse, delta, dkp, dvp, strides, B, S, Hq,
-                      Hkv, sm_scale, stream);
-  }
-  return kErrHeadDim;
+  TFT_DISPATCH(dkv, dtype, D, q, k, v, dout, lse, delta, dkp, dvp, strides, B,
+               S, Hq, Hkv, sm_scale, stream)
 }
 
 }  // extern "C"

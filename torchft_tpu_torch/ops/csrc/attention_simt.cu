@@ -1,10 +1,12 @@
-// Causal GQA attention, forward and backward, for f32 and f16 tensors, on the
-// CUDA cores (sm_90a).
+// Causal GQA attention on the CUDA cores (sm_90a): forward, dq and dK/dV for
+// f32 tensors, and the forward for f16 tensors.
 //
 // Replaces the same Pallas kernels as attention.cu (K1 splash_attention_tpu,
-// K2 flash_attention_tpu in torchft_tpu/ops/attention.py) for the dtypes
-// attention.cu does not take: the reference's dispatch has no dtype clause
-// and runs its kernels on an f32 model. Same contract as attention.cu:
+// K2 flash_attention_tpu in torchft_tpu/ops/attention.py) where attention.cu
+// has no kernel: the reference's dispatch has no dtype clause and runs its
+// kernels on an f32 model. (The f16 dq and dK/dV are attention.cu's
+// tensor-core kernels; the kernels below are templated on T all the same,
+// and only the f16 forward is built.) Same contract as attention.cu:
 //   * q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D] in T (float or __half), read
 //     through their batch/sequence/head strides (the head-dim stride is 1);
 //     lse and delta [B, Hq, S] f32; GQA K/V heads read in place;
@@ -497,6 +499,16 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   }                                                                  \
   return (dtype) == 0 || (dtype) == 1 ? kErrHeadDim : kErrDtype;
 
+// fn<float, D>(args...) for dtype code 0 and D 64/128/256: the f16 dq and
+// dK/dV run attention.cu's tensor-core kernels, so code 1 is refused here
+#define TFT_DISPATCH_F32(fn, dtype, D, ...)                          \
+  switch ((dtype) * 1000 + (D)) {                                    \
+    case 64: return fn<float, 64>(__VA_ARGS__);                      \
+    case 128: return fn<float, 128>(__VA_ARGS__);                    \
+    case 256: return fn<float, 256>(__VA_ARGS__);                    \
+  }                                                                  \
+  return (dtype) == 0 ? kErrHeadDim : kErrDtype;
+
 }  // namespace
 
 extern "C" {
@@ -515,24 +527,25 @@ int tft_simt_attention_fwd(int dtype, const void* q, const void* k,
                sm_scale, p_f32, stream)
 }
 
-// strides for q, k, v, do, dq
+// dtype: 0 f32 (1, f16, is attention.cu's). strides for q, k, v, do, dq
 int tft_simt_attention_dq(int dtype, const void* q, const void* k,
                           const void* v, const void* dout, const float* lse,
                           const float* delta, void* dqp,
                           const int64_t* strides, int B, int S, int Hq,
                           int Hkv, int D, float sm_scale, cudaStream_t stream) {
-  TFT_DISPATCH(dq, dtype, D, q, k, v, dout, lse, delta, dqp, strides, B, S, Hq,
+  TFT_DISPATCH_F32(dq, dtype, D, q, k, v, dout, lse, delta, dqp, strides, B, S, Hq,
                Hkv, sm_scale, stream)
 }
 
-// strides for q, k, v, do, dk, dv
+// dtype: 0 f32 (1, f16, is attention.cu's). strides for q, k, v, do, dk,
+// dv
 int tft_simt_attention_dkv(int dtype, const void* q, const void* k,
                            const void* v, const void* dout, const float* lse,
                            const float* delta, void* dkp, void* dvp,
                            const int64_t* strides, int B, int S, int Hq,
                            int Hkv, int D, float sm_scale,
                            cudaStream_t stream) {
-  TFT_DISPATCH(dkv, dtype, D, q, k, v, dout, lse, delta, dkp, dvp, strides, B,
+  TFT_DISPATCH_F32(dkv, dtype, D, q, k, v, dout, lse, delta, dkp, dvp, strides, B,
                S, Hq, Hkv, sm_scale, stream)
 }
 
