@@ -21,8 +21,8 @@ Hkv 8, hd 128) in ``--dtype`` (bf16 unless given):
   and, from one step under ``torch.profiler``, the device time of the
   attention kernels and of all kernels.
 
-Each turn prints one JSON line and a line with the backward's ``ms`` and
-``call_ms`` (dq and dK/dV, K1 and K2); the last line holds, per tree, the
+Each turn prints one JSON line and a line with every kernel's ``ms`` and
+``call_ms`` (forward, dq and dK/dV, K1 and K2); the last line holds, per tree, the
 median of its turns, and each kernel's median ``ms`` in NEW over that in
 OLD. Needs one CUDA card; exits non-zero without one.
 """
@@ -130,7 +130,7 @@ def main() -> int:
         print(json.dumps(turn), flush=True)
         print(f"turn {label}: " + ", ".join(
             f"{key} ms {turn['kernels'][key]['ms']:.4f} call_ms {turn['kernels'][key]['call_ms']:.4f}"
-            for key in (f"{impl}_{kernel}" for impl in ("splash", "flash") for kernel in ("dq", "dkv"))),
+            for key in turn["kernels"]),
             flush=True)
         turns.append(turn)
 

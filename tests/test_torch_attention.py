@@ -14,9 +14,12 @@
   f16 against ``xla_attention`` in f32 on the same f16-rounded inputs.
   ``flash_attention_tpu`` has no interpret mode: its Pallas kernel runs on
   a TPU only, so the reference here is the function it computes.
+- The plain forward over key tiles (the kernels' online softmax) against
+  the same references.
 - A 1-layer Llama through splash in both packages, weights carried across
   by ``convert.py``.
-- The dispatcher's decision table.
+- The dispatcher's decision table, and ``TORCHFT_TPU_ATTENTION`` read
+  where no implementation is passed.
 
 Inputs are made from a seed with numpy and handed to both packages.
 """
@@ -122,6 +125,32 @@ def test_flash_plain_f16_matches_jax_xla(hq, hkv, hd):
     _assert_close(got, ref, 1e-2)
 
 
+@pytest.mark.parametrize("dtype_name", ["float32", "float16"])
+@pytest.mark.parametrize("hd", [64, 256], ids=["hd64", "hd256"])
+@pytest.mark.parametrize("impl", ["splash", "flash"])
+def test_tiled_plain_forward_matches_jax_xla(impl, hd, dtype_name):
+    """The plain forward over the forward kernel's key tiles (an online
+    softmax: P taken, and for flash rounded, at each tile's running max)
+    against the materialized reference in f32 on the same (f16-rounded)
+    inputs, output and lse. Tolerance: f32 1e-4 (sums in another order);
+    f16 4e-3 (O rounded to f16 at values up to ~3, and flash's P rounded to
+    f16, as in the splash f16 bar above)."""
+    arrays = [a.astype(np.float16).astype(np.float32) for a in _inputs(4, 2, batch=2, hd=hd)]
+    dtype = getattr(torch, dtype_name)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    sm = hd ** -0.5
+    if impl == "splash":
+        q, sm = q * ta.splash_scale(hd, dtype), 1.0
+    o, lse = ta.attention_fwd_plain(q, k, v, sm, impl == "splash", ta.FWD_KEY_TILE[hd])
+    o_u, lse_u = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
+    qj = np.asarray(q.float()) * (sm * hd ** 0.5)  # xla_attention divides by sqrt(hd)
+    ref = np.asarray(xla_attention(jnp.asarray(qj), *(jnp.asarray(a) for a in arrays[1:]), None))
+    np.testing.assert_allclose(o.float().numpy(), ref, rtol=TOL[dtype_name], atol=TOL[dtype_name])
+    torch.testing.assert_close(lse, lse_u, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_u, rtol=1e-5, atol=1e-5)
+
+
 def test_plain_backward_is_the_autograd_of_plain_forward():
     """The hand-written plain backward equals torch autograd through a
     softmax attention forward (f32, flash scale): the kernels' backward
@@ -199,7 +228,7 @@ DISPATCH = [
     ("flash", 16, 16, 4, 4, False, BF16, "flash"),
     ("splash", 16, 16, 4, 2, True, BF16, "xla"),
     # the rule has no dtype clause: f32 and f16 on the card at a shape the
-    # kernels tile run a kernel too (attention_simt.cu) ...
+    # kernels tile run a kernel too (attention_simt.cu, attention.cu) ...
     ("auto", 2048, 128, 16, 8, True, F32, "splash"),
     ("auto", 2048, 128, 16, 16, True, F16, "flash"),
     ("splash", 2048, 128, 16, 8, True, F32, "splash"),
@@ -242,6 +271,94 @@ def test_tileable_cuda_never_resolves_to_xla():
         assert ta.resolve_impl(impl, (2, seq, hq, hd), hkv, True, dtype) != "xla"
     with pytest.raises(ValueError, match="unknown attention impl"):
         ta.resolve_impl("cudnn", (1, 128, 4, 64), 4, True, torch.bfloat16)
+
+
+# TORCHFT_TPU_ATTENTION (None: unset), S, Hq, Hkv, on the card -> what a
+# call that passes no implementation resolves to
+ENV_DISPATCH = [
+    (None, 2048, 16, 8, True, "splash"),
+    (None, 2048, 16, 16, True, "flash"),
+    ("auto", 2048, 16, 8, True, "splash"),
+    ("auto", 2048, 16, 16, True, "flash"),
+    ("xla", 2048, 16, 8, True, "xla"),
+    ("flash", 2048, 16, 8, True, "flash"),
+    ("splash", 2048, 16, 16, True, "splash"),
+    ("splash", 100, 16, 8, True, "xla"),
+    # off the card every value resolves to xla, as in the reference
+    *[(value, 2048, 16, 8, False, "xla") for value in (None, "auto", "xla", "splash", "flash")],
+]
+
+
+@pytest.mark.parametrize("value,seq,hq,hkv,cuda,want", ENV_DISPATCH)
+def test_no_impl_reads_the_variable(monkeypatch, value, seq, hq, hkv, cuda, want):
+    if value is None:
+        monkeypatch.delenv(ta.ATTENTION_ENV, raising=False)
+    else:
+        monkeypatch.setenv(ta.ATTENTION_ENV, value)
+    assert ta.ATTENTION_ENV == "TORCHFT_TPU_ATTENTION"
+    assert ta.resolve_impl(None, (1, seq, hq, 128), hkv, cuda, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("value", ["auto", "xla", "splash", "flash", "cudnn"])
+def test_an_explicit_impl_beats_the_variable(monkeypatch, value):
+    monkeypatch.setenv(ta.ATTENTION_ENV, value)
+    for impl, hkv, cuda, want in (("splash", 16, True, "splash"), ("flash", 8, True, "flash"),
+                                  ("xla", 8, True, "xla"), ("auto", 8, True, "splash"),
+                                  ("splash", 8, False, "splash")):
+        assert ta.resolve_impl(impl, (1, 2048, 16, 128), hkv, cuda, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("value", [None, "auto", "xla", "splash", "flash"])
+def test_causal_attention_reads_the_variable_on_each_call(monkeypatch, value):
+    """On CPU tensors a call with no implementation runs the materialized
+    path for every value of the variable; an explicit "splash" still runs
+    the plain splash version."""
+    if value is None:
+        monkeypatch.delenv(ta.ATTENTION_ENV, raising=False)
+    else:
+        monkeypatch.setenv(ta.ATTENTION_ENV, value)
+    q, k, v = (torch.from_numpy(a[:, :128, :, :16].copy()) for a in _inputs(4, 2))
+    out = ta.causal_attention(q, k, v)
+    assert ta.LAST_DISPATCH == "xla"
+    assert torch.equal(out, ta.xla_attention(q, k, v))
+    ta.causal_attention(q, k, v, impl="splash")
+    assert ta.LAST_DISPATCH == "splash"
+
+
+def test_an_unknown_value_of_the_variable_raises(monkeypatch):
+    """The reference runs flash for a value it does not know; the port
+    names the variable, on the card and off it."""
+    monkeypatch.setenv(ta.ATTENTION_ENV, "cudnn")
+    with pytest.raises(ValueError, match="unknown TORCHFT_TPU_ATTENTION value 'cudnn'"):
+        ta.resolve_impl(None, (1, 2048, 16, 128), 8, True, torch.bfloat16)
+    q = torch.zeros(1, 16, 2, 16)
+    with pytest.raises(ValueError, match="TORCHFT_TPU_ATTENTION"):
+        ta.causal_attention(q, q, q)
+
+
+def test_llama_default_attention_reaches_causal_attention_as_none(monkeypatch):
+    """Llama and its layers default to attention=None and pass it on, so
+    the variable decides; the trainer builds its model that way."""
+    from torchft_tpu_torch import train
+
+    seen = []
+
+    def record(q, k, v, cfg, impl):
+        seen.append(impl)
+        return ta.causal_attention(q, k, v, cfg, impl=impl)
+
+    monkeypatch.setattr(tl, "causal_attention", record)
+    monkeypatch.setenv(ta.ATTENTION_ENV, "xla")
+    cfg = dataclasses.replace(tl.CONFIGS["tiny"], n_layers=2, dtype=torch.float32)
+    model = tl.Llama(cfg, device="cpu")
+    assert [layer.attention for layer in model.layers] == [None, None]
+    model.init_weights(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.RandomState(4).randint(0, cfg.vocab_size, (1, 17)))
+    model.loss(tokens[:, :-1], tokens[:, 1:])
+    assert seen == [None, None] and ta.LAST_DISPATCH == "xla"
+    trainer_model, _, _ = train.build_trainer(
+        train.TrainConfig(config="debug", seq_len=16), 0, torch.device("cpu"))
+    assert {layer.attention for layer in trainer_model.layers} == {None}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
@@ -318,14 +435,13 @@ def test_cpu_wrappers_run_the_plain_versions_in_every_dtype(impl, dtype):
     assert not any(ta.LAUNCHES.values())
 
 
-# (kernel, dtype) -> (source, dtype code its entry point takes, None for
-# none): the tensor-core kernels of attention.cu run bf16 and the f16
-# backward; the CUDA-core kernels of attention_simt.cu the f16 forward and
-# every f32 kernel
+# (kernel, dtype) -> (source, dtype code its entry point takes first): the
+# tensor-core kernels of attention.cu run bf16 and f16, the CUDA-core
+# kernels of attention_simt.cu every f32 kernel
 WANT_ROUTES = {
-    ("fwd", BF16): ("attention.cu", None), ("dq", BF16): ("attention.cu", 0),
+    ("fwd", BF16): ("attention.cu", 0), ("dq", BF16): ("attention.cu", 0),
     ("dkv", BF16): ("attention.cu", 0),
-    ("fwd", F16): ("attention_simt.cu", 1), ("dq", F16): ("attention.cu", 1),
+    ("fwd", F16): ("attention.cu", 1), ("dq", F16): ("attention.cu", 1),
     ("dkv", F16): ("attention.cu", 1),
     ("fwd", F32): ("attention_simt.cu", 0), ("dq", F32): ("attention_simt.cu", 0),
     ("dkv", F32): ("attention_simt.cu", 0),
@@ -347,7 +463,7 @@ def test_each_kernel_and_dtype_calls_its_sources_entry_point(monkeypatch, kernel
     source, code = WANT_ROUTES[(kernel, dtype)]
     assert ta.ROUTES[(kernel, dtype)] == (source, code)
     got = ta._entry(kernel, dtype)("q", "k")
-    assert got == (source, kernel, ("q", "k") if code is None else (code, "q", "k"))
+    assert got == (source, kernel, (code, "q", "k"))
 
 
 def test_every_kernel_dtype_has_one_route():

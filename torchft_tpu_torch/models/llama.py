@@ -18,7 +18,7 @@ reference's stacked ``[L, ...]`` arrays (``convert.py`` maps between them):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -107,7 +107,7 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
 class LlamaLayer(nn.Module):
     """One pre-norm transformer layer (attention + SwiGLU MLP)."""
 
-    def __init__(self, cfg: LlamaConfig, attention: str) -> None:
+    def __init__(self, cfg: LlamaConfig, attention: Optional[str]) -> None:
         super().__init__()
         d, hd = cfg.dim, cfg.head_dim
         kvd = cfg.n_kv_heads * hd
@@ -146,13 +146,14 @@ class Llama(nn.Module):
     """The Llama model: ``embed`` [V, D], ``layers.{i}.*``, ``final_norm``
     [D], ``lm_head`` [D, V], allocated on ``device`` (``cuda`` unless
     another is given). ``attention`` picks ``causal_attention``'s
-    implementation; ``remat`` checkpoints each layer in training."""
+    implementation (None: ``TORCHFT_TPU_ATTENTION`` on each call, "auto"
+    if unset); ``remat`` checkpoints each layer in training."""
 
     def __init__(
         self,
         cfg: LlamaConfig,
         device: "str | torch.device | None" = None,
-        attention: str = "auto",
+        attention: Optional[str] = None,
         remat: bool = False,
     ) -> None:
         super().__init__()

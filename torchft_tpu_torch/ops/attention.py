@@ -11,13 +11,19 @@ output [B, S, Hq, hd].
 - ``"splash"`` (K1, ``splash_attention_tpu``) and ``"flash"`` (K2,
   ``flash_attention_tpu``): the fused kernels, forward and backward,
   reading GQA K/V heads in place (no repeat). ``ROUTES`` says which source
-  runs each (kernel, dtype): ``csrc/attention.cu`` (wgmma and TMA) the bf16
-  forward and the bf16 and f16 dq and dK/dV, ``csrc/attention_simt.cu``
-  (f32 multiply-adds on the CUDA cores) the f16 forward and every f32
-  kernel;
+  runs each (kernel, dtype): ``csrc/attention.cu`` (wgmma and TMA) every
+  bf16 and f16 kernel, ``csrc/attention_simt.cu`` (f32 multiply-adds on
+  the CUDA cores) every f32 kernel;
 - ``"auto"``: on a CUDA tensor ``"splash"`` when Hq != Hkv, else
   ``"flash"``; ``"xla"`` on a CPU tensor (as the reference does off the
   TPU).
+- No choice passed (``impl=None``, the model's default): the choice is
+  read from ``TORCHFT_TPU_ATTENTION`` on every call, ``"auto"`` if it is
+  unset, as the reference reads it (``:217``); off the card every value
+  of the variable resolves to ``"xla"``, as there. An unknown value raises
+  ``ValueError`` (the reference would run flash). The reference's
+  ``TORCHFT_TPU_SPLASH_BLOCK[_KV]`` set the Pallas splash tiles; the CUDA
+  kernels' tiles are fixed, so they have no counterpart here.
 - On a CUDA tensor at a shape the kernels do not tile (S % 128, hd not
   in 64/128/256), every choice resolves to ``"xla"``, as the reference's
   rule does. The rule has no dtype clause: at a shape they tile, bf16,
@@ -39,10 +45,13 @@ The two fused paths differ where the references do:
   kernel (``attention.py:161-163``; the product stays on the autograd graph,
   so dq is scaled by the same constant), then runs the kernel with
   ``sm_scale`` 1; the forward keeps P in f32 for P.V (the bf16 kernel
-  carries it as a bf16 hi + lo pair);
+  carries it as a bf16 hi + lo pair, the f16 kernel as an f16 hi + lo pair
+  of P * 2^15);
 - K2 multiplies the f32 scores by ``sm_scale`` = 1/sqrt(hd) inside the
   kernel, rounds P to the input dtype for P.V, and scales dS by
-  ``sm_scale``.
+  ``sm_scale``. The kernel, like the reference's flash kernel, rounds P at
+  each key tile's running max; ``attention_fwd_plain`` rounds it at the
+  row's final max unless given the kernel's ``FWD_KEY_TILE``.
 
 Both backwards recompute P = exp(s - lse) from the forward's f32
 logsumexp, take delta = rowsum(O * dO) in f32 (``splash_attention_kernel.py
@@ -55,6 +64,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 import threading
 from typing import Any, Dict, Optional, Tuple
 
@@ -75,7 +85,9 @@ __all__ = [
     "attention_dkv_plain",
     "attention_delta",
     "resolve_impl",
+    "ATTENTION_ENV",
     "KERNEL_HEAD_DIMS",
+    "FWD_KEY_TILE",
     "KERNEL_DTYPES",
     "ROUTES",
     "LAST_DISPATCH",
@@ -90,15 +102,16 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SEQ_TILE = 128
-# (kernel, dtype) -> (source, the dtype code its entry point takes first;
-# None: the entry point has no code). attention.cu: 0 bf16, 1 f16 (dq and
-# dK/dV; its forward is bf16 only); attention_simt.cu: 0 f32, 1 f16
-# (forward only).
+# keys per K/V tile of attention.cu's forward, per head dim (FwdShape::kKeys):
+# where K2's online softmax rounds P
+FWD_KEY_TILE = {64: 128, 128: 128, 256: 64}
+# (kernel, dtype) -> (source, the dtype code its entry point takes first).
+# attention.cu: 0 bf16, 1 f16; attention_simt.cu: 0 f32.
 ROUTES = {
-    ("fwd", torch.bfloat16): ("attention.cu", None),
+    ("fwd", torch.bfloat16): ("attention.cu", 0),
     ("dq", torch.bfloat16): ("attention.cu", 0),
     ("dkv", torch.bfloat16): ("attention.cu", 0),
-    ("fwd", torch.float16): ("attention_simt.cu", 1),
+    ("fwd", torch.float16): ("attention.cu", 1),
     ("dq", torch.float16): ("attention.cu", 1),
     ("dkv", torch.float16): ("attention.cu", 1),
     ("fwd", torch.float32): ("attention_simt.cu", 0),
@@ -108,6 +121,9 @@ ROUTES = {
 # dtypes some kernel of which reads its tensors by TMA (attention.cu)
 _TMA_DTYPES = {dtype for (_, dtype), (source, _) in ROUTES.items() if source == "attention.cu"}
 _LAUNCH_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
+# the variable causal_attention reads its choice from when given none
+ATTENTION_ENV = "TORCHFT_TPU_ATTENTION"
+IMPLS = ("auto", "xla", "splash", "flash")
 # what a kernel entry point returns, besides CUDA error codes
 _STATUS = {-1: "a head dim it was not built for", -2: "libcuda has no cuTensorMapEncodeTiled",
            -3: "cuTensorMapEncodeTiled refused a tile map", -4: "a dtype it was not built for"}
@@ -176,19 +192,37 @@ def _masked_scores(qf: torch.Tensor, kf: torch.Tensor, sm_scale: float) -> torch
 
 
 def attention_fwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, p_f32: bool
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, p_f32: bool,
+    key_tile: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [B, S, Hq, hd] in q's dtype, lse f32 [B, Hq, S]). ``p_f32`` keeps
-    P in f32 for P.V (splash); else P is rounded to q's dtype (flash)."""
+    P in f32 for P.V (splash); else P is rounded to q's dtype (flash), at
+    the row's max. With ``key_tile``, an online softmax over tiles of that
+    many keys instead, as the forward kernel runs it: P is taken (and
+    rounded) at each tile's running max, and the sums are rescaled as the
+    max grows."""
     group = q.shape[2] // k.shape[2]
     qf, kf, vf = _heads_f32(q), _heads_f32(k, group), _heads_f32(v, group)
     s = _masked_scores(qf, kf, sm_scale)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    if not p_f32:
-        p = p.to(q.dtype).to(torch.float32)
-    o = (p @ vf) * (1.0 / l)
+    if key_tile is None:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = (p if p_f32 else _round(p, q.dtype)) @ vf
+    else:
+        # every row's key 0 lies in the first tile: m is a real score from
+        # the start, and a tile wholly above the diagonal adds 0
+        m = s[..., :key_tile].amax(dim=-1, keepdim=True)
+        l = acc = 0.0
+        for k0 in range(0, s.shape[-1], key_tile):
+            st = s[..., k0:k0 + key_tile]
+            m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(st - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + (p if p_f32 else _round(p, q.dtype)) @ vf[..., k0:k0 + key_tile, :]
+            m = m_new
+    o = acc * (1.0 / l)
     lse = (m + torch.log(l))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
 
@@ -242,14 +276,13 @@ def attention_dkv_plain(q, k, v, lse, delta, do, sm_scale: float) -> Tuple[torch
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=1)
 def _kernels() -> ctypes.CDLL:
-    """attention.cu: the Hopper kernels (dq and dK/dV take a dtype code
-    first)."""
+    """attention.cu: the Hopper kernels (a dtype code first)."""
     from torchft_tpu_torch.ops._build import load_library
 
     lib = load_library("attention.cu")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [ci, ci, ci, ci, ci, cf]  # B, S, Hq, Hkv, hd, sm_scale
-    lib.tft_attention_fwd.argtypes = [vp] * 6 + dims + [ci, vp]
+    lib.tft_attention_fwd.argtypes = [ci] + [vp] * 6 + dims + [ci, vp]
     lib.tft_attention_dq.argtypes = [ci] + [vp] * 8 + dims + [vp]
     lib.tft_attention_dkv.argtypes = [ci] + [vp] * 9 + dims + [vp]
     for fn in (lib.tft_attention_fwd, lib.tft_attention_dq, lib.tft_attention_dkv,
@@ -292,7 +325,7 @@ def _entry(kernel: str, dtype: torch.dtype):
         fn = getattr(_kernels(), f"tft_attention_{kernel}")
     else:
         fn = getattr(_simt_kernels(), f"tft_simt_attention_{kernel}")
-    return fn if code is None else functools.partial(fn, code)
+    return functools.partial(fn, code)
 
 
 def _dtype_names(dtypes=KERNEL_DTYPES) -> str:
@@ -302,12 +335,10 @@ def _dtype_names(dtypes=KERNEL_DTYPES) -> str:
 def _check_inputs(*tensors: torch.Tensor) -> None:
     """Raise on what the kernels do not take: [B, S, H, hd] tensors of one
     dtype of ``KERNEL_DTYPES`` on one CUDA device, head dim contiguous.
-    bf16 and f16 tensors are read by TMA (``attention.cu``: the bf16
-    kernels, the f16 dq and dK/dV), which needs a 16-byte aligned base and
-    batch/sequence/head strides of whole 16 bytes (8 elements); the rule
-    holds in all three wrappers, so a tensor the backward would refuse is
-    refused at the forward. f32 tensors are read an element at a time, so
-    an element-aligned base is enough."""
+    bf16 and f16 tensors are read by TMA (``attention.cu``), which needs a
+    16-byte aligned base and batch/sequence/head strides of whole 16 bytes
+    (8 elements). f32 tensors are read an element at a time, so an
+    element-aligned base is enough."""
     q = tensors[0]
     B, S, _, hd = q.shape
     if q.dtype not in KERNEL_DTYPES:
@@ -354,10 +385,10 @@ def _launch_name(impl: str, kernel: str, dtype: torch.dtype) -> str:
 def attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, impl: str
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of causal attention: ``attention_fwd_kernel`` (bf16) or
-    ``simt_fwd_kernel`` (f16/f32) on CUDA, counted as ``{impl}_fwd`` plus
-    the dtype's suffix, the plain version on the CPU. ``impl`` "splash"
-    keeps P in f32 for P.V, "flash" rounds it to the input dtype."""
+    """(o, lse) of causal attention: ``attention_fwd_kernel`` (bf16/f16) or
+    ``simt_fwd_kernel`` (f32) on CUDA, counted as ``{impl}_fwd`` plus the
+    dtype's suffix, the plain version on the CPU. ``impl`` "splash" keeps P
+    in f32 for P.V, "flash" rounds it to the input dtype."""
     p_f32 = impl == "splash"
     if not q.is_cuda:
         return attention_fwd_plain(q, k, v, sm_scale, p_f32)
@@ -485,13 +516,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return flash_attention(q, k, v, plain=True)
 
 
-def resolve_impl(impl: str, q_shape, kv_heads: int, cuda: bool, dtype: torch.dtype) -> str:
+def resolve_impl(impl: Optional[str], q_shape, kv_heads: int, cuda: bool,
+                 dtype: torch.dtype) -> str:
     """The implementation ``causal_attention`` runs for ``impl`` on a q of
     ``q_shape`` [B, S, Hq, hd] and ``dtype`` with ``kv_heads`` K/V heads,
-    on a CUDA tensor or not. Raises ``TypeError`` where a kernel would run
-    on a CUDA tensor of a dtype no kernel takes (not in ``KERNEL_DTYPES``).
-    Like the reference's rule, it has no other dtype clause."""
-    if impl not in ("auto", "xla", "splash", "flash"):
+    on a CUDA tensor or not. ``impl`` None reads ``ATTENTION_ENV`` now
+    ("auto" if unset), and any value of it gives "xla" off the card.
+    Raises ``ValueError`` for an unknown choice, and ``TypeError`` where a
+    kernel would run on a CUDA tensor of a dtype no kernel takes (not in
+    ``KERNEL_DTYPES``). Like the reference's rule, it has no other dtype
+    clause."""
+    if impl is None:
+        impl = os.environ.get(ATTENTION_ENV, "auto")
+        if impl not in IMPLS:
+            raise ValueError(f"unknown {ATTENTION_ENV} value {impl!r}: expected one of {IMPLS}")
+        if not cuda:
+            return "xla"
+    if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     S, hq, hd = q_shape[1], q_shape[2], q_shape[3]
     tileable = S % SEQ_TILE == 0 and hd in KERNEL_HEAD_DIMS
@@ -507,11 +548,12 @@ def resolve_impl(impl: str, q_shape, kv_heads: int, cuda: bool, dtype: torch.dty
 
 def causal_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: Any = None,
-    impl: str = "auto",
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
-    """Dispatch to ``impl`` ("auto" | "xla" | "splash" | "flash") by
-    ``resolve_impl``; an explicit "splash"/"flash" on a CPU tensor runs
-    that kernel's plain version."""
+    """Dispatch to ``impl`` ("auto" | "xla" | "splash" | "flash"; None:
+    ``TORCHFT_TPU_ATTENTION`` as read on this call) by ``resolve_impl``;
+    an explicit "splash"/"flash" on a CPU tensor runs that kernel's plain
+    version."""
     global LAST_DISPATCH
     LAST_DISPATCH = resolve_impl(impl, q.shape, k.shape[2], q.is_cuda, q.dtype)
     if LAST_DISPATCH == "xla":

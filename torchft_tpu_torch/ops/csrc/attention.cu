@@ -13,11 +13,10 @@
 //
 // Layout: q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D], read through their
 // batch/sequence/head strides (the head-dim stride is 1); lse and delta
-// [B, Hq, S] f32. Element types: the forward takes bf16; dq and dK/dV take
-// bf16 or f16 (T, a dtype code at the entry point: the same TMA boxes,
-// swizzle, descriptors and fragment layouts, only the wgmma operand type and
-// the rounding of P, dS and the outputs differ). The f16 forward and every
-// f32 kernel are attention_simt.cu's.
+// [B, Hq, S] f32. Element type T: bf16 or f16 for all three kernels (a
+// dtype code at the entry point: the same TMA boxes, swizzle, descriptors
+// and fragment layouts, only the wgmma operand type and the rounding of P,
+// dS and the outputs differ). Every f32 kernel is attention_simt.cu's.
 //
 // What bounds them on this card: tensor-core operations. At the bench_1b
 // shape (S 2048, D 128) each block does ~S*D multiply-adds per byte it
@@ -35,12 +34,23 @@
 //   * Forward: a block owns 128 query rows, 64 per consumer warpgroup,
 //     loads its Q tile once and streams K/V tiles (128 keys at D 64/128,
 //     64 at D 256). S = Q K^T is an SS wgmma, O += P V an RS wgmma: P stays
-//     in the registers it was computed in, rounded to bf16 fragments, and V
+//     in the registers it was computed in, rounded to T fragments, and V
 //     is read MN-major from its swizzled tile. Online softmax in f32 on the
 //     accumulator's layout (row max and sum by quad shuffles); lse = max +
-//     log(sum). p_split (K1): P = hi + lo, both bf16, two RS products into
-//     one f32 accumulator, so P.V carries ~16 bits of P as the reference's
-//     f32 P does.
+//     log(sum). K2 rounds P to T at each tile's running max, as the
+//     reference's flash kernel does. p_split (K1): P = hi + lo, two RS
+//     products into one f32 accumulator, so P.V keeps P to near f32 as the
+//     reference's f32 P does: in bf16 both halves of P (~16 bits); in f16
+//     both halves of P * 2^15 (~22 bits), since lo of an unscaled P would
+//     fall below f16's normal range (2^-14) once P < 2^-3, and the epilogue
+//     divides the 2^15 back out with 1 / sum. wgmma's f32 sums lose low
+//     bits of their smaller addends (they are aligned to the largest one),
+//     so over a long row, with two products per 16 keys, the running sum
+//     and not P would bound the f16 pair's accuracy. So a key tile's
+//     products go into a fresh accumulator, 64 output columns at a time
+//     (two D-wide ones do not fit in the registers), which is added to the
+//     running one with a rounded add on the CUDA cores, as FA3 promotes
+//     its fp8 sums.
 //   * dq: a block owns 128 query rows of one query head, 64 per consumer
 //     warpgroup, loads its Q and dO tiles once and streams K/V tiles (64
 //     keys at D 64/128, 32 at D 256: dQ, S and dP accumulators must share
@@ -84,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -143,7 +155,7 @@ __device__ __forceinline__ void acc_to_frag(uint32_t (&a)[4],
 }
 
 // The same columns' residual after rounding to bf16, itself rounded: the lo
-// half of p_split.
+// half of the bf16 p_split.
 template <int N>
 __device__ __forceinline__ void acc_to_frag_lo(uint32_t (&a)[4],
                                                const float (&d)[N], int c) {
@@ -154,6 +166,28 @@ __device__ __forceinline__ void acc_to_frag_lo(uint32_t (&a)[4],
   a[1] = pack<bf16>(r[2], r[3]);
   a[2] = pack<bf16>(r[4], r[5]);
   a[3] = pack<bf16>(r[6], r[7]);
+}
+
+// The f16 p_split scale: P <= 1 keeps P * 2^15 <= 32768, below f16's 65504,
+// and lo = P * 2^15 - hi stays normal in f16 down to P ~ 2^-18.
+constexpr float kF16PScale = 32768.f;
+
+// The f16 p_split pair of the same columns: hi = f16(x), lo = f16(x - hi)
+// for x = P * kF16PScale (x - hi is exact in f32).
+template <int N>
+__device__ __forceinline__ void acc_to_frag_f16_split(uint32_t (&hi)[4],
+                                                      uint32_t (&lo)[4],
+                                                      const float (&d)[N],
+                                                      int c) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float x0 = d[8 * c + 2 * j] * kF16PScale;
+    const float x1 = d[8 * c + 2 * j + 1] * kF16PScale;
+    const __half2 h = __floats2half2_rn(x0, x1);
+    const float2 hf = __half22float2(h);
+    hi[j] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[j] = pack<__half>(x0 - hf.x, x1 - hf.y);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -187,15 +221,18 @@ struct FwdShape {
   static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
 };
 
-template <int D, bool kSplit>
+template <int D, bool kSplit, typename T>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
-                         bf16* __restrict__ o, float* __restrict__ lse,
+                         T* __restrict__ o, float* __restrict__ lse,
                          Strides so, int S, int Hq, int group, float sm_scale) {
   using Shape = FwdShape<D>;
   constexpr int BK = Shape::kKeys;
+  // the f16 p_split pair carries P * kF16PScale, and a key tile's P V is
+  // summed apart from acc (see the header)
+  constexpr bool kScaledP = kSplit && std::is_same_v<T, __half>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* Qs = smem;
@@ -277,8 +314,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BK, bf16>(sc, desc_k_major(q_base + k_step(kk, kRows)),
-                           desc_k_major(k_base + k_step(kk, BK)), kk > 0);
+        wgmma_ss<BK, T>(sc, desc_k_major(q_base + k_step(kk, kRows)),
+                        desc_k_major(k_base + k_step(kk, BK)), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(sc);
@@ -319,20 +356,48 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       uint32_t p_hi[BK / 16][4], p_lo[kSplit ? BK / 16 : 1][4];
 #pragma unroll
       for (int c = 0; c < BK / 16; ++c) {
-        acc_to_frag<bf16>(p_hi[c], sc, c);
-        if constexpr (kSplit) acc_to_frag_lo(p_lo[c], sc, c);
+        if constexpr (kScaledP) {
+          acc_to_frag_f16_split(p_hi[c], p_lo[c], sc, c);
+        } else {
+          acc_to_frag<T>(p_hi[c], sc, c);
+          if constexpr (kSplit) acc_to_frag_lo(p_lo[c], sc, c);
+        }
       }
-      wgmma_fence();
-      fence_operand(acc);
+      if constexpr (kScaledP) {
+        // 64 output columns (one V sub-tile) at a time into a fresh
+        // accumulator (the first product overwrites it: zeroing it first
+        // would spill), added to acc's columns 64n.. (elements 32n..)
 #pragma unroll
-      for (int c = 0; c < BK / 16; ++c) {
-        const uint64_t dv = desc_mn_major(v_base + c * 16 * kSubRow, BK * kSubRow);
-        wgmma_rs<D, bf16>(acc, p_hi[c], dv);
-        if constexpr (kSplit) wgmma_rs<D, bf16>(acc, p_lo[c], dv);
+        for (int n = 0; n < D / 64; ++n) {
+          float tile[32];
+          wgmma_fence();
+          fence_operand(tile);
+#pragma unroll
+          for (int c = 0; c < BK / 16; ++c) {
+            const uint64_t dv = desc_mn_major(
+                v_base + (n * BK + c * 16) * kSubRow, BK * kSubRow);
+            wgmma_rs<64, T>(tile, p_hi[c], dv, c > 0);
+            wgmma_rs<64, T>(tile, p_lo[c], dv);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operand(tile);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[32 * n + i] += tile[i];
+        }
+      } else {
+        wgmma_fence();
+        fence_operand(acc);
+#pragma unroll
+        for (int c = 0; c < BK / 16; ++c) {
+          const uint64_t dv = desc_mn_major(v_base + c * 16 * kSubRow, BK * kSubRow);
+          wgmma_rs<D, T>(acc, p_hi[c], dv);
+          if constexpr (kSplit) wgmma_rs<D, T>(acc, p_lo[c], dv);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(acc);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operand(acc);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -343,7 +408,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = 1.0f / l[r];
+    // 2^-15 / l is (1 / l) * 2^-15 exactly: the scale leaves no rounding
+    inv[r] = (kScaledP ? 1.0f / kF16PScale : 1.0f) / l[r];
   }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -351,7 +417,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<uint32_t*>(o + offset(so, b, row[r], h) + col) =
-          pack<bf16>(acc[4 * n + 2 * r] * inv[r], acc[4 * n + 2 * r + 1] * inv[r]);
+          pack<T>(acc[4 * n + 2 * r] * inv[r], acc[4 * n + 2 * r + 1] * inv[r]);
   }
   if (t == 0) {
 #pragma unroll
@@ -745,22 +811,22 @@ int map_at(CUtensorMap* map, const void* p, const int64_t* st, int i, int B,
   return tile_map<T>(map, p, B, S, H, D, s.b, s.s, s.h, rows);
 }
 
-template <int D>
+template <int D, typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         const int64_t* st, int B, int S, int Hq, int Hkv, float sm_scale,
         int p_split, cudaStream_t stream) {
   using Shape = FwdShape<D>;
   CUtensorMap tq, tk, tv;
-  int err = map_at<bf16>(&tq, q, st, 0, B, S, Hq, D, kRows);
-  if (err == 0) err = map_at<bf16>(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
-  if (err == 0) err = map_at<bf16>(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
+  int err = map_at<T>(&tq, q, st, 0, B, S, Hq, D, kRows);
+  if (err == 0) err = map_at<T>(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
+  if (err == 0) err = map_at<T>(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
   if (err != 0) return err;
   const dim3 grid(S / kRows * Hq * B);
-  auto kernel = p_split ? attention_fwd_kernel<D, true>
-                        : attention_fwd_kernel<D, false>;
+  auto kernel = p_split ? attention_fwd_kernel<D, true, T>
+                        : attention_fwd_kernel<D, false, T>;
   return launch(kernel, kHopperThreads, Shape::kSmem, grid, stream, tq, tk, tv,
-                static_cast<bf16*>(o), lse, strides_at(st, 3), S, Hq,
-                Hq / Hkv, sm_scale);
+                static_cast<T*>(o), lse, strides_at(st, 3), S, Hq, Hq / Hkv,
+                sm_scale);
 }
 
 template <int D, typename T>
@@ -819,23 +885,14 @@ extern "C" {
 // of it (the dK/dV kernel's 64-key tiles divide it).
 int tft_attention_tile() { return kRows; }
 
-// strides: 3 per tensor (batch, sequence, head) for q, k, v, o
-int tft_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                      float* lse, const int64_t* strides, int B, int S, int Hq,
-                      int Hkv, int D, float sm_scale, int p_split,
-                      cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return fwd<64>(q, k, v, o, lse, strides, B, S, Hq, Hkv, sm_scale,
-                     p_split, stream);
-    case 128:
-      return fwd<128>(q, k, v, o, lse, strides, B, S, Hq, Hkv, sm_scale,
-                      p_split, stream);
-    case 256:
-      return fwd<256>(q, k, v, o, lse, strides, B, S, Hq, Hkv, sm_scale,
-                      p_split, stream);
-  }
-  return kErrHeadDim;
+// dtype: 0 bf16, 1 f16. strides: 3 per tensor (batch, sequence, head) for
+// q, k, v, o
+int tft_attention_fwd(int dtype, const void* q, const void* k, const void* v,
+                      void* o, float* lse, const int64_t* strides, int B,
+                      int S, int Hq, int Hkv, int D, float sm_scale,
+                      int p_split, cudaStream_t stream) {
+  TFT_DISPATCH(fwd, dtype, D, q, k, v, o, lse, strides, B, S, Hq, Hkv,
+               sm_scale, p_split, stream)
 }
 
 // dtype: 0 bf16, 1 f16. strides for q, k, v, do, dq

@@ -1,13 +1,13 @@
 // Causal GQA attention on the CUDA cores (sm_90a): forward, dq and dK/dV for
-// f32 tensors, and the forward for f16 tensors.
+// f32 tensors.
 //
 // Replaces the same Pallas kernels as attention.cu (K1 splash_attention_tpu,
 // K2 flash_attention_tpu in torchft_tpu/ops/attention.py) where attention.cu
 // has no kernel: the reference's dispatch has no dtype clause and runs its
-// kernels on an f32 model. (The f16 dq and dK/dV are attention.cu's
-// tensor-core kernels; the kernels below are templated on T all the same,
-// and only the f16 forward is built.) Same contract as attention.cu:
-//   * q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D] in T (float or __half), read
+// kernels on an f32 model. (bf16 and f16 are attention.cu's tensor-core
+// kernels; the kernels below keep the element type T as a template
+// argument, and only T = float is built.) Same contract as attention.cu:
+//   * q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D] in T, read
 //     through their batch/sequence/head strides (the head-dim stride is 1);
 //     lse and delta [B, Hq, S] f32; GQA K/V heads read in place;
 //   * K1 (p_f32): q arrives pre-scaled, sm_scale = 1, P stays f32 for P.V;
@@ -39,7 +39,6 @@
 // Plain C interface, bound with ctypes: each entry point launches on the
 // caller's stream and returns cudaError_t, or kErrHeadDim / kErrDtype.
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -62,17 +61,12 @@ __device__ __forceinline__ int64_t offset(const Strides& st, int b, int s,
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
 }
 
 // x rounded to T and back: a product operand as the plain versions round it
@@ -487,20 +481,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
                 Hq / Hkv, sm_scale);
 }
 
-// fn<T, D>(args...) for dtype code 0 (float) or 1 (__half) and D 64/128/256
-#define TFT_DISPATCH(fn, dtype, D, ...)                              \
-  switch ((dtype) * 1000 + (D)) {                                    \
-    case 64: return fn<float, 64>(__VA_ARGS__);                      \
-    case 128: return fn<float, 128>(__VA_ARGS__);                    \
-    case 256: return fn<float, 256>(__VA_ARGS__);                    \
-    case 1064: return fn<__half, 64>(__VA_ARGS__);                   \
-    case 1128: return fn<__half, 128>(__VA_ARGS__);                  \
-    case 1256: return fn<__half, 256>(__VA_ARGS__);                  \
-  }                                                                  \
-  return (dtype) == 0 || (dtype) == 1 ? kErrHeadDim : kErrDtype;
-
-// fn<float, D>(args...) for dtype code 0 and D 64/128/256: the f16 dq and
-// dK/dV run attention.cu's tensor-core kernels, so code 1 is refused here
+// fn<float, D>(args...) for dtype code 0 and D 64/128/256: bf16 and f16
+// run attention.cu's tensor-core kernels, so any other code is refused here
 #define TFT_DISPATCH_F32(fn, dtype, D, ...)                          \
   switch ((dtype) * 1000 + (D)) {                                    \
     case 64: return fn<float, 64>(__VA_ARGS__);                      \
@@ -516,15 +498,15 @@ extern "C" {
 // Rows of the kernels' largest tile: S must be a multiple of it.
 int tft_simt_attention_tile() { return Tiles<64>::kQ; }
 
-// dtype: 0 f32, 1 f16. strides: 3 per tensor (batch, sequence, head) for
-// q, k, v, o
+// dtype: 0 f32 (1, f16, is attention.cu's). strides: 3 per tensor (batch,
+// sequence, head) for q, k, v, o
 int tft_simt_attention_fwd(int dtype, const void* q, const void* k,
                            const void* v, void* o, float* lse,
                            const int64_t* strides, int B, int S, int Hq,
                            int Hkv, int D, float sm_scale, int p_f32,
                            cudaStream_t stream) {
-  TFT_DISPATCH(fwd, dtype, D, q, k, v, o, lse, strides, B, S, Hq, Hkv,
-               sm_scale, p_f32, stream)
+  TFT_DISPATCH_F32(fwd, dtype, D, q, k, v, o, lse, strides, B, S, Hq, Hkv,
+                   sm_scale, p_f32, stream)
 }
 
 // dtype: 0 f32 (1, f16, is attention.cu's). strides for q, k, v, do, dq

@@ -263,7 +263,8 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr,
 // __half; the instruction's .bf16 or .f16 operand type): SS reads A and B
 // (both K-major) from shared memory and adds D only if `accumulate`; RS
 // reads A from registers (the mma.sync m16n8k16 A fragment per warp) and B
-// MN-major from shared memory, and always adds D. Accumulator layout: warp w
+// MN-major from shared memory, and adds D unless `accumulate` is 0 (then D's
+// registers need no values before the product). Accumulator layout: warp w
 // of the warpgroup owns rows 16w..16w+15; d[4j + e] is row 16w + lane/4 +
 // 8 * (e / 2), column 8j + 2 * (lane % 4) + e % 2.
 // Each shape below is defined for both types by one macro.
@@ -271,7 +272,8 @@ template <int N, typename T>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                          int accumulate);
 template <int N, typename T>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                         int accumulate = 1);
 
 // D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory
 #define TFT_WGMMA_SS_32(T, TY)                                                                                 \
@@ -346,7 +348,7 @@ TFT_WGMMA_SS_128(__half, "f16")
   template <>                                                                                                     \
   __device__ __forceinline__ void wgmma_rs<64, T>(float (&d)[32],                                                 \
                                                   const uint32_t (&a)[4],                                         \
-                                               uint64_t b) {                                                      \
+                                               uint64_t b, int accumulate) {                                      \
     asm volatile(                                                                                                 \
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                              \
         "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                              \
@@ -359,7 +361,7 @@ TFT_WGMMA_SS_128(__half, "f16")
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                            \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));                                   \
   }
 TFT_WGMMA_RS_64(__nv_bfloat16, "bf16")
 TFT_WGMMA_RS_64(__half, "f16")
@@ -369,7 +371,7 @@ TFT_WGMMA_RS_64(__half, "f16")
   template <>                                                                                                     \
   __device__ __forceinline__ void wgmma_rs<128, T>(float (&d)[64],                                                \
                                                   const uint32_t (&a)[4],                                         \
-                                               uint64_t b) {                                                      \
+                                               uint64_t b, int accumulate) {                                      \
     asm volatile(                                                                                                 \
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                              \
         "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                             \
@@ -388,7 +390,7 @@ TFT_WGMMA_RS_64(__half, "f16")
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                            \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));                                   \
   }
 TFT_WGMMA_RS_128(__nv_bfloat16, "bf16")
 TFT_WGMMA_RS_128(__half, "f16")
@@ -398,7 +400,7 @@ TFT_WGMMA_RS_128(__half, "f16")
   template <>                                                                                                             \
   __device__ __forceinline__ void wgmma_rs<256, T>(float (&d)[128],                                                       \
                                                   const uint32_t (&a)[4],                                                 \
-                                               uint64_t b) {                                                              \
+                                               uint64_t b, int accumulate) {                                              \
     asm volatile(                                                                                                         \
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                                     \
         "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                                                     \
@@ -430,7 +432,7 @@ TFT_WGMMA_RS_128(__half, "f16")
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])  \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                                                    \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));                                           \
   }
 TFT_WGMMA_RS_256(__nv_bfloat16, "bf16")
 TFT_WGMMA_RS_256(__half, "f16")

@@ -68,9 +68,10 @@ def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
     (replica, step) only, so a restarted replica sees the batches it would
     have seen."""
     model_cfg = CONFIGS[cfg.config]
-    # the reference's dispatch (splash for GQA on the card) and its bench's
-    # remat="full": per-layer recompute keeps two bench_1b replicas on a card
-    model = Llama(model_cfg, device=device, attention="auto", remat=True)
+    # the reference's dispatch (TORCHFT_TPU_ATTENTION, else splash for GQA on
+    # the card) and its bench's remat="full": per-layer recompute keeps two
+    # bench_1b replicas on a card
+    model = Llama(model_cfg, device=device, remat=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(replica_id)
     model.init_weights(gen)
