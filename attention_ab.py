@@ -1,6 +1,6 @@
 """Time the attention kernels of two checkouts of the port on one card, in turns.
 
-    python3 attention_ab.py --trees OLD NEW [--dtype {bfloat16,float16}] [--out FILE]
+    python3 attention_ab.py --trees OLD NEW [--dtype {bfloat16,float16,float32}] [--out FILE]
 
 OLD and NEW are directories that hold a ``torchft_tpu_torch`` package (a
 checkout of this repository, or ``git archive <commit> torchft_tpu_torch``
@@ -100,7 +100,7 @@ def measure(tree: str, dtype_name: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
-    ap.add_argument("--dtype", choices=("bfloat16", "float16"), default="bfloat16",
+    ap.add_argument("--dtype", choices=("bfloat16", "float16", "float32"), default="bfloat16",
                     help="the attention and model dtype (default bfloat16)")
     ap.add_argument("--measure", metavar="TREE", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="also write every turn and the summary here as JSON")

@@ -5,11 +5,13 @@
 1. Builds the port's CUDA kernels from ``torchft_tpu_torch/ops/csrc`` (one
    nvcc per source, started together), times the build, and prints per
    kernel what ptxas reported (registers, stack, spills, wgmma serialized)
-   and its HGMMA (wgmma) and UTMALDG (TMA load) SASS instructions. Every
-   instance of ``attention.cu`` (the forward with and without p_split, dq
-   and dK/dV, each in bf16 and in f16) must be built at every head dim,
-   have both, compile at the 168 registers its setmaxnreg split assumes,
-   and not spill at head dim 128.
+   and its HGMMA (wgmma), TF32 (tensor-core products from tf32 operands)
+   and UTMALDG (TMA load) SASS instructions. Every instance
+   of ``attention.cu`` (the forward with and without p_split, dq and dK/dV,
+   each in bf16 and in f16) and of ``attention_tf32x3.cu`` (the f32 dq and
+   dK/dV) must be built at every head dim, run on wgmma (TF32 wgmma for
+   the f32 ones) fed by TMA, compile at the 168 registers its setmaxnreg
+   split assumes, and not spill at head dim 128.
 2. Holds each fp8 kernel against its plain PyTorch version on the card, bit
    for bit, from a single element up to the full bench_1b gradient count,
    and times kernel, plain version and the device-memory bound at that
@@ -23,7 +25,9 @@
    at S 384 (an odd number of tiles) and at head dims 64 and 256 with
    batch 2, in bf16, f16 and f32 (``ATTN_DTYPES`` names each kernel's
    source: ``attention.cu`` on the tensor cores runs bf16 and f16,
-   ``attention_simt.cu`` on the CUDA cores f32). bf16 and f16: each kernel
+   ``attention_tf32x3.cu`` on the tensor cores by split operands the f32 dq
+   and dK/dV, ``attention_simt.cu`` on the CUDA cores the f32 forward).
+   bf16 and f16: each kernel
    output's max abs error against an f32 evaluation of the same inputs
    must be at most twice the plain version's in that dtype, and at most
    ``SHARE_BAR`` of the f16 forward's outputs may differ from the plain
@@ -33,8 +37,10 @@
    sums once per key tile, which the plain version never does), with TF32
    matmuls off. lse within 1e-3 everywhere. Times each kernel, its plain
    version and torch's scaled_dot_product_attention in the same dtype (the
-   yardstick only) at the bench_1b GQA shape beside its bound, by device
-   time (``device_ms``), and the bf16 kernels and the f16 forward beside
+   yardstick only) at the bench_1b GQA shape beside its bound (f32: at the
+   3xTF32 rate, 495/3 TFLOP/s, and, printed beside it, at the CUDA cores'
+   67), by device time (``device_ms``), and the bf16 kernels and the f16
+   forward beside
    SDPA alone at the llama3_8b attention shape.
 5. Checks that a model left to its default attention reads
    ``TORCHFT_TPU_ATTENTION`` (removed from the script's own environment at
@@ -46,7 +52,8 @@
    f32 and f16 through ``attention="auto"`` (which resolves to splash) and
    ``"flash"``; f32 losses within 1e-4 (relative) of ``"xla"`` in f32, f16
    within 0.25%; a profile of each run shows that exactly the kernel
-   instances of ``ATTN_INSTANCE`` ran (no CUDA-core f16 kernel). Then
+   instances of ``ATTN_INSTANCE`` ran (no CUDA-core f16 kernel, and in
+   f32 only the CUDA-core forward and the 3xTF32 backward). Then
    times one replica's full bench_1b forward + backward
    through the materialized attention and through the kernels, in turns.
 6. Trains Llama bench_1b at full width and depth as two fault-tolerant
@@ -86,6 +93,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet peak
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 and fp16 tensor-core peak
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak on the CUDA cores (FMA as 2 flops)
+# f32 products on the tensor cores by split operands: three TF32 products
+# (H100 SXM dense TF32 peak 495 TFLOP/s) per f32 one
+TF32X3_FLOPS_PER_S = 495e12 / 3
 ROW = 512
 
 
@@ -174,8 +184,13 @@ def chunk_elems(n: int, world: int) -> int:
 
 
 # SASS instructions counted per kernel: Hopper's tensor-core product
-# (wgmma) and its TMA tile load
-SASS_OPS = ("HGMMA", "UTMALDG")
+# (wgmma), tensor-core products from tf32 operands (wgmma or mma.sync), and
+# the TMA tile load
+SASS_OPS = {
+    "HGMMA": lambda line: "HGMMA" in line,
+    "TF32": lambda line: "MMA" in line and ".TF32" in line,
+    "UTMALDG": lambda line: "UTMALDG" in line,
+}
 
 
 def _demangle(names):
@@ -233,8 +248,8 @@ def kernel_build_report(sources) -> dict:
             if m:
                 current = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
             elif current is not None:
-                for op in SASS_OPS:
-                    current[op] += op in line
+                for op, found in SASS_OPS.items():
+                    current[op] += found(line)
         for name, short in zip(mangled, _demangle(list(mangled))):
             report[short] = {**mangled[name], **counts.get(name, dict.fromkeys(SASS_OPS, 0))}
     for name, r in report.items():
@@ -253,7 +268,9 @@ ATTN_INSTANCE = {
     torch.float16: {"fwd": "attention_fwd_kernel<128, {split}, __half>",
                     "dq": "attention_dq_kernel<128, __half>",
                     "dkv": "attention_dkv_kernel<128, __half>"},
-    torch.float32: {k: f"simt_{k}_kernel<float, 128>" for k in ("fwd", "dq", "dkv")},
+    torch.float32: {"fwd": "simt_fwd_kernel<float, 128>",
+                    "dq": "tf32x3_dq_kernel<128>",
+                    "dkv": "tf32x3_dkv_kernel<128>"},
 }
 
 
@@ -269,28 +286,33 @@ HOPPER_INSTANCES = tuple(
      for split in ("true", "false") for ctype in HOPPER_CTYPES]
     + [f"attention_{k}_kernel<{d}, {ctype}>" for k in ("dq", "dkv") for d in (64, 128, 256)
        for ctype in HOPPER_CTYPES])
-# what __launch_bounds__(384, 1) gives and the setmaxnreg split (24 + 2 x
-# 240 a thread) assumes
+# every instance of attention_tf32x3.cu: the f32 dq and dK/dV at each head dim
+TF32X3_INSTANCES = tuple(f"tf32x3_{k}_kernel<{d}>" for k in ("dq", "dkv") for d in (64, 128, 256))
+# what __launch_bounds__(384, 1) gives and the setmaxnreg splits (24 + 2 x
+# 240 and 56 + 2 x 224 a thread) assume
 HOPPER_REGISTERS = 168
 
 
 def check_hopper_kernels(report: dict) -> None:
-    """Every instance of attention.cu is built, runs on wgmma fed by TMA,
+    """Every instance of attention.cu and attention_tf32x3.cu is built,
+    runs on wgmma (on tf32 operands, for attention_tf32x3.cu) fed by TMA,
     compiles at the registers its setmaxnreg split assumes, and does not
     spill at the bench_1b head dim 128."""
-    missing = [name for name in HOPPER_INSTANCES if name not in report]
+    missing = [name for name in HOPPER_INSTANCES + TF32X3_INSTANCES if name not in report]
     if missing:
         raise RuntimeError(f"no {missing} in the build report")
-    for name in HOPPER_INSTANCES:
-        r = report[name]
-        if not all(r[op] for op in SASS_OPS):
-            raise RuntimeError(f"{name} has no {'/'.join(op for op in SASS_OPS if not r[op])} "
-                               "instruction in its SASS")
-        if r["registers"] != HOPPER_REGISTERS:
-            raise RuntimeError(f"{name} compiled at {r['registers']} registers, not "
-                               f"{HOPPER_REGISTERS}")
-        if "<128," in name and (r["spill_stores"] or r["spill_loads"]):
-            raise RuntimeError(f"{name} spills registers: {r}")
+    for names, ops in ((HOPPER_INSTANCES, ("HGMMA", "UTMALDG")),
+                       (TF32X3_INSTANCES, ("HGMMA", "TF32", "UTMALDG"))):
+        for name in names:
+            r = report[name]
+            if not all(r[op] for op in ops):
+                raise RuntimeError(f"{name} has no {'/'.join(op for op in ops if not r[op])} "
+                                   "instruction in its SASS")
+            if r["registers"] != HOPPER_REGISTERS:
+                raise RuntimeError(f"{name} compiled at {r['registers']} registers, not "
+                                   f"{HOPPER_REGISTERS}")
+            if "<128" in name and (r["spill_stores"] or r["spill_loads"]):
+                raise RuntimeError(f"{name} spills registers: {r}")
 
 
 def check_kernels(device: torch.device, full_n: int, world: int):
@@ -410,12 +432,13 @@ ATTN_SHAPES = (
 )
 # the dtypes the kernels take, with the suffix of their launch counts and
 # the source of each kernel: attention.cu on the tensor cores (bf16, f16),
-# attention_simt.cu on the CUDA cores (f32)
-HOPPER, SIMT = "attention.cu", "attention_simt.cu"
+# attention_tf32x3.cu on the tensor cores by split operands (the f32 dq and
+# dK/dV), attention_simt.cu on the CUDA cores (the f32 forward)
+HOPPER, TF32X3, SIMT = "attention.cu", "attention_tf32x3.cu", "attention_simt.cu"
 ATTN_DTYPES = {
     torch.bfloat16: ("", {"fwd": HOPPER, "dq": HOPPER, "dkv": HOPPER}),
     torch.float16: ("_f16", {"fwd": HOPPER, "dq": HOPPER, "dkv": HOPPER}),
-    torch.float32: ("_f32", {"fwd": SIMT, "dq": SIMT, "dkv": SIMT}),
+    torch.float32: ("_f32", {"fwd": SIMT, "dq": TF32X3, "dkv": TF32X3}),
 }
 # the most of the f16 forward's outputs that may differ from the plain
 # version's at a shape. The rounding of O to f16 hides from a max-abs bar
@@ -440,12 +463,13 @@ ATTN_MATMULS = {"fwd": 2, "dq": 3, "dkv": 4}
 
 
 def attention_bound_ms(kernel: str, B: int, S: int, hq: int, hkv: int, hd: int,
-                       dtype: torch.dtype = torch.bfloat16):
+                       dtype: torch.dtype = torch.bfloat16, peak: float = None):
     """(ms, "operations" | "bytes"): the larger of the kernel's causal flops
-    over the card's peak for that work (bf16/f16: the tensor-core peak; f32:
-    the CUDA cores' f32 peak, where an f32 product runs without TF32) and
-    its bytes (inputs read once, outputs written once) over the memory
-    rate."""
+    over the card's peak for that work and its bytes (inputs read once,
+    outputs written once) over the memory rate. The peak: bf16/f16 the
+    tensor-core peak; f32 the 3xTF32 rate (three TF32 tensor-core products
+    per f32 one keep f32 accuracy), unless ``peak`` names another (the
+    CUDA cores' ``F32_FLOPS_PER_S``)."""
     pairs = B * hq * S * (S + 1) // 2
     flops = ATTN_MATMULS[kernel] * 2 * hd * pairs
     el = torch.finfo(dtype).bits // 8
@@ -455,7 +479,8 @@ def attention_bound_ms(kernel: str, B: int, S: int, hq: int, hkv: int, hd: int,
         "dq": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + q_bytes,
         "dkv": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * kv_bytes,
     }[kernel]
-    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    if peak is None:
+        peak = TF32X3_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -590,11 +615,16 @@ def check_attention_case(ta, label, impl, q, k, v, suffix, stats, timing) -> Non
             # SDPA's backward computes dq, dk and dv in one call
             "library_ms": sdpa_fwd if kernel == "fwd" else sdpa_bwd,
         }
+        note = ""
+        if dtype == torch.float32:
+            r["cuda_core_bound_ms"] = attention_bound_ms(kernel, B, S, hq, hkv, hd, dtype,
+                                                         F32_FLOPS_PER_S)[0]
+            note = (f" at the 3xTF32 rate ({bound / r['ms']:.1%}); at the CUDA cores' f32 peak "
+                    f"{r['cuda_core_bound_ms']:.4f} ms ({r['cuda_core_bound_ms'] / r['ms']:.1%})")
         log(f"attention {key} bench_1b timing: kernel {r['ms']:.4f} ms "
             f"(one call with its host time {r['call_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
-            f"{r['library_ms']:.4f} ms in the same dtype, bound {bound:.4f} ms ({by}"
-            f"{', f32 CUDA-core peak' if dtype == torch.float32 else ''})")
+            f"{r['library_ms']:.4f} ms in the same dtype, bound {bound:.4f} ms ({by}{note})")
 
 
 def share_differing(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -690,8 +720,8 @@ MODEL_PATHS = (
 )
 
 
-# an attention kernel instance in a profiler key (either source's)
-ATTN_KERNEL = re.compile(r"(?:attention|simt)_(?:fwd|dq|dkv)_kernel<[^>]*>")
+# an attention kernel instance in a profiler key (any source's)
+ATTN_KERNEL = re.compile(r"(?:attention|simt|tf32x3)_(?:fwd|dq|dkv)_kernel<[^>]*>")
 
 
 def attention_instances(prof) -> set:
@@ -872,7 +902,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    sources = ("fp8_rowwise.cu", "attention.cu", "attention_simt.cu")
+    sources = ("fp8_rowwise.cu", "attention.cu", "attention_tf32x3.cu", "attention_simt.cu")
     # one nvcc per source, started together; a failed build raises here
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build, sources))

@@ -436,16 +436,20 @@ def test_cpu_wrappers_run_the_plain_versions_in_every_dtype(impl, dtype):
 
 
 # (kernel, dtype) -> (source, dtype code its entry point takes first): the
-# tensor-core kernels of attention.cu run bf16 and f16, the CUDA-core
-# kernels of attention_simt.cu every f32 kernel
+# tensor-core kernels of attention.cu run bf16 and f16, the 3xTF32
+# tensor-core kernels of attention_tf32x3.cu the f32 dq and dK/dV, the
+# CUDA-core kernel of attention_simt.cu the f32 forward
 WANT_ROUTES = {
     ("fwd", BF16): ("attention.cu", 0), ("dq", BF16): ("attention.cu", 0),
     ("dkv", BF16): ("attention.cu", 0),
     ("fwd", F16): ("attention.cu", 1), ("dq", F16): ("attention.cu", 1),
     ("dkv", F16): ("attention.cu", 1),
-    ("fwd", F32): ("attention_simt.cu", 0), ("dq", F32): ("attention_simt.cu", 0),
-    ("dkv", F32): ("attention_simt.cu", 0),
+    ("fwd", F32): ("attention_simt.cu", 0), ("dq", F32): ("attention_tf32x3.cu", 0),
+    ("dkv", F32): ("attention_tf32x3.cu", 0),
 }
+# the C entry-point prefix of each source
+PREFIXES = {"attention.cu": "tft_attention", "attention_tf32x3.cu": "tft_tf32x3_attention",
+            "attention_simt.cu": "tft_simt_attention"}
 
 
 @pytest.mark.parametrize("kernel,dtype", list(WANT_ROUTES), ids=lambda x: str(x).replace("torch.", ""))
@@ -453,13 +457,12 @@ def test_each_kernel_and_dtype_calls_its_sources_entry_point(monkeypatch, kernel
     """_entry resolves (kernel, dtype) to the C entry point of its source
     with its dtype code bound first; stub libraries stand in for the built
     ones, so nothing is compiled."""
-    def library(source, prefix):
+    def library(source):
         return types.SimpleNamespace(**{
-            f"{prefix}_{k}": functools.partial(lambda k, *args: (source, k, args), k)
+            f"{PREFIXES[source]}_{k}": functools.partial(lambda k, *args: (source, k, args), k)
             for k in ("fwd", "dq", "dkv")})
 
-    monkeypatch.setattr(ta, "_kernels", lambda: library("attention.cu", "tft_attention"))
-    monkeypatch.setattr(ta, "_simt_kernels", lambda: library("attention_simt.cu", "tft_simt_attention"))
+    monkeypatch.setattr(ta, "_library", library)
     source, code = WANT_ROUTES[(kernel, dtype)]
     assert ta.ROUTES[(kernel, dtype)] == (source, code)
     got = ta._entry(kernel, dtype)("q", "k")
@@ -475,20 +478,210 @@ def _tensor_with_seq_stride(dtype, pad):
     return torch.zeros(1, 128, 128 + pad, dtype=dtype)[:, :, :128].unflatten(2, (2, 64))
 
 
+def _tensor_at_element(dtype, shift):
+    """A contiguous [1, 128, 2, 64] whose base lies `shift` elements past a
+    16-byte aligned one."""
+    return torch.zeros(1 * 128 * 2 * 64 + 8, dtype=dtype)[shift:shift + 128 * 2 * 64].view(1, 128, 2, 64)
+
+
 @pytest.mark.parametrize("dtype", [BF16, F16, F32])
 def test_tma_rule_holds_for_the_dtypes_attention_cu_reads(dtype):
-    """bf16 and f16 tensors (read by TMA in attention.cu) need a 16-byte
-    aligned base and batch/sequence/head strides of 8 elements, in every
-    wrapper's check, so an f16 tensor the backward would refuse is refused
-    at the forward; an f32 one is read an element at a time and passes."""
-    fine = _tensor_with_seq_stride(dtype, 8)
-    ta._check_inputs(fine, fine, fine)
-    odd = _tensor_with_seq_stride(dtype, 4)
-    assert odd.stride()[1] % 8
-    shifted = torch.zeros(1 * 128 * 2 * 64 + 1, dtype=dtype)[1:].view(1, 128, 2, 64)
-    for x in (odd, shifted):
-        if dtype == F32:
-            ta._check_inputs(x, x, x)
+    """A kernel that reads by TMA (every bf16 and f16 kernel of attention.cu,
+    the f32 dq and dK/dV of attention_tf32x3.cu) needs a 16-byte aligned
+    base and batch/sequence/head strides of whole 16 bytes, in every
+    wrapper's check; the f32 forward (attention_simt.cu) reads an element
+    at a time and takes an element-aligned base and any stride."""
+    per16 = 16 // torch.tensor([], dtype=dtype).element_size()
+    fine = _tensor_with_seq_stride(dtype, per16)
+    odd = _tensor_with_seq_stride(dtype, per16 // 2)
+    shifted = _tensor_at_element(dtype, 1)
+    assert odd.stride()[1] % per16 and shifted.data_ptr() % 16
+    for kernel in ("fwd", "dq", "dkv"):
+        ta._check_inputs(kernel, fine, fine, fine)
+        for x in (odd, shifted):
+            if (kernel, dtype) == ("fwd", F32):
+                ta._check_inputs(kernel, x, x, x)
+            else:
+                with pytest.raises(ValueError, match="16-byte aligned base and strides"):
+                    ta._check_inputs(kernel, x, x, x)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_alignment_rule_is_counted_in_bytes_by_route(kernel):
+    """TMA's rule is in bytes: an f32 sequence stride of 132 elements (528
+    bytes, 33 x 16) is whole 16 bytes and passes, one of 130 (520 bytes)
+    does not unless the kernel reads element by element (the f32 forward);
+    a base 8 bytes (2 f32 elements) past a 16-byte boundary is refused by
+    the TMA routes, whose error names the kernel, its source and the rule."""
+    ta._check_inputs(kernel, *[_tensor_with_seq_stride(F32, 4)] * 3)
+    for x in (_tensor_with_seq_stride(F32, 2), _tensor_at_element(F32, 2)):
+        if kernel == "fwd":
+            ta._check_inputs(kernel, x, x, x)
         else:
-            with pytest.raises(ValueError, match="16-byte aligned base and strides"):
-                ta._check_inputs(x, x, x)
+            with pytest.raises(ValueError, match=rf"float32 attention {kernel} kernel "
+                               r"\(attention_tf32x3.cu\) reads by TMA.*\(4 elements\)"):
+                ta._check_inputs(kernel, x, x, x)
+    # bf16 counts the same 16 bytes as 8 elements
+    ta._check_inputs(kernel, *[_tensor_with_seq_stride(BF16, 8)] * 3)
+    with pytest.raises(ValueError, match=r"\(8 elements\)"):
+        ta._check_inputs(kernel, *[_tensor_with_seq_stride(BF16, 4)] * 3)
+
+
+# ---------------------------------------------------------------------------
+# A CPU model of attention_tf32x3.cu's arithmetic (3xTF32), in f64
+# ---------------------------------------------------------------------------
+# bits wgmma's f32 sums keep, aligned to the largest addend and truncated:
+# the low end of what PERF.md's fit to the card (PR 6) found, ~22-23
+TC_BITS = 22
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """x's top 19 bits: how the tensor core reads an f32 operand."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32, ties away from zero (the kernel's rna_tf32)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_register(x):
+    """A register operand: hi = rna(x), lo = rna(x - hi)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _split_shared(x):
+    """A shared-memory operand read raw: the tensor core truncates it to
+    its hi; the kernel writes lo = rna(x - hi) beside it."""
+    hi = _tf32_trunc(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _tc_step(acc, a, b):
+    """One k8 step on the tensor core: acc + a [..., M, 8] @ b [..., 8, N]
+    exactly, then cut to TC_BITS bits of its largest addend (toward zero)
+    and to f32. acc and the result are f64 holding f32 values."""
+    prods = a.double().unsqueeze(-1) * b.double().unsqueeze(-3)
+    total = acc + prods.sum(-2)
+    big = torch.maximum(acc.abs(), prods.abs().amax(-2))
+    quantum = torch.exp2(torch.floor(torch.log2(torch.where(big > 0, big, torch.ones_like(big))))
+                         - (TC_BITS - 1))
+    return (torch.trunc(total / quantum) * quantum).float().double()
+
+
+def _product_3x(a, b):
+    """a [..., M, K] @ b [..., K, N] as product_3x: a split as a register
+    operand, b as a shared one; per 16 of K the small products (lo*hi,
+    hi*lo) in one fresh accumulator and the hi*hi ones in another, both
+    added to the running sum in f32, hi*hi first."""
+    ah, al = _split_register(a)
+    bh, bl = _split_shared(b)
+    run = None
+    for c in range(0, a.shape[-1], 16):
+        small = part = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+        for k in (c, c + 8):
+            small = _tc_step(small, al[..., k:k + 8], bh[..., k:k + 8, :])
+            small = _tc_step(small, ah[..., k:k + 8], bl[..., k:k + 8, :])
+        for k in (c, c + 8):
+            part = _tc_step(part, ah[..., k:k + 8], bh[..., k:k + 8, :])
+        run = (part.float() if run is None else run + part.float()) + small.float()
+    return run
+
+
+def _accumulate_3x(run, a, b, group):
+    """run + a [..., M, K] @ b [..., K, N] as product_t3x computes its
+    transpose: a (the accumulator written to shared memory) split as a
+    register operand, b (the streamed tile) as a shared one; the products
+    over each `group` of K in one fresh accumulator, smallest first (lo*hi,
+    hi*lo, then hi*hi, each over the group), added to run in f32."""
+    ah, al = _split_register(a)
+    bh, bl = _split_shared(b)
+    for k0 in range(0, a.shape[-1], group):
+        d = torch.zeros(run.shape, dtype=torch.float64)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            for k in range(k0, k0 + group, 8):
+                d = _tc_step(d, x[..., k:k + 8], y[..., k:k + 8, :])
+        run = run + d.float()
+    return run
+
+
+def _tf32x3_backward(q, k, v, lse, delta, do, sm, tile=32):
+    """(dq, dk, dv) as attention_tf32x3.cu computes them at head dims
+    64/128 (32-key and 32-query tiles): dq's S and dP with Q and dO as the
+    register operands, dQ over each whole key tile, and its two consumers'
+    partial sums (even and odd key tiles) added at the end; dK/dV's S^T and
+    dP^T with K and V as the register operands, dS^T from P^T as the dV
+    warpgroup hands it over (hi + lo of its split), dK and dV over 16
+    queries at a time, summed over the group's heads (outer) and query
+    tiles (inner)."""
+    B, S, hq, D = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    qf, dof = q.transpose(1, 2), do.transpose(1, 2)
+    kf, vf = (x.transpose(1, 2).repeat_interleave(group, 1) for x in (k, v))
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+
+    def probs_and_ds(s, dp, lse_, delta_, mask):
+        p = torch.exp((s * sm).masked_fill(~mask, ta.MASK_VALUE) - lse_)
+        return p, (dp - delta_) * p * sm
+
+    # dq: rows are queries
+    _, ds = probs_and_ds(_product_3x(qf, kf.transpose(-1, -2)),
+                         _product_3x(dof, vf.transpose(-1, -2)), lse[..., None], delta[..., None],
+                         causal)
+    partial = [torch.zeros(B, hq, S, D), torch.zeros(B, hq, S, D)]
+    for i, k0 in enumerate(range(0, S, tile)):
+        partial[i % 2] = _accumulate_3x(partial[i % 2], ds[..., k0:k0 + tile],
+                                        kf[..., k0:k0 + tile, :], tile)
+    dq = partial[0] + partial[1]
+    # dK/dV: rows are keys; the dK warpgroup takes P^T as hi + lo
+    pt, _ = probs_and_ds(_product_3x(kf, qf.transpose(-1, -2)), 0.0, lse[..., None, :], 0.0,
+                         causal.T)
+    pt_hi, pt_lo = _split_register(pt)
+    dst = (_product_3x(vf, dof.transpose(-1, -2)) - delta[..., None, :]) * (pt_hi + pt_lo) * sm
+    dk, dv = torch.zeros(B, hkv, S, D), torch.zeros(B, hkv, S, D)
+    heads = [torch.arange(hkv) * group + j for j in range(group)]
+    for h in heads:
+        for q0 in range(0, S, tile):
+            dv = _accumulate_3x(dv, pt[:, h, :, q0:q0 + tile], dof[:, h, q0:q0 + tile], 16)
+            dk = _accumulate_3x(dk, dst[:, h, :, q0:q0 + tile], qf[:, h, q0:q0 + tile], 16)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _attention_grads_f64(q, k, v, do, sm):
+    """(dq, dk, dv) in f64 by autograd through a causal softmax attention."""
+    group = q.shape[2] // k.shape[2]
+    leaves = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    qf = leaves[0].transpose(1, 2)
+    kf, vf = (x.transpose(1, 2).repeat_interleave(group, 1) for x in leaves[1:])
+    s = (qf @ kf.transpose(-1, -2)) * sm
+    s = s.masked_fill(~torch.ones(s.shape[-1], s.shape[-1], dtype=torch.bool).tril(), float("-inf"))
+    return torch.autograd.grad((torch.softmax(s, -1) @ vf).transpose(1, 2), leaves, do.double())
+
+
+@pytest.mark.parametrize("impl", ["splash", "flash"])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tf32x3_model_keeps_the_f32_bar(hd, hq, hkv, impl):
+    """The split (register operands rounded, shared ones truncated by the
+    tensor core with a rounded lo beside them) and the order of sums that
+    attention_tf32x3.cu uses, modelled in f64 with wgmma's sums cut to
+    TC_BITS bits, keep dq, dk and dv within the card's bar: 4x the plain
+    f32 version's max abs error against f64 (S 256). The model first
+    showed that one accumulator per product does not."""
+    rng = np.random.RandomState(hd + 10 * hq + hkv)
+    q, k, v = (torch.from_numpy(rng.randn(1, S, h, hd).astype(np.float32)) for h in (hq, hkv, hkv))
+    if impl == "splash":
+        q, sm = q * ta.splash_scale(hd, torch.float32), 1.0
+    else:
+        sm = hd ** -0.5
+    o, lse = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
+    do = 2 * o
+    args = (q, k, v, lse, ta.attention_delta(o, do), do, sm)
+    plain = (ta.attention_dq_plain(*args), *ta.attention_dkv_plain(*args))
+    ref = _attention_grads_f64(q, k, v, do, sm)
+    for name, got, want, r in zip(("dq", "dk", "dv"), _tf32x3_backward(*args), plain, ref):
+        e_model = float((got.double() - r).abs().max())
+        e_plain = float((want.double() - r).abs().max())
+        assert e_model <= 4 * e_plain, (name, e_model, e_plain)

@@ -114,7 +114,7 @@ def test_cuda_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path,
     (tmp_path / "attention.cu").write_text("this is not CUDA\n")
     monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
     monkeypatch.setattr(_build, "_BUILD_DIR", str(tmp_path / "build"))
-    ta._kernels.cache_clear()
+    ta._library.cache_clear()
     try:
         q = torch.randn(1, 128, 2, 64, device=cuda_device, dtype=dtype)
         ta.reset_launches()
@@ -122,7 +122,7 @@ def test_cuda_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path,
             ta.attention_fwd(q, q, q, 1.0, "splash")
         assert not any(ta.LAUNCHES.values())
     finally:
-        ta._kernels.cache_clear()
+        ta._library.cache_clear()
 
 
 @pytest.mark.cuda
@@ -134,7 +134,7 @@ def test_cuda_simt_attention_build_failure_raises(cuda_device, monkeypatch, tmp_
     (tmp_path / "attention_simt.cu").write_text("this is not CUDA\n")
     monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
     monkeypatch.setattr(_build, "_BUILD_DIR", str(tmp_path / "build"))
-    ta._simt_kernels.cache_clear()
+    ta._library.cache_clear()
     try:
         q = torch.randn(1, 128, 2, 64, device=cuda_device)
         ta.reset_launches()
@@ -142,7 +142,74 @@ def test_cuda_simt_attention_build_failure_raises(cuda_device, monkeypatch, tmp_
             ta.causal_attention(q, q, q, impl="flash")
         assert not any(ta.LAUNCHES.values())
     finally:
-        ta._simt_kernels.cache_clear()
+        ta._library.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_cuda_tf32x3_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path, kernel):
+    """A broken attention_tf32x3.cu fails an f32 dq or dK/dV call with
+    nvcc's output; neither the CUDA-core nor the plain version runs in its
+    place."""
+    from torchft_tpu_torch.ops import _build
+
+    (tmp_path / "attention_tf32x3.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "_BUILD_DIR", str(tmp_path / "build"))
+    ta._library.cache_clear()
+    try:
+        q = torch.randn(1, 128, 2, 64, device=cuda_device)
+        stat = torch.zeros(1, 2, 128, device=cuda_device)
+        fn = ta.attention_dq if kernel == "dq" else ta.attention_dkv
+        ta.reset_launches()
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(q, q, q, stat, stat, q, 1.0, "flash")
+        assert not any(ta.LAUNCHES.values())
+    finally:
+        ta._library.cache_clear()
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_operands_are_read_truncated(cuda_device):
+    """attention_tf32x3.cu takes a raw f32 tile as its own hi because the
+    tensor core reads an f32 operand of a .tf32 wgmma as its top 19 bits,
+    from registers (A) and shared memory (B) alike: the probe's products by
+    1 equal x with its low 13 mantissa bits cleared, not x rounded."""
+    import ctypes
+
+    lib = ta._library("attention_tf32x3.cu")
+    lib.tft_tf32x3_probe.argtypes = [ctypes.c_void_p] * 3
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(72, generator=g) * torch.exp2(torch.randint(-20, 20, (72,), generator=g).float())
+    x[0] = x[64] = 1 + 2 ** -11 + 2 ** -13  # rounds up, truncates down
+    x = x.to(cuda_device)
+    out = torch.zeros_like(x)
+    assert lib.tft_tf32x3_probe(x.data_ptr(), out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    truncated = (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    assert torch.equal(out, truncated)
+    assert not torch.equal(out, x)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_alignment_is_checked_by_route(cuda_device):
+    """An f32 tensor whose base is 4 bytes past a 16-byte boundary runs the
+    CUDA-core forward (it reads element by element), and the dq and dK/dV
+    kernels, which read by TMA, refuse it with a ValueError naming the rule
+    before any tile map is made."""
+    flat = torch.randn(1 * 128 * 2 * 64 + 4, device=cuda_device)
+    x = flat[1:1 + 128 * 2 * 64].view(1, 128, 2, 64)
+    assert x.data_ptr() % 16 == 4
+    ta.reset_launches()
+    o, lse = ta.attention_fwd(x, x, x, 1.0, "flash")
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES["flash_fwd_f32"] == 1 and bool(torch.isfinite(o).all())
+    delta = ta.attention_delta(o, x)
+    for fn in (ta.attention_dq, ta.attention_dkv):
+        with pytest.raises(ValueError, match=r"reads by TMA.*16-byte aligned base and strides"):
+            fn(x, x, x, lse, delta, x, 1.0, "flash")
+    assert ta.LAUNCHES["flash_dq_f32"] == ta.LAUNCHES["flash_dkv_f32"] == 0
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -246,11 +313,13 @@ def _attention_f64(q, k, v, do, sm):
 @pytest.mark.parametrize("impl", ["splash", "flash"])
 def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd,
                                                  fused):
-    """The f32 forward, dq and dk/dv kernels (attention_simt.cu) within 4x
-    the plain f32 version's error against an f64 evaluation (the forward's
-    online softmax rounds its sums once more per key tile than the plain
-    version), TF32 off; lse within 1e-3. (bf16 and f16 run attention.cu,
-    held in test_cuda_attention_kernels_error_ratio.)"""
+    """The f32 kernels, the forward (attention_simt.cu) and the 3xTF32 dq
+    and dk/dv (attention_tf32x3.cu), within 4x the plain f32 version's
+    error against an f64 evaluation (the forward's online softmax rounds its
+    sums once more per key tile than the plain version; the backward's
+    split operands drop lo*lo and its tensor-core sums keep ~22-23 bits),
+    TF32 off for the plain version; lse within 1e-3. (bf16 and f16 run
+    attention.cu, held in test_cuda_attention_kernels_error_ratio.)"""
     assert not torch.backends.cuda.matmul.allow_tf32
     dtype = torch.float32
     g = torch.Generator().manual_seed(batch * 1000 + seq + hq * 10 + hd)
@@ -291,15 +360,24 @@ def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, 
         assert e_k <= 4 * e_p, (name, e_k, e_p)
 
 
+# the attention kernel instances a 64-head-dim model runs, per dtype
+ROUTED_INSTANCES = {
+    torch.float32: {"simt_fwd_kernel<float,64>", "tf32x3_dq_kernel<64>", "tf32x3_dkv_kernel<64>"},
+    torch.float16: {"attention_fwd_kernel<64,{split},__half>", "attention_dq_kernel<64,__half>",
+                    "attention_dkv_kernel<64,__half>"},
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("impl", ["auto", "splash", "flash"])
-def test_cuda_f32_runs_simt_and_f16_runs_only_hopper_kernels(cuda_device, dtype, impl):
+def test_cuda_f32_and_f16_run_only_their_routed_kernels(cuda_device, dtype, impl):
     """An f32/f16 model on the card at a shape the kernels tile runs the
     kernels, forward and backward, as the reference's rule runs its kernels
-    on any dtype: f32 the CUDA-core kernels of attention_simt.cu, f16 only
-    attention.cu's wgmma kernels (a profile of the run shows no simt_*
-    kernel); output and gradients match the plain path's.
+    on any dtype: f32 the CUDA-core forward of attention_simt.cu and the
+    3xTF32 dq and dK/dV of attention_tf32x3.cu, f16 only attention.cu's
+    wgmma kernels; a profile of the run shows exactly those instances.
+    Output and gradients match the plain path's.
     Tolerance: f32 1e-4 (f32 sums in another order), f16 1e-2 (both round
     O, P, dS and the gradients to f16 at values up to ~8, and may round
     one element to neighbouring f16 values). impl="xla" still runs the
@@ -327,10 +405,11 @@ def test_cuda_f32_runs_simt_and_f16_runs_only_hopper_kernels(cuda_device, dtype,
     assert {n: c for n, c in launched.items() if c} == {
         f"{want}_fwd{suffix}": 1, f"{want}_dq{suffix}": 1, f"{want}_dkv{suffix}": 1}
     assert not any(plain_launched.values())
-    family = "simt_" if dtype == torch.float32 else "attention_"
-    ctype = "float" if dtype == torch.float32 else "__half"
-    kernels = [key for key in ran if re.search(r"(?:attention|simt)_(?:fwd|dq|dkv)_kernel<", key)]
-    assert len(kernels) == 3 and all(family in key and ctype in key for key in kernels), kernels
+    kernels = {m.group(0).replace(" ", "") for key in ran
+               for m in [re.search(r"(?:attention|simt|tf32x3)_(?:fwd|dq|dkv)_kernel<[^>]*>", key)]
+               if m}
+    want_ran = {name.format(split=str(want == "splash").lower()) for name in ROUTED_INSTANCES[dtype]}
+    assert kernels == want_ran, kernels
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
         assert a.dtype == dtype, name
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol, msg=name)

@@ -12,8 +12,10 @@ output [B, S, Hq, hd].
   ``flash_attention_tpu``): the fused kernels, forward and backward,
   reading GQA K/V heads in place (no repeat). ``ROUTES`` says which source
   runs each (kernel, dtype): ``csrc/attention.cu`` (wgmma and TMA) every
-  bf16 and f16 kernel, ``csrc/attention_simt.cu`` (f32 multiply-adds on
-  the CUDA cores) every f32 kernel;
+  bf16 and f16 kernel, ``csrc/attention_tf32x3.cu`` (split operands, three
+  TF32 tensor-core products per f32 one, fed by TMA) the f32 dq and dK/dV,
+  ``csrc/attention_simt.cu`` (f32 multiply-adds on the CUDA cores) the f32
+  forward;
 - ``"auto"``: on a CUDA tensor ``"splash"`` when Hq != Hkv, else
   ``"flash"``; ``"xla"`` on a CPU tensor (as the reference does off the
   TPU).
@@ -37,7 +39,8 @@ launch in ``LAUNCHES``, and run the plain torch version below on a CPU
 tensor; the launches of the f32/f16 kernels are counted under keys ending
 in ``_f32``/``_f16``, whichever source runs them. A failed build, tile map
 or launch raises; a CUDA tensor the kernels do not take (another dtype,
-mixed dtypes, misaligned) raises rather than falling back.
+mixed dtypes, misaligned for the kernel's route) raises rather than falling
+back.
 
 The two fused paths differ where the references do:
 
@@ -106,7 +109,8 @@ SEQ_TILE = 128
 # where K2's online softmax rounds P
 FWD_KEY_TILE = {64: 128, 128: 128, 256: 64}
 # (kernel, dtype) -> (source, the dtype code its entry point takes first).
-# attention.cu: 0 bf16, 1 f16; attention_simt.cu: 0 f32.
+# attention.cu: 0 bf16, 1 f16; attention_tf32x3.cu and attention_simt.cu:
+# 0 f32.
 ROUTES = {
     ("fwd", torch.bfloat16): ("attention.cu", 0),
     ("dq", torch.bfloat16): ("attention.cu", 0),
@@ -115,11 +119,19 @@ ROUTES = {
     ("dq", torch.float16): ("attention.cu", 1),
     ("dkv", torch.float16): ("attention.cu", 1),
     ("fwd", torch.float32): ("attention_simt.cu", 0),
-    ("dq", torch.float32): ("attention_simt.cu", 0),
-    ("dkv", torch.float32): ("attention_simt.cu", 0),
+    ("dq", torch.float32): ("attention_tf32x3.cu", 0),
+    ("dkv", torch.float32): ("attention_tf32x3.cu", 0),
 }
-# dtypes some kernel of which reads its tensors by TMA (attention.cu)
-_TMA_DTYPES = {dtype for (_, dtype), (source, _) in ROUTES.items() if source == "attention.cu"}
+# each source's C entry-point prefix and the kernels it has
+_SOURCES = {
+    "attention.cu": ("tft_attention", ("fwd", "dq", "dkv")),
+    "attention_tf32x3.cu": ("tft_tf32x3_attention", ("dq", "dkv")),
+    "attention_simt.cu": ("tft_simt_attention", ("fwd",)),
+}
+# the sources whose kernels read their tensors by TMA: a 16-byte aligned
+# base and batch/sequence/head strides of whole 16 bytes; the others read
+# an element at a time
+_TMA_SOURCES = ("attention.cu", "attention_tf32x3.cu")
 _LAUNCH_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
 # the variable causal_attention reads its choice from when given none
 ATTENTION_ENV = "TORCHFT_TPU_ATTENTION"
@@ -274,39 +286,27 @@ def attention_dkv_plain(q, k, v, lse, delta, do, sm_scale: float) -> Tuple[torch
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CUDA kernels for CUDA tensors, plain versions on the CPU
 # ---------------------------------------------------------------------------
-@functools.lru_cache(maxsize=1)
-def _kernels() -> ctypes.CDLL:
-    """attention.cu: the Hopper kernels (a dtype code first)."""
+@functools.lru_cache(maxsize=None)
+def _library(source: str) -> ctypes.CDLL:
+    """The library of ``csrc/<source>`` (one of ``_SOURCES``), built at
+    first use, its entry points (a dtype code first) bound."""
     from torchft_tpu_torch.ops._build import load_library
 
-    lib = load_library("attention.cu")
+    lib = load_library(source)
+    prefix, kernels = _SOURCES[source]
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [ci, ci, ci, ci, ci, cf]  # B, S, Hq, Hkv, hd, sm_scale
-    lib.tft_attention_fwd.argtypes = [ci] + [vp] * 6 + dims + [ci, vp]
-    lib.tft_attention_dq.argtypes = [ci] + [vp] * 8 + dims + [vp]
-    lib.tft_attention_dkv.argtypes = [ci] + [vp] * 9 + dims + [vp]
-    for fn in (lib.tft_attention_fwd, lib.tft_attention_dq, lib.tft_attention_dkv,
-               lib.tft_attention_tile):
-        fn.restype = ci
-    _check_tile(lib.tft_attention_tile())
-    return lib
-
-
-@functools.lru_cache(maxsize=1)
-def _simt_kernels() -> ctypes.CDLL:
-    """attention_simt.cu: the CUDA-core kernels (a dtype code first)."""
-    from torchft_tpu_torch.ops._build import load_library
-
-    lib = load_library("attention_simt.cu")
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [ci, ci, ci, ci, ci, cf]  # B, S, Hq, Hkv, hd, sm_scale
-    lib.tft_simt_attention_fwd.argtypes = [ci] + [vp] * 6 + dims + [ci, vp]
-    lib.tft_simt_attention_dq.argtypes = [ci] + [vp] * 8 + dims + [vp]
-    lib.tft_simt_attention_dkv.argtypes = [ci] + [vp] * 9 + dims + [vp]
-    for fn in (lib.tft_simt_attention_fwd, lib.tft_simt_attention_dq,
-               lib.tft_simt_attention_dkv, lib.tft_simt_attention_tile):
-        fn.restype = ci
-    _check_tile(lib.tft_simt_attention_tile())
+    # pointers: fwd q, k, v, o, lse, strides (then p_split); dq q, k, v,
+    # do, lse, delta, dq, strides; dkv dk and dv in dq's place
+    argtypes = {"fwd": [ci] + [vp] * 6 + dims + [ci, vp],
+                "dq": [ci] + [vp] * 8 + dims + [vp],
+                "dkv": [ci] + [vp] * 9 + dims + [vp]}
+    for kernel in kernels:
+        fn = getattr(lib, f"{prefix}_{kernel}")
+        fn.argtypes, fn.restype = argtypes[kernel], ci
+    tile = getattr(lib, f"{prefix}_tile")
+    tile.restype = ci
+    _check_tile(tile())
     return lib
 
 
@@ -321,24 +321,22 @@ def _entry(kernel: str, dtype: torch.dtype):
     """The C entry point of ``kernel`` ("fwd", "dq", "dkv") for ``dtype``
     by ``ROUTES``, its dtype code bound. Builds the library at first use."""
     source, code = ROUTES[(kernel, dtype)]
-    if source == "attention.cu":
-        fn = getattr(_kernels(), f"tft_attention_{kernel}")
-    else:
-        fn = getattr(_simt_kernels(), f"tft_simt_attention_{kernel}")
-    return functools.partial(fn, code)
+    return functools.partial(getattr(_library(source), f"{_SOURCES[source][0]}_{kernel}"), code)
 
 
 def _dtype_names(dtypes=KERNEL_DTYPES) -> str:
     return ", ".join(str(d).replace("torch.", "") for d in dtypes)
 
 
-def _check_inputs(*tensors: torch.Tensor) -> None:
-    """Raise on what the kernels do not take: [B, S, H, hd] tensors of one
-    dtype of ``KERNEL_DTYPES`` on one CUDA device, head dim contiguous.
-    bf16 and f16 tensors are read by TMA (``attention.cu``), which needs a
-    16-byte aligned base and batch/sequence/head strides of whole 16 bytes
-    (8 elements). f32 tensors are read an element at a time, so an
-    element-aligned base is enough."""
+def _check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise on what ``kernel`` ("fwd", "dq", "dkv") does not take:
+    [B, S, H, hd] tensors of one dtype of ``KERNEL_DTYPES`` on one CUDA
+    device, head dim contiguous, aligned as the kernel's route reads them.
+    A kernel that reads by TMA (``_TMA_SOURCES``: every bf16 and f16 kernel,
+    the f32 dq and dK/dV) needs a 16-byte aligned base and batch/sequence/
+    head strides of whole 16 bytes (8 bf16/f16 or 4 f32 elements); the f32
+    forward reads an element at a time, so an element-aligned base is
+    enough."""
     q = tensors[0]
     B, S, _, hd = q.shape
     if q.dtype not in KERNEL_DTYPES:
@@ -347,6 +345,7 @@ def _check_inputs(*tensors: torch.Tensor) -> None:
         raise ValueError(f"the attention kernels take head dims {KERNEL_HEAD_DIMS}, got {hd}")
     if S % SEQ_TILE != 0:
         raise ValueError(f"the attention kernels need seq_len % {SEQ_TILE} == 0, got {S}")
+    source = ROUTES[(kernel, q.dtype)][0]
     for x in tensors:
         if x.dtype != q.dtype:
             raise TypeError(f"attention tensors must share one dtype, got {q.dtype} and {x.dtype}")
@@ -354,12 +353,16 @@ def _check_inputs(*tensors: torch.Tensor) -> None:
             raise ValueError("attention tensors must be [B, S, H, hd] on one CUDA device")
         if x.stride(3) != 1:
             raise ValueError("attention tensors need a contiguous head dim")
-        if q.dtype in _TMA_DTYPES:
-            if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
-                raise ValueError(f"{_dtype_names((q.dtype,))} attention tensors need a 16-byte "
-                                 "aligned base and strides")
+        if source in _TMA_SOURCES:
+            per16 = 16 // x.element_size()
+            if x.data_ptr() % 16 or any(st % per16 for st in x.stride()[:3]):
+                raise ValueError(
+                    f"the {_dtype_names((q.dtype,))} attention {kernel} kernel ({source}) reads "
+                    f"by TMA: its tensors need a 16-byte aligned base and strides of whole 16 "
+                    f"bytes ({per16} elements)")
         elif x.data_ptr() % x.element_size():
-            raise ValueError("attention tensors need an element-aligned base")
+            raise ValueError(f"the attention {kernel} kernel ({source}) needs tensors with an "
+                             "element-aligned base")
 
 
 def _strides(*tensors: torch.Tensor):
@@ -392,7 +395,7 @@ def attention_fwd(
     p_f32 = impl == "splash"
     if not q.is_cuda:
         return attention_fwd_plain(q, k, v, sm_scale, p_f32)
-    _check_inputs(q, k, v)
+    _check_inputs("fwd", q, k, v)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -406,12 +409,12 @@ def attention_fwd(
 
 
 def attention_dq(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> torch.Tensor:
-    """dq: ``attention_dq_kernel`` (bf16/f16) or ``simt_dq_kernel`` (f32)
-    on CUDA, counted as ``{impl}_dq`` plus the dtype's suffix, the plain
-    version on the CPU."""
+    """dq: ``attention_dq_kernel`` (bf16/f16) or ``tf32x3_dq_kernel``
+    (f32) on CUDA, counted as ``{impl}_dq`` plus the dtype's suffix, the
+    plain version on the CPU."""
     if not q.is_cuda:
         return attention_dq_plain(q, k, v, lse, delta, do, sm_scale)
-    _check_inputs(q, k, v, do)
+    _check_inputs("dq", q, k, v, do)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -425,12 +428,12 @@ def attention_dq(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> torch.T
 
 
 def attention_dkv(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv): ``attention_dkv_kernel`` (bf16/f16) or ``simt_dkv_kernel``
-    (f32) on CUDA, counted as ``{impl}_dkv`` plus the dtype's suffix,
-    the plain version on the CPU."""
+    """(dk, dv): ``attention_dkv_kernel`` (bf16/f16) or
+    ``tf32x3_dkv_kernel`` (f32) on CUDA, counted as ``{impl}_dkv`` plus the
+    dtype's suffix, the plain version on the CPU."""
     if not q.is_cuda:
         return attention_dkv_plain(q, k, v, lse, delta, do, sm_scale)
-    _check_inputs(q, k, v, do)
+    _check_inputs("dkv", q, k, v, do)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
@@ -447,8 +450,8 @@ def attention_dkv(q, k, v, lse, delta, do, sm_scale: float, impl: str) -> Tuple[
 def _stat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """A per-row statistic (lse, delta) as the kernels read it: f32
     [B, Hq, S] on q's device, contiguous (the dq kernels read each query
-    row's value at its index) and 16-byte aligned (the bf16/f16 dK/dV kernel
-    loads a tile's rows by TMA); a strided or misaligned one is copied."""
+    row's value at its index) and 16-byte aligned (the dK/dV kernels load a
+    tile's rows by TMA); a strided or misaligned one is copied."""
     shape = (q.shape[0], q.shape[2], q.shape[1])
     if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device:
         raise ValueError(f"row statistics must be f32 {shape} on {q.device}, "

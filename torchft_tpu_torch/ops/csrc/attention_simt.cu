@@ -1,42 +1,36 @@
-// Causal GQA attention on the CUDA cores (sm_90a): forward, dq and dK/dV for
-// f32 tensors.
+// Causal GQA attention forward on the CUDA cores (sm_90a) for f32 tensors.
 //
-// Replaces the same Pallas kernels as attention.cu (K1 splash_attention_tpu,
-// K2 flash_attention_tpu in torchft_tpu/ops/attention.py) where attention.cu
-// has no kernel: the reference's dispatch has no dtype clause and runs its
-// kernels on an f32 model. (bf16 and f16 are attention.cu's tensor-core
-// kernels; the kernels below keep the element type T as a template
-// argument, and only T = float is built.) Same contract as attention.cu:
-//   * q/o/do [B, S, Hq, D], k/v [B, S, Hkv, D] in T, read
-//     through their batch/sequence/head strides (the head-dim stride is 1);
-//     lse and delta [B, Hq, S] f32; GQA K/V heads read in place;
+// Replaces the same Pallas kernels' forward as attention.cu (K1
+// splash_attention_tpu, K2 flash_attention_tpu in
+// torchft_tpu/ops/attention.py) where attention.cu has no kernel: the
+// reference's dispatch has no dtype clause and runs its kernels on an f32
+// model. (bf16 and f16 are attention.cu's tensor-core kernels, and the f32
+// dq and dK/dV attention_tf32x3.cu's; the kernel below keeps the element
+// type T as a template argument, and only T = float is built.) Same contract
+// as attention.cu:
+//   * q/o [B, S, Hq, D], k/v [B, S, Hkv, D] in T, read through their
+//     batch/sequence/head strides (the head-dim stride is 1); lse [B, Hq, S]
+//     f32; GQA K/V heads read in place;
 //   * K1 (p_f32): q arrives pre-scaled, sm_scale = 1, P stays f32 for P.V;
 //     K2: the scores are scaled by sm_scale in f32 and P is rounded to T for
 //     P.V;
-//   * the backward recomputes P = exp(s - lse), dS = P (dP - delta) sm_scale,
-//     and rounds P and dS to T for their products;
 //   * masked scores take the reference's -0.7 * FLT_MAX.
 // Every product is summed in f32, so the rounding points are those of the
-// plain versions in ops/attention.py; for f32 the roundings to T are no-ops.
+// plain version in ops/attention.py; for f32 the roundings to T are no-ops.
 //
-// What bounds them: f32 multiply-adds on the CUDA cores. No tensor cores:
-// a TF32 product keeps ~10 mantissa bits and would miss an f32 model's
-// accuracy by orders of magnitude. The design is a plain tiled SIMT one,
-// right first and fast later:
+// What bounds it: f32 multiply-adds on the CUDA cores (a TF32 product keeps
+// ~11 significant bits; attention_tf32x3.cu's split operands are the way
+// onto the tensor cores). The design is a plain tiled SIMT one:
 //   * 256 threads as a 16 x 16 grid; tiles staged in shared memory as f32
 //     (rows padded by one float so column walks hit distinct banks); each
 //     thread owns rows ty + 16i and columns tx + 16j of every product, so a
 //     row's 16 owners sit in one half-warp and reduce by shuffles;
-//   * forward: one block per (64-row query tile, q head, batch), an online
-//     softmax over 64-key tiles (32 at D 256); P goes through shared memory
-//     to the P.V product;
-//   * dq: the same blocks, dS through shared memory to the dS.K product;
-//   * dK/dV: one block per (key tile, kv head, batch) that loops over the
-//     group's query heads and the query tiles at or after its diagonal,
-//     summing both in f32 registers and rounding once: no atomics;
+//   * one block per (64-row query tile, q head, batch), an online softmax
+//     over 64-key tiles (32 at D 256); P goes through shared memory to the
+//     P.V product;
 //   * exp and log are expf / logf (no fast-math), as the f32 bar needs.
 //
-// Plain C interface, bound with ctypes: each entry point launches on the
+// Plain C interface, bound with ctypes: the entry point launches on the
 // caller's stream and returns cudaError_t, or kErrHeadDim / kErrDtype.
 
 #include <cuda_runtime.h>
@@ -244,189 +238,6 @@ __global__ void __launch_bounds__(kThreads) simt_fwd_kernel(
   }
 }
 
-template <int D>
-constexpr int dq_smem() {
-  using Ti = Tiles<D>;
-  return 4 * (2 * Ti::kQ * Ti::kLD + 2 * Ti::kK * Ti::kLD + Ti::kQ * (Ti::kK + 1));
-}
-
-// ---------------------------------------------------------------------------
-// dq: one block per (64-row query tile, q head, batch)
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) simt_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, Strides sq,
-    Strides sk, Strides sv, Strides sdo, Strides sdq, int S, int Hq, int group,
-    float sm_scale) {
-  using Ti = Tiles<D>;
-  constexpr int BQ = Ti::kQ, BK = Ti::kK, PLD = BK + 1;
-  constexpr int M = BQ / kSide, N = BK / kSide, DN = D / kSide;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * Ti::kLD;
-  float* Ks = dOs + BQ * Ti::kLD;
-  float* Vs = Ks + BK * Ti::kLD;
-  float* dSs = Vs + BK * Ti::kLD;
-
-  int qt, h, b;
-  query_block(S, BQ, Hq, qt, h, b);
-  const int kvh = h / group, q0 = qt * BQ;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int64_t stat = (static_cast<int64_t>(b) * Hq + h) * S;
-
-  load_rows<D>(Qs, q, sq, b, q0, h, BQ);
-  load_rows<D>(dOs, dout, sdo, b, q0, h, BQ);
-  float acc[M][DN], row_lse[M], row_delta[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    row_lse[i] = lse[stat + q0 + ty + kSide * i];
-    row_delta[i] = delta[stat + q0 + ty + kSide * i];
-#pragma unroll
-    for (int n = 0; n < DN; ++n) acc[i][n] = 0.f;
-  }
-
-  const int n_kt = (q0 + BQ - 1) / BK + 1;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_rows<D>(Ks, k, sk, b, k0, kvh, BK);
-    load_rows<D>(Vs, v, sv, b, k0, kvh, BK);
-    __syncthreads();
-
-    float s[M][N], dp[M][N];
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_rows<D>(s, Qs, Ks, ty, tx);
-    dot_rows<D>(dp, dOs, Vs, ty, tx);
-
-    // dS = P (dP - delta) sm_scale, P = exp(s sm_scale - lse), rounded to T
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const int row = q0 + ty + kSide * i;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        float x = s[i][j] * sm_scale;
-        if (k0 + tx + kSide * j > row) x = kMaskValue;
-        const float p = expf(x - row_lse[i]);
-        dSs[(ty + kSide * i) * PLD + tx + kSide * j] =
-            round_to<T>((dp[i][j] - row_delta[i]) * p * sm_scale);
-      }
-    }
-    __syncthreads();
-    dot_cols<D, BK>(acc, dSs, PLD, Ks, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    T* out = dq + offset(sdq, b, q0 + ty + kSide * i, h);
-#pragma unroll
-    for (int n = 0; n < DN; ++n) out[tx + kSide * n] = from_f32<T>(acc[i][n]);
-  }
-}
-
-// dK/dV tiles: as many queries per tile as keys per block, so a block's
-// first query tile starts at its first key
-template <int D>
-constexpr int dkv_smem() {
-  using Ti = Tiles<D>;
-  return 4 * (4 * Ti::kK * Ti::kLD + 2 * Ti::kK * (Ti::kK + 1) + 2 * Ti::kK);
-}
-
-// ---------------------------------------------------------------------------
-// dK, dV: one block per (key tile, kv head, batch)
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) simt_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-    int S, int Hq, int group, float sm_scale) {
-  using Ti = Tiles<D>;
-  constexpr int BK = Ti::kK, BQ = Ti::kK, PLD = BQ + 1;
-  constexpr int M = BK / kSide, N = BQ / kSide, DN = D / kSide;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * Ti::kLD;
-  float* Qs = Vs + BK * Ti::kLD;
-  float* dOs = Qs + BQ * Ti::kLD;
-  float* Pt = dOs + BQ * Ti::kLD;
-  float* dSt = Pt + BK * PLD;
-  float* lse_s = dSt + BK * PLD;
-  float* delta_s = lse_s + BQ;
-
-  // keys near 0 see most queries: their tiles first across the grid
-  const int hkv = Hq / group, heads = gridDim.x / (S / BK);
-  const int kt = blockIdx.x / heads;
-  const int kvh = blockIdx.x % heads % hkv, b = blockIdx.x % heads / hkv;
-  const int k0 = kt * BK;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-
-  load_rows<D>(Ks, k, sk, b, k0, kvh, BK);
-  load_rows<D>(Vs, v, sv, b, k0, kvh, BK);
-  float dk_acc[M][DN], dv_acc[M][DN];
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int n = 0; n < DN; ++n) dk_acc[i][n] = dv_acc[i][n] = 0.f;
-
-  for (int h = kvh * group; h < (kvh + 1) * group; ++h) {
-    const int64_t stat = (static_cast<int64_t>(b) * Hq + h) * S;
-    for (int q0 = k0; q0 < S; q0 += BQ) {
-      __syncthreads();  // the last tile's Q, dO, P^T and dS^T are read
-      load_rows<D>(Qs, q, sq, b, q0, h, BQ);
-      load_rows<D>(dOs, dout, sdo, b, q0, h, BQ);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        lse_s[i] = lse[stat + q0 + i];
-        delta_s[i] = delta[stat + q0 + i];
-      }
-      __syncthreads();
-
-      // S^T = K Q^T, dP^T = V dO^T: rows are keys, columns queries
-      float st[M][N], dpt[M][N];
-#pragma unroll
-      for (int i = 0; i < M; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j) st[i][j] = dpt[i][j] = 0.f;
-      dot_rows<D>(st, Ks, Qs, ty, tx);
-      dot_rows<D>(dpt, Vs, dOs, ty, tx);
-
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        const int key = k0 + ty + kSide * i;
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const int c = tx + kSide * j;
-          float x = st[i][j] * sm_scale;
-          if (key > q0 + c) x = kMaskValue;
-          const float p = expf(x - lse_s[c]);
-          Pt[(ty + kSide * i) * PLD + c] = round_to<T>(p);
-          dSt[(ty + kSide * i) * PLD + c] =
-              round_to<T>((dpt[i][j] - delta_s[c]) * p * sm_scale);
-        }
-      }
-      __syncthreads();
-      dot_cols<D, BQ>(dv_acc, Pt, PLD, dOs, ty, tx);
-      dot_cols<D, BQ>(dk_acc, dSt, PLD, Qs, ty, tx);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    T* ok = dk + offset(sdk, b, k0 + ty + kSide * i, kvh);
-    T* ov = dv + offset(sdv, b, k0 + ty + kSide * i, kvh);
-#pragma unroll
-    for (int n = 0; n < DN; ++n) {
-      ok[tx + kSide * n] = from_f32<T>(dk_acc[i][n]);
-      ov[tx + kSide * n] = from_f32<T>(dv_acc[i][n]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Host
 // ---------------------------------------------------------------------------
@@ -455,34 +266,8 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                 strides_at(st, 3), S, Hq, Hq / Hkv, sm_scale, p_f32);
 }
 
-template <typename T, int D>
-int dq(const void* q, const void* k, const void* v, const void* dout,
-       const float* lse, const float* delta, void* dqp, const int64_t* st,
-       int B, int S, int Hq, int Hkv, float sm_scale, cudaStream_t stream) {
-  return launch(simt_dq_kernel<T, D>, dq_smem<D>(), S / Tiles<D>::kQ * Hq * B,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                delta, static_cast<T*>(dqp), strides_at(st, 0),
-                strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-                strides_at(st, 4), S, Hq, Hq / Hkv, sm_scale);
-}
-
-template <typename T, int D>
-int dkv(const void* q, const void* k, const void* v, const void* dout,
-        const float* lse, const float* delta, void* dkp, void* dvp,
-        const int64_t* st, int B, int S, int Hq, int Hkv, float sm_scale,
-        cudaStream_t stream) {
-  return launch(simt_dkv_kernel<T, D>, dkv_smem<D>(), S / Tiles<D>::kK * Hkv * B,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                delta, static_cast<T*>(dkp), static_cast<T*>(dvp),
-                strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-                strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), S, Hq,
-                Hq / Hkv, sm_scale);
-}
-
 // fn<float, D>(args...) for dtype code 0 and D 64/128/256: bf16 and f16
-// run attention.cu's tensor-core kernels, so any other code is refused here
+// run attention.cu's tensor-core kernel, so any other code is refused here
 #define TFT_DISPATCH_F32(fn, dtype, D, ...)                          \
   switch ((dtype) * 1000 + (D)) {                                    \
     case 64: return fn<float, 64>(__VA_ARGS__);                      \
@@ -495,7 +280,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Rows of the kernels' largest tile: S must be a multiple of it.
+// Rows of the kernel's query tile: S must be a multiple of it.
 int tft_simt_attention_tile() { return Tiles<64>::kQ; }
 
 // dtype: 0 f32 (1, f16, is attention.cu's). strides: 3 per tensor (batch,
@@ -507,28 +292,6 @@ int tft_simt_attention_fwd(int dtype, const void* q, const void* k,
                            cudaStream_t stream) {
   TFT_DISPATCH_F32(fwd, dtype, D, q, k, v, o, lse, strides, B, S, Hq, Hkv,
                    sm_scale, p_f32, stream)
-}
-
-// dtype: 0 f32 (1, f16, is attention.cu's). strides for q, k, v, do, dq
-int tft_simt_attention_dq(int dtype, const void* q, const void* k,
-                          const void* v, const void* dout, const float* lse,
-                          const float* delta, void* dqp,
-                          const int64_t* strides, int B, int S, int Hq,
-                          int Hkv, int D, float sm_scale, cudaStream_t stream) {
-  TFT_DISPATCH_F32(dq, dtype, D, q, k, v, dout, lse, delta, dqp, strides, B, S, Hq,
-               Hkv, sm_scale, stream)
-}
-
-// dtype: 0 f32 (1, f16, is attention.cu's). strides for q, k, v, do, dk,
-// dv
-int tft_simt_attention_dkv(int dtype, const void* q, const void* k,
-                           const void* v, const void* dout, const float* lse,
-                           const float* delta, void* dkp, void* dvp,
-                           const int64_t* strides, int B, int S, int Hq,
-                           int Hkv, int D, float sm_scale,
-                           cudaStream_t stream) {
-  TFT_DISPATCH_F32(dkv, dtype, D, q, k, v, dout, lse, delta, dkp, dvp, strides, B,
-               S, Hq, Hkv, sm_scale, stream)
 }
 
 }  // extern "C"

@@ -1,22 +1,26 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels.
 //
-//   * TMA: tile maps over [B, S, H, D] bf16 or f16 tensors read through
-//     their own strides (cuTensorMapEncodeTiled, reached through the
-//     runtime's libcuda entry point, so the library links no -lcuda), 4-D
-//     tile loads and 1-D bulk copies that complete on an mbarrier.
-//   * The 128-byte swizzle. A tile of R rows x D 2-byte elements lands in
-//     shared memory as D/64 sub-tiles of R rows x 128 bytes (one TMA box each,
-//     1024-byte aligned); within a sub-tile, 16-byte chunk c of row r sits
-//     at r * 128 + ((c ^ (r % 8)) * 16). The wgmma descriptors below read
-//     exactly that layout, K-major (rows of the operand along the
-//     sub-tile's rows) or MN-major (the operand's N along the 64 columns).
+//   * TMA: tile maps over [B, S, H, D] bf16, f16 or f32 tensors read
+//     through their own strides (cuTensorMapEncodeTiled, reached through
+//     the runtime's libcuda entry point, so the library links no -lcuda),
+//     4-D tile loads and 1-D bulk copies that complete on an mbarrier.
+//   * The 128-byte swizzle. A tile of R rows x D elements lands in shared
+//     memory as D / (128 / sizeof(T)) sub-tiles of R rows x 128 bytes (64
+//     2-byte or 32 4-byte elements a row; one TMA box each, 1024-byte
+//     aligned); within a sub-tile, 16-byte chunk c of row r sits at r * 128
+//     + ((c ^ (r % 8)) * 16). The wgmma descriptors below read exactly that
+//     layout, K-major (rows of the operand along the sub-tile's rows) or
+//     MN-major (the operand's N along the row's elements). A K step is 32
+//     bytes either way: 16 bf16/f16 elements (k16) or 8 tf32 ones (k8).
 //   * mbarriers: init, arrive, arrive with an expected byte count, and a
 //     parity wait with a watchdog that traps after ~10 s, so a protocol
 //     fault ends the launch with an error instead of hanging the card.
 //   * wgmma: fence / commit / wait, the operand fence, SS (A and B in
 //     shared memory) and RS (A in registers) products for the shapes the
 //     kernels use, from bf16 or f16 operands (the same fragment layouts,
-//     descriptors and swizzle: both are 2 bytes).
+//     descriptors and swizzle: both are 2 bytes), and RS k8 products from
+//     tf32 operands (f32 data whose low 13 mantissa bits the tensor core
+//     ignores; B K-major only, as .tf32 takes no transpose).
 //   * setmaxnreg for a producer/consumer split of a 384-thread block: the
 //     producer warpgroup gives registers back (24 a thread), the two
 //     consumer warpgroups take them (240), which is exact for a kernel
@@ -76,16 +80,20 @@ template <>
 constexpr CUtensorMapDataType tma_type<__half>() {
   return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
+template <>
+constexpr CUtensorMapDataType tma_type<float>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
 
-// A map over a [B, S, H, D] tensor of T (bf16 or f16) with element strides
-// (sb, ss, sh) and a unit stride along D, whose box is `rows` sequence
-// positions by 64 head-dim columns of one head and batch, 128-byte
-// swizzled. Dimensions in memory order (D, H, S, B); a load's coordinates
-// are (d0, h, s0, b).
+// A map over a [B, S, H, D] tensor of T (bf16, f16 or f32) with element
+// strides (sb, ss, sh) and a unit stride along D, whose box is `rows`
+// sequence positions by 128 / sizeof(T) head-dim columns (one 128-byte
+// swizzle row) of one head and batch. Dimensions in memory order (D, H, S,
+// B); a load's coordinates are (d0, h, s0, b).
 template <typename T>
 inline int tile_map(CUtensorMap* map, const void* base, int B, int S, int H,
                     int D, int64_t sb, int64_t ss, int64_t sh, int rows) {
-  static_assert(sizeof(T) == 2, "a box row of 64 elements is the 128-byte swizzle");
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "a box row is the 128-byte swizzle");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrEntryPoint;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -95,7 +103,8 @@ inline int tile_map(CUtensorMap* map, const void* base, int B, int S, int H,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * sizeof(T),
                                  static_cast<cuuint64_t>(ss) * sizeof(T),
                                  static_cast<cuuint64_t>(sb) * sizeof(T)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / sizeof(T)), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, tma_type<T>(), 4, const_cast<void*>(base), dims,
@@ -143,6 +152,12 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// Orders this thread's earlier writes to shared memory (the generic proxy)
+// before later reads of it by the async proxy (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Cycles a wait may spin before it traps (~10 s at the H100's clocks).
@@ -436,5 +451,57 @@ TFT_WGMMA_RS_128(__half, "f16")
   }
 TFT_WGMMA_RS_256(__nv_bfloat16, "bf16")
 TFT_WGMMA_RS_256(__half, "f16")
+
+// D[64 x N] (+)= A[64 x 8] B[8 x N] in f32 from tf32 operands: A in
+// registers, B K-major in shared memory (.tf32 reads B K-major only), and D
+// is added unless `accumulate` is 0. A fragment per warp (rows 16w..16w+15
+// of the warpgroup), as mma.sync m16n8k8's: a[0] row lane/4, column
+// lane%4; a[1] row + 8; a[2] column + 4; a[3] both. D's layout is the
+// 16-bit products' above.
+template <int N>
+__device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                              int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<8>(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 
 }  // namespace hopper
