@@ -8,10 +8,10 @@
    and its HGMMA (wgmma), TF32 (tensor-core products from tf32 operands)
    and UTMALDG (TMA load) SASS instructions. Every instance
    of ``attention.cu`` (the forward with and without p_split, dq and dK/dV,
-   each in bf16 and in f16) and of ``attention_tf32x3.cu`` (the f32 dq and
-   dK/dV) must be built at every head dim, run on wgmma (TF32 wgmma for
-   the f32 ones) fed by TMA, compile at the 168 registers its setmaxnreg
-   split assumes, and not spill at head dim 128.
+   each in bf16 and in f16) and of ``attention_tf32x3.cu`` (the f32
+   forward, dq and dK/dV) must be built at every head dim, run on wgmma
+   (TF32 wgmma for the f32 ones) fed by TMA, compile at the 168 registers
+   its setmaxnreg split assumes, and not spill at head dim 128.
 2. Holds each fp8 kernel against its plain PyTorch version on the card, bit
    for bit, from a single element up to the full bench_1b gradient count,
    and times kernel, plain version and the device-memory bound at that
@@ -25,8 +25,7 @@
    at S 384 (an odd number of tiles) and at head dims 64 and 256 with
    batch 2, in bf16, f16 and f32 (``ATTN_DTYPES`` names each kernel's
    source: ``attention.cu`` on the tensor cores runs bf16 and f16,
-   ``attention_tf32x3.cu`` on the tensor cores by split operands the f32 dq
-   and dK/dV, ``attention_simt.cu`` on the CUDA cores the f32 forward).
+   ``attention_tf32x3.cu`` on the tensor cores by split operands f32).
    bf16 and f16: each kernel
    output's max abs error against an f32 evaluation of the same inputs
    must be at most twice the plain version's in that dtype, and at most
@@ -34,14 +33,14 @@
    version's (bf16's share is printed, not gated). f32: at most 4x the plain f32
    version's against an f64 evaluation (autograd through a softmax
    attention in f64; 4x because the forward's online softmax rescales its
-   sums once per key tile, which the plain version never does), with TF32
-   matmuls off. lse within 1e-3 everywhere. Times each kernel, its plain
-   version and torch's scaled_dot_product_attention in the same dtype (the
-   yardstick only) at the bench_1b GQA shape beside its bound (f32: at the
-   3xTF32 rate, 495/3 TFLOP/s, and, printed beside it, at the CUDA cores'
-   67), by device time (``device_ms``), and the bf16 kernels and the f16
-   forward beside
-   SDPA alone at the llama3_8b attention shape.
+   sums once per key tile, which the plain version never does, and the
+   split operands drop lo*lo), with TF32 matmuls off. lse within 1e-3
+   everywhere. Times each kernel, its plain version and torch's
+   scaled_dot_product_attention in the same dtype (the yardstick only) at
+   the bench_1b GQA shape beside its bound (f32: at the 3xTF32 rate, 495/3
+   TFLOP/s), by device time (``device_ms``), K1's f32 kernels at head dim
+   256 (``hd256_b2``), and the bf16 kernels and the f16 forward beside SDPA
+   alone at the llama3_8b attention shape.
 5. Checks that a model left to its default attention reads
    ``TORCHFT_TPU_ATTENTION`` (removed from the script's own environment at
    start): a 2-layer bf16 model under ``xla`` launches no attention kernel.
@@ -52,10 +51,9 @@
    f32 and f16 through ``attention="auto"`` (which resolves to splash) and
    ``"flash"``; f32 losses within 1e-4 (relative) of ``"xla"`` in f32, f16
    within 0.25%; a profile of each run shows that exactly the kernel
-   instances of ``ATTN_INSTANCE`` ran (no CUDA-core f16 kernel, and in
-   f32 only the CUDA-core forward and the 3xTF32 backward). Then
-   times one replica's full bench_1b forward + backward
-   through the materialized attention and through the kernels, in turns.
+   instances of ``ATTN_INSTANCE`` ran (in f32 the three 3xTF32 kernels).
+   Then times one replica's full bench_1b forward + backward through the
+   materialized attention and through the kernels, in turns.
 6. Trains Llama bench_1b at full width and depth as two fault-tolerant
    replica groups (threads on one card) with an in-process lighthouse, the
    fp8-quantized managed allreduce and a scripted crash of replica 1 at
@@ -92,7 +90,6 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet peak
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 and fp16 tensor-core peak
-F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak on the CUDA cores (FMA as 2 flops)
 # f32 products on the tensor cores by split operands: three TF32 products
 # (H100 SXM dense TF32 peak 495 TFLOP/s) per f32 one
 TF32X3_FLOPS_PER_S = 495e12 / 3
@@ -268,7 +265,7 @@ ATTN_INSTANCE = {
     torch.float16: {"fwd": "attention_fwd_kernel<128, {split}, __half>",
                     "dq": "attention_dq_kernel<128, __half>",
                     "dkv": "attention_dkv_kernel<128, __half>"},
-    torch.float32: {"fwd": "simt_fwd_kernel<float, 128>",
+    torch.float32: {"fwd": "tf32x3_fwd_kernel<128>",
                     "dq": "tf32x3_dq_kernel<128>",
                     "dkv": "tf32x3_dkv_kernel<128>"},
 }
@@ -286,8 +283,10 @@ HOPPER_INSTANCES = tuple(
      for split in ("true", "false") for ctype in HOPPER_CTYPES]
     + [f"attention_{k}_kernel<{d}, {ctype}>" for k in ("dq", "dkv") for d in (64, 128, 256)
        for ctype in HOPPER_CTYPES])
-# every instance of attention_tf32x3.cu: the f32 dq and dK/dV at each head dim
-TF32X3_INSTANCES = tuple(f"tf32x3_{k}_kernel<{d}>" for k in ("dq", "dkv") for d in (64, 128, 256))
+# every instance of attention_tf32x3.cu: the f32 forward, dq and dK/dV at
+# each head dim
+TF32X3_INSTANCES = tuple(f"tf32x3_{k}_kernel<{d}>" for k in ("fwd", "dq", "dkv")
+                         for d in (64, 128, 256))
 # what __launch_bounds__(384, 1) gives and the setmaxnreg splits (24 + 2 x
 # 240 and 56 + 2 x 224 a thread) assume
 HOPPER_REGISTERS = 168
@@ -432,13 +431,12 @@ ATTN_SHAPES = (
 )
 # the dtypes the kernels take, with the suffix of their launch counts and
 # the source of each kernel: attention.cu on the tensor cores (bf16, f16),
-# attention_tf32x3.cu on the tensor cores by split operands (the f32 dq and
-# dK/dV), attention_simt.cu on the CUDA cores (the f32 forward)
-HOPPER, TF32X3, SIMT = "attention.cu", "attention_tf32x3.cu", "attention_simt.cu"
+# attention_tf32x3.cu on the tensor cores by split operands (f32)
+HOPPER, TF32X3 = "attention.cu", "attention_tf32x3.cu"
 ATTN_DTYPES = {
     torch.bfloat16: ("", {"fwd": HOPPER, "dq": HOPPER, "dkv": HOPPER}),
     torch.float16: ("_f16", {"fwd": HOPPER, "dq": HOPPER, "dkv": HOPPER}),
-    torch.float32: ("_f32", {"fwd": SIMT, "dq": TF32X3, "dkv": TF32X3}),
+    torch.float32: ("_f32", {"fwd": TF32X3, "dq": TF32X3, "dkv": TF32X3}),
 }
 # the most of the f16 forward's outputs that may differ from the plain
 # version's at a shape. The rounding of O to f16 hides from a max-abs bar
@@ -463,13 +461,12 @@ ATTN_MATMULS = {"fwd": 2, "dq": 3, "dkv": 4}
 
 
 def attention_bound_ms(kernel: str, B: int, S: int, hq: int, hkv: int, hd: int,
-                       dtype: torch.dtype = torch.bfloat16, peak: float = None):
+                       dtype: torch.dtype = torch.bfloat16):
     """(ms, "operations" | "bytes"): the larger of the kernel's causal flops
     over the card's peak for that work and its bytes (inputs read once,
     outputs written once) over the memory rate. The peak: bf16/f16 the
     tensor-core peak; f32 the 3xTF32 rate (three TF32 tensor-core products
-    per f32 one keep f32 accuracy), unless ``peak`` names another (the
-    CUDA cores' ``F32_FLOPS_PER_S``)."""
+    per f32 one keep f32 accuracy)."""
     pairs = B * hq * S * (S + 1) // 2
     flops = ATTN_MATMULS[kernel] * 2 * hd * pairs
     el = torch.finfo(dtype).bits // 8
@@ -479,8 +476,7 @@ def attention_bound_ms(kernel: str, B: int, S: int, hq: int, hkv: int, hd: int,
         "dq": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + q_bytes,
         "dkv": 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * kv_bytes,
     }[kernel]
-    if peak is None:
-        peak = TF32X3_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    peak = TF32X3_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -526,6 +522,8 @@ def check_attention(device: torch.device):
             for impl in paths:
                 check_attention_case(ta, label, impl, q, k, v, suffix, stats,
                                      timing if label == "bench_1b" else None)
+            if label == "hd256_b2" and dtype == torch.float32:
+                time_f32_hd256(ta, q, k, v)
     for key, st in stats.items():
         log(f"attention {key}: max abs error vs plain {st['err']:.3e}, "
             f"worst error ratio vs plain (against the reference) {st['ratio']:.3f}"
@@ -615,16 +613,32 @@ def check_attention_case(ta, label, impl, q, k, v, suffix, stats, timing) -> Non
             # SDPA's backward computes dq, dk and dv in one call
             "library_ms": sdpa_fwd if kernel == "fwd" else sdpa_bwd,
         }
-        note = ""
-        if dtype == torch.float32:
-            r["cuda_core_bound_ms"] = attention_bound_ms(kernel, B, S, hq, hkv, hd, dtype,
-                                                         F32_FLOPS_PER_S)[0]
-            note = (f" at the 3xTF32 rate ({bound / r['ms']:.1%}); at the CUDA cores' f32 peak "
-                    f"{r['cuda_core_bound_ms']:.4f} ms ({r['cuda_core_bound_ms'] / r['ms']:.1%})")
         log(f"attention {key} bench_1b timing: kernel {r['ms']:.4f} ms "
             f"(one call with its host time {r['call_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
-            f"{r['library_ms']:.4f} ms in the same dtype, bound {bound:.4f} ms ({by}{note})")
+            f"{r['library_ms']:.4f} ms in the same dtype, bound {bound:.4f} ms ({by}, "
+            f"{bound / r['ms']:.1%})")
+
+
+def time_f32_hd256(ta, q, k, v) -> None:
+    """Logs the device ms of K1's f32 kernels at head dim 256 (whose
+    instances may spill: the ptxas lines say) beside their bound."""
+    B, S, hq, hd = q.shape
+    hkv = k.shape[2]
+    qi = q * ta.splash_scale(hd, q.dtype)
+    o, lse = ta.attention_fwd(qi, k, v, 1.0, "splash")
+    do = 2 * o
+    args = (qi, k, v, lse, ta.attention_delta(o, do), do, 1.0)
+    fns = {"fwd": lambda: ta.attention_fwd(qi, k, v, 1.0, "splash"),
+           "dq": lambda: ta.attention_dq(*args, "splash"),
+           "dkv": lambda: ta.attention_dkv(*args, "splash")}
+    parts = []
+    for kernel, fn in fns.items():
+        ms = device_ms(fn, 20)
+        bound, by = attention_bound_ms(kernel, B, S, hq, hkv, hd, q.dtype)
+        parts.append(f"{kernel} {ms:.4f} ms (bound {bound:.4f} ms, {by}, {bound / ms:.1%})")
+    log(f"attention splash f32 at hd256_b2 (B={B} S={S} Hq={hq} Hkv={hkv} hd={hd}), device "
+        "time: " + ", ".join(parts))
 
 
 def share_differing(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -720,7 +734,8 @@ MODEL_PATHS = (
 )
 
 
-# an attention kernel instance in a profiler key (any source's)
+# an attention kernel instance in a profiler key (any source's; simt_: the
+# CUDA-core kernels of older trees, which attention_ab.py may time)
 ATTN_KERNEL = re.compile(r"(?:attention|simt|tf32x3)_(?:fwd|dq|dkv)_kernel<[^>]*>")
 
 
@@ -902,7 +917,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    sources = ("fp8_rowwise.cu", "attention.cu", "attention_tf32x3.cu", "attention_simt.cu")
+    sources = ("fp8_rowwise.cu", "attention.cu", "attention_tf32x3.cu")
     # one nvcc per source, started together; a failed build raises here
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build, sources))

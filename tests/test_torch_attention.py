@@ -228,7 +228,7 @@ DISPATCH = [
     ("flash", 16, 16, 4, 4, False, BF16, "flash"),
     ("splash", 16, 16, 4, 2, True, BF16, "xla"),
     # the rule has no dtype clause: f32 and f16 on the card at a shape the
-    # kernels tile run a kernel too (attention_simt.cu, attention.cu) ...
+    # kernels tile run a kernel too (attention_tf32x3.cu, attention.cu) ...
     ("auto", 2048, 128, 16, 8, True, F32, "splash"),
     ("auto", 2048, 128, 16, 16, True, F16, "flash"),
     ("splash", 2048, 128, 16, 8, True, F32, "splash"),
@@ -437,19 +437,17 @@ def test_cpu_wrappers_run_the_plain_versions_in_every_dtype(impl, dtype):
 
 # (kernel, dtype) -> (source, dtype code its entry point takes first): the
 # tensor-core kernels of attention.cu run bf16 and f16, the 3xTF32
-# tensor-core kernels of attention_tf32x3.cu the f32 dq and dK/dV, the
-# CUDA-core kernel of attention_simt.cu the f32 forward
+# tensor-core kernels of attention_tf32x3.cu f32
 WANT_ROUTES = {
     ("fwd", BF16): ("attention.cu", 0), ("dq", BF16): ("attention.cu", 0),
     ("dkv", BF16): ("attention.cu", 0),
     ("fwd", F16): ("attention.cu", 1), ("dq", F16): ("attention.cu", 1),
     ("dkv", F16): ("attention.cu", 1),
-    ("fwd", F32): ("attention_simt.cu", 0), ("dq", F32): ("attention_tf32x3.cu", 0),
+    ("fwd", F32): ("attention_tf32x3.cu", 0), ("dq", F32): ("attention_tf32x3.cu", 0),
     ("dkv", F32): ("attention_tf32x3.cu", 0),
 }
 # the C entry-point prefix of each source
-PREFIXES = {"attention.cu": "tft_attention", "attention_tf32x3.cu": "tft_tf32x3_attention",
-            "attention_simt.cu": "tft_simt_attention"}
+PREFIXES = {"attention.cu": "tft_attention", "attention_tf32x3.cu": "tft_tf32x3_attention"}
 
 
 @pytest.mark.parametrize("kernel,dtype", list(WANT_ROUTES), ids=lambda x: str(x).replace("torch.", ""))
@@ -486,11 +484,10 @@ def _tensor_at_element(dtype, shift):
 
 @pytest.mark.parametrize("dtype", [BF16, F16, F32])
 def test_tma_rule_holds_for_the_dtypes_attention_cu_reads(dtype):
-    """A kernel that reads by TMA (every bf16 and f16 kernel of attention.cu,
-    the f32 dq and dK/dV of attention_tf32x3.cu) needs a 16-byte aligned
-    base and batch/sequence/head strides of whole 16 bytes, in every
-    wrapper's check; the f32 forward (attention_simt.cu) reads an element
-    at a time and takes an element-aligned base and any stride."""
+    """Every kernel reads by TMA (attention.cu in bf16 and f16,
+    attention_tf32x3.cu in f32, the forward included), so every wrapper's
+    check asks for a 16-byte aligned base and batch/sequence/head strides of
+    whole 16 bytes, and refuses anything else."""
     per16 = 16 // torch.tensor([], dtype=dtype).element_size()
     fine = _tensor_with_seq_stride(dtype, per16)
     odd = _tensor_with_seq_stride(dtype, per16 // 2)
@@ -499,28 +496,21 @@ def test_tma_rule_holds_for_the_dtypes_attention_cu_reads(dtype):
     for kernel in ("fwd", "dq", "dkv"):
         ta._check_inputs(kernel, fine, fine, fine)
         for x in (odd, shifted):
-            if (kernel, dtype) == ("fwd", F32):
+            with pytest.raises(ValueError, match="16-byte aligned base and strides"):
                 ta._check_inputs(kernel, x, x, x)
-            else:
-                with pytest.raises(ValueError, match="16-byte aligned base and strides"):
-                    ta._check_inputs(kernel, x, x, x)
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_alignment_rule_is_counted_in_bytes_by_route(kernel):
     """TMA's rule is in bytes: an f32 sequence stride of 132 elements (528
     bytes, 33 x 16) is whole 16 bytes and passes, one of 130 (520 bytes)
-    does not unless the kernel reads element by element (the f32 forward);
-    a base 8 bytes (2 f32 elements) past a 16-byte boundary is refused by
-    the TMA routes, whose error names the kernel, its source and the rule."""
+    does not, nor does a base 8 bytes (2 f32 elements) past a 16-byte
+    boundary; the error names the kernel, its source and the rule."""
     ta._check_inputs(kernel, *[_tensor_with_seq_stride(F32, 4)] * 3)
     for x in (_tensor_with_seq_stride(F32, 2), _tensor_at_element(F32, 2)):
-        if kernel == "fwd":
+        with pytest.raises(ValueError, match=rf"float32 attention {kernel} kernel "
+                           r"\(attention_tf32x3.cu\) reads by TMA.*\(4 elements\)"):
             ta._check_inputs(kernel, x, x, x)
-        else:
-            with pytest.raises(ValueError, match=rf"float32 attention {kernel} kernel "
-                               r"\(attention_tf32x3.cu\) reads by TMA.*\(4 elements\)"):
-                ta._check_inputs(kernel, x, x, x)
     # bf16 counts the same 16 bytes as 8 elements
     ta._check_inputs(kernel, *[_tensor_with_seq_stride(BF16, 8)] * 3)
     with pytest.raises(ValueError, match=r"\(8 elements\)"):
@@ -528,7 +518,8 @@ def test_alignment_rule_is_counted_in_bytes_by_route(kernel):
 
 
 # ---------------------------------------------------------------------------
-# A CPU model of attention_tf32x3.cu's arithmetic (3xTF32), in f64
+# A CPU model of attention_tf32x3.cu's arithmetic (3xTF32), in f64: the
+# forward and the backward
 # ---------------------------------------------------------------------------
 # bits wgmma's f32 sums keep, aligned to the largest addend and truncated:
 # the low end of what PERF.md's fit to the card (PR 6) found, ~22-23
@@ -594,9 +585,16 @@ def _accumulate_3x(run, a, b, group):
     transpose: a (the accumulator written to shared memory) split as a
     register operand, b (the streamed tile) as a shared one; the products
     over each `group` of K in one fresh accumulator, smallest first (lo*hi,
-    hi*lo, then hi*hi, each over the group), added to run in f32."""
+    hi*lo, then hi*hi, each over the group), added to run in f32. With
+    `group` None, run itself is the accumulator the products go into."""
     ah, al = _split_register(a)
     bh, bl = _split_shared(b)
+    if group is None:
+        d = run.double()
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            for k in range(0, a.shape[-1], 8):
+                d = _tc_step(d, x[..., k:k + 8], y[..., k:k + 8, :])
+        return d.float()
     for k0 in range(0, a.shape[-1], group):
         d = torch.zeros(run.shape, dtype=torch.float64)
         for x, y in ((al, bh), (ah, bl), (ah, bh)):
@@ -649,15 +647,64 @@ def _tf32x3_backward(q, k, v, lse, delta, do, sm, tile=32):
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
-def _attention_grads_f64(q, k, v, do, sm):
-    """(dq, dk, dv) in f64 by autograd through a causal softmax attention."""
+def _tf32x3_forward(q, k, v, sm, p_f32, tile=32, group=16):
+    """(o, lse) as attention_tf32x3.cu's forward computes them at head dims
+    64/128 (32-key tiles): S with Q as the register operand, scaled and
+    masked; per row an online softmax over the key tiles in order (running
+    max m, alpha = exp(m_old - m_new), l = l alpha + the tile's P summed in
+    f32) and O, rescaled by alpha before the tile's P V is added (P split as
+    a register operand, V as a shared one, the products over each ``group``
+    keys in a fresh accumulator); o = O / l, lse = m + log l. A tile past a
+    row's diagonal adds exactly 0 (P = exp(mask - m) = 0, alpha = 1), so
+    every row takes every tile here, where the kernel's consumer of a
+    block's first 64 rows skips the tiles past them. P rounded to the input
+    dtype unless ``p_f32``: a no-op in f32. With ``group`` None, one
+    accumulator holds a row of O for the whole row (rescaled in place, never
+    emptied) instead."""
+    B, S, hq, D = q.shape
+    qf = q.transpose(1, 2)
+    kf, vf = (x.transpose(1, 2).repeat_interleave(hq // k.shape[2], 1) for x in (k, v))
+    s = _product_3x(qf, kf.transpose(-1, -2)) * sm
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), ta.MASK_VALUE)
+    m = torch.full((B, hq, S, 1), ta.MASK_VALUE)
+    l, run = torch.zeros(B, hq, S, 1), torch.zeros(B, hq, S, D)
+    for k0 in range(0, S, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        run = _accumulate_3x(run * alpha, p if p_f32 else ta._round(p, q.dtype),
+                             vf[..., k0:k0 + tile, :], group)
+        m = m_new
+    return (run * (1.0 / l)).transpose(1, 2), (m + torch.log(l))[..., 0]
+
+
+def _attention_f64(q, k, v, sm, do=None):
+    """(o, lse, (dq, dk, dv) if ``do`` is given) in f64, by autograd
+    through a causal softmax attention."""
     group = q.shape[2] // k.shape[2]
     leaves = [x.detach().double().requires_grad_() for x in (q, k, v)]
     qf = leaves[0].transpose(1, 2)
     kf, vf = (x.transpose(1, 2).repeat_interleave(group, 1) for x in leaves[1:])
     s = (qf @ kf.transpose(-1, -2)) * sm
     s = s.masked_fill(~torch.ones(s.shape[-1], s.shape[-1], dtype=torch.bool).tril(), float("-inf"))
-    return torch.autograd.grad((torch.softmax(s, -1) @ vf).transpose(1, 2), leaves, do.double())
+    o = (torch.softmax(s, -1) @ vf).transpose(1, 2)
+    grads = None if do is None else torch.autograd.grad(o, leaves, do.double())
+    return o.detach(), torch.logsumexp(s, -1).detach(), grads
+
+
+def _f32_case(hd, hq, hkv, impl, seq=S):
+    """(q, k, v, sm_scale) from a seed: q pre-scaled for splash."""
+    rng = np.random.RandomState(hd + 10 * hq + hkv)
+    q, k, v = (torch.from_numpy(rng.randn(1, seq, h, hd).astype(np.float32)) for h in (hq, hkv, hkv))
+    if impl == "splash":
+        return q * ta.splash_scale(hd, torch.float32), k, v, 1.0
+    return q, k, v, hd ** -0.5
+
+
+def _max_err(got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max())
 
 
 @pytest.mark.parametrize("impl", ["splash", "flash"])
@@ -670,18 +717,46 @@ def test_tf32x3_model_keeps_the_f32_bar(hd, hq, hkv, impl):
     TC_BITS bits, keep dq, dk and dv within the card's bar: 4x the plain
     f32 version's max abs error against f64 (S 256). The model first
     showed that one accumulator per product does not."""
-    rng = np.random.RandomState(hd + 10 * hq + hkv)
-    q, k, v = (torch.from_numpy(rng.randn(1, S, h, hd).astype(np.float32)) for h in (hq, hkv, hkv))
-    if impl == "splash":
-        q, sm = q * ta.splash_scale(hd, torch.float32), 1.0
-    else:
-        sm = hd ** -0.5
+    q, k, v, sm = _f32_case(hd, hq, hkv, impl)
     o, lse = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
     do = 2 * o
     args = (q, k, v, lse, ta.attention_delta(o, do), do, sm)
     plain = (ta.attention_dq_plain(*args), *ta.attention_dkv_plain(*args))
-    ref = _attention_grads_f64(q, k, v, do, sm)
+    ref = _attention_f64(q, k, v, sm, do)[2]
     for name, got, want, r in zip(("dq", "dk", "dv"), _tf32x3_backward(*args), plain, ref):
-        e_model = float((got.double() - r).abs().max())
-        e_plain = float((want.double() - r).abs().max())
+        e_model, e_plain = _max_err(got, r), _max_err(want, r)
         assert e_model <= 4 * e_plain, (name, e_model, e_plain)
+
+
+@pytest.mark.parametrize("impl", ["splash", "flash"])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tf32x3_forward_model_keeps_the_f32_bar(hd, hq, hkv, impl):
+    """The forward's arithmetic as attention_tf32x3.cu runs it (the
+    split, the per-tile online softmax, O rescaled before each tile's sum,
+    P V over each 16 keys in a fresh accumulator), modelled with wgmma's
+    sums cut to TC_BITS bits, keeps o within the card's bar, 4x the plain
+    f32 version's max abs error against f64 (S 256), and lse within
+    1e-3."""
+    q, k, v, sm = _f32_case(hd, hq, hkv, impl)
+    o_p, _ = ta.attention_fwd_plain(q, k, v, sm, impl == "splash")
+    o_r, lse_r, _ = _attention_f64(q, k, v, sm)
+    o_m, lse_m = _tf32x3_forward(q, k, v, sm, impl == "splash")
+    assert o_m.shape == o_p.shape and lse_m.shape == lse_r.shape
+    e_model, e_plain = _max_err(o_m, o_r), _max_err(o_p, o_r)
+    assert e_model <= 4 * e_plain, (e_model, e_plain)
+    assert _max_err(lse_m, lse_r) <= 1e-3
+
+
+def test_tf32x3_forward_model_with_one_accumulator_a_row_fails_the_bar():
+    """Why P V goes into fresh accumulators: with one accumulator for the
+    whole of a row of O (rescaled in place), wgmma's truncated sums pile up
+    over the row's key tiles. At S 512 (up to 16 key tiles a row) o
+    leaves the 4x bar, which the fresh accumulators keep."""
+    q, k, v, sm = _f32_case(64, 2, 1, "flash", seq=512)
+    o_p, _ = ta.attention_fwd_plain(q, k, v, sm, False)
+    o_r, _, _ = _attention_f64(q, k, v, sm)
+    e_plain = _max_err(o_p, o_r)
+    assert _max_err(_tf32x3_forward(q, k, v, sm, False)[0], o_r) <= 4 * e_plain
+    e_one = _max_err(_tf32x3_forward(q, k, v, sm, False, group=None)[0], o_r)
+    assert e_one > 4 * e_plain, (e_one, e_plain)

@@ -126,31 +126,11 @@ def test_cuda_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path,
 
 
 @pytest.mark.cuda
-def test_cuda_simt_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path):
-    """A broken attention_simt.cu fails an f32 call with nvcc's output; no
-    other path runs in its place."""
-    from torchft_tpu_torch.ops import _build
-
-    (tmp_path / "attention_simt.cu").write_text("this is not CUDA\n")
-    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
-    monkeypatch.setattr(_build, "_BUILD_DIR", str(tmp_path / "build"))
-    ta._library.cache_clear()
-    try:
-        q = torch.randn(1, 128, 2, 64, device=cuda_device)
-        ta.reset_launches()
-        with pytest.raises(RuntimeError, match="nvcc failed"):
-            ta.causal_attention(q, q, q, impl="flash")
-        assert not any(ta.LAUNCHES.values())
-    finally:
-        ta._library.cache_clear()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_cuda_tf32x3_attention_build_failure_raises(cuda_device, monkeypatch, tmp_path, kernel):
-    """A broken attention_tf32x3.cu fails an f32 dq or dK/dV call with
-    nvcc's output; neither the CUDA-core nor the plain version runs in its
-    place."""
+    """A broken attention_tf32x3.cu fails an f32 forward (through
+    causal_attention), dq or dK/dV call with nvcc's output; no other kernel
+    and not the plain version runs in its place."""
     from torchft_tpu_torch.ops import _build
 
     (tmp_path / "attention_tf32x3.cu").write_text("this is not CUDA\n")
@@ -160,10 +140,12 @@ def test_cuda_tf32x3_attention_build_failure_raises(cuda_device, monkeypatch, tm
     try:
         q = torch.randn(1, 128, 2, 64, device=cuda_device)
         stat = torch.zeros(1, 2, 128, device=cuda_device)
-        fn = ta.attention_dq if kernel == "dq" else ta.attention_dkv
+        calls = {"fwd": lambda: ta.causal_attention(q, q, q, impl="flash"),
+                 "dq": lambda: ta.attention_dq(q, q, q, stat, stat, q, 1.0, "flash"),
+                 "dkv": lambda: ta.attention_dkv(q, q, q, stat, stat, q, 1.0, "flash")}
         ta.reset_launches()
         with pytest.raises(RuntimeError, match="nvcc failed"):
-            fn(q, q, q, stat, stat, q, 1.0, "flash")
+            calls[kernel]()
         assert not any(ta.LAUNCHES.values())
     finally:
         ta._library.cache_clear()
@@ -194,21 +176,24 @@ def test_cuda_tf32_operands_are_read_truncated(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_f32_alignment_is_checked_by_route(cuda_device):
-    """An f32 tensor whose base is 4 bytes past a 16-byte boundary runs the
-    CUDA-core forward (it reads element by element), and the dq and dK/dV
-    kernels, which read by TMA, refuse it with a ValueError naming the rule
-    before any tile map is made."""
+    """An f32 tensor whose base is 4 bytes past a 16-byte boundary is
+    refused by the forward, dq and dK/dV kernels alike (all read by TMA)
+    with a ValueError naming the rule before any tile map is made; the
+    same values copied to an aligned tensor run."""
     flat = torch.randn(1 * 128 * 2 * 64 + 4, device=cuda_device)
     x = flat[1:1 + 128 * 2 * 64].view(1, 128, 2, 64)
     assert x.data_ptr() % 16 == 4
     ta.reset_launches()
-    o, lse = ta.attention_fwd(x, x, x, 1.0, "flash")
+    o, lse = ta.attention_fwd(x.clone(), x.clone(), x.clone(), 1.0, "flash")
     torch.cuda.synchronize()
     assert ta.LAUNCHES["flash_fwd_f32"] == 1 and bool(torch.isfinite(o).all())
     delta = ta.attention_delta(o, x)
+    with pytest.raises(ValueError, match=r"reads by TMA.*16-byte aligned base and strides"):
+        ta.attention_fwd(x, x, x, 1.0, "flash")
     for fn in (ta.attention_dq, ta.attention_dkv):
         with pytest.raises(ValueError, match=r"reads by TMA.*16-byte aligned base and strides"):
             fn(x, x, x, lse, delta, x, 1.0, "flash")
+    assert ta.LAUNCHES["flash_fwd_f32"] == 1
     assert ta.LAUNCHES["flash_dq_f32"] == ta.LAUNCHES["flash_dkv_f32"] == 0
 
 
@@ -311,15 +296,15 @@ def _attention_f64(q, k, v, do, sm):
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,seq,hq,hkv,hd,fused", ERROR_RATIO_CASES)
 @pytest.mark.parametrize("impl", ["splash", "flash"])
-def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd,
-                                                 fused):
-    """The f32 kernels, the forward (attention_simt.cu) and the 3xTF32 dq
-    and dk/dv (attention_tf32x3.cu), within 4x the plain f32 version's
-    error against an f64 evaluation (the forward's online softmax rounds its
-    sums once more per key tile than the plain version; the backward's
-    split operands drop lo*lo and its tensor-core sums keep ~22-23 bits),
-    TF32 off for the plain version; lse within 1e-3. (bf16 and f16 run
-    attention.cu, held in test_cuda_attention_kernels_error_ratio.)"""
+def test_cuda_tf32x3_attention_kernels_error_ratio(cuda_device, impl, batch, seq, hq, hkv, hd,
+                                                   fused):
+    """The f32 kernels, the 3xTF32 forward, dq and dk/dv
+    (attention_tf32x3.cu), within 4x the plain f32 version's error against
+    an f64 evaluation (the forward's online softmax rounds its sums once
+    more per key tile than the plain version; the split operands drop
+    lo*lo and the tensor-core sums keep ~22-23 bits), TF32 off for the
+    plain version; lse within 1e-3. (bf16 and f16 run attention.cu, held in
+    test_cuda_attention_kernels_error_ratio.)"""
     assert not torch.backends.cuda.matmul.allow_tf32
     dtype = torch.float32
     g = torch.Generator().manual_seed(batch * 1000 + seq + hq * 10 + hd)
@@ -362,7 +347,7 @@ def test_cuda_simt_attention_kernels_error_ratio(cuda_device, impl, batch, seq, 
 
 # the attention kernel instances a 64-head-dim model runs, per dtype
 ROUTED_INSTANCES = {
-    torch.float32: {"simt_fwd_kernel<float,64>", "tf32x3_dq_kernel<64>", "tf32x3_dkv_kernel<64>"},
+    torch.float32: {"tf32x3_fwd_kernel<64>", "tf32x3_dq_kernel<64>", "tf32x3_dkv_kernel<64>"},
     torch.float16: {"attention_fwd_kernel<64,{split},__half>", "attention_dq_kernel<64,__half>",
                     "attention_dkv_kernel<64,__half>"},
 }
@@ -374,9 +359,9 @@ ROUTED_INSTANCES = {
 def test_cuda_f32_and_f16_run_only_their_routed_kernels(cuda_device, dtype, impl):
     """An f32/f16 model on the card at a shape the kernels tile runs the
     kernels, forward and backward, as the reference's rule runs its kernels
-    on any dtype: f32 the CUDA-core forward of attention_simt.cu and the
-    3xTF32 dq and dK/dV of attention_tf32x3.cu, f16 only attention.cu's
-    wgmma kernels; a profile of the run shows exactly those instances.
+    on any dtype: f32 the 3xTF32 kernels of attention_tf32x3.cu, f16
+    attention.cu's wgmma kernels; a profile of the run shows exactly those
+    instances.
     Output and gradients match the plain path's.
     Tolerance: f32 1e-4 (f32 sums in another order), f16 1e-2 (both round
     O, P, dS and the gradients to f16 at values up to ~8, and may round
@@ -406,7 +391,7 @@ def test_cuda_f32_and_f16_run_only_their_routed_kernels(cuda_device, dtype, impl
         f"{want}_fwd{suffix}": 1, f"{want}_dq{suffix}": 1, f"{want}_dkv{suffix}": 1}
     assert not any(plain_launched.values())
     kernels = {m.group(0).replace(" ", "") for key in ran
-               for m in [re.search(r"(?:attention|simt|tf32x3)_(?:fwd|dq|dkv)_kernel<[^>]*>", key)]
+               for m in [re.search(r"(?:attention|tf32x3)_(?:fwd|dq|dkv)_kernel<[^>]*>", key)]
                if m}
     want_ran = {name.format(split=str(want == "splash").lower()) for name in ROUTED_INSTANCES[dtype]}
     assert kernels == want_ran, kernels

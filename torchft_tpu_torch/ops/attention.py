@@ -13,9 +13,7 @@ output [B, S, Hq, hd].
   reading GQA K/V heads in place (no repeat). ``ROUTES`` says which source
   runs each (kernel, dtype): ``csrc/attention.cu`` (wgmma and TMA) every
   bf16 and f16 kernel, ``csrc/attention_tf32x3.cu`` (split operands, three
-  TF32 tensor-core products per f32 one, fed by TMA) the f32 dq and dK/dV,
-  ``csrc/attention_simt.cu`` (f32 multiply-adds on the CUDA cores) the f32
-  forward;
+  TF32 tensor-core products per f32 one, wgmma fed by TMA) every f32 one;
 - ``"auto"``: on a CUDA tensor ``"splash"`` when Hq != Hkv, else
   ``"flash"``; ``"xla"`` on a CPU tensor (as the reference does off the
   TPU).
@@ -39,8 +37,7 @@ launch in ``LAUNCHES``, and run the plain torch version below on a CPU
 tensor; the launches of the f32/f16 kernels are counted under keys ending
 in ``_f32``/``_f16``, whichever source runs them. A failed build, tile map
 or launch raises; a CUDA tensor the kernels do not take (another dtype,
-mixed dtypes, misaligned for the kernel's route) raises rather than falling
-back.
+mixed dtypes, misaligned for TMA) raises rather than falling back.
 
 The two fused paths differ where the references do:
 
@@ -109,8 +106,7 @@ SEQ_TILE = 128
 # where K2's online softmax rounds P
 FWD_KEY_TILE = {64: 128, 128: 128, 256: 64}
 # (kernel, dtype) -> (source, the dtype code its entry point takes first).
-# attention.cu: 0 bf16, 1 f16; attention_tf32x3.cu and attention_simt.cu:
-# 0 f32.
+# attention.cu: 0 bf16, 1 f16; attention_tf32x3.cu: 0 f32.
 ROUTES = {
     ("fwd", torch.bfloat16): ("attention.cu", 0),
     ("dq", torch.bfloat16): ("attention.cu", 0),
@@ -118,20 +114,12 @@ ROUTES = {
     ("fwd", torch.float16): ("attention.cu", 1),
     ("dq", torch.float16): ("attention.cu", 1),
     ("dkv", torch.float16): ("attention.cu", 1),
-    ("fwd", torch.float32): ("attention_simt.cu", 0),
+    ("fwd", torch.float32): ("attention_tf32x3.cu", 0),
     ("dq", torch.float32): ("attention_tf32x3.cu", 0),
     ("dkv", torch.float32): ("attention_tf32x3.cu", 0),
 }
-# each source's C entry-point prefix and the kernels it has
-_SOURCES = {
-    "attention.cu": ("tft_attention", ("fwd", "dq", "dkv")),
-    "attention_tf32x3.cu": ("tft_tf32x3_attention", ("dq", "dkv")),
-    "attention_simt.cu": ("tft_simt_attention", ("fwd",)),
-}
-# the sources whose kernels read their tensors by TMA: a 16-byte aligned
-# base and batch/sequence/head strides of whole 16 bytes; the others read
-# an element at a time
-_TMA_SOURCES = ("attention.cu", "attention_tf32x3.cu")
+# each source's C entry-point prefix; each has the three kernels
+_SOURCES = {"attention.cu": "tft_attention", "attention_tf32x3.cu": "tft_tf32x3_attention"}
 _LAUNCH_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
 # the variable causal_attention reads its choice from when given none
 ATTENTION_ENV = "TORCHFT_TPU_ATTENTION"
@@ -293,7 +281,7 @@ def _library(source: str) -> ctypes.CDLL:
     from torchft_tpu_torch.ops._build import load_library
 
     lib = load_library(source)
-    prefix, kernels = _SOURCES[source]
+    prefix = _SOURCES[source]
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [ci, ci, ci, ci, ci, cf]  # B, S, Hq, Hkv, hd, sm_scale
     # pointers: fwd q, k, v, o, lse, strides (then p_split); dq q, k, v,
@@ -301,9 +289,9 @@ def _library(source: str) -> ctypes.CDLL:
     argtypes = {"fwd": [ci] + [vp] * 6 + dims + [ci, vp],
                 "dq": [ci] + [vp] * 8 + dims + [vp],
                 "dkv": [ci] + [vp] * 9 + dims + [vp]}
-    for kernel in kernels:
+    for kernel, types in argtypes.items():
         fn = getattr(lib, f"{prefix}_{kernel}")
-        fn.argtypes, fn.restype = argtypes[kernel], ci
+        fn.argtypes, fn.restype = types, ci
     tile = getattr(lib, f"{prefix}_tile")
     tile.restype = ci
     _check_tile(tile())
@@ -321,7 +309,7 @@ def _entry(kernel: str, dtype: torch.dtype):
     """The C entry point of ``kernel`` ("fwd", "dq", "dkv") for ``dtype``
     by ``ROUTES``, its dtype code bound. Builds the library at first use."""
     source, code = ROUTES[(kernel, dtype)]
-    return functools.partial(getattr(_library(source), f"{_SOURCES[source][0]}_{kernel}"), code)
+    return functools.partial(getattr(_library(source), f"{_SOURCES[source]}_{kernel}"), code)
 
 
 def _dtype_names(dtypes=KERNEL_DTYPES) -> str:
@@ -331,12 +319,10 @@ def _dtype_names(dtypes=KERNEL_DTYPES) -> str:
 def _check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise on what ``kernel`` ("fwd", "dq", "dkv") does not take:
     [B, S, H, hd] tensors of one dtype of ``KERNEL_DTYPES`` on one CUDA
-    device, head dim contiguous, aligned as the kernel's route reads them.
-    A kernel that reads by TMA (``_TMA_SOURCES``: every bf16 and f16 kernel,
-    the f32 dq and dK/dV) needs a 16-byte aligned base and batch/sequence/
-    head strides of whole 16 bytes (8 bf16/f16 or 4 f32 elements); the f32
-    forward reads an element at a time, so an element-aligned base is
-    enough."""
+    device, head dim contiguous, aligned as TMA reads them: every kernel
+    loads its tiles by TMA, which needs a 16-byte aligned base and
+    batch/sequence/head strides of whole 16 bytes (8 bf16/f16 or 4 f32
+    elements)."""
     q = tensors[0]
     B, S, _, hd = q.shape
     if q.dtype not in KERNEL_DTYPES:
@@ -353,16 +339,12 @@ def _check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
             raise ValueError("attention tensors must be [B, S, H, hd] on one CUDA device")
         if x.stride(3) != 1:
             raise ValueError("attention tensors need a contiguous head dim")
-        if source in _TMA_SOURCES:
-            per16 = 16 // x.element_size()
-            if x.data_ptr() % 16 or any(st % per16 for st in x.stride()[:3]):
-                raise ValueError(
-                    f"the {_dtype_names((q.dtype,))} attention {kernel} kernel ({source}) reads "
-                    f"by TMA: its tensors need a 16-byte aligned base and strides of whole 16 "
-                    f"bytes ({per16} elements)")
-        elif x.data_ptr() % x.element_size():
-            raise ValueError(f"the attention {kernel} kernel ({source}) needs tensors with an "
-                             "element-aligned base")
+        per16 = 16 // x.element_size()
+        if x.data_ptr() % 16 or any(st % per16 for st in x.stride()[:3]):
+            raise ValueError(
+                f"the {_dtype_names((q.dtype,))} attention {kernel} kernel ({source}) reads "
+                f"by TMA: its tensors need a 16-byte aligned base and strides of whole 16 "
+                f"bytes ({per16} elements)")
 
 
 def _strides(*tensors: torch.Tensor):
@@ -389,7 +371,7 @@ def attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, impl: str
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of causal attention: ``attention_fwd_kernel`` (bf16/f16) or
-    ``simt_fwd_kernel`` (f32) on CUDA, counted as ``{impl}_fwd`` plus the
+    ``tf32x3_fwd_kernel`` (f32) on CUDA, counted as ``{impl}_fwd`` plus the
     dtype's suffix, the plain version on the CPU. ``impl`` "splash" keeps P
     in f32 for P.V, "flash" rounds it to the input dtype."""
     p_f32 = impl == "splash"

@@ -1,18 +1,21 @@
-// Causal GQA attention backward (dq and dK/dV) for f32 tensors on Hopper's
-// tensor cores (sm_90a), by split operands: 3xTF32 on wgmma, fed by TMA.
+// Causal GQA attention, forward and backward (dq and dK/dV), for f32
+// tensors on Hopper's tensor cores (sm_90a), by split operands: 3xTF32 on
+// wgmma, fed by TMA.
 //
-// Replaces, for f32, the backward of the JAX package's Pallas attention
-// kernels in torchft_tpu/ops/attention.py: K1 splash_attention_tpu (dq
-// _flash_attention_dq_kernel, dK/dV _flash_attention_dkv_kernel of
-// splash_attention_kernel.py; q pre-scaled, sm_scale = 1) and K2
-// flash_attention_tpu (sm_scale applied to the f32 scores and to dS). The
-// reference's dispatch has no dtype clause, so an f32 model runs them. The
-// contract is attention.cu's and attention_simt.cu's: q/do/dq [B, S, Hq, D]
-// and k/v/dk/dv [B, S, Hkv, D] read through their batch/sequence/head
-// strides (head-dim stride 1), GQA K/V heads read in place, lse and delta
-// [B, Hq, S] f32; P = exp(s sm_scale - lse) by expf, dS = (dP - delta) P
-// sm_scale, masked scores -0.7 * FLT_MAX; dK/dV summed over the group's
-// query heads in f32 registers and stored once, no atomics.
+// Replaces, for f32, the JAX package's Pallas attention kernels in
+// torchft_tpu/ops/attention.py: K1 splash_attention_tpu (the forward of
+// splash_attention_kernel.py, dq _flash_attention_dq_kernel, dK/dV
+// _flash_attention_dkv_kernel; q pre-scaled, sm_scale = 1) and K2
+// flash_attention_tpu (sm_scale applied to the f32 scores and to dS; P
+// rounded to the input dtype for P.V, a no-op in f32). The reference's
+// dispatch has no dtype clause, so an f32 model runs them. The contract is
+// attention.cu's: q/o/do/dq [B, S, Hq, D] and k/v/dk/dv [B, S, Hkv, D] read
+// through their batch/sequence/head strides (head-dim stride 1), GQA K/V
+// heads read in place, lse and delta [B, Hq, S] f32; the forward's online
+// softmax by expf, lse = m + logf(l); P = exp(s sm_scale - lse) by expf,
+// dS = (dP - delta) P sm_scale, masked scores -0.7 * FLT_MAX; dK/dV summed
+// over the group's query heads in f32 registers and stored once, no
+// atomics.
 //
 // What bounds them: tensor-core operations. A TF32 product keeps ~11
 // significant bits, far from f32, so every f32 operand x is split into x =
@@ -31,30 +34,42 @@
 //     the TMA loads) and writes every streamed tile's lo tile once its load
 //     lands (fence.proxy.async, then a "ready" mbarrier); warpgroups 1 and 2
 //     consume. setmaxnreg 56 / 224 (exact for 168 registers a thread).
-//   * S = Q K^T and dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dK/dV)
-//     are RS wgmmas (m64nNk8.tf32): A (Q, dO or K, V of the block's own
-//     rows, raw in shared memory) is read by ld.shared and split in
-//     registers per k8 step, B is the streamed tile (raw = hi) and its lo
+//   * S = Q K^T (forward, dq), dP = dO V^T (dq), S^T = K Q^T and dP^T =
+//     V dO^T (dK/dV) are RS wgmmas (m64nNk8.tf32): A (Q, dO or K, V of the
+//     block's own rows, raw in shared memory) is read by ld.shared and split
+//     in registers per k8 step, B is the streamed tile (raw = hi) and its lo
 //     tile, both K-major as .tf32 requires.
-//   * dQ += dS K, dV += P^T dO and dK += dS^T Q would read their B tile
-//     along N, which .tf32 wgmma cannot (it takes no transpose). They run
-//     transposed, dQ^T += K^T dS^T (and dV^T, dK^T): A = the streamed tile
-//     read across its rows by ld.shared (raw and lo: no split needed), B =
-//     dS (or P^T, dS^T) split and written by the warpgroup into two 8 KB
-//     K-major tiles of its own. (An mma.sync m16n8k8 version, B fragments
-//     read by each warp, took twice the time of these products.)
+//   * O += P V, dQ += dS K, dV += P^T dO and dK += dS^T Q would read their B
+//     tile along N, which .tf32 wgmma cannot (it takes no transpose). They
+//     run transposed, O^T += V^T P^T (and dQ^T, dV^T, dK^T): A = the
+//     streamed tile read across its rows by ld.shared (raw and lo: no split
+//     needed), B = P (or dS, P^T, dS^T) split and written by the warpgroup
+//     into two 8 KB K-major tiles of its own. (An mma.sync m16n8k8 version,
+//     B fragments read by each warp, took twice the time of these
+//     products.)
 //   * wgmma's f32 sums keep only ~22-23 bits aligned to the largest addend,
 //     truncated. So the hi*hi products of S and dP go into a fresh
 //     accumulator per 16 columns of the contraction and the small products
 //     (hi*lo, lo*hi, ~2^-10 of the total) into another, both added to the
-//     running sum on the CUDA cores; dQ^T's products over a key tile and
-//     dK^T's, dV^T's over 16 queries go into a fresh accumulator, smallest
-//     first. (A CPU model of exactly
-//     this arithmetic, tests/test_torch_attention.py, holds dq, dk and dv
+//     running sum on the CUDA cores; dQ^T's products over a key tile,
+//     O^T's over 16 keys and dK^T's, dV^T's over 16 queries go into a
+//     fresh accumulator, smallest first. (A CPU model of exactly this
+//     arithmetic, tests/test_torch_attention.py, holds o, dq, dk and dv
 //     within the 4x bar against f64 at 22 bits; one accumulator per
-//     product would not.) Each group of products is waited for before the
-//     next is issued: double-buffered groups spilled registers and ran
-//     slower.
+//     product, or for the whole of a row of O, would not.) Each group of
+//     products is waited for before the next is issued: double-buffered
+//     groups spilled registers and ran slower.
+//   * The forward: a block owns 128 query rows of one head, 64 per
+//     consumer, and streams K/V tiles (32 keys, 8 at D 256) through a
+//     2-stage ring that both consumers read, so each tile is loaded and
+//     split once for 128 rows. (64-row blocks whose consumers took
+//     alternate tiles, each from its own stage, and merged their sums at
+//     the end took 1.27-1.29x as long at bench_1b on an H100.) Each
+//     consumer keeps an online softmax (running max m, sum l) and O^T for
+//     its rows. In O^T's layout a query row is a column of the
+//     accumulator, held by other threads than its row of S, so the rescale
+//     exp(m_old - m_new) of each row reaches them through a 64-float row in
+//     shared memory.
 //   * dq: a block owns 64 query rows of one head. Q and dO arrive once;
 //     K/V tiles (32 keys, 8 at D 256: what the registers and shared memory
 //     hold) alternate between the two consumers, each with its own stage
@@ -140,6 +155,10 @@ __device__ __forceinline__ uint32_t lds(uint32_t addr) {
 }
 
 __device__ __forceinline__ float lds_f32(uint32_t addr) { return __uint_as_float(lds(addr)); }
+
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
 
 // Byte offset of k8 step kk in a swizzled f32 tile of `rows` rows: sub-tile
 // kk / 4, 32 bytes a step inside it
@@ -362,6 +381,219 @@ __device__ __forceinline__ void store_transposed(float* out, const Strides& so, 
     base[(8 * j + (e & 1)) * so.s + 64 * mb + 8 * (e >> 1)] =
         add ? run[i] + add[i * 128 + tid] : run[i];
   }
+}
+
+// run (product_t3x's layout: column n = 8j + 2t (+ 1) of a thread's
+// run[32 mb + 4j (+ 1, + 2, + 3)]) times the factor of each column, read
+// from a 64-float row at shared address `row`
+template <int D>
+__device__ __forceinline__ void scale_columns(float (&run)[D / 2], uint32_t row, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float f[2];
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(f[0]), "=f"(f[1])
+                 : "r"(row + 4 * (8 * j + 2 * t))
+                 : "memory");
+#pragma unroll
+    for (int mb = 0; mb < D / 64; ++mb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[32 * mb + 4 * j + e] *= f[e & 1];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one block per (128-row query tile, q head, batch)
+// ---------------------------------------------------------------------------
+constexpr int kFwdRows = 128;
+
+template <int D>
+struct FwdShape {
+  static constexpr int kKeys = D <= 128 ? 32 : 8;  // per K/V tile
+  static constexpr int kQBytes = kFwdRows * D * 4;
+  static constexpr int kKVBytes = kKeys * D * 4;    // one of K, V
+  static constexpr int kStageBytes = 4 * kKVBytes;  // K, V, then their lo tiles
+  // Q, two stages, each consumer's Y tiles (P hi and lo), then four rows of
+  // 64 floats, each consumer's rescale row and final factor row: 128 KB at
+  // D 64, 224 KB at D 128 and 256 (+ barriers, 1024 alignment)
+  static constexpr int kYOffset = kQBytes + 2 * kStageBytes;
+  static constexpr int kRowOffset = kYOffset + 4 * kYBytes;
+  static constexpr int kRowBytes = 64 * 4;
+  static constexpr int kBarOffset = kRowOffset + 4 * kRowBytes;
+  static constexpr int kSmem = kBarOffset + 7 * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    tf32x3_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                      float* __restrict__ lse, Strides so, int S, int Hq, int group,
+                      float sm_scale) {
+  using Shape = FwdShape<D>;
+  constexpr int BK = Shape::kKeys;
+  constexpr int kGroup = BK < 16 ? BK : 16;  // keys of one product_t3x group
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* stages = smem + Shape::kQBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Shape::kBarOffset);
+  uint64_t* full = q_full + 1;  // per stage: K/V landed, lo tiles ready, freed
+  uint64_t* ready = full + 2;
+  uint64_t* empty = ready + 2;
+
+  // longest rows first across the whole grid
+  const int n_qt = S / kFwdRows, heads = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - blockIdx.x / heads;
+  const int h = blockIdx.x % heads % Hq, b = blockIdx.x % heads / Hq;
+  const int kvh = h / group;
+  const int q0 = qt * kFwdRows;
+  const int n_kt = (q0 + kFwdRows - 1) / BK + 1;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], 4);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: Q once, then key tile kt into stage kt % 2 once both
+    // consumers have freed it; the whole warpgroup writes its lo tiles
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, Shape::kQBytes);
+      for (int c = 0; c < D / 32; ++c)
+        tma_load_4d(smem + c * kFwdRows * kSubRow, &tq, q_full, c * 32, h, q0, b);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % 2;
+      const uint32_t phase = (kt / 2) & 1;
+      unsigned char* stage = stages + s * Shape::kStageBytes;
+      if (threadIdx.x == 0) {
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * Shape::kKVBytes);
+        for (int c = 0; c < D / 32; ++c) {
+          tma_load_4d(stage + c * BK * kSubRow, &tk, &full[s], c * 32, kvh, kt * BK, b);
+          tma_load_4d(stage + Shape::kKVBytes + c * BK * kSubRow, &tv, &full[s], c * 32, kvh,
+                      kt * BK, b);
+        }
+      }
+      mbar_wait(&full[s], phase);
+      write_lo(smem_u32(stage), 2 * Shape::kKVBytes, threadIdx.x, 128);
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) mbar_arrive(&ready[s]);
+    }
+    return;
+  }
+
+  // consumers: consumer c owns rows q0 + 64c .. q0 + 64c + 63 and reads
+  // every stage
+  reg_alloc<kConsumerRegs>();
+  const uint32_t smem_base = smem_u32(smem);
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * c;               // the consumer's first row, from q0
+  const int row = r0 + warp * 16 + g;  // and row + 8
+  // the consumer's last key tile with a key at or before its last row
+  const int last_kt = (q0 + r0 + 63) / BK;
+
+  float run[D / 2];  // O^T, product_t3x's layout; column n is row r0 + n
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) run[i] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};  // rows row, row + 8
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % 2;
+    mbar_wait(&ready[s], (kt / 2) & 1);
+    if (kt <= last_kt) {
+      const int k0 = kt * BK;
+      // addresses computed anew per tile, as dq's
+      uint32_t base = smem_base;
+      asm volatile("" : "+r"(base));
+      const uint32_t k_raw = base + Shape::kQBytes + s * Shape::kStageBytes;
+      const uint32_t v_raw = k_raw + Shape::kKVBytes;
+      const uint32_t k_lo = k_raw + 2 * Shape::kKVBytes, v_lo = k_raw + 3 * Shape::kKVBytes;
+
+      // S = Q K^T, scaled, the mask value above the diagonal
+      float sc[BK / 2];
+      product_3x<BK, D>(sc, base, kFwdRows, r0 + warp * 16, k_raw, k_lo, g, t);
+      const bool diagonal = k0 + BK - 1 > q0 + r0;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int r = (j >> 1) & 1;
+        float x = sc[j] * sm_scale;
+        if (diagonal && k0 + (j >> 2) * 8 + 2 * t + (j & 1) > q0 + row + 8 * r) x = kMaskValue;
+        sc[j] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+      // the online softmax: a row's scores lie in the quad of its 4 threads.
+      // Key 0 lies in tile 0, so every row has a real score from the start.
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int r = (j >> 1) & 1;
+        sc[j] = expf(sc[j] - m[r]);
+        l[r] += sc[j];
+      }
+
+      // P into the Y tiles and alpha into the consumer's rescale row, once
+      // every warp's products of its last tile have read both; then O^T =
+      // alpha O^T + V^T P^T, the products over each 16 keys in a fresh
+      // accumulator (over the whole tile, 32 keys, the CPU model's o came
+      // within 16% of the 4x bar)
+      const uint32_t y = base + Shape::kYOffset + 2 * c * kYBytes;
+      const uint32_t alpha_row = base + Shape::kRowOffset + c * Shape::kRowBytes;
+      bar_sync(kWgBarrier + c, 128);
+      write_y<BK>(sc, y, y + kYBytes, warp, g, t);
+      if (t == 0) {
+        sts_f32(alpha_row + 4 * (warp * 16 + g), alpha[0]);
+        sts_f32(alpha_row + 4 * (warp * 16 + g + 8), alpha[1]);
+      }
+      bar_sync(kWgBarrier + c, 128);
+      scale_columns<D>(run, alpha_row, t);
+      product_t3x<BK, D, kGroup>(run, y, y + kYBytes, v_raw, v_lo, warp, g, t);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // O = O^T / l and lse = m + log l; 1 / l of each row reaches the threads
+  // that hold its column of O^T through the consumer's factor row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const uint32_t factor_row = smem_base + Shape::kRowOffset + (2 + c) * Shape::kRowBytes;
+  if (t == 0) {
+    float* lse_rows = lse + (static_cast<int64_t>(b) * Hq + h) * S + q0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sts_f32(factor_row + 4 * (warp * 16 + g + 8 * r), 1.0f / l[r]);
+      lse_rows[row + 8 * r] = m[r] + logf(l[r]);
+    }
+  }
+  bar_sync(kWgBarrier + c, 128);
+  scale_columns<D>(run, factor_row, t);
+  store_transposed<D>(o, so, b, q0 + r0, h, run, nullptr, tid, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -777,6 +1009,20 @@ int map_at(CUtensorMap* map, const void* p, const int64_t* st, int i, int B, int
 }
 
 template <int D>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const int64_t* st,
+        int B, int S, int Hq, int Hkv, float sm_scale, cudaStream_t stream) {
+  using Shape = FwdShape<D>;
+  CUtensorMap tq, tk, tv;
+  int err = map_at(&tq, q, st, 0, B, S, Hq, D, kFwdRows);
+  if (err == 0) err = map_at(&tk, k, st, 1, B, S, Hkv, D, Shape::kKeys);
+  if (err == 0) err = map_at(&tv, v, st, 2, B, S, Hkv, D, Shape::kKeys);
+  if (err != 0) return err;
+  return launch(tf32x3_fwd_kernel<D>, Shape::kSmem, dim3(S / kFwdRows * Hq * B),
+                stream, tq, tk, tv, static_cast<float*>(o), lse, strides_at(st, 3), S, Hq,
+                Hq / Hkv, sm_scale);
+}
+
+template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
        const float* delta, void* dqp, const int64_t* st, int B, int S, int Hq, int Hkv,
        float sm_scale, cudaStream_t stream) {
@@ -823,12 +1069,21 @@ int dkv(const void* q, const void* k, const void* v, const void* dout, const flo
 
 extern "C" {
 
-// Rows of the kernels' tiles (dq's query rows, dK/dV's keys): S must be a
-// multiple of it.
-int tft_tf32x3_attention_tile() { return kDqRows; }
+// Rows of the largest of the kernels' tiles (the forward's 128 query rows;
+// dq's 64 query rows, dK/dV's 64 keys): S must be a multiple of it.
+int tft_tf32x3_attention_tile() { return kFwdRows; }
 
 // dtype: 0 f32. strides: 3 per tensor (batch, sequence, head) for q, k, v,
-// do, dq
+// o. p_f32 (K1 keeps P in f32, K2 rounds it to the input dtype) changes
+// nothing in f32.
+int tft_tf32x3_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
+                             float* lse, const int64_t* strides, int B, int S, int Hq, int Hkv,
+                             int D, float sm_scale, int p_f32, cudaStream_t stream) {
+  (void)p_f32;
+  TFT_DISPATCH_TF32X3(fwd, dtype, D, q, k, v, o, lse, strides, B, S, Hq, Hkv, sm_scale, stream)
+}
+
+// dtype: 0 f32. strides for q, k, v, do, dq
 int tft_tf32x3_attention_dq(int dtype, const void* q, const void* k, const void* v,
                             const void* dout, const float* lse, const float* delta,
                             void* dqp, const int64_t* strides, int B, int S, int Hq,
