@@ -17,8 +17,24 @@
    and times kernel, plain version and the device-memory bound at that
    size; quantize is also timed at the reduced-chunk shape the two-replica
    allreduce gives its second launch.
-3. Checks the fp8-quantized allreduce on CUDA tensors against the same
-   allreduce on CPU tensors (the plain versions), bit for bit.
+3. Checks the serial fp8-quantized allreduce on CUDA tensors against the
+   same allreduce on CPU tensors (the plain versions), bit for bit. Holds
+   the host-rule quantize kernel (``quantize_fp8_rowwise_kernel<true>``,
+   the codec of every streamed bucket) against its plain version, bit for
+   bit, on bench_1b's largest gradient bucket and on a ragged tail, each
+   with a zero row, overflow rows, a non-finite row and a subnormal row,
+   and times it at the largest bucket. Times each stage of the serial
+   quantized allreduce alone on one rank's chunk of the bench_1b gradient
+   (D2H, pickle.dumps, pickle.loads, the loopback socket, the landing), and
+   each stage of the streamed one on bench_1b's largest bucket (pack, a
+   hop's socket and arithmetic, the landing). Checks the
+   streamed allreduce of CUDA tensors against the same calls on CPU
+   tensors, bit for bit: fp8 with error feedback over 3 steps, and raw
+   bf16. Then the fp8 allreduce of bench_1b's gradient tree over two
+   replica Managers, serial and streamed, 3 turns each in alternation,
+   with the streamed stage sums, ``overlap_efficiency`` and the wire's
+   bytes and busy seconds; the serial engine's quantize launches are read
+   from this phase.
 4. Holds the attention kernels (forward, dq, dkv) of K1 (splash) and K2
    (flash) against their plain versions at the bench_1b shapes (GQA 16/8,
    also with K/V as strided views of one fused tensor, and 16/16 for K2),
@@ -56,11 +72,13 @@
    materialized attention and through the kernels, in turns.
 6. Trains Llama bench_1b at full width and depth as two fault-tolerant
    replica groups (threads on one card) with an in-process lighthouse, the
-   fp8-quantized managed allreduce and a scripted crash of replica 1 at
-   step 3 that restarts and heals over HTTP. It checks finite losses, the
-   discarded step, the heal, bitwise-equal replicas, that attention
-   dispatched to splash, and that the fp8 kernels and K1's three kernels
-   launched on this run.
+   fp8-quantized managed allreduce at the Manager's defaults (streamed
+   1 GiB buckets coded on the card, with error feedback) and a scripted
+   crash of replica 1 at step 3 that restarts and heals over HTTP; each
+   step's line carries the pipeline's stage sums and its wire. It checks
+   finite losses, the discarded step, the heal, bitwise-equal replicas,
+   that attention dispatched to splash, and that the host-rule quantize,
+   the dequantize and K1's three kernels launched on this run.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -170,6 +188,14 @@ def make_input(kind: str, n: int, device: torch.device) -> torch.Tensor:
         rows[2, 7] = float("nan")
         rows[3, 0] = 1e5
         rows[3, 9] = float("nan")
+    elif kind == "specials":
+        # a zero row, an overflow row (3e38, and -inf), a NaN row, a row of
+        # subnormals; n may be ragged
+        x[:ROW] = 0.0
+        x[ROW + 3], x[ROW + 4] = 3e38, -3e38
+        x[2 * ROW + 1] = float("-inf")
+        x[3 * ROW + 7] = float("nan")
+        x[4 * ROW:5 * ROW] *= 1e-40
     return x
 
 
@@ -415,6 +441,377 @@ def check_allreduce(device: torch.device) -> None:
             if bits_differ(a, b):
                 raise RuntimeError("quantized allreduce: CUDA and CPU results differ")
     log("quantized allreduce: CUDA kernels == CPU plain versions, bitwise (world 2, AVG)")
+
+
+def comm_pair(prefix: str):
+    """Two connected ``_Comm``s (ranks 0 and 1 of one mesh) and the store
+    they met through; ``close_pair`` ends them."""
+    from torchft_tpu_torch import process_group as pgm
+    from torchft_tpu_torch.coordination import KvStoreServer
+
+    store = KvStoreServer("127.0.0.1:0")
+    comms = [None] * 2
+
+    def make(r: int) -> None:
+        comms[r] = pgm._Comm(r, 2, f"127.0.0.1:{store.port}/{prefix}", 0, 60.0)
+
+    threads = [threading.Thread(target=make, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    if None in comms:
+        close_pair(comms, store)
+        raise RuntimeError("the two _Comms did not connect")
+    return comms, store
+
+
+def close_pair(comms, store) -> None:
+    for c in comms:
+        if c is not None:
+            c.abort()
+    store.shutdown()
+
+
+def time_serial_split(device: torch.device, n: int, world: int, reps: int = 3) -> dict:
+    """Each stage of the serial quantized allreduce (``collectives.py``'s
+    device engine) alone, on one rank's chunk of an ``n``-element gradient
+    over ``world`` ranks: the D2H of its codes and scales
+    (``_wire_from_device``), ``pickle.dumps`` and ``pickle.loads`` of that
+    wire tuple, its bytes through the loopback socket between two connected
+    ``_Comm``s (sender and receiver threads, the receiver's time), and
+    ``_device_from_wire`` of ``world`` such wires (np.stack + H2D + one
+    dequantize launch). Median ms of ``reps`` each; logs one line per
+    stage."""
+    import pickle
+
+    from torchft_tpu_torch import process_group as pgm
+    from torchft_tpu_torch.collectives import _device_from_wire, _wire_from_device
+    from torchft_tpu_torch.ops.quantization import fused_quantize_fp8
+
+    chunk = chunk_elems(n, world)
+    x = make_input("random", chunk, device)
+    q, scales, _ = fused_quantize_fp8(x)
+    del x
+    torch.cuda.synchronize()
+
+    def med(fn) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {"chunk_elems": chunk}
+    out["d2h_ms"] = med(lambda: _wire_from_device(q, scales, chunk))
+    wire = _wire_from_device(q, scales, chunk)
+    del q, scales
+    payload = pickle.dumps(wire, protocol=pickle.HIGHEST_PROTOCOL)
+    out["wire_bytes"] = len(payload)
+    out["pickle_dumps_ms"] = med(lambda: pickle.dumps(wire, protocol=pickle.HIGHEST_PROTOCOL))
+    out["pickle_loads_ms"] = med(lambda: pickle.loads(payload))
+
+    comms, store = comm_pair("split")
+    try:
+        def transfer() -> None:
+            sender = threading.Thread(target=pgm._send_msg, args=(comms[0].peers[1], payload))
+            sender.start()
+            pgm._recv_msg(comms[1].peers[0])
+            sender.join()
+
+        out["socket_ms"] = med(transfer)
+    finally:
+        close_pair(comms, store)
+    del payload
+
+    def land() -> None:
+        _device_from_wire([wire] * world, device)
+        torch.cuda.synchronize()
+
+    out["device_from_wire_ms"] = med(land)
+    log(f"serial allreduce split (one rank's chunk of {chunk} elements, {out['wire_bytes']} "
+        f"pickled bytes, world {world}, median of {reps}, ms):")
+    for key in ("d2h_ms", "pickle_dumps_ms", "pickle_loads_ms", "socket_ms",
+                "device_from_wire_ms"):
+        log(f"  serial split {key[:-3]}: {out[key]:.1f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_1b_grad_specs() -> dict:
+    """{name: (shape, dtype)} of bench_1b's parameters (a model on the meta
+    device: no memory)."""
+    from torchft_tpu_torch.models.llama import CONFIGS, Llama
+
+    model = Llama(CONFIGS["bench_1b"], device="meta")
+    return {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
+
+
+def bench_1b_buckets(specs: dict) -> list:
+    """Element counts of the buckets the Manager's default plan (1 GiB cap)
+    cuts bench_1b's gradient tree into."""
+    from torchft_tpu_torch import bucketing
+
+    leaves, _ = bucketing.tree_flatten(
+        {n: torch.empty(shape, dtype=dt, device="meta") for n, (shape, dt) in specs.items()})
+    return bucketing.build_plan(leaves, bucketing.DEFAULT_BUCKET_CAP_BYTES).sizes
+
+
+def check_host_rule_kernel(device: torch.device, largest: int) -> dict:
+    """The host-rule quantize kernel (quantize_fp8_rowwise_kernel<true>)
+    against its plain version, bit for bit (codes and scales, and their
+    dequantized values), on bench_1b's largest gradient bucket and on a
+    ragged tail, each with a zero row, overflow rows, a non-finite row and
+    a subnormal row; timed at the largest bucket."""
+    from torchft_tpu_torch.ops import quantization as q
+
+    out = {"mismatch": 0, "err": 0.0}
+    for label, n in (("ragged_tail", ROW * 4096 + 77), ("bench_1b_largest_bucket", largest)):
+        x = make_input("specials", n, device)
+        qk, sk, nk = q.fused_quantize_fp8_host(x)
+        qp, sp, _ = q.quantize_fp8_host_plain(x)
+        torch.cuda.synchronize()
+        if qk.shape != qp.shape or sk.shape != sp.shape:
+            raise RuntimeError(f"host-rule quantize shapes differ for {label}")
+        mismatch = bits_differ(qk, qp) + bits_differ(sk, sp)
+        err = max_abs_err(q.dequantize_fp8_plain(qk, sk, nk), q.dequantize_fp8_plain(qp, sp, nk))
+        out["mismatch"] += mismatch
+        out["err"] = max(out["err"], err)
+        log(f"host-rule quantize check {label:>24} n={n:>10}: mismatches={mismatch}")
+        if label == "bench_1b_largest_bucket":
+            rows = qk.shape[0]
+            out.update({
+                "n": n,
+                "ms": device_ms(lambda: q.fused_quantize_fp8_host(x), 10),
+                "call_ms": timed_ms(lambda: q.fused_quantize_fp8_host(x), 10),
+                "plain_ms": device_ms(lambda: q.quantize_fp8_host_plain(x), 3),
+                "bytes": 4 * n + rows * ROW + 4 * rows,
+            })
+        del x, qk, sk, qp, sp
+        torch.cuda.empty_cache()
+    if out["mismatch"]:
+        raise RuntimeError(f"the host-rule quantize kernel disagrees with its plain version in "
+                           f"{out['mismatch']} elements")
+    return out
+
+
+def time_streamed_split(device: torch.device, n: int, reps: int = 3) -> dict:
+    """Each stage of the streamed fp8 allreduce of one ``n``-element bf16
+    bucket at world 2, alone: the pack (``Manager._compress_bucket_ef``'s
+    EF add, host-rule quantize and residual update on the card, and the D2H
+    of the codes and scales), one ring hop's raw frames of n/2 code bytes
+    between two connected ``_Comm``s, a hop's arithmetic (two decodes of
+    n/2 codes, each an H2D and a dequantize, the f32 add, the recode and
+    its D2H), and the landing (``decompress_bucket``: H2D of n codes and a
+    dequantize, the bf16 cast, the AVG divide). Median ms of ``reps`` each; logs one line per
+    stage."""
+    from torchft_tpu_torch import bucketing
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.utils import true_divide
+
+    flat = make_input("random", n, device).to(torch.bfloat16)
+    owner = type("Owner", (), {"_buffer_pool": bucketing.BufferPool()})()
+    store = [None]
+    Manager._compress_bucket_ef(owner, flat, "fp8", torch.bfloat16, store, 0)
+    torch.cuda.synchronize()
+
+    def med(fn) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {"n": n}
+    out["pack_ms"] = med(lambda: Manager._compress_bucket_ef(
+        owner, flat, "fp8", torch.bfloat16, store, 0))
+    wire = Manager._compress_bucket_ef(owner, flat, "fp8", torch.bfloat16, store, 0)
+    del flat
+    half_rows = wire.payload.shape[0] // 2
+    half_q, half_s = wire.payload[:half_rows], wire.scales[:half_rows]
+    recv_q, recv_s = np.empty_like(half_q), np.empty_like(half_s)
+
+    comms, kv = comm_pair("ssplit")
+    try:
+        def hop() -> None:
+            sender = threading.Thread(target=comms[0].send_hop,
+                                      args=(1, ("cseg", 0, 0, 0), half_q, half_s))
+            sender.start()
+            comms[1].recv_from(0)
+            comms[1].recv_raw_into(0, recv_q)
+            comms[1].recv_raw_into(0, recv_s)
+            sender.join()
+
+        out["hop_socket_ms"] = med(hop)
+    finally:
+        close_pair(comms, kv)
+
+    seg = half_rows * ROW
+
+    def arithmetic() -> None:
+        acc = q.decode_fp8_on_card(half_q, half_s, seg, device)
+        acc += q.decode_fp8_on_card(recv_q, recv_s, seg, device)
+        q.encode_fp8_on_card(acc)
+
+    out["hop_arithmetic_ms"] = med(arithmetic)
+    out["landing_ms"] = med(lambda: true_divide(q.decompress_bucket(wire), 2))
+    log(f"streamed allreduce split (one bf16 bucket of {n} elements, world 2, median of "
+        f"{reps}, ms; a bucket takes the pack, two hops' sockets, one hop's arithmetic and "
+        f"the landing):")
+    for key in ("pack_ms", "hop_socket_ms", "hop_arithmetic_ms", "landing_ms"):
+        log(f"  streamed split {key[:-3]}: {out[key]:.1f} ms")
+    del wire, store
+    torch.cuda.empty_cache()
+    return out
+
+
+class Fleet:
+    """Two replica Managers over ProcessGroupHost against an in-process
+    lighthouse (init_sync off: both participate from step 0); ``step``
+    drives one allreduce on each, from two threads, and votes."""
+
+    def __init__(self, **manager_kwargs) -> None:
+        from torchft_tpu_torch.coordination import LighthouseServer
+        from torchft_tpu_torch.manager import Manager
+        from torchft_tpu_torch.process_group import ProcessGroupHost
+
+        self.lighthouse = LighthouseServer(bind="127.0.0.1:0", min_replicas=2,
+                                           join_timeout_ms=5000, quorum_tick_ms=20,
+                                           heartbeat_timeout_ms=10000)
+        self.managers = [
+            Manager(pg=ProcessGroupHost(timeout=300), load_state_dict=lambda sd: None,
+                    state_dict=lambda: {}, min_replica_size=2, replica_id=f"fleet_{r}",
+                    lighthouse_addr=f"127.0.0.1:{self.lighthouse.port}", timeout=300,
+                    quorum_timeout=300, init_sync=False, **manager_kwargs)
+            for r in range(2)
+        ]
+
+    def step(self, trees, quantize: bool, reduce_op=None) -> list:
+        """Per replica: (reduced tree, allreduce ms to the synchronized
+        result, vote, timings, this step's wire bytes sent, busy s)."""
+        from torchft_tpu_torch.process_group import ReduceOp
+
+        op = ReduceOp.AVG if reduce_op is None else reduce_op
+
+        def replica(r: int):
+            m = self.managers[r]
+            m.start_quorum()
+            m.wait_quorum()
+            wire0 = m._pg.wire_stats()
+            t0 = time.perf_counter()
+            out = m.allreduce(trees[r], should_quantize=quantize, reduce_op=op).get_future().wait(600)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            wire1 = m._pg.wire_stats()
+            vote = m.should_commit()
+            return (out, ms, vote, m.timings(), wire1["bytes_sent"] - wire0["bytes_sent"],
+                    wire1["busy_s"] - wire0["busy_s"])
+
+        with ThreadPoolExecutor(2) as ex:
+            results = list(ex.map(replica, range(2)))
+        if not all(r[2] for r in results):
+            raise RuntimeError("a fleet step was not committed")
+        return results
+
+    def shutdown(self) -> None:
+        for m in self.managers:
+            m.shutdown(wait=False)
+        self.lighthouse.shutdown()
+
+
+def check_streamed_on_card(device: torch.device) -> None:
+    """The streamed allreduce of CUDA tensors (the codec on the card)
+    against the same calls on CPU tensors (the plain versions), bit for bit:
+    fp8 with error feedback, AVG, over 3 steps (the residuals carried), and
+    uncompressed bf16. World 2, a 4 MiB cap (several buckets per dtype)."""
+
+    def tree(r: int, step: int) -> dict:
+        g = np.random.RandomState(100 * r + step)
+        spread = lambda k: (g.randn(k) * np.exp(g.randn(k))).astype(np.float32)  # noqa: E731
+        return {"w_b": spread(1 << 20).reshape(1024, 1024), "e": spread(3 * (1 << 19) + 77),
+                "a": spread(5000), "f32": spread(600_001)}
+
+    for quantize in (True, False):
+        outs = []
+        for dev in (device, torch.device("cpu")):
+            fleet = Fleet(bucket_cap_bytes=4 << 20)
+            outs.append([])
+            try:
+                for step in range(3):
+                    trees = [{k: torch.from_numpy(v).to(dev, torch.float32 if k == "f32"
+                                                        else torch.bfloat16)
+                              for k, v in tree(r, step).items()} for r in range(2)]
+                    res = fleet.step(trees, quantize)
+                    outs[-1].append([{k: t.cpu() for k, t in r[0].items()} for r in res])
+                    buckets = res[0][3]["allreduce_buckets"]
+            finally:
+                fleet.shutdown()
+        # bf16 -> f32 is exact, so f32 bits compare bf16 values too
+        differ = sum(bits_differ(a[k].float(), b[k].float())
+                     for sa, sb in zip(*outs) for a, b in zip(sa, sb) for k in a)
+        name = "fp8 with error feedback, AVG, 3 steps" if quantize else "uncompressed bf16, AVG, 3 steps"
+        log(f"streamed allreduce ({name}, {int(buckets)} buckets): CUDA vs CPU elements that "
+            f"differ: {differ}")
+        if differ:
+            raise RuntimeError(f"streamed allreduce ({name}): CUDA and CPU results differ")
+
+
+def time_streamed_vs_serial(device: torch.device, specs: dict, turns: int = 3) -> dict:
+    """The fp8-quantized allreduce of bench_1b's gradient tree (random bf16
+    leaves of its parameter shapes, seeded) over two replica Managers:
+    serial (``stream_buckets=False``) and streamed (the default: 1 GiB fp8
+    buckets with error feedback), ``turns`` each in alternation. Logs each
+    turn and the medians; returns the medians and the launches of the fp8
+    kernels over the phase."""
+    from torchft_tpu_torch.ops import quantization as q
+
+    g = torch.Generator(device=device).manual_seed(31)
+    trees = [{n: torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dt)
+              for n, (shape, dt) in specs.items()} for _ in range(2)]
+    fleets = {"serial": Fleet(stream_buckets=False), "streamed": Fleet()}
+    runs = {mode: [] for mode in fleets}
+    q.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(turns):
+            for mode, fleet in fleets.items():
+                res = fleet.step(trees, quantize=True)
+                ms = max(r[1] for r in res)
+                t = res[0][3]
+                runs[mode].append({"ms": ms, "bytes": res[0][4], "busy_s": res[0][5], **t})
+                extra = ""
+                if mode == "streamed":
+                    extra = (f", pack {t['allreduce_pack_s'] * 1e3:.1f} ms, wire "
+                             f"{t['allreduce_wire_s'] * 1e3:.1f} ms, unpack "
+                             f"{t['allreduce_unpack_s'] * 1e3:.1f} ms (sums over "
+                             f"{int(t['allreduce_buckets'])} buckets), overlap_efficiency "
+                             f"{t['overlap_efficiency']:.3f}")
+                log(f"bench_1b quantized allreduce, {mode}: {ms:.1f} ms (replica 0 sent "
+                    f"{res[0][4]} bytes, wire busy {res[0][5] * 1e3:.1f} ms){extra}")
+    finally:
+        for fleet in fleets.values():
+            fleet.shutdown()
+    launches = dict(q.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {mode: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for mode, rs in runs.items()}
+    s = med["streamed"]
+    log(f"bench_1b quantized allreduce medians of {turns} (two replicas on one card): serial "
+        f"{med['serial']['ms']:.1f} ms, streamed {s['ms']:.1f} ms (pack "
+        f"{s['allreduce_pack_s'] * 1e3:.1f} ms, wire {s['allreduce_wire_s'] * 1e3:.1f} ms, "
+        f"unpack {s['allreduce_unpack_s'] * 1e3:.1f} ms, overlap_efficiency "
+        f"{s['overlap_efficiency']:.3f}); replica 0 bytes sent: serial "
+        f"{med['serial']['bytes']:.0f}, streamed {s['bytes']:.0f}; wire busy: serial "
+        f"{med['serial']['busy_s'] * 1e3:.1f} ms, streamed {s['busy_s'] * 1e3:.1f} ms; "
+        f"peak memory {peak:.1f} GiB; fp8 launches {launches}")
+    del trees
+    torch.cuda.empty_cache()
+    return {"medians": med, "launches": launches, "peak_gib": peak}
 
 
 # attention shapes: (label, B, S, Hq, Hkv, hd, paths, K/V as strided views
@@ -941,6 +1338,17 @@ def main() -> int:
         f"(device ms; one call with its host time: quantize {timing['quantize']['call_ms']:.3f} ms, "
         f"dequantize {timing['dequantize']['call_ms']:.3f} ms)")
     check_allreduce(device)
+    specs = bench_1b_grad_specs()
+    buckets = bench_1b_buckets(specs)
+    host_rule = check_host_rule_kernel(device, max(buckets))
+    log(f"host-rule quantize at bench_1b's largest bucket (n={host_rule['n']}, buckets {buckets}): "
+        f"{host_rule['ms']:.3f} ms device, {host_rule['call_ms']:.3f} ms one call with its host "
+        f"time, plain version {host_rule['plain_ms']:.3f} ms")
+    time_serial_split(device, n_params, REPLICAS)
+    time_streamed_split(device, max(buckets))
+    check_streamed_on_card(device)
+    # the serial engine's own path: its launches are read from this phase
+    serial_vs_streamed = time_streamed_vs_serial(device, specs)
     attn_stats, attn_timing = check_attention(device)
     check_attention_env(device)
     # each model path's launches, from its own run
@@ -958,7 +1366,10 @@ def main() -> int:
         f"participants={e['participants']} committed={e['committed']} "
         f"healed={e['healed']} attention={e['attention']} step_ms={e['step_ms']:.1f} "
         f"compute_ms={e['compute_ms']:.1f} allreduce_ms={e['allreduce_ms']:.1f} "
-        f"tokens_per_s={e['tokens_per_s']:.1f}"))
+        f"tokens_per_s={e['tokens_per_s']:.1f} pack_ms={e['allreduce_pack_s'] * 1e3:.1f} "
+        f"wire_ms={e['allreduce_wire_s'] * 1e3:.1f} unpack_ms={e['allreduce_unpack_s'] * 1e3:.1f} "
+        f"buckets={int(e['allreduce_buckets'])} overlap_efficiency={e['overlap_efficiency']:.3f} "
+        f"wire_bytes_sent={e['wire_bytes_sent']} wire_busy_ms={e['wire_busy_s'] * 1e3:.1f}"))
     launches = {**q.LAUNCHES, **ta.LAUNCHES}
     dispatch = {e["attention"] for r in results for e in r["log"]}
     log(f"training: {time.perf_counter() - t0:.1f} s, attention {sorted(dispatch)}, "
@@ -997,32 +1408,39 @@ def main() -> int:
         f"received it in {results[1]['timings'].get('heal_recv_s', float('nan')):.2f} s")
     if dispatch != {"splash"}:
         raise RuntimeError(f"training attention dispatched to {dispatch}, not splash")
-    on_path = ("quantize_fp8_rowwise", "dequantize_fp8_rowwise",
+    on_path = ("quantize_fp8_rowwise_host", "dequantize_fp8_rowwise",
                "splash_fwd", "splash_dq", "splash_dkv")
     for kernel in on_path:
         if launches[kernel] == 0:
             raise RuntimeError(f"{kernel} never launched on the training path")
+    # the serial engine's quantize runs on its own path (stream_buckets=False)
+    serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
+    if serial_launches == 0:
+        raise RuntimeError("quantize_fp8_rowwise never launched on the serial allreduce path")
 
     kernels = []
-    for key, kname, line in (
-        ("quantize", "quantize_fp8_rowwise", 279),
-        ("dequantize", "dequantize_fp8_rowwise", 316),
+    for t, err, kname, instance, line, count in (
+        (timing["quantize"], stats["quantize"]["err"], "quantize_fp8_rowwise",
+         "quantize_fp8_rowwise_kernel<false>", 279, serial_launches),
+        (timing["dequantize"], stats["dequantize"]["err"], "dequantize_fp8_rowwise",
+         "dequantize_fp8_rowwise_kernel", 316, launches["dequantize_fp8_rowwise"]),
+        (host_rule, host_rule["err"], "quantize_fp8_rowwise_host",
+         "quantize_fp8_rowwise_kernel<true>", 279, launches["quantize_fp8_rowwise_host"]),
     ):
-        t = timing[key]
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": "torchft_tpu_torch/ops/csrc/fp8_rowwise.cu",
             "replaces": f"torchft_tpu/ops/quantization.py:{line}",
-            "launches": launches[kname],
-            "max_abs_err": stats[key]["err"],
+            "launches": count,
+            "max_abs_err": err,
             "ms": t["ms"],
             "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None,
-            **sass_counts(build_report[f"{kname}_kernel"]),
+            **sass_counts(build_report[instance]),
         })
     for dtype, (suffix, sources) in ATTN_DTYPES.items():
         for impl in ("splash", "flash"):

@@ -32,7 +32,33 @@ def test_cuda_kernels_match_plain(cuda_device, n):
     assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
     dk = tq.fused_dequantize_fp8(qk, sk, nk)
     assert torch.equal(dk.view(torch.int32), tq.dequantize_fp8_plain(qk, sk, nk).view(torch.int32))
-    assert tq.LAUNCHES == {"quantize_fp8_rowwise": 1, "dequantize_fp8_rowwise": 1}
+    assert tq.LAUNCHES == {"quantize_fp8_rowwise": 1, "dequantize_fp8_rowwise": 1,
+                           "quantize_fp8_rowwise_host": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 511, 512 * 256 + 7, 512 * 64])
+def test_cuda_host_rule_kernel_matches_plain(cuda_device, n):
+    """The host-rule quantize kernel against its plain version and the
+    numpy host codec, bit for bit, with a zero row, an overflow row and a
+    non-finite row; its launch is counted under its own key."""
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n))
+    x[::97] *= 1e6
+    if n >= 4 * 512:
+        x[:512] = 0.0
+        x[512 + 3] = 3e38
+        x[1024 + 5] = float("nan")
+        x[1536 + 7] = float("inf")
+    tq.reset_launches()
+    qk, sk, nk = tq.fused_quantize_fp8_host(x.to(cuda_device))
+    qp, sp, _ = tq.quantize_fp8_host_plain(x)
+    qh, sh, _ = tq.quantize_fp8_rowwise(x.numpy())
+    assert torch.equal(qk.view(torch.uint8).cpu(), qp.view(torch.uint8))
+    assert torch.equal(sk.view(torch.int32).cpu(), sp.view(torch.int32))
+    assert (qk.view(torch.uint8).cpu().numpy() == qh).all()
+    assert (sk.cpu().numpy().reshape(-1).view("u4") == sh.view("u4")).all()
+    assert tq.LAUNCHES == {"quantize_fp8_rowwise": 0, "dequantize_fp8_rowwise": 0,
+                           "quantize_fp8_rowwise_host": 1}
 
 
 @pytest.mark.cuda

@@ -1,9 +1,9 @@
 """The port's fault-tolerant training slice against the JAX package's.
 
 Two replica groups run as threads against an in-process lighthouse in each
-package: the debug Llama config, the serial fp8-quantized managed
-allreduce (``stream_buckets=False`` on the JAX side, the port's only
-path), SGD, the same initial parameters and batches, and a crash of
+package: the debug Llama config, the fp8-quantized managed allreduce at
+both Managers' defaults (streamed fp8 buckets with error feedback), SGD,
+the same initial parameters and batches, and a crash of
 replica 1 after its backward pass at step 2 that restarts and heals over
 HTTP. The lighthouse needs both replicas for a quorum, so the survivor
 waits for the restart and the rejoin always heals.
@@ -14,7 +14,8 @@ agree across packages within ``LR * (steps) * 2 * 32 * s_max``, i.e. per
 committed step at most one e4m3 code step (32 units of the scale at the
 top of the range) of the largest row scale ``s_max`` in each of the two
 quantization stages, times the learning rate. The allreduce itself is
-bitwise equal across packages when both get identical gradients.
+bitwise equal across packages when both get identical gradients, streamed
+or serial (``stream_buckets=False``).
 """
 
 import threading
@@ -110,7 +111,7 @@ def _jax_slice(addr, inits):
             pg=JaxPGHost(timeout=TIMEOUT), load_state_dict=load,
             state_dict=lambda: {"params": state["params"]}, min_replica_size=1,
             replica_id=f"replica_{rid}", lighthouse_addr=addr, timeout=TIMEOUT,
-            quorum_timeout=TIMEOUT, stream_buckets=False,
+            quorum_timeout=TIMEOUT,
         )
         try:
             while manager.current_step() < STEPS:
@@ -227,20 +228,24 @@ def _one_step(make_manager, lighthouse_cls, grads, to_leaves):
         lh.shutdown()
 
 
+@pytest.mark.parametrize("stream_buckets", [False, None], ids=["serial", "default"])
 @pytest.mark.parametrize("engine", ["device", "host"])
-def test_same_gradients_allreduce_bitwise(engine):
+def test_same_gradients_allreduce_bitwise(engine, stream_buckets):
     """Identical gradients into both packages' Manager.allreduce: bitwise
     equal results (device engine: JAX arrays vs torch tensors; host
-    engine: numpy in both). init_sync is off so both replicas participate."""
+    engine: numpy in both), on the serial path (``stream_buckets=False``)
+    and at the default (streamed fp8 buckets with error feedback).
+    init_sync is off so both replicas participate."""
     rng = np.random.RandomState(11)
     grads = [{"a": rng.randn(300, 7).astype(np.float32),
               "b": (rng.randn(1025) * 1e3).astype(np.float32)} for _ in range(2)]
-    common = dict(min_replica_size=2, timeout=TIMEOUT, quorum_timeout=TIMEOUT, init_sync=False)
+    common = dict(min_replica_size=2, timeout=TIMEOUT, quorum_timeout=TIMEOUT, init_sync=False,
+                  stream_buckets=stream_buckets)
 
     def jax_manager(rid, addr):
         return JaxManager(pg=JaxPGHost(timeout=TIMEOUT), load_state_dict=lambda sd: None,
                           state_dict=lambda: {}, replica_id=f"r{rid}", lighthouse_addr=addr,
-                          stream_buckets=False, **common)
+                          **common)
 
     def torch_manager(rid, addr):
         return Manager(pg=ProcessGroupHost(timeout=TIMEOUT), load_state_dict=lambda sd: None,

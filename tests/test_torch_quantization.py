@@ -97,7 +97,8 @@ def test_device_codec_matches_pallas_bitwise(case):
     assert torch.equal(sw, st)
     dj = jq.fused_dequantize_fp8(qj, sj, nj)
     dt = tq.fused_dequantize_fp8(qt, st, nt)
-    assert tq.LAUNCHES == {"quantize_fp8_rowwise": 0, "dequantize_fp8_rowwise": 0}
+    assert tq.LAUNCHES == {"quantize_fp8_rowwise": 0, "dequantize_fp8_rowwise": 0,
+                           "quantize_fp8_rowwise_host": 0}
     _same_bits_or_nan(dt.numpy(), np.asarray(dj))
 
 
@@ -143,6 +144,28 @@ def test_host_codec_matches_reference_bitwise(case):
     _same_bits_or_nan(
         tq.dequantize_fp8_rowwise(qb, sb, nb), jq.dequantize_fp8_rowwise(qa, sa, na)
     )
+
+
+@pytest.mark.parametrize("case", CASES + ["subnormal", "overflow_row"])
+def test_host_rule_plain_version_matches_the_reference_host_codec(case):
+    """The plain version of the host-rule quantize kernel (scale = amax /
+    448, codes = x * (1 / scale)) gives the reference's host codec's codes
+    and scales bit for bit, and the wrapper on a CPU tensor is that plain
+    version, launching nothing."""
+    if case == "subnormal":
+        x = np.full(700, 2e-40, np.float32)
+    elif case == "overflow_row":
+        x = _input("ragged_1543").reshape(-1)
+        x[600] = 3e38
+    else:
+        x = _input(case).reshape(-1)
+    qa, sa, na = jq.quantize_fp8_rowwise(x)
+    tq.reset_launches()
+    qb, sb, nb = tq.fused_quantize_fp8_host(torch.from_numpy(x))
+    assert nb == na and qb.shape == (sa.size, 512) and sb.shape == (sa.size, 1)
+    np.testing.assert_array_equal(qb.view(torch.uint8).numpy(), qa)
+    np.testing.assert_array_equal(sb.numpy().reshape(-1).view(np.uint32), sa.view(np.uint32))
+    assert sum(tq.LAUNCHES.values()) == 0
 
 
 def _world_run(world: int, fn):

@@ -7,10 +7,14 @@ it. What runs today (see ROADMAP.md for what is still to port):
 
 - ``coordination``: ctypes binding to the repo's native C++ control plane
   (lighthouse, manager server, rendezvous store), built from ``native/``;
-- ``manager.Manager``: per-step quorum, the serial managed allreduce
-  (optionally fp8-quantized), two-phase commit and live HTTP heal;
-- ``collectives.allreduce_quantized`` with the hand-written CUDA fp8
-  rowwise codec in ``ops/csrc/fp8_rowwise.cu``;
+- ``manager.Manager``: per-step quorum, the managed allreduce (streamed
+  in buckets by default, fp8-coded with error feedback when quantized;
+  serial on request), two-phase commit and live HTTP heal;
+- ``process_group.ProcessGroupHost``: the host wire, with the raw-frame
+  ring and the compressed self-healing ring; ``bucketing`` its buckets;
+- ``collectives.allreduce_quantized`` (the serial path) and the bucket
+  codec, with the hand-written CUDA fp8 rowwise kernels in
+  ``ops/csrc/fp8_rowwise.cu``;
 - ``models.llama``: the Llama-3 family as an ``nn.Module``;
 - ``train``: the fault-tolerant DDP trainer that ``chip_smoke.py`` drives.
 

@@ -4,21 +4,39 @@ Counterpart of ``torchft_tpu/manager.py``'s main path: the quorum
 lifecycle on a one-thread executor (``start_quorum``, ``:767``; async body
 ``:1039``), process-group reconfiguration per quorum, live healing over the
 checkpoint transport (``:1177-1246``, ``_recv_checkpoint`` ``:1397``), the
-managed allreduce (``:1679``) with errors swallowed into a zeros result,
-and the two-phase commit (``should_commit``, ``:3202``).
+managed allreduce (``:1679``, ``allreduce_streamed`` ``:1695``) with errors
+swallowed into a zeros result, and the two-phase commit
+(``should_commit``, ``:3202``).
 
 Replica groups here are single-rank (each replica group is one worker,
 the leader of its own store and manager server) and the quorum is always
 async: a healing replica sits its first step out. The reference's
 multi-rank groups, synchronous quorum and ``max_retries`` are not ported.
 
-The allreduce here is the reference's SERIAL path (the path its Manager
-takes with ``stream_buckets=False``): the whole tree is one collective
-staged on one ordered worker thread, fp8-quantized through
-``collectives.allreduce_quantized`` when asked. Tensors on a CUDA device
-take the device engine (the hand-written fp8 kernels); a non-participant
-contributes device zeros. The streamed bucket pipeline, the policy,
-degrade, redundancy, health and serving planes are not ported yet.
+The allreduce takes the reference's host-plane paths. By default (as the
+reference's) a multi-leaf tree STREAMS (``:1891-2200``): ``bucketing``
+packs it into buckets of at most ``bucket_cap_bytes`` (1 GiB), and each
+bucket is one collective, three stages deep: pack (the concatenation and,
+when compressed, the coding, with error feedback), wire (the PG's dispatch
+thread), unpack (decode, AVG divide, slice and land, on the unpack
+worker), so bucket i+1 packs while bucket i is on the wire. Buckets ride
+compressed (fp8 or int8, with per-bucket error-feedback residuals) when
+``should_quantize`` is set or ``TORCHFT_COMPRESS`` asks; a bucket on the
+card is coded there by the fp8 kernels and only its codes cross to the
+host. Without streaming (``stream_buckets=False``), and for a single leaf,
+the SERIAL path: one collective for the whole tree on one ordered staging
+thread, fp8-quantized through ``collectives.allreduce_quantized`` when
+asked (CUDA tensors take its device engine); an unquantized tree is
+bucketed into that one collective. A non-participant contributes zeros and
+never touches the residuals. The device-plane streaming branch (an XLA
+process group), the policy, degrade, redundancy, health and serving
+planes are not ported yet.
+
+Knobs, each environment variable > constructor argument > default:
+``TORCHFT_BUCKET_CAP_MB`` / ``bucket_cap_bytes`` (1 GiB; 0 disables
+bucketing), ``TORCHFT_STREAM_BUCKETS`` / ``stream_buckets`` (on; "0",
+"false", "no" or "off" turn it off), ``TORCHFT_COMPRESS`` / ``compress``
+("off", "fp8" or "int8"; "off", and ``should_quantize`` picks fp8).
 """
 
 from __future__ import annotations
@@ -30,14 +48,16 @@ import threading
 import time
 import traceback
 import uuid
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from torchft_tpu_torch import bucketing
 from torchft_tpu_torch.checkpointing import CheckpointTransport, HTTPTransport, RWLock
 from torchft_tpu_torch.coordination import (
     KvStoreServer,
@@ -45,14 +65,30 @@ from torchft_tpu_torch.coordination import (
     ManagerServer,
 )
 from torchft_tpu_torch.futures import arm_deadline
+from torchft_tpu_torch.ops.quantization import (
+    compress_bucket,
+    decompress_bucket,
+    is_compressed_wire,
+    resolve_compress_mode,
+)
 from torchft_tpu_torch.process_group import ProcessGroup, ReduceOp
-from torchft_tpu_torch.work import DummyWork, Future, FutureWork, Work
+from torchft_tpu_torch.utils import true_divide
+from torchft_tpu_torch.work import (
+    DummyWork,
+    Future,
+    FutureWork,
+    GradStream,
+    Work,
+    join_futures,
+)
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["Manager", "ExceptionWithTraceback"]
 
 LIGHTHOUSE_ENV = "TORCHFT_LIGHTHOUSE"
+BUCKET_CAP_MB_ENV = "TORCHFT_BUCKET_CAP_MB"
+STREAM_BUCKETS_ENV = "TORCHFT_STREAM_BUCKETS"
 # every replica group is one worker: rank 0 of a group of 1
 _GROUP_RANK = 0
 _CONNECT_TIMEOUT_S = 10.0
@@ -76,15 +112,20 @@ def _is_float_leaf(x: Any) -> bool:
     return np.issubdtype(np.asarray(x).dtype, np.floating)
 
 
-def _wire_leaf(x: Any) -> np.ndarray:
-    """Host copy of a leaf for the non-quantized wire. bf16 has no numpy
-    dtype, so it rides as f32 and is cast back when the result lands."""
-    if isinstance(x, torch.Tensor):
-        t = x.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.to(torch.float32)
-        return t.cpu().numpy()
-    return np.asarray(x)
+def _leaf_device(x: Any) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+def _place(orig: Any, reduced: Any) -> Any:
+    """A reduced value landed as its original leaf: a tensor on the leaf's
+    device in its dtype, or an ndarray for an array leaf."""
+    if isinstance(orig, torch.Tensor):
+        if not isinstance(reduced, torch.Tensor):
+            reduced = torch.from_numpy(np.ascontiguousarray(reduced))
+        return reduced.to(device=orig.device, dtype=orig.dtype)
+    if isinstance(reduced, torch.Tensor):
+        reduced = reduced.cpu().numpy()
+    return np.asarray(reduced)
 
 
 class Manager:
@@ -112,14 +153,46 @@ class Manager:
         lighthouse_addr: Optional[str] = None,
         init_sync: bool = True,
         hostname: str = "",
+        bucket_cap_bytes: Optional[int] = None,
+        stream_buckets: Optional[bool] = None,
+        compress: Optional[str] = None,
     ) -> None:
         self._pg = pg
+        set_reroute = getattr(pg, "set_reroute_observer", None)
+        if set_reroute is not None:
+            set_reroute(self._on_collective_reroute)
         self._min_replica_size = min_replica_size
         self._timeout = _to_seconds(timeout)
         self._quorum_timeout = (
             _to_seconds(quorum_timeout) if quorum_timeout is not None else self._timeout
         )
         self._init_sync = init_sync
+
+        env_cap = os.environ.get(BUCKET_CAP_MB_ENV)
+        if env_cap is not None:
+            self._bucket_cap_bytes = int(float(env_cap) * 1024 * 1024)
+        elif bucket_cap_bytes is not None:
+            self._bucket_cap_bytes = int(bucket_cap_bytes)
+        else:
+            self._bucket_cap_bytes = bucketing.DEFAULT_BUCKET_CAP_BYTES
+        env_stream = os.environ.get(STREAM_BUCKETS_ENV)
+        if env_stream is not None:
+            self._stream_buckets = env_stream.strip().lower() not in ("0", "false", "no", "off")
+        elif stream_buckets is not None:
+            self._stream_buckets = bool(stream_buckets)
+        else:
+            self._stream_buckets = True
+        # raises on a bad value rather than training uncompressed silently
+        self._compress = resolve_compress_mode(compress)
+        # flat buffers: the EF residuals and the packing of array leaves
+        self._buffer_pool = bucketing.BufferPool()
+        # per-(plan, bucket) error-feedback residuals: what quantization
+        # rounded away at one step is added back before the next step's
+        # quantization; weakly keyed, they die with their plan
+        self._ef_residuals: "weakref.WeakKeyDictionary[bucketing.BucketPlan, List[Any]]" = (
+            weakref.WeakKeyDictionary()
+        )
+        self._ef_lock = threading.Lock()
 
         self._state_dict_lock = RWLock(timeout=self._timeout)
         self._load_state_dict_fns: Dict[str, Callable[[Any], None]] = {}
@@ -184,6 +257,12 @@ class Manager:
         # caller order on every replica (the host wire matches by arrival)
         self._staging_executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="torchft_stage"
+        )
+        # the streamed pipeline's third stage (decode, divide, slice, land)
+        # runs here, off the PG's dispatch thread, so the next bucket's
+        # wire starts at once
+        self._unpack_executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torchft_unpack"
         )
         self._quorum_future: Optional[Any] = None
 
@@ -333,34 +412,67 @@ class Manager:
         """Fault-tolerant allreduce over a pytree of tensors or arrays.
 
         Returns a Work whose future resolves to the reduced pytree, each leaf
-        on its input's device with its input's dtype. On error the future
-        resolves to a zeros pytree and the error is kept for
-        ``should_commit``."""
-        self._bump_metric("allreduces")
-        leaves, treedef = pytree.tree_flatten(values)
+        on its input's device with its input's dtype (dicts keyed in sorted
+        order, as the reference's). On error the future resolves to a zeros
+        pytree and the error is kept for ``should_commit``."""
+        work, _stream = self._allreduce(values, should_quantize, reduce_op)
+        return work
 
-        def place(orig: Any, reduced: Any) -> Any:
-            if isinstance(orig, torch.Tensor):
-                if not isinstance(reduced, torch.Tensor):
-                    reduced = torch.from_numpy(np.ascontiguousarray(reduced))
-                return reduced.to(device=orig.device, dtype=orig.dtype)
-            if isinstance(reduced, torch.Tensor):
-                reduced = reduced.cpu().numpy()
-            return np.asarray(reduced)
+    def allreduce_streamed(
+        self,
+        values: Any,
+        reduce_op: ReduceOp = ReduceOp.AVG,
+        bucket_cap_bytes: Optional[int] = None,
+        should_quantize: bool = False,
+    ) -> GradStream:
+        """``allreduce`` with per-bucket completion: the GradStream's
+        ``ready(i)`` says when bucket i has landed and ``wait()`` returns
+        the reduced pytree. ``bucket_cap_bytes`` overrides the Manager's cap
+        for this call. A tree that does not stream (single leaf, bucketing
+        or streaming off) gives a one-bucket stream."""
+        work, stream = self._allreduce(
+            values, should_quantize, reduce_op, bucket_cap_bytes=bucket_cap_bytes
+        )
+        if stream is None:
+            fut = work.get_future()
+            stream = GradStream([fut], fut)
+        return stream
+
+    def _allreduce(
+        self,
+        values: Any,
+        should_quantize: bool = False,
+        reduce_op: ReduceOp = ReduceOp.AVG,
+        bucket_cap_bytes: Optional[int] = None,
+    ) -> Tuple[Work, Optional[GradStream]]:
+        """The engine behind allreduce and allreduce_streamed: ``(work,
+        stream)``, the stream a GradStream when the op streamed."""
+        self._bump_metric("allreduces")
+        leaves, treedef = bucketing.tree_flatten(values)
+        cap = self._bucket_cap_bytes if bucket_cap_bytes is None else int(bucket_cap_bytes)
+        # the serial quantized path is never pre-bucketed: it flattens the
+        # tree into one wire itself, and packing first would move its fp8
+        # row boundaries; streamed, a quantized tree rides compressed buckets
+        plan: Optional[bucketing.BucketPlan] = None
+        if (not should_quantize or self._stream_buckets) and len(leaves) > 1 and cap > 0:
+            try:
+                plan = bucketing.plan_for(leaves, cap, treedef=treedef)
+            except Exception:  # noqa: BLE001 - exotic leaves go unbucketed
+                plan = None
 
         def rebuild(reduced: List[Any]) -> Any:
             return pytree.tree_unflatten(
-                [place(o, r) for o, r in zip(leaves, reduced)], treedef
+                [_place(o, r) for o, r in zip(leaves, reduced)], treedef
             )
 
         def zeros() -> Any:
             return pytree.tree_unflatten([_zeros_like(l) for l in leaves], treedef)
 
         if self.errored():
-            return DummyWork(zeros())
+            return DummyWork(zeros()), None
         self.wait_quorum()
         if self.errored():
-            return DummyWork(zeros())
+            return DummyWork(zeros()), None
         num_participants = self.num_participants()
 
         pg_reduce_op = reduce_op
@@ -369,76 +481,308 @@ class Manager:
                 raise ValueError("AVG allreduce requires floating point leaves")
             pg_reduce_op = ReduceOp.SUM
 
-        def normalize(f: Future) -> Any:
-            reduced = f.value()
+        def divide(x: Any) -> Any:
             if reduce_op == ReduceOp.AVG and num_participants > 0:
-                reduced = [
-                    (r / num_participants).to(r.dtype) if isinstance(r, torch.Tensor)
-                    else (r / num_participants).astype(r.dtype)
-                    for r in reduced
-                ]
-            return rebuild(reduced)
+                return true_divide(x, num_participants)
+            return x
 
         try:
-            # capture on the caller thread: the staging thread reads these
-            # after allreduce() returns, when the caller may already be
-            # mutating its gradients. Non-participants contribute zeros
-            # built from shapes alone.
-            if self.is_participating():
-                capture = [
-                    l.detach().clone() if isinstance(l, torch.Tensor)
-                    else np.array(l, copy=True)
-                    for l in leaves
-                ]
-            else:
-                capture = [_zeros_like(l) for l in leaves]
-            staged_fut: Future = Future()
-            stage_timeout = self._timeout
-
-            def _stage_deadline() -> None:
-                try:
-                    staged_fut.set_exception(TimeoutError("allreduce staging timed out"))
-                except RuntimeError:
-                    pass
-
-            def stage() -> None:
-                # the deadline spans the whole staged op, wire included,
-                # and starts when staging begins (not at submission)
-                cancel = arm_deadline(_stage_deadline, stage_timeout)
-                staged_fut.add_done_callback(lambda _f: cancel())
-                try:
-                    if should_quantize:
-                        from torchft_tpu_torch.collectives import allreduce_quantized
-
-                        w = allreduce_quantized(capture, pg_reduce_op, self._pg)
-                        staged_fut.set_result(w.get_future().wait(stage_timeout))
-                        return
-                    w = self._pg.allreduce([_wire_leaf(l) for l in capture], pg_reduce_op)
-
-                    def _xfer(f: Future) -> None:
-                        try:
-                            exc = f.exception()
-                            if exc is not None:
-                                staged_fut.set_exception(exc)
-                            else:
-                                staged_fut.set_result(f.value())
-                        except RuntimeError:
-                            pass
-
-                    w.get_future().add_done_callback(_xfer)
-                except Exception as e:  # noqa: BLE001 - resolves the op
-                    try:
-                        staged_fut.set_exception(e)
-                    except RuntimeError:
-                        pass
-
-            self._staging_executor.submit(stage)
-            fut = self.wrap_future(staged_fut.then(normalize), zeros)
-            return FutureWork(fut)
+            if plan is not None and self._stream_buckets:
+                return self._allreduce_streaming(
+                    leaves, treedef, plan, should_quantize, pg_reduce_op, divide, zeros
+                )
+            return FutureWork(self._allreduce_serial(
+                leaves, plan, should_quantize, pg_reduce_op, divide, rebuild, zeros
+            )), None
         except Exception as e:  # noqa: BLE001 - swallowed into the vote
             self._log(logging.ERROR, f"allreduce failed: {e}")
             self.report_error(e)
-            return DummyWork(zeros())
+            return DummyWork(zeros()), None
+
+    def _allreduce_serial(
+        self,
+        leaves: List[Any],
+        plan: Optional[bucketing.BucketPlan],
+        should_quantize: bool,
+        pg_reduce_op: ReduceOp,
+        divide: Callable[[Any], Any],
+        rebuild: Callable[[List[Any]], Any],
+        zeros: Callable[[], Any],
+    ) -> Future:
+        """One collective for the whole tree (its buckets, when ``plan``)
+        on the ordered staging worker."""
+        # capture on the caller thread: the staging thread reads these
+        # after allreduce() returns, when the caller may already be
+        # mutating its gradients. Non-participants contribute zeros.
+        if plan is not None:
+            if self.is_participating():
+                capture, _pooled = bucketing.pack(leaves, plan)
+            else:
+                capture = [
+                    torch.zeros(size, dtype=dtype, device=_leaf_device(leaves[g[0]]))
+                    for g, size, dtype in zip(plan.groups, plan.sizes, plan.dtypes)
+                ]
+        elif self.is_participating():
+            capture = [
+                l.detach().clone() if isinstance(l, torch.Tensor) else np.array(l, copy=True)
+                for l in leaves
+            ]
+        else:
+            capture = [_zeros_like(l) for l in leaves]
+        staged_fut: Future = Future()
+        stage_timeout = self._timeout
+
+        def _stage_deadline() -> None:
+            try:
+                staged_fut.set_exception(TimeoutError("allreduce staging timed out"))
+            except RuntimeError:
+                pass
+
+        def stage() -> None:
+            # the deadline spans the whole staged op, wire included, and
+            # starts when staging begins (not at submission)
+            cancel = arm_deadline(_stage_deadline, stage_timeout)
+            staged_fut.add_done_callback(lambda _f: cancel())
+            try:
+                if should_quantize:
+                    from torchft_tpu_torch.collectives import allreduce_quantized
+
+                    w = allreduce_quantized(capture, pg_reduce_op, self._pg)
+                    staged_fut.set_result(w.get_future().wait(stage_timeout))
+                    return
+                w = self._pg.allreduce(capture, pg_reduce_op)
+
+                def _xfer(f: Future) -> None:
+                    try:
+                        exc = f.exception()
+                        if exc is not None:
+                            staged_fut.set_exception(exc)
+                        else:
+                            staged_fut.set_result(f.value())
+                    except RuntimeError:
+                        pass
+
+                w.get_future().add_done_callback(_xfer)
+            except Exception as e:  # noqa: BLE001 - resolves the op
+                try:
+                    staged_fut.set_exception(e)
+                except RuntimeError:
+                    pass
+
+        def normalize(f: Future) -> Any:
+            reduced = [divide(r) for r in f.value()]
+            if plan is not None:
+                reduced = bucketing.unpack(reduced, plan)
+            return rebuild(reduced)
+
+        self._staging_executor.submit(stage)
+        return self.wrap_future(staged_fut.then(normalize), zeros)
+
+    def _allreduce_streaming(
+        self,
+        leaves: List[Any],
+        treedef: Any,
+        plan: bucketing.BucketPlan,
+        should_quantize: bool,
+        pg_reduce_op: ReduceOp,
+        divide: Callable[[Any], Any],
+        zeros: Callable[[], Any],
+    ) -> Tuple[Work, GradStream]:
+        """One collective per bucket, three stages each: pack (on the
+        staging worker: the coding with error feedback, or the staging of
+        the raw bucket), wire (the PG's dispatch thread), unpack (decode,
+        divide, slice and land one bucket, on the unpack worker). Numerics
+        are the serial path's per bucket."""
+        n_buckets = len(plan)
+        # per-bucket (start, end) perf_counter marks of each stage
+        marks: List[Dict[str, Tuple[float, float]]] = [{} for _ in range(n_buckets)]
+        bucket_futs: List[Future] = [Future() for _ in range(n_buckets)]
+        devices = [_leaf_device(leaves[g[0]]) for g in plan.groups]
+        final_fut: Future = Future()
+
+        def _assemble(f: Future) -> Any:
+            placed: Dict[int, Any] = {}
+            for pairs in f.value():
+                placed.update(pairs)
+            return pytree.tree_unflatten([placed[i] for i in range(len(leaves))], treedef)
+
+        def _feed_final(f: Future) -> None:
+            try:
+                value = f.value()
+            except Exception as e:  # noqa: BLE001 - the join's failure
+                try:
+                    final_fut.set_exception(e)
+                except RuntimeError:
+                    pass
+                return
+            try:
+                final_fut.set_result(value)
+            except RuntimeError:  # the staging deadline fired first
+                pass
+
+        joined = join_futures(bucket_futs)
+        # timings land before the result: a caller reads them after wait().
+        # After a failure other buckets may still be adding marks: copies
+        # (one C call each under the GIL) keep the reading safe.
+        joined.add_done_callback(
+            lambda _f: self._record_pipeline_timings([dict(m) for m in marks])
+        )
+        joined.then(_assemble).add_done_callback(_feed_final)
+
+        def _land_bucket(i: int, flat: Any, pooled_buf: Optional[torch.Tensor]) -> None:
+            try:
+                t0 = time.perf_counter()
+                if is_compressed_wire(flat):
+                    # the codes carry the reduced SUM, decoded to the
+                    # bucket's dtype before the divide, as the reference's
+                    flat = decompress_bucket(flat)
+                elif not isinstance(flat, torch.Tensor):
+                    flat = torch.from_numpy(flat)
+                flat = divide(flat.to(devices[i]))
+                pairs = [
+                    (idx, _place(leaves[idx], val))
+                    for idx, val in bucketing.unpack_bucket(flat, plan, i)
+                ]
+                if devices[i].type == "cuda":
+                    # the landed tensors are ready on any stream the caller
+                    # reads them from
+                    torch.cuda.current_stream(devices[i]).synchronize()
+                marks[i]["unpack"] = (t0, time.perf_counter())
+                if pooled_buf is not None:
+                    self._buffer_pool.release(pooled_buf)
+                bucket_futs[i].set_result(pairs)
+            except Exception as e:  # noqa: BLE001 - fails the join
+                try:
+                    bucket_futs[i].set_exception(e)
+                except RuntimeError:
+                    pass
+
+        participating = self.is_participating()
+        if participating:
+            capture, pooled = bucketing.pack(leaves, plan, pool=self._buffer_pool)
+        else:
+            capture, pooled = None, []
+        pooled_ids = {id(b) for b in pooled}
+        # the packs ran on the caller's stream; the staging worker's launches
+        # and copies wait for them there
+        packed = {}
+        for dev in set(devices):
+            if dev.type == "cuda":
+                packed[dev] = torch.cuda.Event()
+                packed[dev].record(torch.cuda.current_stream(dev))
+
+        compress_mode = self._compress
+        if should_quantize and compress_mode == "off":
+            compress_mode = "fp8"
+        bucket_modes = [
+            compress_mode if dtype.is_floating_point else "off" for dtype in plan.dtypes
+        ]
+        # non-participants code their zero contribution too (the ring needs
+        # the same wire geometry everywhere) but never touch the residuals
+        ef_store = (
+            self._bucket_residuals(plan)
+            if participating and compress_mode != "off" else None
+        )
+        stage_timeout = self._timeout
+
+        def _stage_deadline() -> None:
+            try:
+                final_fut.set_exception(TimeoutError("allreduce staging timed out"))
+            except RuntimeError:
+                pass
+
+        def _wire_done(f: Future, i: int, t0w: float, pooled_buf: Any) -> None:
+            # on the PG's dispatch thread: record and hand off at once
+            marks[i]["wire"] = (t0w, time.perf_counter())
+            try:
+                flat = f.value()[0]
+                self._unpack_executor.submit(_land_bucket, i, flat, pooled_buf)
+            except Exception as e:  # noqa: BLE001 - the wire's or shutdown's
+                try:
+                    bucket_futs[i].set_exception(e)
+                except RuntimeError:
+                    pass
+
+        def stage() -> None:
+            cancel = arm_deadline(_stage_deadline, stage_timeout)
+            final_fut.add_done_callback(lambda _f: cancel())
+            try:
+                for dev, ev in packed.items():
+                    torch.cuda.current_stream(dev).wait_event(ev)
+                for i in range(n_buckets):
+                    t0 = time.perf_counter()
+                    if capture is None:
+                        flat = torch.zeros(plan.sizes[i], dtype=plan.dtypes[i], device=devices[i])
+                        pooled_buf = None
+                    else:
+                        flat = capture[i]
+                        pooled_buf = flat if id(flat) in pooled_ids else None
+                    payload: Any = flat
+                    if bucket_modes[i] != "off":
+                        # coded inside the pack stage, so pack_s holds it
+                        payload = self._compress_bucket_ef(
+                            flat, bucket_modes[i], plan.dtypes[i], ef_store, i
+                        )
+                    w = self._pg.allreduce([payload], pg_reduce_op)
+                    t1 = time.perf_counter()
+                    marks[i]["pack"] = (t0, t1)
+                    w.get_future().add_done_callback(
+                        lambda f, i=i, t1=t1, pb=pooled_buf: _wire_done(f, i, t1, pb)
+                    )
+            except Exception as e:  # noqa: BLE001 - fails every bucket
+                for bf in bucket_futs:
+                    try:
+                        bf.set_exception(e)
+                    except RuntimeError:
+                        pass
+
+        self._staging_executor.submit(stage)
+        wrapped = self.wrap_future(final_fut, zeros)
+        return FutureWork(wrapped), GradStream(bucket_futs, wrapped)
+
+    def _bucket_residuals(self, plan: bucketing.BucketPlan) -> List[Any]:
+        """The per-bucket error-feedback residual slots of one plan (None
+        until the bucket is first coded)."""
+        with self._ef_lock:
+            store = self._ef_residuals.get(plan)
+            if store is None:
+                store = [None] * len(plan)
+                self._ef_residuals[plan] = store
+            return store
+
+    def _compress_bucket_ef(
+        self,
+        flat: torch.Tensor,
+        mode: str,
+        out_dtype: torch.dtype,
+        store: Optional[List[Any]],
+        i: int,
+    ) -> Any:
+        """Code one packed bucket for the wire with error feedback: the
+        residual (what the coding rounded away at the last step) is added
+        in f32 before coding, and replaced by this step's. ``store`` is None
+        for a non-participant. On the staging worker only, so a plan's
+        residuals never race. A CUDA bucket stays on the card: the add, the
+        coding and the residual update run there."""
+        resid = store[i] if store is not None else None
+        work = flat + resid if resid is not None else flat.to(torch.float32)
+        if store is not None and resid is None:
+            resid = self._buffer_pool.acquire(work.numel(), torch.float32, work.device)
+            store[i] = resid
+        return compress_bucket(work, mode, dtype=out_dtype, residual=resid)
+
+    def _on_collective_reroute(self, pair: tuple, attempt: int) -> None:
+        """The compressed ring re-formed around a dead link mid-collective:
+        a re-routed slow step, counted in timings()["collective_reroute"]."""
+        with self._metrics_lock:
+            self._timings["collective_reroute"] = self._timings.get("collective_reroute", 0.0) + 1
+        self._log(logging.WARNING, f"collective re-routed around dead link {pair} (attempt {attempt})")
+
+    def _record_pipeline_timings(self, marks: List[Dict[str, Tuple[float, float]]]) -> None:
+        """Fold one streamed allreduce's stage marks into timings()."""
+        stats = _pipeline_overlap_stats(marks)
+        with self._metrics_lock:
+            self._timings.update(stats)
 
     # ------------------------------------------------------------- errors
     def report_error(self, e: Exception) -> None:
@@ -561,7 +905,14 @@ class Manager:
             self._timings[name] = value
 
     def timings(self) -> Dict[str, float]:
-        """Wall-clock seconds of the last heal send/receive."""
+        """Wall-clock seconds of the last heal send/receive
+        (``heal_send_s``, ``heal_recv_s``) and, once an allreduce has
+        streamed, of its stages summed over buckets (``allreduce_pack_s``,
+        ``allreduce_wire_s``, ``allreduce_unpack_s``), its bucket count
+        (``allreduce_buckets``) and ``overlap_efficiency``: the share of
+        wire time that ran while another bucket was in some stage. Also
+        the lifetime count of compressed-ring re-routes
+        (``collective_reroute``) once one has happened."""
         with self._metrics_lock:
             return dict(self._timings)
 
@@ -572,6 +923,7 @@ class Manager:
         self._store.shutdown()
         self._executor.shutdown(wait=wait)
         self._staging_executor.shutdown(wait=wait, cancel_futures=not wait)
+        self._unpack_executor.shutdown(wait=wait, cancel_futures=not wait)
         self._pg.shutdown()
 
 
@@ -579,3 +931,49 @@ def _zeros_like(x: Any) -> Any:
     if isinstance(x, torch.Tensor):
         return torch.zeros_like(x)
     return np.zeros(np.shape(x), np.asarray(x).dtype)
+
+
+def _covered_seconds(start: float, end: float, intervals: List[Tuple[float, float]]) -> float:
+    """Length of ``[start, end]`` covered by the union of ``intervals``."""
+    if end <= start:
+        return 0.0
+    clipped = sorted((max(start, a), min(end, b)) for a, b in intervals if b > start and a < end)
+    total = 0.0
+    cur_s: Optional[float] = None
+    cur_e = 0.0
+    for a, b in clipped:
+        if cur_s is None:
+            cur_s, cur_e = a, b
+        elif a <= cur_e:
+            cur_e = max(cur_e, b)
+        else:
+            total += cur_e - cur_s
+            cur_s, cur_e = a, b
+    if cur_s is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def _pipeline_overlap_stats(marks: List[Dict[str, Tuple[float, float]]]) -> Dict[str, float]:
+    """Sums of one streamed allreduce's stage intervals (``marks[i]`` maps
+    "pack", "wire", "unpack" to (start, end); a stage a bucket never reached
+    is absent) and ``overlap_efficiency`` = sum_i |wire_i intersected with
+    the union of the other buckets' stages| / sum_i |wire_i|: the share of
+    wire time hidden behind other buckets (0 for one bucket)."""
+    sums = {
+        stage: sum(e - s for m in marks if stage in m for s, e in [m[stage]])
+        for stage in ("pack", "wire", "unpack")
+    }
+    hidden = 0.0
+    for i, m in enumerate(marks):
+        if "wire" not in m:
+            continue
+        others = [iv for j, mj in enumerate(marks) if j != i for iv in mj.values()]
+        hidden += _covered_seconds(*m["wire"], others)
+    return {
+        "allreduce_pack_s": sums["pack"],
+        "allreduce_wire_s": sums["wire"],
+        "allreduce_unpack_s": sums["unpack"],
+        "allreduce_buckets": float(len(marks)),
+        "overlap_efficiency": hidden / sums["wire"] if sums["wire"] > 0 else 0.0,
+    }

@@ -2,9 +2,13 @@
 // allreduce, written for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas kernels in
-// torchft_tpu/ops/quantization.py: quantize_fp8_rowwise_kernel replaces
-// fused_quantize_fp8 (_quantize_kernel), dequantize_fp8_rowwise_kernel
+// torchft_tpu/ops/quantization.py: quantize_fp8_rowwise_kernel<false>
+// replaces fused_quantize_fp8 (_quantize_kernel), dequantize_fp8_rowwise_kernel
 // replaces fused_dequantize_fp8 (_dequantize_kernel).
+// quantize_fp8_rowwise_kernel<true> is the same kernel with the reference's
+// HOST codec rule (quantize_fp8_rowwise, which compress_bucket runs on every
+// bucket of the streamed allreduce): a bucket that lies on the card is
+// coded there to the codes and scales numpy gives, bit for bit.
 //
 // What bounds them on this card: bytes. Quantize reads 4 B and writes
 // 1 B + 4/512 B per element; dequantize the reverse. There is no reuse, so
@@ -22,6 +26,9 @@
 //   scale = amax > 0 ? amax * (1/448) : 1  (the reciprocal multiply XLA
 //   emits for the reference's amax / 448), codes = x / scale with an IEEE
 //   divide (no fast-math, no flush-to-zero), rounded to nearest even.
+//   The host rule (kHostRule): scale = amax / 448 and codes =
+//   x * (1 / scale), each an IEEE f32 divide or multiply as numpy takes it,
+//   NaN signs included (host_rule_code).
 //   A quotient of magnitude above 464 (which would round past 448) and any
 //   NaN become the NaN code 0x7f | sign, as ml_dtypes / XLA convert; the
 //   hardware cvt alone would saturate to 448. amax propagates NaN as
@@ -67,6 +74,17 @@ __device__ __forceinline__ float e4m3fn_to_f32(uint32_t c) {
   return __uint_as_float(sign | ((e + 120u) << 23) | (m << 20));
 }
 
+// The host rule's code of v: numpy computes v * (1 / scale) on the host,
+// where (x86) a NaN v keeps its sign and an invalid product (inf * 0,
+// 0 * inf) is the default NaN, whose sign bit x86 sets. CUDA's multiply
+// returns a positive NaN for both, so they are decided here.
+__device__ __forceinline__ uint32_t host_rule_code(float v, float inv) {
+  if (v != v) return ((__float_as_uint(v) >> 24) & 0x80u) | 0x7fu;
+  const float p = __fmul_rn(v, inv);
+  return p != p ? 0xffu : f32_to_e4m3fn(p);
+}
+
+template <bool kHostRule>
 __global__ void quantize_fp8_rowwise_kernel(const float* __restrict__ x,
                                             int64_t n, int64_t rows,
                                             bool aligned,
@@ -101,15 +119,20 @@ __global__ void quantize_fp8_rowwise_kernel(const float* __restrict__ x,
   for (int off = 16; off > 0; off >>= 1)
     amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
 
-  const float scale = amax > 0.0f ? amax * (1.0f / 448.0f) : 1.0f;
+  const float scale =
+      amax > 0.0f ? (kHostRule ? __fdiv_rn(amax, 448.0f) : amax * (1.0f / 448.0f))
+                  : 1.0f;
   if (lane == 0) scales[r] = scale;
+  const float inv = kHostRule ? __fdiv_rn(1.0f, scale) : 0.0f;
 
 #pragma unroll
   for (int j = 0; j < kVecPerLane; ++j) {
     uint32_t packed = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      packed |= f32_to_e4m3fn(__fdiv_rn(v[j][k], scale)) << (8 * k);
+      packed |= (kHostRule ? host_rule_code(v[j][k], inv)
+                           : f32_to_e4m3fn(__fdiv_rn(v[j][k], scale)))
+                << (8 * k);
     const int64_t e = base + (static_cast<int64_t>(j) * 32 + lane) * 4;
     *reinterpret_cast<uint32_t*>(q + e) = packed;
   }
@@ -139,6 +162,18 @@ __global__ void dequantize_fp8_rowwise_kernel(const uint8_t* __restrict__ q,
   }
 }
 
+template <bool kHostRule>
+int launch_quantize(const float* x, int64_t n, int64_t rows, int aligned,
+                    uint8_t* q, float* scales, cudaStream_t stream) {
+  if (rows > 0) {
+    const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    quantize_fp8_rowwise_kernel<kHostRule>
+        <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
+            x, n, rows, aligned != 0, q, scales);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -150,13 +185,14 @@ int tft_fp8_row() { return kRow; }
 int tft_quantize_fp8_rowwise(const float* x, int64_t n, int64_t rows,
                              int aligned, uint8_t* q, float* scales,
                              cudaStream_t stream) {
-  if (rows > 0) {
-    const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    quantize_fp8_rowwise_kernel<<<static_cast<unsigned>(blocks),
-                                  kWarpsPerBlock * 32, 0, stream>>>(
-        x, n, rows, aligned != 0, q, scales);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_quantize<false>(x, n, rows, aligned, q, scales, stream);
+}
+
+// The same with the host codec's rule.
+int tft_quantize_fp8_rowwise_host(const float* x, int64_t n, int64_t rows,
+                                  int aligned, uint8_t* q, float* scales,
+                                  cudaStream_t stream) {
+  return launch_quantize<true>(x, n, rows, aligned, q, scales, stream);
 }
 
 // q: codes of ceil(n/512) rows or more; out: the first n values.

@@ -6,33 +6,58 @@ value-returning collectives, a world-size-1 ``ProcessGroupDummy``, and
 ``ProcessGroupHost``, a TCP full mesh between replica groups that is torn
 down and rebuilt per quorum through the rendezvous KV store.
 
-Torch tensors (CUDA ones too) are staged to host numpy for the wire;
-results come back as numpy and the caller lands them where it needs them.
-Collectives run on one dispatch thread per generation (submission order is the
-cross-replica contract) under an abort watchdog. Every collective uses the
-one-round full-mesh exchange; the reference's bandwidth-optimal ring for
-large payloads, its compressed self-healing ring and link-fault injection
-are not ported yet.
+Torch tensors (CUDA ones too) are staged to the host for the wire: as
+numpy, or, for bf16 (which numpy lacks), as CPU torch tensors, whose sums
+torch rounds to bf16 at each add as ml_dtypes does for the reference; a
+bf16 segment rides the socket as its raw 16-bit patterns. Results come
+back on the host and the caller lands them where it needs them.
+Collectives run on one dispatch thread per generation (submission order is
+the cross-replica contract) under an abort watchdog. ``allreduce`` routes
+as the reference's (``:1485-1530``):
+
+- one ``CompressedWire`` (a streamed bucket's codes): the compressed
+  self-healing ring (``:716-1260``), which dequantizes, sums in f32 and
+  requantizes at each hop, and re-routes around a dead link mid-collective
+  (``inject_link_fault`` arms one). A wire coded on the card keeps its
+  hops' arithmetic there (``ops.quantization``'s kernels); only codes and
+  scales cross the host;
+- buffers of ``_RING_MIN_BYTES`` or more: the bandwidth-optimal ring
+  (``:631-714``), raw frames straight from the working buffer;
+- anything else: the one-round full-mesh exchange of pickled payloads.
 """
 
 from __future__ import annotations
 
 import enum
+import itertools
 import logging
 import pickle
 import queue
 import socket
 import struct
 import threading
+import time
 from abc import ABC, abstractmethod
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from torchft_tpu_torch.coordination import KvClient
 from torchft_tpu_torch.futures import context_timeout
+from torchft_tpu_torch.ops.quantization import (
+    CompressedWire,
+    codec,
+    decode_fp8_on_card,
+    dtype_name,
+    encode_fp8_on_card,
+    host_empty,
+    is_compressed_wire,
+    on_card,
+)
+from torchft_tpu_torch.retry import RetryPolicy, retry_call
+from torchft_tpu_torch.utils import true_divide
 from torchft_tpu_torch.work import DummyWork, Future, FutureWork, Work
 
 logger = logging.getLogger(__name__)
@@ -48,22 +73,30 @@ class ReduceOp(enum.Enum):
     PRODUCT = "product"
 
 
-def _accum(op: ReduceOp, dst: np.ndarray, src: np.ndarray) -> None:
-    """In-place elementwise accumulate of one peer's contribution."""
+# a host buffer: an ndarray, or a CPU tensor of a dtype numpy lacks (bf16)
+_BUFFERS = (np.ndarray, torch.Tensor)
+
+
+def _accum(op: ReduceOp, dst: Any, src: Any) -> None:
+    """In-place elementwise accumulate of one peer's contribution, shared
+    by the full-mesh exchange (_reduce_np) and the ring (_ring_allreduce)."""
     if op in (ReduceOp.SUM, ReduceOp.AVG):
         dst += src
-    elif op == ReduceOp.MAX:
-        np.maximum(dst, src, out=dst)
-    elif op == ReduceOp.MIN:
-        np.minimum(dst, src, out=dst)
     elif op == ReduceOp.PRODUCT:
         dst *= src
+    elif op in (ReduceOp.MAX, ReduceOp.MIN):
+        if isinstance(dst, torch.Tensor):
+            fn = torch.maximum if op == ReduceOp.MAX else torch.minimum
+            fn(dst, src, out=dst)
+        else:
+            fn = np.maximum if op == ReduceOp.MAX else np.minimum
+            fn(dst, src, out=dst)
     else:
         raise ValueError(f"unsupported reduce op: {op}")
 
 
-def _reduce_np(op: ReduceOp, bufs: List[np.ndarray]) -> np.ndarray:
-    out = bufs[0].copy()
+def _reduce_np(op: ReduceOp, bufs: List[Any]) -> Any:
+    out = _copy_payload(bufs[0])
     for b in bufs[1:]:
         _accum(op, out, b)
     if op == ReduceOp.AVG:
@@ -72,23 +105,41 @@ def _reduce_np(op: ReduceOp, bufs: List[np.ndarray]) -> np.ndarray:
 
 
 def _copy_payload(h: Any) -> Any:
-    """Independent copy of a wire payload: ndarray, or a tuple holding
-    ndarrays (the quantized ``(codes, scales, n)`` wire)."""
+    """Independent copy of a wire payload: a host buffer, or a tuple
+    holding ndarrays (the quantized ``(codes, scales, n)`` wire)."""
     if isinstance(h, np.ndarray):
         return h.copy()
+    if isinstance(h, torch.Tensor):
+        return h.clone()
     if isinstance(h, tuple):
         return tuple(x.copy() if isinstance(x, np.ndarray) else x for x in h)
     return h
 
 
 def _to_host(x: Any) -> Any:
-    """Stage a tensor (any device) to a host ndarray; tuples (the quantized
-    wire) pass through."""
+    """Stage a tensor (any device) to the host: an ndarray, or a CPU tensor
+    for bf16. Ndarrays and tuples (the quantized wires) pass through."""
     if isinstance(x, (np.ndarray, tuple)):
         return x
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        t = x.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
     return np.asarray(x)
+
+
+def _byte_view(buf: Any) -> np.ndarray:
+    """The bytes of a contiguous host buffer as a flat uint8 ndarray that
+    shares its memory (bf16 tensors included, whose dtype memoryview
+    cannot export)."""
+    if isinstance(buf, torch.Tensor):
+        return buf.reshape(-1).view(torch.uint8).numpy()
+    return np.asarray(buf).reshape(-1).view(np.uint8)  # reshape first: 0-d safe
+
+
+def _nbytes(buf: Any) -> int:
+    if isinstance(buf, torch.Tensor):
+        return buf.numel() * buf.element_size()
+    return buf.nbytes
 
 
 class ProcessGroup(ABC):
@@ -222,9 +273,27 @@ class _Comm:
         self.aborted = False
         self._lock = threading.Lock()
         self.peers: Dict[int, socket.socket] = {}
+        # frames from the dispatch thread and the collective writer must
+        # never interleave on one socket
+        self._send_locks: Dict[int, threading.Lock] = {}
         # writes ride one persistent worker so symmetric send/send between
         # two ranks cannot deadlock on full TCP buffers
-        self._write_q: Optional["queue.Queue"] = None
+        self._coll_q: Optional["queue.Queue"] = None
+        # traffic: frame bytes each way, and the seconds spent inside
+        # sendall pushing frames (receive waits are not counted: a recv
+        # blocked on a peer still computing is not wire time)
+        self.bytes_sent = 0
+        self.bytes_recv = 0
+        self.wire_busy_s = 0.0
+        # injected link faults {frozenset({a, b}): first hop}, shared with
+        # the owning ProcessGroupHost; read by the compressed ring only
+        self.link_faults: Dict[frozenset, int] = {}
+        # compressed-collective sequence number (ops dispatch in one order
+        # on every rank): hop frames carry (seq, attempt) so a re-routed
+        # ring tells a stale frame from a live one
+        self.cring_seq = 0
+        # links seen dead: later collectives of this generation avoid them
+        self.cring_dead: set = set()
 
         host_port, _, path = store_addr.partition("/")
         prefix = f"{path or 'pg'}/{quorum_id}"
@@ -257,14 +326,93 @@ class _Comm:
             if tag != "hello":
                 raise ConnectionError(f"bad handshake frame {tag!r}")
             self.peers[peer_rank] = s
+        for j in self.peers:
+            self._send_locks[j] = threading.Lock()
 
     def send_to(self, peer: int, obj: Any) -> None:
-        _send_msg(self.peers[peer], pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+        payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        with self._send_locks[peer]:
+            t0 = time.perf_counter()
+            _send_msg(self.peers[peer], payload)
+            self.wire_busy_s += time.perf_counter() - t0
+            self.bytes_sent += len(payload) + _HDR.size
 
     def recv_from(self, peer: int) -> Any:
-        return pickle.loads(_recv_msg(self.peers[peer]))
+        payload = _recv_msg(self.peers[peer])
+        self.bytes_recv += len(payload) + _HDR.size
+        return pickle.loads(payload)
 
-    def _writer_loop(self, q: "queue.Queue") -> None:
+    def send_raw(self, peer: int, buf: Any) -> None:
+        """One frame of a contiguous host buffer's bytes, unpickled: the
+        length header, then the bytes straight from the buffer."""
+        mv = memoryview(_byte_view(buf))
+        sock = self.peers[peer]
+        with self._send_locks[peer]:
+            t0 = time.perf_counter()
+            sock.sendall(_HDR.pack(len(mv)))
+            sock.sendall(mv)
+            self.wire_busy_s += time.perf_counter() - t0
+            self.bytes_sent += len(mv) + _HDR.size
+
+    def send_hop(self, peer: int, hdr: tuple, q: Any, s: Any) -> None:
+        """A compressed-ring hop: the pickled header, then the codes and
+        the scales as raw frames, all under one hold of the peer's send
+        lock. Sent as three separately locked frames (as the reference
+        does), a re-route signal from the dispatch thread could land
+        between the header and its bodies and desync the receiver."""
+        payload = pickle.dumps(hdr, protocol=pickle.HIGHEST_PROTOCOL)
+        bodies = [memoryview(_byte_view(q)), memoryview(_byte_view(s))]
+        sock = self.peers[peer]
+        with self._send_locks[peer]:
+            t0 = time.perf_counter()
+            _send_msg(sock, payload)
+            for mv in bodies:
+                sock.sendall(_HDR.pack(len(mv)))
+                sock.sendall(mv)
+            self.wire_busy_s += time.perf_counter() - t0
+            self.bytes_sent += len(payload) + sum(len(mv) for mv in bodies) + 3 * _HDR.size
+
+    def recv_raw_into(self, peer: int, out: Any) -> None:
+        """Receive one raw frame straight into a contiguous host buffer of
+        the frame's size."""
+        sock = self.peers[peer]
+        (length,) = _HDR.unpack(_recv_exact(sock, _HDR.size))
+        mv = memoryview(_byte_view(out))
+        if length != len(mv):
+            raise ValueError(f"frame size {length} != buffer size {len(mv)}")
+        got = 0
+        while got < length:
+            k = sock.recv_into(mv[got:], min(length - got, 1 << 20))
+            if k == 0:
+                raise ConnectionError("peer closed connection")
+            got += k
+        self.bytes_recv += length + _HDR.size
+
+    def recv_raw_discard(self, peer: int) -> int:
+        """Read one raw frame and drop its bytes (a re-routed compressed
+        ring drains an aborted attempt's segments with it). Returns the
+        byte count."""
+        sock = self.peers[peer]
+        (length,) = _HDR.unpack(_recv_exact(sock, _HDR.size))
+        scratch = memoryview(bytearray(min(length, 1 << 20) or 1))
+        got = 0
+        while got < length:
+            k = sock.recv_into(scratch, min(length - got, len(scratch)))
+            if k == 0:
+                raise ConnectionError("peer closed connection")
+            got += k
+        self.bytes_recv += length + _HDR.size
+        return length
+
+    def check_link_fault(self, a: int, b: int, hop: int) -> None:
+        """Raise ConnectionError if an injected fault covers link (a, b) at
+        this hop. A fired fault stays armed: a dead link stays dead for the
+        generation, which forces the ring to re-form around it."""
+        at_hop = self.link_faults.get(frozenset((a, b)))
+        if at_hop is not None and hop >= at_hop:
+            raise ConnectionError(f"injected link failure {a}<->{b} at hop {hop}")
+
+    def _coll_writer_loop(self, q: "queue.Queue") -> None:
         while True:
             item = q.get()
             if item is None:
@@ -277,28 +425,36 @@ class _Comm:
             finally:
                 done.set()
 
+    def submit_write(self, job: Callable[[], None]) -> Tuple[threading.Event, List[BaseException]]:
+        """Run ``job`` on the persistent collective-writer thread; returns
+        ``(done_event, errors)``. The aborted check and the enqueue share
+        ``_lock`` with abort's shutdown sentinel, so a job never lands
+        behind it."""
+        done = threading.Event()
+        err: List[BaseException] = []
+        with self._lock:
+            if self.aborted:
+                raise RuntimeError("communicator aborted")
+            if self._coll_q is None:
+                self._coll_q = queue.Queue()
+                threading.Thread(
+                    target=self._coll_writer_loop, args=(self._coll_q,), daemon=True,
+                    name=f"pg_host_collwr_r{self.rank}",
+                ).start()
+            self._coll_q.put((job, done, err))
+        return done, err
+
     def exchange(self, payloads: Dict[int, Any]) -> Dict[int, Any]:
         """Send ``payloads[r]`` to each rank r and receive one object from
         every peer: the writer worker streams the sends while this thread
         drains the receives."""
-        done = threading.Event()
-        err: List[BaseException] = []
 
         def _writes() -> None:
             for peer in sorted(payloads):
                 if peer != self.rank:
                     self.send_to(peer, payloads[peer])
 
-        with self._lock:
-            if self.aborted:
-                raise RuntimeError("communicator aborted")
-            if self._write_q is None:
-                self._write_q = queue.Queue()
-                threading.Thread(
-                    target=self._writer_loop, args=(self._write_q,), daemon=True,
-                    name=f"pg_host_writer_r{self.rank}",
-                ).start()
-            self._write_q.put((_writes, done, err))
+        done, err = self.submit_write(_writes)
         out: Dict[int, Any] = {}
         if self.rank in payloads:
             out[self.rank] = payloads[self.rank]
@@ -313,8 +469,8 @@ class _Comm:
     def abort(self) -> None:
         with self._lock:
             self.aborted = True
-            if self._write_q is not None:
-                self._write_q.put(None)
+            if self._coll_q is not None:
+                self._coll_q.put(None)
             for s in list(self.peers.values()) + [self._listener]:
                 try:
                     s.shutdown(socket.SHUT_RDWR)
@@ -324,6 +480,540 @@ class _Comm:
                     s.close()
                 except OSError:
                     pass
+
+
+# Payloads at or above this take the bandwidth-optimal ring; below it the
+# full-mesh exchange wins on latency (one round-trip vs 2*(world-1)).
+_RING_MIN_BYTES = 64 * 1024
+
+
+def _ring_step(comm: _Comm, right: int, left: int, send_buf: Any, recv_buf: Any) -> None:
+    """One ring hop: stream our segment to the right neighbour (on the
+    collective writer: both sides send first) while draining the left
+    neighbour's into ``recv_buf``."""
+    done, err = comm.submit_write(lambda: comm.send_raw(right, send_buf))
+    comm.recv_raw_into(left, recv_buf)
+    done.wait()
+    if err:
+        raise err[0]
+
+
+def _ring_allreduce(comm: _Comm, leaves: List[Any], op: ReduceOp) -> List[Any]:
+    """Bandwidth-optimal allreduce: ring reduce-scatter + ring allgather,
+    each rank moving 2*(world-1)/world of the payload, in raw frames
+    straight out of the flat working buffer.
+
+    Leaves are packed per dtype into one flat buffer each (ndarrays in
+    numpy, bf16 in a CPU torch tensor), split into ``world`` segments and
+    unpacked at the end. As ``_reduce_np``: sums in the input dtype (bf16
+    rounded at each add), AVG divides by world at the end."""
+    world, rank = comm.world, comm.rank
+    right, left = (rank + 1) % world, (rank - 1) % world
+    out: List[Any] = [None] * len(leaves)
+
+    groups: Dict[Any, List[int]] = {}
+    for i, a in enumerate(leaves):
+        groups.setdefault(a.dtype, []).append(i)
+
+    for dtype, idxs in sorted(groups.items(), key=lambda kv: dtype_name(kv[0])):
+        flat_len = sum(_numel(leaves[i]) for i in idxs)
+        seg_len = max(1, -(-flat_len // world))
+        if isinstance(dtype, torch.dtype):
+            buf = torch.zeros(seg_len * world, dtype=dtype)
+            recv_buf = torch.empty(seg_len, dtype=dtype)
+        else:
+            buf = np.zeros(seg_len * world, dtype)
+            recv_buf = np.empty(seg_len, dtype)
+        ofs = 0
+        for i in idxs:
+            n = _numel(leaves[i])
+            buf[ofs:ofs + n] = leaves[i].reshape(-1)
+            ofs += n
+        segs = buf.reshape(world, seg_len)
+
+        # reduce-scatter: after world-1 hops this rank holds the fully
+        # reduced segment (rank+1) % world
+        for step in range(world - 1):
+            s_idx = (rank - step) % world
+            r_idx = (rank - step - 1) % world
+            _ring_step(comm, right, left, segs[s_idx], recv_buf)
+            _accum(op, segs[r_idx], recv_buf)
+
+        # allgather: circulate the reduced segments
+        for step in range(world - 1):
+            s_idx = (rank + 1 - step) % world
+            r_idx = (rank - step) % world
+            _ring_step(comm, right, left, segs[s_idx], segs[r_idx])
+
+        if op == ReduceOp.AVG:
+            if isinstance(buf, np.ndarray) and np.issubdtype(buf.dtype, np.integer):
+                buf = buf / world  # float result, matching _reduce_np
+            else:
+                buf /= world
+
+        ofs = 0
+        for i in idxs:
+            n = _numel(leaves[i])
+            # independent copies, as the exchange path returns
+            piece = buf[ofs:ofs + n].reshape(leaves[i].shape)
+            out[i] = piece.clone() if isinstance(piece, torch.Tensor) else piece.copy()
+            ofs += n
+    return out
+
+
+def _numel(buf: Any) -> int:
+    return buf.numel() if isinstance(buf, torch.Tensor) else buf.size
+
+
+class _LinkFailure(Exception):
+    """One ring hop's link is dead; carries the (lo, hi) rank pair."""
+
+    def __init__(self, a: int, b: int) -> None:
+        self.pair = (min(a, b), max(a, b))
+        super().__init__(f"ring link {self.pair[0]}<->{self.pair[1]} failed")
+
+
+def _greedy_order(world: int, dead: set) -> Optional[List[int]]:
+    order = [0]
+    rest = list(range(1, world))
+    while rest:
+        nxt = next((r for r in rest if frozenset((order[-1], r)) not in dead), None)
+        if nxt is None:
+            return None
+        order.append(nxt)
+        rest.remove(nxt)
+    return order
+
+
+def _ring_order(world: int, dead: set) -> Optional[List[int]]:
+    """Deterministic rank order whose ring adjacencies (wraparound
+    included) avoid every dead link; every rank computes it from the same
+    dead set, so the re-formed ring needs no coordination round. None when
+    there is none (world 2 with its only link dead)."""
+    if not dead:
+        return list(range(world))
+
+    def _ok(order: Sequence[int]) -> bool:
+        return all(
+            frozenset((order[i], order[(i + 1) % world])) not in dead
+            for i in range(world)
+        )
+
+    if _ok(range(world)):
+        return list(range(world))
+    if world <= 8:
+        # rotations of a cycle are the same ring: pin rank 0 first
+        for perm in itertools.permutations(range(1, world)):
+            if _ok([0, *perm]):
+                return [0, *perm]
+        return None
+    order = _greedy_order(world, dead)
+    return order if order is not None and _ok(order) else None
+
+
+def _chain_order(world: int, dead: set) -> Optional[List[int]]:
+    """Hamiltonian path over healthy links: the fallback when the dead set
+    breaks every cycle but not every path (any dead link at world 3)."""
+
+    def _ok(order: Sequence[int]) -> bool:
+        return all(
+            frozenset((order[i], order[i + 1])) not in dead for i in range(world - 1)
+        )
+
+    if _ok(range(world)):
+        return list(range(world))
+    if world <= 8:
+        for perm in itertools.permutations(range(world)):
+            if perm[0] > perm[-1]:
+                continue  # a path equals its reverse: one canonical form
+            if _ok(perm):
+                return list(perm)
+        return None
+    return _greedy_order(world, dead)
+
+
+def _flood_reroute(comm: _Comm, left: int, right: int, seq: int, attempt: int, pair) -> None:
+    """Best-effort signal of a dead link to both ring neighbours; each rank
+    that learns of it forwards before restarting, so it chains rightward
+    and unblocks every rank's receive. Send failures are swallowed."""
+    msg = ("creroute", seq, attempt, (min(pair), max(pair)))
+    for nb in {left, right}:
+        if nb == comm.rank:
+            continue
+        try:
+            comm.send_to(nb, msg)
+        except Exception:  # noqa: BLE001 - best-effort by design
+            pass
+
+
+def _drain_stale_frames(
+    comm: _Comm, skip_peer: int, seq: int, attempt: int, quiet_s: float = 0.05
+) -> None:
+    """At the start of a re-routed attempt, sweep every peer socket but
+    the new left (whose stale frames the hop receive handles) of the
+    aborted attempt's frames, which may also unblock a peer's writer. A
+    re-route signal of this attempt found here raises _LinkFailure."""
+    for peer in sorted(comm.peers):
+        if peer in (skip_peer, comm.rank):
+            continue
+        sock = comm.peers[peer]
+        try:
+            old = sock.gettimeout()
+        except OSError:
+            continue
+        try:
+            while True:
+                sock.settimeout(quiet_s)
+                try:
+                    hdr = comm.recv_from(peer)
+                except OSError:
+                    break  # quiet (or dead) socket: nothing to drain
+                if not (isinstance(hdr, tuple) and len(hdr) == 4):
+                    raise RuntimeError(f"compressed ring desync draining rank {peer}: {hdr!r}")
+                tag, h_seq, h_attempt, rest = hdr
+                stale = h_seq < seq or (h_seq == seq and h_attempt < attempt)
+                if tag == "cseg" and stale:
+                    sock.settimeout(old)  # the body frames follow
+                    comm.recv_raw_discard(peer)
+                    comm.recv_raw_discard(peer)
+                    continue
+                if tag == "creroute":
+                    if stale:
+                        continue
+                    raise _LinkFailure(*rest)
+                raise RuntimeError(
+                    f"compressed ring desync draining rank {peer}: "
+                    f"tag={tag!r} seq={h_seq} attempt={h_attempt}"
+                )
+        finally:
+            try:
+                sock.settimeout(old)
+            except OSError:
+                pass
+
+
+def _recv_compressed_hop(
+    comm: _Comm, left: int, seq: int, attempt: int, hop: int,
+    out_q: np.ndarray, out_s: np.ndarray,
+) -> None:
+    """Receive one compressed-ring hop (header, codes and scales frames),
+    draining stale frames of aborted attempts and turning re-route signals
+    into _LinkFailure."""
+    while True:
+        hdr = comm.recv_from(left)
+        if not (isinstance(hdr, tuple) and len(hdr) == 4):
+            raise RuntimeError(f"unexpected frame on compressed ring: {hdr!r}")
+        tag, h_seq, h_attempt, rest = hdr
+        stale = h_seq < seq or (h_seq == seq and h_attempt < attempt)
+        if tag == "cseg":
+            if stale:
+                comm.recv_raw_discard(left)
+                comm.recv_raw_discard(left)
+                continue
+            if h_seq != seq or h_attempt != attempt or rest != hop:
+                raise RuntimeError(
+                    f"compressed ring desync: got seq={h_seq} attempt={h_attempt} "
+                    f"hop={rest}, expected seq={seq} attempt={attempt} hop={hop}"
+                )
+            comm.recv_raw_into(left, out_q)
+            comm.recv_raw_into(left, out_s)
+            return
+        if tag == "creroute":
+            if stale:
+                continue  # duplicate of an already-handled flood
+            raise _LinkFailure(*rest)
+        raise RuntimeError(f"unexpected compressed ring tag {tag!r}")
+
+
+class _HopCodec:
+    """The arithmetic of a compressed ring's hops for one wire: decode a
+    slab of codes to f32, sum, recode. A wire coded on a card keeps it
+    there (``fused_dequantize_fp8`` and the host-rule quantize kernel; only
+    codes and scales cross the host); any other runs the host codec in
+    numpy. Both give the reference's bits."""
+
+    def __init__(self, wire: CompressedWire) -> None:
+        self.device = on_card(wire)
+        self._quantize, self._dequantize = codec(wire.mode)
+
+    def empty(self, shape: Tuple[int, ...]) -> Any:
+        if self.device is None:
+            return np.empty(shape, np.float32)
+        return torch.empty(shape, dtype=torch.float32, device=self.device)
+
+    def host_empty(self, shape: Tuple[int, ...], dtype: torch.dtype) -> np.ndarray:
+        """A host buffer for codes or scales; page-locked when they go on
+        to (or come from) the card."""
+        return host_empty(shape, dtype, pinned=self.device is not None)
+
+    def decode(self, q: np.ndarray, s: np.ndarray, n: int) -> Any:
+        if self.device is None:
+            return self._dequantize(q, s, n, np.float32)
+        return decode_fp8_on_card(q, s, n, self.device)
+
+    def encode(self, x: Any, row: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self.device is None:
+            q, s, _ = self._quantize(x, row=row)
+        else:
+            q, s, _ = encode_fp8_on_card(x)
+        return q, np.ascontiguousarray(s, dtype=np.float32)
+
+    @staticmethod
+    def divide_(x: Any, world: int) -> None:
+        if isinstance(x, torch.Tensor):
+            x.copy_(true_divide(x, world))
+        else:
+            x /= world
+
+
+def _compressed_ring_pass(
+    comm: _Comm, wire: CompressedWire, hc: _HopCodec, Q: np.ndarray, S: np.ndarray,
+    rows: int, seg_rows: int, op: ReduceOp, order: List[int], seq: int, attempt: int,
+) -> CompressedWire:
+    """One attempt of the compressed ring over ``order``.
+
+    Reduce-scatter hops carry compressed segments: each decodes the
+    incoming segment, adds it in f32 to this rank's own (own first), and
+    recodes the sum for the next hop (hop 0 forwards the original codes).
+    The allgather circulates the reduced segments verbatim. Restart-safe:
+    all state derives from the immutable input codes (Q, S)."""
+    world = len(order)
+    pos = order.index(comm.rank)
+    right = order[(pos + 1) % world]
+    left = order[(pos - 1) % world]
+    row = int(wire.row)
+    seg_elems = seg_rows * row
+
+    if attempt > 0:
+        _drain_stale_frames(comm, left, seq, attempt)
+
+    acc = hc.empty((world, seg_elems))
+
+    def _own_slab(j: int) -> Any:
+        return hc.decode(Q[j * seg_rows:(j + 1) * seg_rows],
+                         S[j * seg_rows:(j + 1) * seg_rows], seg_elems)
+
+    recv_q = hc.host_empty((seg_rows, row), torch.uint8)
+    recv_s = hc.host_empty((seg_rows,), torch.float32)
+    hop = 0
+
+    def _send_recv(send_q: np.ndarray, send_s: np.ndarray,
+                   out_q: np.ndarray = recv_q, out_s: np.ndarray = recv_s) -> None:
+        nonlocal hop
+        this_hop = hop
+        for a, b in ((comm.rank, right), (left, comm.rank)):
+            try:
+                comm.check_link_fault(a, b, this_hop)
+            except ConnectionError as e:
+                _flood_reroute(comm, left, right, seq, attempt, (a, b))
+                raise _LinkFailure(a, b) from e
+        hdr = ("cseg", seq, attempt, this_hop)
+
+        done, err = comm.submit_write(lambda: comm.send_hop(right, hdr, send_q, send_s))
+        try:
+            _recv_compressed_hop(comm, left, seq, attempt, this_hop, out_q, out_s)
+        except _LinkFailure as lf:
+            # forward the flood before restarting so it keeps chaining
+            _flood_reroute(comm, left, right, seq, attempt, lf.pair)
+            raise
+        except (ConnectionError, OSError, ValueError) as e:
+            _flood_reroute(comm, left, right, seq, attempt, (left, comm.rank))
+            raise _LinkFailure(left, comm.rank) from e
+        finally:
+            done.wait()
+        if err:
+            _flood_reroute(comm, left, right, seq, attempt, (comm.rank, right))
+            raise _LinkFailure(comm.rank, right) from err[0]
+        hop += 1
+
+    # reduce-scatter: after world-1 hops this rank holds the fully reduced
+    # chunk (pos+1) % world in f32
+    for step in range(world - 1):
+        s_idx = (pos - step) % world
+        r_idx = (pos - step - 1) % world
+        if step == 0:
+            sq = Q[s_idx * seg_rows:(s_idx + 1) * seg_rows]
+            ss = S[s_idx * seg_rows:(s_idx + 1) * seg_rows]
+        else:
+            sq, ss = hc.encode(acc[s_idx], row)
+        _send_recv(sq, ss)
+        acc[r_idx] = _own_slab(r_idx)
+        acc[r_idx] += hc.decode(recv_q, recv_s, seg_elems)
+
+    own = (pos + 1) % world
+    if op == ReduceOp.AVG:
+        hc.divide_(acc[own], world)
+    q_own, s_own = hc.encode(acc[own], row)
+
+    Qr = hc.host_empty((world, seg_rows, row), torch.uint8)
+    Sr = hc.host_empty((world, seg_rows), torch.float32)
+    Qr[own] = q_own
+    Sr[own] = s_own
+
+    # allgather: circulate the reduced compressed segments verbatim, each
+    # received straight into its place
+    for step in range(world - 1):
+        s_idx = (pos + 1 - step) % world
+        r_idx = (pos - step) % world
+        _send_recv(Qr[s_idx], Sr[s_idx], Qr[r_idx], Sr[r_idx])
+
+    # Qr is this attempt's own: no copy unless padding rows must go
+    payload, scales = Qr.reshape(world * seg_rows, row), Sr.reshape(-1)
+    if rows != world * seg_rows:
+        payload, scales = payload[:rows].copy(), scales[:rows].copy()
+    return wire._replace(payload=payload, scales=scales)
+
+
+def _compressed_chain_pass(
+    comm: _Comm, wire: CompressedWire, hc: _HopCodec, Q: np.ndarray, S: np.ndarray,
+    rows: int, op: ReduceOp, order: List[int], seq: int, attempt: int,
+) -> CompressedWire:
+    """The open-chain attempt, for a dead-link set that leaves no ring but
+    a Hamiltonian path: the reduce sweeps head to tail (each hop decodes,
+    adds in f32, recodes the whole buffer), the tail finishes the op and
+    the reduced codes ride back tail to head verbatim. Hop labels are
+    global chain positions, so both ends of a hop agree."""
+    world = len(order)
+    pos = order.index(comm.rank)
+    # comm.rank stands for "no neighbour": _flood_reroute skips it
+    left = order[pos - 1] if pos > 0 else comm.rank
+    right = order[pos + 1] if pos < world - 1 else comm.rank
+    row = int(wire.row)
+    pad_rows = Q.shape[0]
+
+    if attempt > 0:
+        _drain_stale_frames(comm, left if pos > 0 else right, seq, attempt)
+
+    recv_q = np.empty((pad_rows, row), np.uint8)
+    recv_s = np.empty(pad_rows, np.float32)
+
+    def _checked(a: int, b: int, hop: int) -> None:
+        try:
+            comm.check_link_fault(a, b, hop)
+        except ConnectionError as e:
+            _flood_reroute(comm, left, right, seq, attempt, (a, b))
+            raise _LinkFailure(a, b) from e
+
+    def _send(peer: int, hop: int, sq: np.ndarray, ss: np.ndarray) -> None:
+        _checked(comm.rank, peer, hop)
+        hdr = ("cseg", seq, attempt, hop)
+
+        done, err = comm.submit_write(lambda: comm.send_hop(peer, hdr, sq, ss))
+        done.wait()
+        if err:
+            _flood_reroute(comm, left, right, seq, attempt, (comm.rank, peer))
+            raise _LinkFailure(comm.rank, peer) from err[0]
+
+    def _recv(peer: int, hop: int) -> None:
+        _checked(peer, comm.rank, hop)
+        try:
+            _recv_compressed_hop(comm, peer, seq, attempt, hop, recv_q, recv_s)
+        except _LinkFailure as lf:
+            _flood_reroute(comm, left, right, seq, attempt, lf.pair)
+            raise
+        except (ConnectionError, OSError, ValueError) as e:
+            _flood_reroute(comm, left, right, seq, attempt, (peer, comm.rank))
+            raise _LinkFailure(peer, comm.rank) from e
+
+    # reduce sweep head -> tail
+    acc = None
+    if pos > 0:
+        _recv(left, pos - 1)
+        acc = hc.decode(Q, S, Q.size)
+        acc += hc.decode(recv_q, recv_s, Q.size)
+    if pos < world - 1:
+        if acc is None:  # the head forwards its original codes unrounded
+            sq, ss = Q, S
+        else:
+            sq, ss = hc.encode(acc, row)
+        _send(right, pos, sq, ss)
+        # broadcast sweep tail -> head
+        _recv(right, (world - 1) + (world - 1 - pos))
+        out_q, out_s = recv_q.copy(), recv_s.copy()
+    else:
+        if op == ReduceOp.AVG:
+            hc.divide_(acc, world)
+        out_q, out_s = hc.encode(acc, row)
+    if pos > 0:
+        _send(left, (world - 1) + (world - 1 - (pos - 1)), out_q, out_s)
+
+    return wire._replace(
+        payload=out_q.reshape(pad_rows, row)[:rows].copy(),
+        scales=out_s.reshape(-1)[:rows].copy(),
+    )
+
+
+def _ring_allreduce_compressed(
+    comm: _Comm,
+    wire: CompressedWire,
+    op: ReduceOp,
+    timeout: float = 60.0,
+    on_reroute: Optional[Callable[[tuple, int], None]] = None,
+) -> CompressedWire:
+    """Compressed ring allreduce with mid-collective link failover.
+
+    A hop failure (socket error or injected ``link_faults`` entry) floods a
+    re-route signal around the ring, every rank restarts under the
+    ``retry.py`` policy (``TORCHFT_RETRY_*``), and the ring re-forms over a
+    deterministic order that avoids every known-dead link, or an open chain
+    where no ring exists. ``on_reroute(pair, attempt)`` fires once per
+    re-route on the ranks that initiated or learned of it."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise ValueError(f"compressed allreduce supports SUM and AVG, got {op}")
+    hc = _HopCodec(wire)
+    world = comm.world
+    seq = comm.cring_seq
+    comm.cring_seq = seq + 1
+
+    scales = np.asarray(wire.scales, dtype=np.float32).reshape(-1)
+    rows = int(scales.size)
+    row = int(wire.row)
+    seg_rows = max(1, -(-rows // world))
+    pad_rows = seg_rows * world
+    # the codes, read only, padded with zero rows (scale 1) to a whole
+    # segment per rank: a copy only when there is padding to add
+    Q = np.asarray(wire.payload).reshape(rows, row)
+    S = scales
+    if pad_rows != rows:
+        Q = np.concatenate([Q, np.zeros((pad_rows - rows, row), np.uint8)])
+        S = np.concatenate([S, np.ones(pad_rows - rows, np.float32)])
+
+    # start from the links this generation already saw die
+    dead: set = set(comm.cring_dead)
+    state = {"attempt": 0}
+
+    def _attempt(_remaining: float) -> CompressedWire:
+        order = _ring_order(world, dead)
+        chain = None
+        if order is None:
+            chain = _chain_order(world, dead)
+            if chain is None:
+                raise RuntimeError(
+                    f"compressed ring cannot re-form at world={world}: dead links "
+                    f"{sorted(tuple(sorted(d)) for d in dead)} leave no ring or chain"
+                )
+        try:
+            if order is not None:
+                return _compressed_ring_pass(
+                    comm, wire, hc, Q, S, rows, seg_rows, op, order, seq, state["attempt"]
+                )
+            return _compressed_chain_pass(
+                comm, wire, hc, Q, S, rows, op, chain, seq, state["attempt"]
+            )
+        except _LinkFailure as lf:
+            dead.add(frozenset(lf.pair))
+            comm.cring_dead.add(frozenset(lf.pair))
+            state["attempt"] += 1
+            if on_reroute is not None:
+                try:
+                    on_reroute(lf.pair, state["attempt"])
+                except Exception:  # noqa: BLE001 - an observer must not kill the op
+                    logger.exception("re-route observer failed")
+            raise
+
+    return retry_call(
+        _attempt, RetryPolicy.from_env(), timeout=timeout, retryable=(_LinkFailure,)
+    )
 
 
 class ProcessGroupHost(ProcessGroup):
@@ -353,15 +1043,55 @@ class ProcessGroupHost(ProcessGroup):
         self._rank = 0
         self._world = 1
         self._lock = threading.Lock()
+        # injected link faults, shared with every generation's _Comm so a
+        # fault armed before or after configure reaches the live mesh
+        self._link_faults: Dict[frozenset, int] = {}
+        self._reroute_observer: Optional[Callable[[tuple, int], None]] = None
+        # counters of retired generations: wire_stats() stays monotonic
+        self._wire_totals = {"bytes_sent": 0, "bytes_recv": 0, "busy_s": 0.0}
 
+    # -- fault injection and wire counters ---------------------------------
+    def inject_link_fault(self, src: int, dst: int, at_hop: int = 0) -> None:
+        """Sever ring link (src, dst) from hop ``at_hop`` of every
+        compressed collective on this PG, inside the collective, so the
+        ring's re-route is what recovers. Dead until clear_link_faults."""
+        self._link_faults[frozenset((int(src), int(dst)))] = int(at_hop)
+
+    def clear_link_faults(self) -> None:
+        self._link_faults.clear()
+
+    def set_reroute_observer(self, fn: Optional[Callable[[tuple, int], None]]) -> None:
+        """``fn(dead_pair, attempt)`` fires on every mid-collective
+        re-route."""
+        self._reroute_observer = fn
+
+    def wire_stats(self) -> Dict[str, float]:
+        """Cumulative transport counters over every generation of this PG:
+        frame bytes sent and received, and ``busy_s``, the seconds the
+        sender spent inside sendall (``bytes_sent / busy_s`` is the wire's
+        delivered rate)."""
+        with self._lock:
+            out = dict(self._wire_totals)
+            gen = self._gen
+        if gen is not None:
+            out["bytes_sent"] += gen.comm.bytes_sent
+            out["bytes_recv"] += gen.comm.bytes_recv
+            out["busy_s"] += gen.comm.wire_busy_s
+        return out
+
+    # -- lifecycle ----------------------------------------------------------
     def configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
-        gen = ProcessGroupHost._Generation(
-            _Comm(replica_rank, replica_world_size, store_addr, quorum_id, self._timeout)
-        )
+        comm = _Comm(replica_rank, replica_world_size, store_addr, quorum_id, self._timeout)
+        comm.link_faults = self._link_faults
+        gen = ProcessGroupHost._Generation(comm)
         with self._lock:
             old, self._gen = self._gen, gen
             self._rank = replica_rank
             self._world = replica_world_size
+            if old is not None:
+                self._wire_totals["bytes_sent"] += old.comm.bytes_sent
+                self._wire_totals["bytes_recv"] += old.comm.bytes_recv
+                self._wire_totals["busy_s"] += old.comm.wire_busy_s
         if old is not None:
             old.abort()
             old.queue.put(None)
@@ -431,8 +1161,23 @@ class ProcessGroupHost(ProcessGroup):
         host = [_to_host(a) for a in arrays]
 
         def _run(comm: _Comm):
+            # a compressed bucket rides the self-healing ring: the only path
+            # that recodes per hop and re-routes around a dead link
+            if len(host) == 1 and is_compressed_wire(host[0]):
+                wire = host[0]
+                if comm.world == 1:
+                    return [wire._replace(payload=wire.payload.copy(),
+                                          scales=wire.scales.copy())]
+                return [_ring_allreduce_compressed(
+                    comm, wire, op, timeout=self._timeout,
+                    on_reroute=self._reroute_observer,
+                )]
             if comm.world == 1:
                 return [_copy_payload(h) for h in host]
+            if all(isinstance(h, _BUFFERS) for h in host) and (
+                sum(_nbytes(h) for h in host) >= _RING_MIN_BYTES
+            ):
+                return _ring_allreduce(comm, host, op)
             gathered = comm.exchange({r: host for r in range(comm.world)})
             return [
                 _reduce_np(op, [gathered[r][i] for r in range(comm.world)])

@@ -6,7 +6,10 @@ device (as ``tests/test_manager_integ.py`` runs them), each with its own
 ``Manager`` and ``ProcessGroupHost``, against an in-process lighthouse:
 per-step quorum, forward and backward, the managed (optionally
 fp8-quantized) gradient allreduce, the commit vote, then the optimizer
-step. A replica told to fail raises after its backward pass at that step,
+step. With the Manager's defaults the allreduce streams the gradients in
+1 GiB buckets, fp8-coded with error feedback when ``quantize`` is set;
+each step's log entry carries the pipeline's stage seconds and the bytes
+and busy seconds of its wire. A replica told to fail raises after its backward pass at that step,
 restarts with a fresh model and Manager, and heals over HTTP from a peer.
 
     python -m torchft_tpu_torch.train --config bench_1b --steps 6 \\
@@ -45,6 +48,9 @@ class InjectedFailure(Exception):
 
 REPLICAS = 2
 LR = 3e-4
+# Manager.timings() keys of the streamed allreduce, copied into each step's log
+PIPELINE_TIMINGS = ("allreduce_pack_s", "allreduce_wire_s", "allreduce_unpack_s",
+                    "allreduce_buckets", "overlap_efficiency")
 # RPC, allreduce and heal deadline: well above a bench_1b step and heal
 TIMEOUT_S = 120.0
 
@@ -107,8 +113,9 @@ def _train_replica(
     def save_state() -> Dict[str, Any]:
         return {"model": model.state_dict(), "optim": optim.state_dict()}
 
+    pg = ProcessGroupHost(timeout=TIMEOUT_S)
     manager = Manager(
-        pg=ProcessGroupHost(timeout=TIMEOUT_S),
+        pg=pg,
         load_state_dict=load_state,
         state_dict=save_state,
         min_replica_size=1,
@@ -143,10 +150,13 @@ def _train_replica(
                 failed.set()
                 raise InjectedFailure(f"replica {replica_id} crashed at step {step}")
             grads = {n: p.grad for n, p in model.named_parameters()}
+            wire0 = pg.wire_stats()
             avg = manager.allreduce(grads, should_quantize=cfg.quantize).get_future().wait()
             for n, p in model.named_parameters():
                 p.grad = avg[n]
             t2 = sync()
+            wire1 = pg.wire_stats()
+            timings = manager.timings()
             committed = optimizer.step()
             t3 = sync()
             on_step({
@@ -165,6 +175,12 @@ def _train_replica(
                 "compute_ms": (t1 - t0) * 1e3,
                 "allreduce_ms": (t2 - t1) * 1e3,
                 "tokens_per_s": tokens_per_step / (t3 - t0),
+                # the streamed pipeline's stages, summed over buckets (the
+                # last streamed allreduce's: absent before the first)
+                **{k: timings.get(k, 0.0) for k in PIPELINE_TIMINGS},
+                # this step's wire
+                "wire_bytes_sent": wire1["bytes_sent"] - wire0["bytes_sent"],
+                "wire_busy_s": wire1["busy_s"] - wire0["busy_s"],
             })
         return {
             "params": {n: p.detach().clone() for n, p in model.named_parameters()},

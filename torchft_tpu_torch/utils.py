@@ -1,12 +1,13 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the divide the
+landings of the allreduce share."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "true_divide"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -19,3 +20,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def true_divide(x: Any, n: int) -> Any:
+    """``x / n`` in ``x``'s dtype, each value rounded once from the f32 (or
+    wider) quotient as numpy and ml_dtypes divide. PyTorch divides a CUDA
+    tensor by a Python number as a multiply by its reciprocal, which can
+    differ in the last bit; a 0-dim divisor on ``x``'s device keeps the
+    IEEE divide there."""
+    if isinstance(x, torch.Tensor):
+        return torch.div(x, torch.tensor(n, dtype=x.dtype, device=x.device))
+    return (x / n).astype(x.dtype)

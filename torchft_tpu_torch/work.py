@@ -1,8 +1,9 @@
 """Asynchronous work handles for collectives and the managed allreduce.
 
-Counterpart of ``torchft_tpu/work.py:30-189``: a small thread-safe
-``Future`` with callback chaining and the ``Work`` handles the process
-groups and the Manager return.
+Counterpart of ``torchft_tpu/work.py:30-267``: a small thread-safe
+``Future`` with callback chaining, the ``Work`` handles the process
+groups and the Manager return, ``join_futures`` and the streamed
+allreduce's per-bucket handle ``GradStream``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Any, Callable, Generic, List, Optional, TypeVar
 T = TypeVar("T")
 S = TypeVar("S")
 
-__all__ = ["Future", "Work", "DummyWork", "FutureWork"]
+__all__ = ["Future", "Work", "DummyWork", "FutureWork", "GradStream", "join_futures"]
 
 
 class Future(Generic[T]):
@@ -175,3 +176,73 @@ class FutureWork(Work):
 
     def get_future(self) -> Future[Any]:
         return self._future
+
+
+def join_futures(futures: List[Future[Any]]) -> Future[List[Any]]:
+    """One future resolving to ``[f.value() for f in futures]``.
+
+    Fails fast: the first input exception resolves the joined future with
+    that exception. An empty list resolves immediately."""
+    out: Future[List[Any]] = Future()
+    if not futures:
+        out.set_result([])
+        return out
+
+    remaining = [len(futures)]
+    lock = threading.Lock()
+
+    def _on_done(fut: Future[Any]) -> None:
+        exc = fut.exception()
+        if exc is not None:
+            try:
+                out.set_exception(exc)
+            except RuntimeError:
+                pass  # a sibling already failed the join
+            return
+        with lock:
+            remaining[0] -= 1
+            last = remaining[0] == 0
+        if last:
+            try:
+                out.set_result([f.value() for f in futures])
+            except RuntimeError:
+                pass
+
+    for f in futures:
+        f.add_done_callback(_on_done)
+    return out
+
+
+class GradStream(Work):
+    """Handle of a streamed allreduce (``Manager.allreduce_streamed``).
+
+    ``ready(i)`` says whether bucket ``i`` has reduced and landed, so a
+    gradient-accumulation loop can watch buckets land while it computes;
+    ``wait()`` returns the reduced pytree (zeros after a swallowed
+    failure), not a bool as ``Work.wait`` does. ``get_future()`` is the
+    same aggregate."""
+
+    def __init__(self, bucket_futures: List[Future[Any]], aggregate: Future[Any]) -> None:
+        self._bucket_futures = list(bucket_futures)
+        self._aggregate = aggregate
+
+    def __len__(self) -> int:
+        return len(self._bucket_futures)
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self._bucket_futures)
+
+    def ready(self, i: int) -> bool:
+        """True once bucket ``i`` has reduced, unpacked and landed. A
+        failed bucket stays False: results are reachable only through the
+        aggregate, so a failed stream never leaks part of a reduction."""
+        fut = self._bucket_futures[i]
+        return fut.done() and fut.exception() is None
+
+    def wait(self, timeout: Optional[float] = None) -> Any:
+        """Block until every bucket lands; returns the reduced pytree."""
+        return self._aggregate.wait(timeout)
+
+    def get_future(self) -> Future[Any]:
+        return self._aggregate
