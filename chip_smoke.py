@@ -79,6 +79,25 @@
    finite losses, the discarded step, the heal, bitwise-equal replicas,
    that attention dispatched to splash, and that the host-rule quantize,
    the dequantize and K1's three kernels launched on this run.
+7. Heals bench_1b over ``PGTransport``: the same training, 5 steps with the
+   crash at step 2, the heal received in place into the restarting
+   replica's live model and AdamW state on the card through a recovery
+   process group of its own. Checks bitwise-equal replicas after the heal
+   and prints ``heal_send_s``, ``heal_recv_s``, ``heal_chunks`` and
+   ``heal_mb_per_s`` beside the HTTP run's, with both runs' peak device
+   memory. Before it, PGTransport and the host PG's point-to-point
+   ``recv_into`` land CUDA tensors in place (``data_ptr()`` kept), bit for
+   bit.
+8. Runs the ``train_ddp`` example as processes on the card: the lighthouse
+   CLI and two replicas of ``python -m
+   torchft_tpu_torch.examples.train_ddp --quantize --grad-accum 2
+   --transport pg --steps 10``, replica 1 SIGKILLed once it printed its
+   step-3 line and restarted. Checks that every process exits with 0, that
+   the restarted replica joined mid-run and healed, that both replicas'
+   parameter checksums agree, and that the host-rule quantize and the
+   dequantize launched in each child (their ``done:`` lines carry the
+   counts); prints each replica's step times and heal seconds. A failed
+   check raises with the end of the processes' transcript.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -91,6 +110,7 @@ it, the host's time to launch included. Without CUDA it exits non-zero and print
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -163,6 +183,12 @@ def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
         return int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
     differ = a.view(torch.int32) != b.view(torch.int32)
     return int((differ & ~(torch.isnan(a) & torch.isnan(b))).sum())
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors of any dtype hold the same shape and bytes."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -338,6 +364,16 @@ def check_hopper_kernels(report: dict) -> None:
                                    f"{HOPPER_REGISTERS}")
             if "<128" in name and (r["spill_stores"] or r["spill_loads"]):
                 raise RuntimeError(f"{name} spills registers: {r}")
+
+
+def heal_numbers(results: list) -> dict:
+    """The crash heal's numbers of a training run: replica 0 sends, replica
+    1 (the restarted one) receives."""
+    sent, got = results[0]["timings"], results[1]["timings"]
+    return {"heal_send_s": sent.get("heal_send_s", float("nan")),
+            "heal_recv_s": got.get("heal_recv_s", float("nan")),
+            "heal_chunks": got.get("heal_chunks", float("nan")),
+            "heal_mb_per_s": got.get("heal_mb_per_s", float("nan"))}
 
 
 def check_kernels(device: torch.device, full_n: int, world: int):
@@ -537,6 +573,120 @@ def time_serial_split(device: torch.device, n: int, world: int, reps: int = 3) -
         log(f"  serial split {key[:-3]}: {out[key]:.1f} ms")
     torch.cuda.empty_cache()
     return out
+
+
+def check_pg_transport_on_card(device: torch.device) -> None:
+    """PGTransport's ranged receive into a CUDA template, and the host PG's
+    point-to-point ``recv_into`` of CUDA buffers: both land in the template
+    tensors' own storage (``data_ptr()`` kept), bit for bit."""
+    from torchft_tpu_torch.checkpointing import PGTransport
+    from torchft_tpu_torch.coordination import KvStoreServer
+    from torchft_tpu_torch.process_group import ProcessGroupHost
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    state = {"w": torch.randn(3000, 1000, generator=gen, device=device).to(torch.bfloat16),
+             "m": torch.randn(1000, 77, generator=gen, device=device),
+             "step": torch.tensor(4.0), "lr": 0.1}
+    template = {k: (torch.zeros_like(v) if isinstance(v, torch.Tensor) else 0.0)
+                for k, v in state.items()}
+    ptrs = {k: v.data_ptr() for k, v in template.items() if isinstance(v, torch.Tensor)}
+    store = KvStoreServer("127.0.0.1:0")
+    pgs = [ProcessGroupHost(timeout=60) for _ in range(2)]
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            list(ex.map(lambda r: pgs[r].configure(f"127.0.0.1:{store.port}/pgt", r, 2), (0, 1)))
+            sender = PGTransport(pgs[0], timeout=60)
+            receiver = PGTransport(pgs[1], timeout=60, state_dict_template=lambda: template)
+            fs = ex.submit(sender.send_checkpoint, [1], 5, state, 60)
+            got = receiver.recv_checkpoint(0, sender.metadata(), 5, 60)
+            fs.result(60)
+        for k, ptr in ptrs.items():
+            if got[k].data_ptr() != ptr or not same_bits(got[k], state[k].to(got[k].device)):
+                raise RuntimeError(f"PGTransport into a CUDA template: leaf {k} moved or differs")
+        if got["lr"] != 0.1:
+            raise RuntimeError("PGTransport lost a pickled leaf")
+        store2 = KvStoreServer("127.0.0.1:0")
+        try:
+            p2p = [ProcessGroupHost(timeout=60) for _ in range(2)]
+            with ThreadPoolExecutor(2) as ex:
+                list(ex.map(lambda r: p2p[r].configure(f"127.0.0.1:{store2.port}/p2p", r, 2),
+                            (0, 1)))
+            out = [torch.empty_like(state["w"]), torch.empty_like(state["m"])]
+            sent = p2p[0].send([state["w"], state["m"]], 1, tag=3)
+            back = p2p[1].recv_into(out, 0, tag=3).get_future().wait(60)
+            sent.wait(60)
+            if back[0] is not out[0] or back[1] is not out[1] or not same_bits(
+                    out[0], state["w"]) or not same_bits(out[1], state["m"]):
+                raise RuntimeError("p2p recv_into of CUDA buffers did not land in place")
+            for pg in p2p:
+                pg.shutdown()
+        finally:
+            store2.shutdown()
+    finally:
+        for pg in pgs:
+            pg.shutdown()
+        store.shutdown()
+    log("PGTransport into a CUDA template and p2p recv_into CUDA buffers: in place "
+        "(data_ptr kept), bitwise")
+
+
+def check_train_ddp_processes() -> dict:
+    """The train_ddp example as processes on the card (docstring, 8)."""
+    from torchft_tpu_torch.examples.train_ddp import Fleet
+
+    steps, kill_at = 10, 3
+    fleet = Fleet(
+        ["--steps", str(steps), "--batch-size", "8", "--quantize", "--grad-accum", "2",
+         "--transport", "pg", "--device", "cuda"],
+        # min 2 holds the survivor in quorum until the restarted replica
+        # joins, so the rejoin always goes through a heal
+        ["--min-replicas", "2", "--join-timeout-ms", "500", "--quorum-tick-ms", "20",
+         "--heartbeat-timeout-ms", "2000"],
+    )
+    t0 = time.perf_counter()
+
+    def fail(msg: str) -> RuntimeError:
+        return RuntimeError(msg + "\n--- transcript ---\n" + "\n".join(fleet.transcript[-80:]))
+
+    try:
+        for rid in (0, 1):
+            fleet.spawn(rid)
+        fleet.wait_line(1, f"] step={kill_at} ", 300)
+        fleet.kill(1)
+        t_kill = time.perf_counter()
+        fleet.spawn(1)
+        rcs = fleet.wait(300)
+        done = {rid: fleet.done(rid) for rid in (0, 1)}
+    except Exception as e:  # noqa: BLE001 - reported with the transcript
+        raise fail(f"train_ddp processes: {e!r}") from e
+    finally:
+        lighthouse_rc = fleet.close()
+    log(f"train_ddp processes: {time.perf_counter() - t0:.1f} s, killed replica 1 at "
+        f"{t_kill - t0:.1f} s; exit codes {rcs}, lighthouse {lighthouse_rc}")
+    if any(rcs.values()) or lighthouse_rc != 0:
+        raise fail(f"train_ddp processes exited with {rcs}, lighthouse {lighthouse_rc}")
+    first = next((line for line in fleet.lines[1] if "] step=" in line), "step=0")
+    first_step = int(first.split("step=", 1)[1].split()[0])
+    if done[1]["metrics"]["heals"] < 1 or first_step <= kill_at:
+        raise fail(f"the restarted replica did not heal mid-run (first line {first!r}, "
+                   f"metrics {done[1]['metrics']})")
+    if done[0]["params_sha256"] != done[1]["params_sha256"]:
+        raise fail(f"train_ddp replicas differ: {done[0]['params_sha256']} vs "
+                   f"{done[1]['params_sha256']}")
+    for rid, d in done.items():
+        for kernel in ("quantize_fp8_rowwise_host", "dequantize_fp8_rowwise"):
+            if d["launches"][kernel] == 0:
+                raise fail(f"{kernel} never launched in train_ddp replica {rid}")
+        t = d["timings"]
+        step_ms = [float(line.split("step_ms=", 1)[1]) for line in fleet.lines[rid]
+                   if "step_ms=" in line]
+        log(f"train_ddp replica {rid}: steps {d['step']}, step_ms median "
+            f"{d['step_ms_median']:.2f} (each: {', '.join(f'{x:.2f}' for x in step_ms)}), "
+            f"heal_send_s {t.get('heal_send_s', float('nan')):.4f}, heal_recv_s "
+            f"{t.get('heal_recv_s', float('nan')):.4f}, heal_chunks {t.get('heal_chunks', 0):.0f}, "
+            f"metrics {d['metrics']}, launches {d['launches']}, params sha256 "
+            f"{d['params_sha256'][:16]}")
+    return {rid: d["launches"] for rid, d in done.items()}
 
 
 def bench_1b_grad_specs() -> dict:
@@ -1402,6 +1552,7 @@ def main() -> int:
     unequal = [k for k in p0 if not torch.equal(p0[k].view(torch.int16), p1[k].view(torch.int16))]
     if unequal:
         raise RuntimeError(f"replicas differ in {unequal[:5]}")
+    http_peak = torch.cuda.max_memory_allocated()
     log(f"replicas bitwise equal over {len(p0)} tensors; heal after the crash: "
         f"replica 0 staged its state in "
         f"{results[0]['timings'].get('heal_send_s', float('nan')):.2f} s, replica 1 "
@@ -1413,6 +1564,42 @@ def main() -> int:
     for kernel in on_path:
         if launches[kernel] == 0:
             raise RuntimeError(f"{kernel} never launched on the training path")
+    http_heal = heal_numbers(results)
+    del results, p0, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check_pg_transport_on_card(device)
+    pg_cfg = dataclasses.replace(cfg, steps=5, fail_at=2, transport="pg")
+    q.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pg_results = run_replicas(pg_cfg, device, on_step=lambda e: log(
+        f"pg step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+        f"participants={e['participants']} committed={e['committed']} healed={e['healed']} "
+        f"step_ms={e['step_ms']:.1f}"))
+    pg_peak = torch.cuda.max_memory_allocated()
+    if pg_results[1]["restarts"] != 1 or pg_results[1]["metrics"]["heals"] < 1:
+        raise RuntimeError(f"PG run: replica 1 did not crash and heal: {pg_results[1]['metrics']}")
+    if any(r["step"] != pg_cfg.steps for r in pg_results):
+        raise RuntimeError(f"PG run: replicas stopped at {[r['step'] for r in pg_results]}")
+    p0, p1 = pg_results[0]["params"], pg_results[1]["params"]
+    unequal = [k for k in p0 if not torch.equal(p0[k].view(torch.int16), p1[k].view(torch.int16))]
+    if unequal:
+        raise RuntimeError(f"PG run: replicas differ in {unequal[:5]}")
+    pg_heal = heal_numbers(pg_results)
+    log(f"bench_1b heal over PGTransport ({time.perf_counter() - t0:.1f} s, {pg_cfg.steps} "
+        f"steps, crash at {pg_cfg.fail_at}): replicas bitwise equal over {len(p0)} tensors; "
+        f"launches {dict(q.LAUNCHES)}")
+    for label, h, peak in (("http", http_heal, http_peak), ("pg", pg_heal, pg_peak)):
+        log(f"bench_1b heal {label}: heal_send_s {h['heal_send_s']:.3f} heal_recv_s "
+            f"{h['heal_recv_s']:.3f} heal_chunks {h['heal_chunks']:.0f} heal_mb_per_s "
+            f"{h['heal_mb_per_s']:.1f}; peak device memory {peak / 2**30:.2f} GiB")
+    del pg_results, p0, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddp_launches = check_train_ddp_processes()
+
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
     if serial_launches == 0:
@@ -1440,6 +1627,8 @@ def main() -> int:
             "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None,
+            # the train_ddp example's children (none runs the serial engine)
+            "launches_train_ddp": {f"replica {rid}": d[kname] for rid, d in ddp_launches.items()},
             **sass_counts(build_report[instance]),
         })
     for dtype, (suffix, sources) in ATTN_DTYPES.items():

@@ -32,7 +32,7 @@ from torchft_tpu.manager import Manager as JaxManager
 from torchft_tpu.models import llama as jl
 from torchft_tpu.process_group import ProcessGroupHost as JaxPGHost
 from torchft_tpu_torch import convert
-from torchft_tpu_torch.checkpointing import HTTPTransport
+from torchft_tpu_torch.checkpointing import HTTPTransport, PGTransport
 from torchft_tpu_torch.checkpointing._serialization import flatten_state, unflatten_state
 from torchft_tpu_torch.coordination import LighthouseServer
 from torchft_tpu_torch.manager import Manager
@@ -138,20 +138,30 @@ def _jax_slice(addr, inits):
     return finals, logs, max(scales) / 448.0
 
 
-def _torch_slice(addr, inits):
+def _torch_slice(addr, inits, transport="http", ptrs=None):
+    """The port's slice; with ``transport="pg"`` the heal rides a
+    PGTransport over a recovery PG into the live model (``ptrs`` collects
+    each incarnation's parameter storage before and after)."""
     cfg = tl.CONFIGS["debug"]
 
     def replica(rid, failed, log):
         model = tl.Llama(cfg, device="cpu", attention="xla")
         model.load_state_dict(convert.llama_params_from_jax(inits[rid]))
         optim = torch.optim.SGD(model.parameters(), lr=LR)
+        checkpoint_transport = recovery_pg = manager = None
+        if transport == "pg":
+            recovery_pg = ProcessGroupHost(timeout=TIMEOUT)
+            checkpoint_transport = PGTransport(
+                recovery_pg, timeout=TIMEOUT,
+                state_dict_template=lambda: manager.state_dict_template())
         manager = Manager(
             pg=ProcessGroupHost(timeout=TIMEOUT),
             load_state_dict=lambda sd: model.load_state_dict(sd["model"]),
             state_dict=lambda: {"model": model.state_dict()}, min_replica_size=1,
             replica_id=f"replica_{rid}", lighthouse_addr=addr, timeout=TIMEOUT,
-            quorum_timeout=TIMEOUT,
+            quorum_timeout=TIMEOUT, checkpoint_transport=checkpoint_transport,
         )
+        before = [p.data_ptr() for p in model.parameters()]
         optimizer = OptimizerWrapper(manager, optim)
         try:
             while manager.current_step() < STEPS:
@@ -167,9 +177,13 @@ def _torch_slice(addr, inits):
                 for n, p in model.named_parameters():
                     p.grad = avg[n]
                 log.append((step, optimizer.step()))
+            if ptrs is not None:
+                ptrs.append((before, [p.data_ptr() for p in model.parameters()]))
             return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
         finally:
             manager.shutdown(wait=False)
+            if recovery_pg is not None:
+                recovery_pg.shutdown()
 
     return _run(replica)
 
@@ -203,6 +217,29 @@ def test_crash_heal_slice_matches_reference():
     bound = LR * STEPS * 2 * 32 * s_max
     worst = max(float(np.abs(tfinals[0][k] - j0[k]).max()) for k in j0)
     assert worst <= bound, (worst, bound)
+
+
+def test_crash_heal_slice_over_pg_matches_http():
+    """The same slice healed over PGTransport, in place into the live
+    model: the commit and discard sequences and the final parameters are
+    the HTTP heal's, bit for bit, and every parameter keeps its storage
+    through the heals."""
+    inits = _init_trees()
+    runs = {}
+    ptrs = []
+    for transport in ("http", "pg"):
+        lh = _lighthouse(LighthouseServer)
+        try:
+            runs[transport] = _torch_slice(f"127.0.0.1:{lh.port}", inits, transport,
+                                           ptrs if transport == "pg" else None)
+        finally:
+            lh.shutdown()
+    (hfinals, hlogs), (pfinals, plogs) = runs["http"], runs["pg"]
+    assert plogs == hlogs and (FAIL_AT, False) in plogs[0]
+    for r in range(2):
+        for k in hfinals[r]:
+            np.testing.assert_array_equal(pfinals[r][k], hfinals[r][k])
+    assert len(ptrs) == 2 and all(before == after for before, after in ptrs)
 
 
 def _one_step(make_manager, lighthouse_cls, grads, to_leaves):

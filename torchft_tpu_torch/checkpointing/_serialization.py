@@ -7,6 +7,12 @@ bytes that transports stream by byte range. CUDA leaves are staged through
 host memory on send and re-land on the template's device on receive.
 ``TensorMeta`` names dtypes as numpy does (``float32``, ``bfloat16``), so
 for equal arrays the two packages' metas and payload bytes are equal.
+
+The in-place receive's helpers (``can_absorb``, ``template_leaves_for``,
+``place_leaf_like``) work on torch tensors on any device and on host
+ndarrays: placing a leaf onto a CUDA template leaf is a ``copy_`` into that
+leaf, the counterpart of the reference's ``device_put`` to the template's
+sharding, and never allocates a second copy of the state on the card.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import pickle
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
@@ -22,8 +29,14 @@ __all__ = [
     "TensorMeta",
     "TreeSpecPayload",
     "alloc_leaf",
+    "can_absorb",
     "flatten_state",
+    "leaf_from_bytes",
     "payload_memoryview",
+    "place_leaf_like",
+    "split_chunks",
+    "template_leaves_for",
+    "tree_from_leaves",
     "unflatten_state",
 ]
 
@@ -61,20 +74,27 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def flatten_state(state: Any) -> Tuple[TreeSpecPayload, List[Any]]:
+def flatten_state(
+    state: Any, snapshot: bool = True
+) -> Tuple[TreeSpecPayload, List[Any]]:
     """Flatten a state pytree into (spec, per-leaf payloads).
 
-    Tensor leaves become host uint8 ndarrays holding their bytes: a copy
-    for every leaf (one device-to-host copy for CUDA ones), so a served
-    checkpoint cannot tear while training mutates the live state. Other
-    leaves are pickled bytes."""
+    Tensor leaves become host uint8 ndarrays holding their bytes: one
+    device-to-host copy for a CUDA leaf; for a CPU leaf a copy when
+    ``snapshot`` (a served checkpoint cannot tear while training mutates
+    the live state), else a view of its memory where it is contiguous (a
+    transport whose send completes before it returns streams straight from
+    the caller's tensors). Other leaves are pickled bytes."""
     leaves, treedef = pytree.tree_flatten(state)
     metas: List[TensorMeta] = []
     payloads: List[Any] = []
     for leaf in leaves:
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach()
-            host = t.cpu() if t.is_cuda else t.clone()
+            if t.is_cuda:
+                host = t.cpu()
+            else:
+                host = t.clone() if snapshot else t
             host = host.contiguous().reshape(-1).view(torch.uint8).numpy()
             metas.append(TensorMeta(
                 dtype=_dtype_name(t.dtype), shape=tuple(t.shape), nbytes=host.nbytes
@@ -98,6 +118,143 @@ def alloc_leaf(meta: TensorMeta) -> bytearray:
     return bytearray(meta.nbytes)
 
 
+def leaf_from_bytes(meta: TensorMeta, buf: Any) -> Any:
+    """A leaf rebuilt from its received bytes (bytes, a bytearray, or a
+    uint8 ndarray or CPU tensor off a process group receive): a CPU tensor
+    of the meta's dtype and shape, sharing the buffer's memory where it may
+    (a fresh wire buffer), or the unpickled value."""
+    if meta.kind == "pickled":
+        if isinstance(buf, torch.Tensor):
+            buf = buf.numpy()
+        return pickle.loads(bytes(buf))
+    if isinstance(buf, torch.Tensor):
+        raw = buf.reshape(-1).view(torch.uint8)
+    elif isinstance(buf, np.ndarray):
+        raw = torch.from_numpy(np.ascontiguousarray(buf).reshape(-1).view(np.uint8))
+    elif isinstance(buf, bytes):
+        raw = torch.frombuffer(bytearray(buf), dtype=torch.uint8) if buf else None
+    else:
+        raw = torch.frombuffer(buf, dtype=torch.uint8) if len(buf) else None
+    if raw is None:
+        raw = torch.empty(0, dtype=torch.uint8)
+    if raw.numel() != meta.nbytes:
+        raise ValueError(f"leaf of {meta.nbytes} bytes got {raw.numel()}")
+    return raw.view(_torch_dtype(meta.dtype)).reshape(meta.shape)
+
+
+def split_chunks(payload_sizes: Sequence[int], num_chunks: int) -> List[List[int]]:
+    """Greedy size-balanced assignment of leaf indices to chunks."""
+    num_chunks = max(1, min(num_chunks, max(len(payload_sizes), 1)))
+    chunks: List[List[int]] = [[] for _ in range(num_chunks)]
+    sizes = [0] * num_chunks
+    order = sorted(range(len(payload_sizes)), key=lambda i: -payload_sizes[i])
+    for i in order:
+        j = min(range(num_chunks), key=lambda k: sizes[k])
+        chunks[j].append(i)
+        sizes[j] += payload_sizes[i]
+    return chunks
+
+
+def _dtype_str(dtype: Any) -> str:
+    """A dtype's name as ``TensorMeta`` writes it, for a name, a torch
+    dtype or a numpy dtype."""
+    if isinstance(dtype, str):
+        return dtype
+    if isinstance(dtype, torch.dtype):
+        return _dtype_name(dtype)
+    return np.dtype(dtype).name
+
+
+def can_absorb(
+    template: Any, shape: Tuple[int, ...], dtype: Any, require_contiguous: bool = False
+) -> bool:
+    """Whether ``template`` (a tensor on any device, or a host ndarray) can
+    take an incoming leaf of ``shape`` and ``dtype`` in place. One
+    predicate for every in-place path. ``require_contiguous`` is for
+    receives that stream bytes straight into the template's memory, where a
+    non-contiguous flat view would be a copy."""
+    if isinstance(template, torch.Tensor):
+        return (
+            tuple(template.shape) == tuple(shape)
+            and _dtype_name(template.dtype) == _dtype_str(dtype)
+            and (not require_contiguous or template.is_contiguous())
+        )
+    if not isinstance(template, np.ndarray):
+        return False
+    return (
+        template.shape == tuple(shape)
+        and template.dtype.name == _dtype_str(dtype)
+        and template.flags.writeable
+        and (not require_contiguous or template.flags["C_CONTIGUOUS"])
+    )
+
+
+def template_leaves_for(spec: TreeSpecPayload, template: Any, logger: Any) -> Optional[List[Any]]:
+    """``template``'s leaves for index-aligned in-place placement, or None
+    (with one warning) when the sender's tree structure differs from the
+    template's: placement matches leaves by flat index, so a structural
+    drift with shape-coincident leaves would land sender data in the wrong
+    live buffers. On a mismatch the receive goes to wire buffers instead."""
+    s_order, s_def = pytree.tree_flatten(pickle.loads(spec.treedef_bytes))
+    t_leaves, t_def = pytree.tree_flatten(template)
+    if s_def != t_def or s_order != list(range(len(s_order))):
+        logger.warning(
+            "sender tree structure differs from the template's; in-place "
+            "receive degraded to wire buffers for this transfer (sender %s vs "
+            "template %s)", str(s_def)[:200], str(t_def)[:200],
+        )
+        return None
+    return t_leaves
+
+
+def place_leaf_like(host_leaf: torch.Tensor, template: Any, logger: Any) -> Any:
+    """Land a received leaf where the template leaf lives: ``copy_`` into a
+    tensor template of its dtype and shape (on the card: one host-to-device
+    copy into the template's own storage) and return the template (a live
+    parameter is written without bumping its autograd version). A
+    template that cannot absorb the leaf is never coerced: one "in-place
+    receive degraded" warning, and the wire leaf is returned."""
+    try:
+        if isinstance(template, np.ndarray):
+            template_t = torch.from_numpy(template) if template.flags.writeable else None
+        else:
+            template_t = template
+        if isinstance(template_t, torch.Tensor) and can_absorb(
+            template_t, tuple(host_leaf.shape), host_leaf.dtype
+        ):
+            # through ``.data``: an alias with a version counter of its own,
+            # so a heal landing while the healing replica's own (discarded)
+            # backward still holds the leaf does not fail that backward
+            template_t.data.copy_(host_leaf)
+            return template
+        logger.warning(
+            "template leaf cannot absorb received leaf (template %s shape=%s "
+            "dtype=%s vs received shape=%s dtype=%s); falling back to the wire "
+            "buffer: in-place receive degraded",
+            type(template).__name__, getattr(template, "shape", None),
+            getattr(template, "dtype", None), tuple(host_leaf.shape), host_leaf.dtype,
+        )
+    except Exception:  # noqa: BLE001 - fall back to the wire buffer
+        logger.exception("failed to place leaf onto template")
+    return host_leaf
+
+
+def _is_final(meta: TensorMeta, buf: Any) -> bool:
+    """Whether a payload is already the leaf, not its bytes (for a uint8
+    leaf the two are the same)."""
+    return (isinstance(buf, torch.Tensor) and _dtype_name(buf.dtype) == meta.dtype
+            and tuple(buf.shape) == tuple(meta.shape))
+
+
+def tree_from_leaves(spec: TreeSpecPayload, leaves: Sequence[Any]) -> Any:
+    """The pytree of ``spec``'s structure holding ``leaves`` (final leaves,
+    in flat order)."""
+    order, treedef = pytree.tree_flatten(pickle.loads(spec.treedef_bytes))
+    if sorted(order) != list(range(len(spec.leaves))):
+        raise ValueError("checkpoint structure does not match its leaf metadata")
+    return pytree.tree_unflatten([leaves[i] for i in order], treedef)
+
+
 def unflatten_state(
     spec: TreeSpecPayload, payloads: Sequence[Any], template: Optional[Any] = None
 ) -> Any:
@@ -115,12 +272,10 @@ def unflatten_state(
         devices = [t.device if isinstance(t, torch.Tensor) else None for t in t_leaves]
     leaves = []
     for meta, buf, device in zip(spec.leaves, payloads, devices):
-        if meta.kind == "pickled":
-            leaves.append(pickle.loads(bytes(buf)))
+        if meta.kind == "array" and _is_final(meta, buf):
+            # already a leaf: landed in place, or placed on its device
+            leaves.append(buf)
             continue
-        raw = torch.frombuffer(buf, dtype=torch.uint8) if meta.nbytes else (
-            torch.empty(0, dtype=torch.uint8)
-        )
-        t = raw.view(_torch_dtype(meta.dtype)).reshape(meta.shape)
-        leaves.append(t.to(device) if device is not None else t)
+        t = leaf_from_bytes(meta, buf)
+        leaves.append(t.to(device) if device is not None and meta.kind == "array" else t)
     return pytree.tree_unflatten([leaves[i] for i in order], treedef)

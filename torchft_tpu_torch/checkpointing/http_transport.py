@@ -21,6 +21,7 @@ import pickle
 import socket
 import struct
 import threading
+import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
@@ -37,6 +38,8 @@ from torchft_tpu_torch.checkpointing._serialization import (
 )
 from torchft_tpu_torch.checkpointing.transport import (
     CheckpointTransport,
+    ChunkStat,
+    StreamTimings,
     plan_wire_ranges,
 )
 
@@ -205,13 +208,16 @@ class HTTPTransport(CheckpointTransport):
         if not isinstance(spec, TreeSpecPayload):
             raise ConnectionError("bad checkpoint metadata")
         bufs = [alloc_leaf(m) for m in spec.leaves]
+        t_start = time.perf_counter()
 
-        def fetch(i: int) -> None:
+        def fetch(i: int) -> ChunkStat:
+            t0 = time.perf_counter()
+            nbytes = 0
             with urllib.request.urlopen(f"{base}/chunk_{i}", timeout=timeout_s) as r:
                 while True:
                     hdr = r.read(_FRAME.size)
                     if not hdr:
-                        return
+                        return ChunkStat(nbytes, time.perf_counter() - t0)
                     if len(hdr) != _FRAME.size:
                         raise ConnectionError(f"chunk {i}: truncated frame header")
                     leaf_idx, off, n = _FRAME.unpack(hdr)
@@ -225,10 +231,14 @@ class HTTPTransport(CheckpointTransport):
                         if not k:
                             raise ConnectionError(f"chunk {i} truncated")
                         got += k
+                    nbytes += n
 
         with ThreadPoolExecutor(max_workers=max(1, min(num_chunks, _MAX_CHUNKS))) as ex:
-            for f in [ex.submit(fetch, i) for i in range(num_chunks)]:
-                f.result()
+            chunks = [f.result() for f in [ex.submit(fetch, i) for i in range(num_chunks)]]
+        self._last_recv_timings = StreamTimings(
+            total_bytes=sum(c.nbytes for c in chunks),
+            total_s=time.perf_counter() - t_start, chunks=chunks,
+        )
         template = self._template_fn() if self._template_fn is not None else None
         return unflatten_state(spec, bufs, template)
 

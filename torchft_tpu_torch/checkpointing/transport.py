@@ -1,18 +1,55 @@
-"""Checkpoint transport interface and the wire-range planner.
+"""Checkpoint transport interface and the streaming helpers.
 
 Counterpart of ``torchft_tpu/checkpointing/transport.py``: the
-``CheckpointTransport`` ABC the Manager heals through, and
-``plan_wire_ranges``, which cuts a flattened state into byte-range chunks
-so one multi-GB leaf still streams as several chunks.
+``CheckpointTransport`` ABC the Manager heals through, and the helpers
+both transports share:
+
+- ``plan_wire_ranges`` cuts a flattened state into byte-range chunks, so
+  one multi-GB leaf still streams as several chunks;
+- ``pipelined`` overlaps the wire transfer of chunk i+1 with the finish
+  work (placement on the device) of chunk i;
+- ``StreamTimings`` / ``ChunkStat`` carry per-chunk throughput back to the
+  Manager (its ``heal_chunks`` / ``heal_mb_per_s`` timings);
+- ``stream_chunk_bytes`` is the chunk size, ``TORCHFT_STREAM_CHUNK_BYTES``
+  (32 MiB by default).
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
+import time
 from abc import ABC, abstractmethod
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Any, List, Tuple
+from typing import Any, Callable, Iterable, List, Optional, Tuple, TypeVar
 
-__all__ = ["CheckpointTransport", "plan_wire_ranges"]
+T = TypeVar("T")
+U = TypeVar("U")
+
+__all__ = [
+    "CheckpointTransport",
+    "ChunkStat",
+    "StreamTimings",
+    "pipelined",
+    "plan_wire_ranges",
+    "stream_chunk_bytes",
+]
+
+STREAM_CHUNK_BYTES_ENV = "TORCHFT_STREAM_CHUNK_BYTES"
+DEFAULT_STREAM_CHUNK_BYTES = 32 << 20
+
+
+def stream_chunk_bytes() -> int:
+    """The wire-chunk size of streamed heals: ``TORCHFT_STREAM_CHUNK_BYTES``,
+    or the default when unset, unparsable or below 1 (a zero chunk would
+    never make progress)."""
+    try:
+        val = int(os.environ.get(STREAM_CHUNK_BYTES_ENV, ""))
+    except ValueError:
+        return DEFAULT_STREAM_CHUNK_BYTES
+    return val if val >= 1 else DEFAULT_STREAM_CHUNK_BYTES
 
 
 def plan_wire_ranges(
@@ -57,6 +94,99 @@ def plan_wire_ranges(
     return chunks
 
 
+@dataclass
+class ChunkStat:
+    """Wire timing of one streamed chunk (the transfer, not the finish)."""
+
+    nbytes: int
+    transfer_s: float
+
+
+@dataclass
+class StreamTimings:
+    """Totals of the last streamed receive, read by the Manager through
+    ``CheckpointTransport.last_recv_timings``."""
+
+    total_bytes: int = 0
+    total_s: float = 0.0
+    chunks: List[ChunkStat] = field(default_factory=list)
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunks)
+
+    @property
+    def mb_per_s(self) -> float:
+        if self.total_s <= 0:
+            return 0.0
+        return (self.total_bytes / (1 << 20)) / self.total_s
+
+
+class _Done:
+    __slots__ = ()
+
+
+_DONE = _Done()
+
+
+def pipelined(
+    items: Iterable[T],
+    transfer: Callable[[T], U],
+    finish: Callable[[U], None],
+    depth: int = 2,
+    timings: Optional[StreamTimings] = None,
+    size_of: Optional[Callable[[U], int]] = None,
+) -> None:
+    """Run ``transfer`` over ``items`` on a worker thread while ``finish``
+    consumes its results on the calling thread: chunk i+1 is on the wire
+    while chunk i is placed. ``depth`` bounds the results transferred but
+    not yet finished. A failure on either side stops the stream, and the
+    first exception (the transfer's before the finish's) propagates."""
+    q: "queue.Queue[Tuple[bool, Any]]" = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+    t_start = time.perf_counter()
+
+    def producer() -> None:
+        try:
+            for item in items:
+                if stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                out = transfer(item)
+                dt = time.perf_counter() - t0
+                if timings is not None:
+                    nb = size_of(out) if size_of is not None else 0
+                    timings.chunks.append(ChunkStat(nbytes=nb, transfer_s=dt))
+                    timings.total_bytes += nb
+                q.put((True, out))
+            q.put((True, _DONE))
+        except BaseException as e:  # noqa: BLE001 - must unblock the consumer
+            q.put((False, e))
+
+    worker = threading.Thread(target=producer, name="torchft_stream", daemon=True)
+    worker.start()
+    try:
+        while True:
+            ok, payload = q.get()
+            if not ok:
+                raise payload
+            if payload is _DONE:
+                break
+            finish(payload)
+    except BaseException:
+        stop.set()
+        # free a slot so a producer blocked in put() sees the stop
+        try:
+            q.get_nowait()
+        except queue.Empty:
+            pass
+        raise
+    finally:
+        worker.join(timeout=60)
+        if timings is not None:
+            timings.total_s = time.perf_counter() - t_start
+
+
 class CheckpointTransport(ABC):
     """Live-recovery state streaming between replica groups."""
 
@@ -72,8 +202,10 @@ class CheckpointTransport(ABC):
         replica_world_size: int,
         quorum_id: int = 0,
     ) -> None:
-        """Per-quorum hook, called after the Manager reconfigures its PG.
-        No-op for address-based transports."""
+        """Per-quorum hook, called after the Manager reconfigures its PG,
+        with the same membership under a ``.../recovery/...`` store prefix.
+        No-op for address-based transports; ``PGTransport`` rendezvouses its
+        recovery process group here."""
 
     @abstractmethod
     def send_checkpoint(
@@ -90,6 +222,12 @@ class CheckpointTransport(ABC):
         self, src_rank: int, metadata: str, step: int, timeout: "float | timedelta"
     ) -> Any:
         """Fetch the state for ``step`` from ``src_rank``."""
+
+    def last_recv_timings(self) -> Optional[StreamTimings]:
+        """Chunk-stream stats of the most recent ``recv_checkpoint`` (None
+        before the first). The Manager records them as ``heal_chunks`` and
+        ``heal_mb_per_s``."""
+        return getattr(self, "_last_recv_timings", None)
 
     def shutdown(self, wait: bool = True) -> None:
         """Tear down (terminal)."""

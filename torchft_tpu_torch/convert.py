@@ -1,8 +1,12 @@
-"""Weight conversion from the JAX package's Llama parameter tree.
+"""Weight conversion from the JAX package's parameter trees.
 
-The reference keeps per-layer weights stacked along a leading ``[L, ...]``
-axis (``torchft_tpu/models/llama.py:llama_init``); the port's ``Llama``
-holds one module per layer with the same names and ``[in, out]`` layout.
+The reference's Llama keeps per-layer weights stacked along a leading
+``[L, ...]`` axis (``torchft_tpu/models/llama.py:llama_init``); the port's
+``Llama`` holds one module per layer with the same names and ``[in, out]``
+layout. The ``examples/train_ddp.py`` CNN keeps the reference's layouts in
+the port (``conv`` HWIO, ``w1`` over the NHWC flatten), so its parameters,
+and the momentum of its ``optax.sgd(lr, momentum=0.9)`` state (the trace
+of the chain's ``TraceState``), carry over as they are.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["llama_params_from_jax"]
+__all__ = ["cnn_momentum_from_jax", "cnn_params_from_jax", "llama_params_from_jax"]
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -31,3 +35,21 @@ def llama_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for i in range(stacked.shape[0]):
             out[f"layers.{i}.{name}"] = _tensor(stacked[i])
     return out
+
+
+def cnn_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"conv", "w1", "w2"}`` of the reference CNN -> the port CNN's
+    state dict (the same names, shapes and layouts)."""
+    return {k: _tensor(np.asarray(params[k])) for k in ("conv", "w1", "w2")}
+
+
+def cnn_momentum_from_jax(opt_state: Any) -> Dict[str, torch.Tensor]:
+    """The momentum of an ``optax.sgd(lr, momentum=...)`` state (a chain
+    whose first state carries ``trace``) -> ``{name: buffer}``, the port's
+    ``torch.optim.SGD`` ``momentum_buffer`` of each parameter."""
+    states = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    for st in states:
+        trace = getattr(st, "trace", None)
+        if trace is not None:
+            return cnn_params_from_jax(trace)
+    raise ValueError("optimizer state carries no momentum trace")

@@ -1,0 +1,59 @@
+"""Standalone lighthouse CLI of the port.
+
+Counterpart of ``torchft_tpu/lighthouse.py:24-127`` over the port's native
+``LighthouseServer``. Run one lighthouse per job::
+
+    python -m torchft_tpu_torch.lighthouse --min-replicas 2 --bind 0.0.0.0:29510
+
+and point workers at it with ``TORCHFT_LIGHTHOUSE=host:port``. It logs
+``lighthouse listening at <address>`` once it serves, and exits with 0 on
+SIGINT or SIGTERM. Each flag also takes its underscore spelling
+(``--min_replicas``). The reference's ``--history``, ``--serve-registry``,
+``--serve-drain-on``, ``--redundancy-directory`` and ``--policy`` come
+with their planes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import threading
+from typing import List, Optional
+
+from torchft_tpu_torch.coordination import LighthouseServer
+
+__all__ = ["main"]
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    parser = argparse.ArgumentParser(prog="torchft_tpu_torch.lighthouse", description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--bind", default="0.0.0.0:29510")
+    parser.add_argument("--min-replicas", "--min_replicas", type=int, default=1)
+    parser.add_argument("--join-timeout-ms", "--join_timeout_ms", type=int, default=60000)
+    parser.add_argument("--quorum-tick-ms", "--quorum_tick_ms", type=int, default=100)
+    parser.add_argument("--heartbeat-timeout-ms", "--heartbeat_timeout_ms", type=int,
+                        default=5000)
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO)
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    server = LighthouseServer(
+        bind=args.bind,
+        min_replicas=args.min_replicas,
+        join_timeout_ms=args.join_timeout_ms,
+        quorum_tick_ms=args.quorum_tick_ms,
+        heartbeat_timeout_ms=args.heartbeat_timeout_ms,
+    )
+    try:
+        logging.info("lighthouse listening at %s", server.address())
+        stop.wait()
+    finally:
+        server.shutdown()
+
+
+if __name__ == "__main__":
+    main()

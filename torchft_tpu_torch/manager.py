@@ -12,6 +12,10 @@ Replica groups here are single-rank (each replica group is one worker,
 the leader of its own store and manager server) and the quorum is always
 async: a healing replica sits its first step out. The reference's
 multi-rank groups, synchronous quorum and ``max_retries`` are not ported.
+The heal rides ``checkpoint_transport`` (``:233``, ``:308-315``): the
+port's ``HTTPTransport`` by default, or a ``PGTransport`` over a recovery
+process group of its own, which the Manager reconfigures with its PG at
+every new quorum under the ``.../recovery/{group_rank}`` store prefix.
 
 The allreduce takes the reference's host-plane paths. By default (as the
 reference's) a multi-leaf tree STREAMS (``:1891-2200``): ``bucketing``
@@ -156,6 +160,7 @@ class Manager:
         bucket_cap_bytes: Optional[int] = None,
         stream_buckets: Optional[bool] = None,
         compress: Optional[str] = None,
+        checkpoint_transport: Optional[CheckpointTransport] = None,
     ) -> None:
         self._pg = pg
         set_reroute = getattr(pg, "set_reroute_observer", None)
@@ -201,9 +206,10 @@ class Manager:
             self.register_state_dict_fn("default", load_state_dict, state_dict)
 
         hostname = hostname or _socket.gethostname()
-        self._checkpoint_transport: CheckpointTransport = HTTPTransport(
-            timeout=self._timeout, hostname=hostname
-        )
+        if checkpoint_transport is None:
+            # the heal URL uses the hostname the store and manager use
+            checkpoint_transport = HTTPTransport(timeout=self._timeout, hostname=hostname)
+        self._checkpoint_transport: CheckpointTransport = checkpoint_transport
 
         # the group's only rank leads it: it owns the rendezvous store and
         # the manager server
@@ -364,6 +370,10 @@ class Manager:
                 t0 = time.perf_counter()
                 self._pending_state_dict = self._recv_checkpoint(quorum)
                 self._record_timing("heal_recv_s", time.perf_counter() - t0)
+                stream = self._checkpoint_transport.last_recv_timings()
+                if stream is not None:
+                    self._record_timing("heal_chunks", float(stream.num_chunks))
+                    self._record_timing("heal_mb_per_s", stream.mb_per_s)
                 # ft step/batches restore now; user state is applied from
                 # the main thread when safe
                 self.load_state_dict(self._pending_state_dict["torchft"])
@@ -865,6 +875,14 @@ class Manager:
             raise RuntimeError("user state_dict is not registered")
         return {"user": self.user_state_dict(), "torchft": self.state_dict()}
 
+    def state_dict_template(self) -> Dict[str, Any]:
+        """The live heal composite, as an in-place template for a transport:
+        ``PGTransport(pg, state_dict_template=lambda:
+        manager.state_dict_template())`` (late-bound: the transport is made
+        before the Manager). Sender and receiver build this tree from their
+        registered state fns, so its leaves align by index."""
+        return self._manager_state_dict()
+
     def user_state_dict(self) -> Dict[str, Any]:
         with self._state_dict_lock.r_lock():
             return {key: fn() for key, fn in self._user_state_dicts.items()}
@@ -906,12 +924,13 @@ class Manager:
 
     def timings(self) -> Dict[str, float]:
         """Wall-clock seconds of the last heal send/receive
-        (``heal_send_s``, ``heal_recv_s``) and, once an allreduce has
-        streamed, of its stages summed over buckets (``allreduce_pack_s``,
-        ``allreduce_wire_s``, ``allreduce_unpack_s``), its bucket count
-        (``allreduce_buckets``) and ``overlap_efficiency``: the share of
-        wire time that ran while another bucket was in some stage. Also
-        the lifetime count of compressed-ring re-routes
+        (``heal_send_s``, ``heal_recv_s``), the chunks and MiB/s of the
+        last streamed receive (``heal_chunks``, ``heal_mb_per_s``) and,
+        once an allreduce has streamed, of its stages summed over buckets
+        (``allreduce_pack_s``, ``allreduce_wire_s``, ``allreduce_unpack_s``),
+        its bucket count (``allreduce_buckets``) and ``overlap_efficiency``:
+        the share of wire time that ran while another bucket was in some
+        stage. Also the lifetime count of compressed-ring re-routes
         (``collective_reroute``) once one has happened."""
         with self._metrics_lock:
             return dict(self._timings)

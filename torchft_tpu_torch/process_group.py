@@ -2,7 +2,8 @@
 
 Counterpart of ``torchft_tpu/process_group.py:125-300`` and its
 ``ProcessGroupHost`` (``:1262``): the ``ProcessGroup`` ABC with
-value-returning collectives, a world-size-1 ``ProcessGroupDummy``, and
+value-returning collectives and point-to-point ``send`` / ``recv`` /
+``recv_into``, a world-size-1 ``ProcessGroupDummy``, and
 ``ProcessGroupHost``, a TCP full mesh between replica groups that is torn
 down and rebuilt per quorum through the rendezvous KV store.
 
@@ -24,6 +25,14 @@ as the reference's (``:1485-1530``):
 - buffers of ``_RING_MIN_BYTES`` or more: the bandwidth-optimal ring
   (``:631-714``), raw frames straight from the working buffer;
 - anything else: the one-round full-mesh exchange of pickled payloads.
+
+Point-to-point sends ride a writer thread per peer (``:565``, ``:1601``):
+``_RING_MIN_BYTES`` or more of host buffers go as a pickled header of
+dtypes and shapes and then raw frames, anything else pickled. CUDA tensors
+are staged through page-locked host memory, and ``recv_into`` a CUDA
+tensor lands the frame in that tensor's storage. One generation carries
+either p2p or collective traffic, never both (frame order on a shared
+socket): a checkpoint transport gets a process group of its own.
 """
 
 from __future__ import annotations
@@ -195,6 +204,24 @@ class ProcessGroup(ABC):
     def alltoall(self, input_chunks: Sequence[Any]) -> Work:
         """Future resolves to [chunk from rank 0, chunk from rank 1, ...]."""
 
+    @abstractmethod
+    def send(self, arrays: Sequence[Any], dst: int, tag: int = 0) -> Work:
+        """Future resolves to None once the arrays are written to ``dst``."""
+
+    @abstractmethod
+    def recv(self, src: int, tag: int = 0) -> Work:
+        """Future resolves to the received arrays (host buffers)."""
+
+    # whether send/recv_into move raw frames straight between buffers (the
+    # ranged checkpoint wire needs them)
+    streams_raw_frames = False
+
+    def recv_into(self, buffers: Sequence[Any], src: int, tag: int = 0) -> Work:
+        """``recv`` that may land the arrays in ``buffers``: entry i of the
+        result IS ``buffers[i]`` when it absorbed the frame, else a fresh
+        array the caller copies from. This default absorbs nothing."""
+        return self.recv(src, tag)
+
 
 class ProcessGroupDummy(ProcessGroup):
     """World-size-1 no-op PG: collectives return their inputs."""
@@ -231,6 +258,12 @@ class ProcessGroupDummy(ProcessGroup):
 
     def alltoall(self, input_chunks):
         return DummyWork(list(input_chunks))
+
+    def send(self, arrays, dst, tag=0):
+        return DummyWork(None)
+
+    def recv(self, src, tag=0):
+        return DummyWork(None)
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +306,11 @@ class _Comm:
         self.aborted = False
         self._lock = threading.Lock()
         self.peers: Dict[int, socket.socket] = {}
-        # frames from the dispatch thread and the collective writer must
-        # never interleave on one socket
+        # frames from the dispatch thread, the collective writer and the
+        # p2p writers must never interleave on one socket
         self._send_locks: Dict[int, threading.Lock] = {}
+        # one p2p writer per peer (strict FIFO), started at its first send
+        self._p2p_queues: Dict[int, "queue.Queue"] = {}
         # writes ride one persistent worker so symmetric send/send between
         # two ranks cannot deadlock on full TCP buffers
         self._coll_q: Optional["queue.Queue"] = None
@@ -444,6 +479,48 @@ class _Comm:
             self._coll_q.put((job, done, err))
         return done, err
 
+    def p2p_send_async(
+        self, peer: int, job: Callable[[], None], fut: Future,
+        fail: Callable[[Exception], None],
+    ) -> None:
+        """Run a p2p write ``job`` on ``peer``'s writer thread, not the
+        dispatch thread: symmetric send/send between two ranks would block
+        both dispatch threads in sendall on full TCP buffers, with the
+        matching receives queued behind them. ``fut`` resolves when the job
+        ends; ``fail`` sees its error first."""
+
+        def _writer(wq: "queue.Queue") -> None:
+            while True:
+                item = wq.get()
+                if item is None:
+                    return
+                jb, ft, fl = item
+                try:
+                    jb()
+                    ft.set_result(None)
+                except BaseException as e:  # noqa: BLE001 - handed to the waiter
+                    err = e if isinstance(e, Exception) else RuntimeError(str(e))
+                    fl(err)
+                    try:
+                        ft.set_exception(err)
+                    except RuntimeError:
+                        pass
+
+        with self._lock:
+            if self.aborted:
+                raise RuntimeError("communicator aborted")
+            q = self._p2p_queues.get(peer)
+            if q is None:
+                q = queue.Queue()
+                self._p2p_queues[peer] = q
+                threading.Thread(
+                    target=_writer, args=(q,), daemon=True,
+                    name=f"pg_host_p2p_r{self.rank}_to{peer}",
+                ).start()
+            # under the lock abort's sentinels are posted with: a job never
+            # lands behind one and leaves its future unresolved
+            q.put((job, fut, fail))
+
     def exchange(self, payloads: Dict[int, Any]) -> Dict[int, Any]:
         """Send ``payloads[r]`` to each rank r and receive one object from
         every peer: the writer worker streams the sends while this thread
@@ -469,6 +546,10 @@ class _Comm:
     def abort(self) -> None:
         with self._lock:
             self.aborted = True
+            # jobs queued before the sentinel run first and fail on the
+            # closed sockets, so their futures resolve
+            for q in self._p2p_queues.values():
+                q.put(None)
             if self._coll_q is not None:
                 self._coll_q.put(None)
             for s in list(self.peers.values()) + [self._listener]:
@@ -1030,6 +1111,23 @@ class ProcessGroupHost(ProcessGroup):
             self.comm = comm
             self.queue: "queue.Queue" = queue.Queue()
             self.error: Optional[Exception] = None
+            # "p2p" or "collective", fixed by the first op: p2p writes ride
+            # per-peer writer threads, collectives the dispatch and ring
+            # threads, and mixing them could reorder frames on a socket
+            self.mode: Optional[str] = None
+            self._mode_lock = threading.Lock()
+
+        def claim_mode(self, mode: str) -> None:
+            with self._mode_lock:
+                if self.mode is None:
+                    self.mode = mode
+                elif self.mode != mode:
+                    raise RuntimeError(
+                        f"ProcessGroupHost generation already used for {self.mode} "
+                        "ops; p2p and collective ops cannot mix on one generation "
+                        "(frame order): give the checkpoint transport its own "
+                        "process group"
+                    )
 
         def abort(self) -> None:
             if self.error is None:
@@ -1146,13 +1244,20 @@ class ProcessGroupHost(ProcessGroup):
                 except RuntimeError:
                     pass
 
-    def _submit(self, fn: Callable[[_Comm], Any]) -> Work:
+    def _live_generation(self, mode: str) -> "ProcessGroupHost._Generation":
+        """The current generation, claimed for ``mode``; raises when the
+        group is unconfigured or errored. Call under ``_lock``."""
+        gen = self._gen
+        if gen is None:
+            raise RuntimeError("process group is not configured")
+        if gen.error is not None:
+            raise gen.error
+        gen.claim_mode(mode)
+        return gen
+
+    def _submit(self, fn: Callable[[_Comm], Any], mode: str = "collective") -> Work:
         with self._lock:
-            gen = self._gen
-            if gen is None:
-                raise RuntimeError("process group is not configured")
-            if gen.error is not None:
-                raise gen.error
+            gen = self._live_generation(mode)
             fut: Future[Any] = Future()
             gen.queue.put((fn, fut))
             return FutureWork(fut)
@@ -1209,3 +1314,92 @@ class ProcessGroupHost(ProcessGroup):
             return [gathered[r] for r in range(comm.world)]
 
         return self._submit(_run)
+
+    # -- point to point -----------------------------------------------------
+    streams_raw_frames = True
+
+    def send(self, arrays, dst, tag=0):
+        host = [_stage_p2p(a) for a in arrays]
+        with self._lock:
+            gen = self._live_generation("p2p")
+        fut: Future[Any] = Future()
+        timeout = self._timeout
+
+        def job() -> None:
+            # its own watchdog: the job runs on the peer's writer thread
+            with context_timeout(gen.abort, timeout):
+                comm = gen.comm
+                if all(isinstance(h, _BUFFERS) for h in host) and (
+                    sum(_nbytes(h) for h in host) >= _RING_MIN_BYTES
+                ):
+                    # a small pickled header of dtypes and shapes, then each
+                    # buffer's bytes straight from memory
+                    metas = [(dtype_name(h.dtype), tuple(h.shape)) for h in host]
+                    comm.send_to(dst, ("p2p_raw", tag, metas))
+                    for h in host:
+                        comm.send_raw(dst, h)
+                else:
+                    comm.send_to(dst, ("p2p", tag, host))
+
+        def fail(e: Exception) -> None:
+            gen.error = gen.error or e
+
+        gen.comm.p2p_send_async(dst, job, fut, fail)
+        return FutureWork(fut)
+
+    def recv(self, src, tag=0):
+        return self.recv_into([], src, tag)
+
+    def recv_into(self, buffers, src, tag=0):
+        """``recv`` whose raw frames land in ``buffers``: entry i of the
+        result IS ``buffers[i]`` when that buffer can absorb the frame
+        (``can_absorb``, contiguous), else a fresh host array (pickled
+        messages, mismatched buffers, more arrays than buffers). A CUDA
+        buffer receives through page-locked host memory into its own
+        storage."""
+        buffers = list(buffers)
+
+        def _run(comm: _Comm):
+            from torchft_tpu_torch.checkpointing._serialization import can_absorb
+
+            kind, got_tag, payload = comm.recv_from(src)
+            if got_tag != tag:
+                raise RuntimeError(f"p2p tag {got_tag} from rank {src}, expected {tag}")
+            if kind == "p2p":
+                return payload
+            if kind != "p2p_raw":
+                raise RuntimeError(f"unexpected p2p frame {kind!r} from rank {src}")
+            out = []
+            for i, (dtype, shape) in enumerate(payload):
+                target = buffers[i] if i < len(buffers) else None
+                if not can_absorb(target, shape, dtype, require_contiguous=True):
+                    target = _host_alloc(dtype, shape)
+                if isinstance(target, torch.Tensor) and target.is_cuda:
+                    staged = host_empty((target.numel() * target.element_size(),),
+                                        torch.uint8, pinned=True)
+                    comm.recv_raw_into(src, staged)
+                    target.reshape(-1).view(torch.uint8).copy_(torch.from_numpy(staged))
+                else:
+                    comm.recv_raw_into(src, target)
+                out.append(target)
+            return out
+
+        return self._submit(_run, mode="p2p")
+
+
+def _stage_p2p(x: Any) -> Any:
+    """A send's host buffer: CUDA tensors are copied into page-locked host
+    memory (an ndarray, or a CPU tensor for bf16), the rest as ``_to_host``."""
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x.detach())
+        return out if out.dtype == torch.bfloat16 else out.numpy()
+    return _to_host(x)
+
+
+def _host_alloc(dtype: str, shape: Tuple[int, ...]) -> Any:
+    """A fresh host buffer for a received frame: an ndarray, or a CPU
+    tensor for bf16."""
+    if dtype == "bfloat16":
+        return torch.empty(tuple(shape), dtype=torch.bfloat16)
+    return np.empty(tuple(shape), np.dtype(dtype))

@@ -10,10 +10,15 @@ step. With the Manager's defaults the allreduce streams the gradients in
 1 GiB buckets, fp8-coded with error feedback when ``quantize`` is set;
 each step's log entry carries the pipeline's stage seconds and the bytes
 and busy seconds of its wire. A replica told to fail raises after its backward pass at that step,
-restarts with a fresh model and Manager, and heals over HTTP from a peer.
+restarts with a fresh model and Manager, and heals from a peer: over HTTP,
+or with ``transport="pg"`` (``--transport pg``) over a recovery
+``ProcessGroupHost`` each replica owns, received in place into the
+replica's live model and optimizer state on its device (the
+``PGTransport`` template is ``Manager.state_dict_template``; AdamW's state
+exists, zero, from the start so every heal carries the same tree).
 
     python -m torchft_tpu_torch.train --config bench_1b --steps 6 \\
-        --batch-size 1 --seq-len 2048 --quantize --fail-at 3
+        --batch-size 1 --seq-len 2048 --quantize --fail-at 3 [--transport pg]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import threading
@@ -31,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from torchft_tpu_torch.checkpointing import PGTransport
 from torchft_tpu_torch.coordination import LighthouseServer
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models.llama import CONFIGS, Llama
@@ -64,6 +71,8 @@ class TrainConfig:
     quantize: bool = True
     # replica 1 crashes after its backward pass at this step (None: never)
     fail_at: Optional[int] = None
+    # the heal's checkpoint transport: "http" or "pg"
+    transport: str = "http"
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -82,6 +91,12 @@ def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
     gen.manual_seed(replica_id)
     model.init_weights(gen)
     optim = torch.optim.AdamW(model.parameters(), lr=LR)
+    # AdamW's state as its first step would create it, zero: a heal before
+    # that step then carries the tree every later heal does (the step
+    # count where AdamW keeps it, on the CPU)
+    for p in model.parameters():
+        optim.state[p].update(step=torch.tensor(0.0), exp_avg=torch.zeros_like(p),
+                              exp_avg_sq=torch.zeros_like(p))
 
     def make_batch(step: int):
         g = torch.Generator(device=device)
@@ -114,6 +129,15 @@ def _train_replica(
         return {"model": model.state_dict(), "optim": optim.state_dict()}
 
     pg = ProcessGroupHost(timeout=TIMEOUT_S)
+    transport = recovery_pg = None
+    manager: Optional[Manager] = None
+    if cfg.transport == "pg":
+        # its own PG: one generation carries p2p or collective traffic
+        recovery_pg = ProcessGroupHost(timeout=TIMEOUT_S)
+        transport = PGTransport(recovery_pg, timeout=TIMEOUT_S,
+                                state_dict_template=lambda: manager.state_dict_template())
+    elif cfg.transport != "http":
+        raise ValueError(f"unknown transport {cfg.transport!r}")
     manager = Manager(
         pg=pg,
         load_state_dict=load_state,
@@ -123,6 +147,7 @@ def _train_replica(
         lighthouse_addr=lighthouse_addr,
         timeout=TIMEOUT_S,
         quorum_timeout=TIMEOUT_S,
+        checkpoint_transport=transport,
     )
     optimizer = OptimizerWrapper(manager, optim)
     tokens_per_step = cfg.batch_size * cfg.seq_len
@@ -190,6 +215,8 @@ def _train_replica(
         }
     finally:
         manager.shutdown(wait=False)
+        if recovery_pg is not None:
+            recovery_pg.shutdown()
 
 
 def run_replicas(
@@ -232,14 +259,20 @@ def run_replicas(
                 return out
             except InjectedFailure:
                 restarts += 1
-                if dev.type == "cuda":
-                    torch.cuda.empty_cache()
             except BaseException as e:
                 with log_lock:
                     if not stop.is_set():
                         errors.append(e)
                         stop.set()
                 raise
+            # past the handler (the crash's traceback is gone): the crashed
+            # incarnation's model, optimizer state and EF residuals sit in
+            # reference cycles (its PGTransport's template closure holds its
+            # Manager); free them before the restart allocates its own, or
+            # the card holds both
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
 
     try:
         with ThreadPoolExecutor(max_workers=REPLICAS) as ex:
@@ -264,12 +297,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--seq-len", type=int, default=2048)
     p.add_argument("--quantize", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--fail-at", type=int, default=None)
+    p.add_argument("--transport", choices=["http", "pg"], default="http",
+                   help="heal transport: http, or pg (a recovery process group)")
     p.add_argument("--device", default=None, help="default: cuda")
     args = p.parse_args(argv)
     cfg = TrainConfig(
         config=args.config, steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, quantize=args.quantize,
-        fail_at=args.fail_at,
+        fail_at=args.fail_at, transport=args.transport,
     )
     results = run_replicas(
         cfg, args.device, on_step=lambda e: print(json.dumps(e), flush=True)
