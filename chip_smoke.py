@@ -98,6 +98,28 @@
    dequantize launched in each child (their ``done:`` lines carry the
    counts); prints each replica's step times and heal seconds. A failed
    check raises with the end of the processes' transcript.
+9. Trains bench_1b semi-synchronously (``--diloco``): full width and depth,
+   batch 1, seq 2048, two replica threads, inner AdamW steps, one of two
+   fragments synced every 10 inner steps (sync every 20, delay 1) with its
+   fp8 pseudogradient through the streamed allreduce, the outer Nesterov
+   SGD and the merge, 40 inner steps; replica 1 crashes after inner step
+   14 (after fragment 0's first sync, before fragment 1's prepare),
+   restarts and heals over PGTransport into its live model, AdamW state,
+   fragment globals and momentum (``data_ptr()`` kept). Checks finite
+   losses, splash attention, the fragments' globals and momentum bitwise
+   equal across replicas, K1 bf16, K3-host and K4 launched and K3
+   ``<false>`` not; prints the inner-step ms, each sync's allreduce ms per
+   fragment, tokens/s per replica, the heal's seconds, chunks and MiB/s
+   and the peak device memory.
+10. Runs the ``train_diloco`` example as processes on the card: the
+   lighthouse CLI and two replicas of ``python -m
+   torchft_tpu_torch.examples.train_diloco --quantize`` (HTTP heal, so the
+   CPU-to-card load into fragment globals runs), replica 1 SIGKILLed once
+   it printed its outer-step-4 line and restarted. Checks every exit code,
+   the heal, equal fragment digests and the fp8 launches in each child.
+   Both process phases leave their transcripts in ``chiprun_out/``.
+11. LocalSGD on the card: two replica threads average trees of CUDA
+   tensors, bitwise equal to the same call on CPU tensors.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -661,6 +683,7 @@ def check_train_ddp_processes() -> dict:
         raise fail(f"train_ddp processes: {e!r}") from e
     finally:
         lighthouse_rc = fleet.close()
+        save_transcript("train_ddp.log", fleet.transcript)
     log(f"train_ddp processes: {time.perf_counter() - t0:.1f} s, killed replica 1 at "
         f"{t_kill - t0:.1f} s; exit codes {rcs}, lighthouse {lighthouse_rc}")
     if any(rcs.values()) or lighthouse_rc != 0:
@@ -687,6 +710,193 @@ def check_train_ddp_processes() -> dict:
             f"metrics {d['metrics']}, launches {d['launches']}, params sha256 "
             f"{d['params_sha256'][:16]}")
     return {rid: d["launches"] for rid, d in done.items()}
+
+
+def save_transcript(name: str, lines: list) -> None:
+    """A process phase's transcript, kept in chiprun_out/ beside the script."""
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, name), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
+    """bench_1b trained semi-synchronously with a crash and a PG heal
+    (docstring, 9); returns the run's launches."""
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.train import run_replicas
+
+    dcfg = dataclasses.replace(cfg, steps=40, fail_at=14, transport="pg", diloco=True,
+                               sync_every=20, num_fragments=2, fragment_sync_delay=1)
+    q.reset_launches()
+    ta.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = run_replicas(dcfg, device, on_step=lambda e: log(
+        f"diloco replica={e['replica']} inner={e['inner_step']} outer={e['outer_step']} "
+        f"loss={e['loss']:.4f} sync={','.join(e['sync']) or '-'} healed={e['healed']} "
+        f"attention={e['attention']} step_ms={e['step_ms']:.1f} inner_ms={e['inner_ms']:.1f} "
+        f"diloco_ms={e['diloco_ms']:.1f} tokens_per_s={e['tokens_per_s']:.1f}"
+        + (f" committed={e['committed']} participants={e['participants']} "
+           f"sync_allreduce_ms={e['sync_allreduce_ms']:.1f} sync_wait_ms={e['sync_wait_ms']:.1f} "
+           f"pack_ms={e['allreduce_pack_s'] * 1e3:.1f} wire_ms={e['allreduce_wire_s'] * 1e3:.1f} "
+           f"unpack_ms={e['allreduce_unpack_s'] * 1e3:.1f} "
+           f"buckets={int(e['allreduce_buckets'])}" if "committed" in e else "")))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    elapsed = time.perf_counter() - t0
+    log_entries = [e for r in results for e in r["log"]]
+    losses = [e["loss"] for e in log_entries]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"DiLoCo run: non-finite loss: {losses}")
+    if results[1]["restarts"] != 1 or results[1]["metrics"]["heals"] < 1:
+        raise RuntimeError(f"DiLoCo run: replica 1 did not crash and heal: {results[1]['metrics']}")
+    if any(r["inner_steps"] < dcfg.steps for r in results) or \
+            results[0]["step"] != results[1]["step"]:
+        raise RuntimeError(f"DiLoCo run: replicas stopped at inner "
+                           f"{[r['inner_steps'] for r in results]}, outer "
+                           f"{[r['step'] for r in results]}")
+    if not all(r["storage_kept"] for r in results):
+        raise RuntimeError("DiLoCo run: the PG heal moved a live tensor's storage")
+    state0, state1 = results[0]["fragment_state"], results[1]["fragment_state"]
+    n_tensors = len(state0)
+    if len(state1) != n_tensors or not all(same_bits(a, b) for a, b in zip(state0, state1)):
+        raise RuntimeError("DiLoCo run: fragment globals or momentum differ across replicas")
+    dispatch = {e["attention"] for e in log_entries}
+    if dispatch != {"splash"}:
+        raise RuntimeError(f"DiLoCo run: attention dispatched to {dispatch}, not splash")
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv", "quantize_fp8_rowwise_host",
+                   "dequantize_fp8_rowwise"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} never launched on the DiLoCo path")
+    if launches["quantize_fp8_rowwise"] != 0:
+        raise RuntimeError("quantize_fp8_rowwise<false> launched on the DiLoCo path")
+    # replica 0's steps from its second cycle on, both replicas healthy
+    r0 = [e for e in results[0]["log"] if e["inner_step"] >= 20]
+    plain = [e["step_ms"] for e in r0 if not e["sync"]]
+    per_inner = sum(e["step_ms"] for e in r0) / len(r0)
+    for e in log_entries:
+        if "committed" in e:
+            log(f"diloco sync replica={e['replica']} {e['sync'][-1]} "
+                f"inner={e['inner_step']} committed={e['committed']} "
+                f"allreduce_ms={e['sync_allreduce_ms']:.1f} wait_ms={e['sync_wait_ms']:.1f}")
+    heal = heal_numbers(results)
+    tokens = dcfg.batch_size * dcfg.seq_len
+    log(f"bench_1b DiLoCo ({elapsed:.1f} s, {dcfg.steps} inner steps, crash after inner "
+        f"{dcfg.fail_at}, heal over pg): fragment globals and momentum bitwise equal over "
+        f"{n_tensors} tensors; replica 0 inner steps 20-39: median step without a sync "
+        f"{statistics.median(plain):.1f} ms, mean of all {per_inner:.1f} ms "
+        f"({tokens / per_inner * 1e3:.1f} tokens/s per replica; median inner_ms "
+        f"{statistics.median(e['inner_ms'] for e in r0):.1f}); heal_send_s "
+        f"{heal['heal_send_s']:.3f} heal_recv_s {heal['heal_recv_s']:.3f} heal_chunks "
+        f"{heal['heal_chunks']:.0f} heal_mb_per_s {heal['heal_mb_per_s']:.1f}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    del results, log_entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_train_diloco_processes() -> dict:
+    """The train_diloco example as processes on the card (docstring, 10)."""
+    from torchft_tpu_torch.examples.train_ddp import Fleet
+
+    kill_at = 4
+    fleet = Fleet(
+        ["--steps", "40", "--batch-size", "16", "--quantize", "--device", "cuda"],
+        # min 2: the rejoin always goes through a heal
+        ["--min-replicas", "2", "--join-timeout-ms", "500", "--quorum-tick-ms", "20",
+         "--heartbeat-timeout-ms", "2000"],
+        module="torchft_tpu_torch.examples.train_diloco",
+    )
+    t0 = time.perf_counter()
+
+    def fail(msg: str) -> RuntimeError:
+        return RuntimeError(msg + "\n--- transcript ---\n" + "\n".join(fleet.transcript[-80:]))
+
+    try:
+        for rid in (0, 1):
+            fleet.spawn(rid)
+        fleet.wait_line(1, f"] outer_step={kill_at} ", 300)
+        fleet.kill(1)
+        fleet.spawn(1)
+        rcs = fleet.wait(300)
+        done = {rid: fleet.done(rid) for rid in (0, 1)}
+    except Exception as e:  # noqa: BLE001 - reported with the transcript
+        raise fail(f"train_diloco processes: {e!r}") from e
+    finally:
+        lighthouse_rc = fleet.close()
+        save_transcript("train_diloco.log", fleet.transcript)
+    log(f"train_diloco processes: {time.perf_counter() - t0:.1f} s; exit codes {rcs}, "
+        f"lighthouse {lighthouse_rc}")
+    if any(rcs.values()) or lighthouse_rc != 0:
+        raise fail(f"train_diloco processes exited with {rcs}, lighthouse {lighthouse_rc}")
+    first = next((line for line in fleet.lines[1] if "] outer_step=" in line), "outer_step=0")
+    first_step = int(first.split("outer_step=", 1)[1].split()[0])
+    if done[1]["metrics"]["heals"] < 1 or first_step <= kill_at:
+        raise fail(f"the restarted replica did not heal mid-run (first line {first!r}, "
+                   f"metrics {done[1]['metrics']})")
+    if done[0]["fragments_sha256"] != done[1]["fragments_sha256"]:
+        raise fail("train_diloco replicas' fragment state differs")
+    for rid, d in done.items():
+        for kernel in ("quantize_fp8_rowwise_host", "dequantize_fp8_rowwise"):
+            if d["launches"][kernel] == 0:
+                raise fail(f"{kernel} never launched in train_diloco replica {rid}")
+        t = d["timings"]
+        log(f"train_diloco replica {rid}: outer steps {d['step']}, local steps {d['local']}, "
+            f"global_l1[frag0] {d['global_l1[frag0]']:.6f}, heal_send_s "
+            f"{t.get('heal_send_s', float('nan')):.4f}, heal_recv_s "
+            f"{t.get('heal_recv_s', float('nan')):.4f}, metrics {d['metrics']}, launches "
+            f"{d['launches']}, fragments sha256 {d['fragments_sha256'][:16]}")
+    return {rid: d["launches"] for rid, d in done.items()}
+
+
+def check_local_sgd_on_card(device: torch.device) -> None:
+    """LocalSGD of CUDA parameter trees over two replica threads, bitwise
+    equal to the same call on CPU tensors (docstring, 11)."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.local_sgd import LocalSGD
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.process_group import ProcessGroupHost
+
+    def run(dev: torch.device) -> list:
+        lighthouse = LighthouseServer(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=5000,
+                                      quorum_tick_ms=20, heartbeat_timeout_ms=5000)
+
+        def replica(rid: int) -> dict:
+            gen = torch.Generator().manual_seed(100 + rid)
+            params = {"w": torch.randn(1000, 257, generator=gen).to(dev),
+                      "b": torch.randn(4099, generator=gen).to(dev, torch.bfloat16)}
+            manager = Manager(pg=ProcessGroupHost(timeout=60), load_state_dict=lambda sd: None,
+                              state_dict=lambda: {}, min_replica_size=2, init_sync=False,
+                              replica_id=f"local_sgd_{rid}",
+                              lighthouse_addr=f"127.0.0.1:{lighthouse.port}", timeout=60)
+            try:
+                local_sgd = LocalSGD(manager, params, sync_every=2)
+                for _ in range(4):
+                    with torch.no_grad():
+                        params["w"].mul_(0.5 + rid)
+                        params["b"].add_(rid)
+                    local_sgd.step(params)
+                return {k: v.cpu() for k, v in params.items()}
+            finally:
+                manager.shutdown(wait=False)
+
+        try:
+            with ThreadPoolExecutor(2) as ex:
+                return list(ex.map(replica, (0, 1)))
+        finally:
+            lighthouse.shutdown()
+
+    card, host = run(device), run(torch.device("cpu"))
+    for rid in (0, 1):
+        for k in host[rid]:
+            if not same_bits(card[rid][k], host[rid][k]) or not same_bits(card[rid][k], card[0][k]):
+                raise RuntimeError(f"LocalSGD on the card: replica {rid} leaf {k} differs")
+    log("LocalSGD of CUDA trees over two replica threads: bitwise equal to the CPU call")
 
 
 def bench_1b_grad_specs() -> dict:
@@ -1599,6 +1809,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ddp_launches = check_train_ddp_processes()
+    diloco_launches = check_diloco_bench_1b(device, cfg)
+    diloco_proc_launches = check_train_diloco_processes()
+    check_local_sgd_on_card(device)
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -1629,6 +1842,10 @@ def main() -> int:
             "library_ms": None,
             # the train_ddp example's children (none runs the serial engine)
             "launches_train_ddp": {f"replica {rid}": d[kname] for rid, d in ddp_launches.items()},
+            # bench_1b under DiLoCo, and the train_diloco example's children
+            "launches_diloco": {"bench_1b": diloco_launches[kname], **{
+                f"train_diloco replica {rid}": d[kname]
+                for rid, d in diloco_proc_launches.items()}},
             **sass_counts(build_report[instance]),
         })
     for dtype, (suffix, sources) in ATTN_DTYPES.items():
@@ -1644,6 +1861,9 @@ def main() -> int:
                     # K1 in bf16 runs in training, every other one on its
                     # model path (check_model_path)
                     "launches": launches[key] if key in on_path else path_launches[key],
+                    # bench_1b under DiLoCo runs K1 in bf16 only
+                    **({"launches_diloco": {"bench_1b": diloco_launches[key]}}
+                       if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],
                     # the head-dim-128 instance that bench_1b runs

@@ -29,8 +29,8 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_reference_package():
     modules = _port_modules()
-    assert "torchft_tpu_torch.manager" in modules
-    assert "torchft_tpu_torch.ops.quantization" in modules
+    for name in ("manager", "ops.quantization", "local_sgd", "knobs", "examples.train_diloco"):
+        assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
         for name in {modules!r}:
@@ -58,13 +58,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         train.run_replicas(train.TrainConfig(config="debug"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--config", "debug", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.run_replicas(train.TrainConfig(config="debug", diloco=True))
     assert resolve_device("cpu") == torch.device("cpu")
     assert Llama(CONFIGS["debug"], device="cpu").embed.device.type == "cpu"
 
 
-def test_chip_smoke_imports_no_jax_and_no_reference_package():
-    """Every import in chip_smoke.py, at top level or inside a function."""
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+def _import_roots(script: str) -> set:
+    """Every import in ``script``, at top level or inside a function."""
+    with open(os.path.join(REPO, script)) as f:
         tree = ast.parse(f.read())
     roots = set()
     for node in ast.walk(tree):
@@ -72,5 +74,19 @@ def test_chip_smoke_imports_no_jax_and_no_reference_package():
             roots.update(alias.name.split(".")[0] for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    """Every import in chip_smoke.py, at top level or inside a function."""
+    roots = _import_roots("chip_smoke.py")
+    assert "torchft_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
+
+
+@pytest.mark.parametrize("script", ["attention_ab.py", "heal_ab.py"])
+def test_ab_scripts_import_no_jax_and_no_reference_package(script):
+    """The scripts that time two checkouts of the port on the card."""
+    roots = _import_roots(script)
     assert "torchft_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}

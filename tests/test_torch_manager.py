@@ -4,8 +4,9 @@ Two replica groups run as threads against an in-process lighthouse in each
 package: the debug Llama config, the fp8-quantized managed allreduce at
 both Managers' defaults (streamed fp8 buckets with error feedback), SGD,
 the same initial parameters and batches, and a crash of
-replica 1 after its backward pass at step 2 that restarts and heals over
-HTTP. The lighthouse needs both replicas for a quorum, so the survivor
+replica 1 after its backward pass at step 2 (once its step-2 quorum is
+in: a crash before it reached the lighthouse would leave the survivor's
+step undisturbed) that restarts and heals over HTTP. The lighthouse needs both replicas for a quorum, so the survivor
 waits for the restart and the rejoin always heals.
 
 Held: the per-replica commit/discard sequences are identical across
@@ -121,6 +122,9 @@ def _jax_slice(addr, inits):
                 _, grads = grad_fn(state["params"], jnp.asarray(tokens), jnp.asarray(targets))
                 if rid == 1 and step == FAIL_AT and not failed.is_set():
                     failed.set()
+                    # in the step's quorum before it dies, so the survivor's
+                    # step always sees the crash
+                    manager.wait_quorum()
                     raise Crash()
                 reduced = manager.allreduce(grads, should_quantize=True).get_future().wait(TIMEOUT)
                 committed = manager.should_commit()
@@ -171,6 +175,9 @@ def _torch_slice(addr, inits, transport="http", ptrs=None):
                 model.loss(tokens, targets).backward()
                 if rid == 1 and step == FAIL_AT and not failed.is_set():
                     failed.set()
+                    # in the step's quorum before it dies, so the survivor's
+                    # step always sees the crash
+                    manager.wait_quorum()
                     raise Crash()
                 grads = {n: p.grad for n, p in model.named_parameters()}
                 avg = manager.allreduce(grads, should_quantize=True).get_future().wait(TIMEOUT)
@@ -358,3 +365,172 @@ def test_dummy_process_group_passes_through():
     x = [torch.randn(5, 3), torch.randn(7)]
     out = allreduce_quantized(x, ReduceOp.SUM, ProcessGroupDummy()).get_future().wait(10)
     assert all(torch.equal(a, b) for a, b in zip(out, x))
+
+
+# -- the synchronous quorum (use_async_quorum=False) against the reference ------
+
+def _quorum_script(make_manager, lighthouse_cls, to_leaf, to_np, use_async_quorum,
+                   transport_cls=None):
+    """Two replicas take a step together (the first quorum's init_sync heal
+    makes them equal); then replica 1 restarts, a fresh Manager at step 0
+    with fresh state (and ``transport_cls`` for its heal), and both take a
+    second step. Returns what each saw in the second step: after
+    start_quorum (before its forward pass), in the allreduce and at the
+    vote."""
+    lh = _lighthouse(lighthouse_cls)
+    addr = f"127.0.0.1:{lh.port}"
+
+    def one_step(manager, rid, state):
+        manager.start_quorum()
+        rec = {"healed_before_forward": manager.last_quorum_healed(),
+               "w_before_forward": to_np(state["w"]).tolist()}
+        out = manager.allreduce({"g": to_leaf(np.full(2, rid + 1.0, np.float32))})
+        rec["avg"] = to_np(out.get_future().wait(TIMEOUT)["g"]).tolist()
+        rec["participants"] = manager.num_participants()
+        rec["participating"] = manager.is_participating()
+        rec["commit"] = manager.should_commit()
+        rec["healed"] = manager.last_quorum_healed()
+        rec["w_after_commit"] = to_np(state["w"]).tolist()
+        rec["step"] = manager.current_step()
+        return rec
+
+    def incarnation(rid, transport=None):
+        state = {"w": to_leaf(np.full(3, float(rid), np.float32))}
+
+        def load(sd):
+            state["w"] = to_leaf(np.asarray(to_np(sd["w"])))
+
+        return make_manager(rid, addr, load, lambda: {"w": state["w"]}, use_async_quorum,
+                            transport), state
+
+    def replica(rid):
+        manager, state = incarnation(rid)
+        try:
+            one_step(manager, rid, state)
+            if rid == 1:
+                manager.shutdown(wait=False)
+                manager, state = incarnation(
+                    rid, transport_cls(timeout=TIMEOUT) if transport_cls else None)
+            return one_step(manager, rid, state)
+        finally:
+            manager.shutdown(wait=False)
+
+    try:
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            return [f.result(timeout=120) for f in [ex.submit(replica, r) for r in range(2)]]
+    finally:
+        lh.shutdown()
+
+
+def _jax_quorum_manager(rid, addr, load, save, use_async_quorum, transport):
+    return JaxManager(pg=JaxPGHost(timeout=TIMEOUT), load_state_dict=load, state_dict=save,
+                      min_replica_size=1, use_async_quorum=use_async_quorum,
+                      replica_id=f"r{rid}", lighthouse_addr=addr, timeout=TIMEOUT,
+                      quorum_timeout=TIMEOUT, checkpoint_transport=transport)
+
+
+def _torch_quorum_manager(rid, addr, load, save, use_async_quorum, transport):
+    return Manager(pg=ProcessGroupHost(timeout=TIMEOUT), load_state_dict=load, state_dict=save,
+                   min_replica_size=1, use_async_quorum=use_async_quorum,
+                   replica_id=f"r{rid}", lighthouse_addr=addr, timeout=TIMEOUT,
+                   quorum_timeout=TIMEOUT, checkpoint_transport=transport)
+
+
+def _both_quorum_scripts(use_async_quorum, failing_recv=False):
+    from torchft_tpu.checkpointing import HTTPTransport as JaxHTTPTransport
+
+    def failing(cls):
+        class FailingRecv(cls):
+            def recv_checkpoint(self, *a, **k):
+                raise RuntimeError("injected recovery failure")
+
+            recv_checkpoint_multi = recv_checkpoint
+
+        return FailingRecv
+
+    jax_records = _quorum_script(
+        _jax_quorum_manager, JaxLighthouse, lambda a: jnp.asarray(a), np.asarray,
+        use_async_quorum, failing(JaxHTTPTransport) if failing_recv else None)
+    torch_records = _quorum_script(
+        _torch_quorum_manager, LighthouseServer, torch.from_numpy, lambda t: t.numpy(),
+        use_async_quorum, failing(HTTPTransport) if failing_recv else None)
+    assert torch_records == jax_records, (torch_records, jax_records)
+    return torch_records
+
+
+def test_sync_quorum_heals_inside_start_quorum_as_the_reference():
+    """The restarted replica's heal lands in start_quorum:
+    last_quorum_healed() is true and its state is the peer's before the
+    forward pass, and it takes part in the step (2 participants, its own
+    gradient averaged in)."""
+    survivor, healed = _both_quorum_scripts(use_async_quorum=False)
+    assert healed["healed_before_forward"] and healed["w_before_forward"] == [0.0] * 3
+    assert not survivor["healed_before_forward"]
+    for r in (survivor, healed):
+        assert r["participants"] == 2 and r["participating"]
+        assert r["avg"] == [1.5, 1.5] and r["commit"] and r["step"] == 2
+
+
+def test_async_quorum_heals_at_the_vote_as_the_reference():
+    """Under the async quorum the restarted replica sits the step out: 1
+    participant, its contribution zeros, the heal applied at the vote."""
+    survivor, healed = _both_quorum_scripts(use_async_quorum=True)
+    assert not healed["healed_before_forward"] and healed["w_before_forward"] == [1.0] * 3
+    assert healed["healed"] and not healed["participating"]
+    assert healed["w_after_commit"] == [0.0] * 3 and survivor["participating"]
+    for r in (survivor, healed):
+        assert r["participants"] == 1 and r["avg"] == [1.0, 1.0] and r["commit"]
+
+
+def test_sync_quorum_failed_recovery_votes_false_as_the_reference():
+    """A failed recovery leaves no healing state behind and the step's
+    vote fails (the survivor's too: the replica that failed to heal never
+    joined the allreduce)."""
+    survivor, failed = _both_quorum_scripts(use_async_quorum=False, failing_recv=True)
+    assert not failed["commit"] and not failed["healed"] and failed["participating"]
+    assert failed["step"] == 0 and failed["w_before_forward"] == [1.0] * 3
+    assert not survivor["commit"] and survivor["step"] == 1
+
+
+@pytest.mark.parametrize("use_async_quorum", [True, False], ids=["async", "sync"])
+def test_is_participating_follows_the_quorum_mode(use_async_quorum):
+    """A healing replica does not participate under the async quorum; the
+    sync quorum never leaves one healing (the reference asserts it)."""
+    m = Manager.__new__(Manager)
+    m._participating_replica_rank = 0
+    m._use_async_quorum = use_async_quorum
+    m._healing = False
+    assert m.is_participating()
+    m._healing = True
+    if use_async_quorum:
+        assert not m.is_participating()
+    else:
+        with pytest.raises(AssertionError):
+            m.is_participating()
+    m._participating_replica_rank = None
+    assert not m.is_participating()
+
+
+def test_diloco_on_an_async_quorum_manager_raises_as_the_reference():
+    import optax
+
+    from torchft_tpu.local_sgd import DiLoCo as JaxDiLoCo
+    from torchft_tpu_torch.local_sgd import DiLoCo
+
+    lh = _lighthouse(LighthouseServer)
+    jlh = _lighthouse(JaxLighthouse)
+    managers = [
+        _torch_quorum_manager(0, f"127.0.0.1:{lh.port}", lambda sd: None, lambda: {}, True, None),
+        _jax_quorum_manager(0, f"127.0.0.1:{jlh.port}", lambda sd: None, lambda: {}, True, None),
+    ]
+    try:
+        with pytest.raises(ValueError, match="synchronous quorum"):
+            DiLoCo(managers[0], {"w": torch.zeros(2)}, lambda ps: torch.optim.SGD(ps, lr=1.0),
+                   sync_every=2)
+        with pytest.raises(ValueError, match="synchronous quorum"):
+            JaxDiLoCo(managers[1], {"w": np.zeros(2)}, optax.sgd(1.0), sync_every=2)
+    finally:
+        for m in managers:
+            m.shutdown(wait=False)
+        lh.shutdown()
+        jlh.shutdown()

@@ -199,3 +199,32 @@ def test_world_one_returns_independent_copies():
     _assert_wires_equal(wire, tw[0])
     assert wire.payload is not tw[0].payload and torch.equal(y, x)
     assert y.data_ptr() != x.data_ptr()
+
+
+def test_shutdown_stops_the_dispatch_thread():
+    """``shutdown()`` returns once the generation's dispatch thread has
+    stopped, here after the op it was running: no thread of the group is
+    left holding it (or its reroute observer, a Manager and through it a
+    model), so a trainer restarting a crashed replica frees the old one."""
+    import time
+
+    store = KvStoreServer("127.0.0.1:0")
+    pg = tpg.ProcessGroupHost(timeout=TIMEOUT)
+    try:
+        pg.configure(f"127.0.0.1:{store.port}/solo", 0, 1)
+        running = []
+        started = threading.Event()
+
+        def slow_op(comm):
+            running.append(threading.current_thread())
+            started.set()
+            time.sleep(0.3)
+
+        fut = pg._submit(slow_op).get_future()
+        assert started.wait(10)
+        pg.shutdown()
+        assert not running[0].is_alive()
+        assert fut.done()
+    finally:
+        pg.shutdown()
+        store.shutdown()

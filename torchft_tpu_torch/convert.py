@@ -6,7 +6,9 @@ The reference's Llama keeps per-layer weights stacked along a leading
 layout. The ``examples/train_ddp.py`` CNN keeps the reference's layouts in
 the port (``conv`` HWIO, ``w1`` over the NHWC flatten), so its parameters,
 and the momentum of its ``optax.sgd(lr, momentum=0.9)`` state (the trace
-of the chain's ``TraceState``), carry over as they are.
+of the chain's ``TraceState``), carry over as they are. So do the
+``examples/train_diloco.py`` MLP's ``{"layer{i}": {"w", "b"}}`` weights,
+as the port MLP's ``layer{i}.w`` / ``layer{i}.b``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["cnn_momentum_from_jax", "cnn_params_from_jax", "llama_params_from_jax"]
+__all__ = ["cnn_momentum_from_jax", "cnn_params_from_jax", "llama_params_from_jax",
+           "mlp_params_from_jax"]
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -53,3 +56,10 @@ def cnn_momentum_from_jax(opt_state: Any) -> Dict[str, torch.Tensor]:
         if trace is not None:
             return cnn_params_from_jax(trace)
     raise ValueError("optimizer state carries no momentum trace")
+
+
+def mlp_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"layer{i}": {"w": [in, out], "b": [out]}}`` of the reference MLP
+    -> the port MLP's state dict (``layer{i}.w``, ``layer{i}.b``)."""
+    return {f"{layer}.{name}": _tensor(np.asarray(leaf))
+            for layer, leaves in params.items() for name, leaf in leaves.items()}

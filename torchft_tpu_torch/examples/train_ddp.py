@@ -239,15 +239,19 @@ def _train_loop(args: argparse.Namespace, manager: Any, model: nn.Module,
 
 
 class Fleet:
-    """The lighthouse CLI and the replica processes of one run, each a fresh
-    interpreter (spawned, never forked: a child may hold a CUDA context) in
-    a session of its own. Every output line is kept, per replica and in one
+    """The lighthouse CLI and the replica processes of one run (``python -m
+    module``, this example's by default), each a fresh interpreter
+    (spawned, never forked: a child may hold a CUDA context) in a session
+    of its own. Every output line is kept, per replica and in one
     transcript. ``close()`` kills whatever still runs."""
 
     def __init__(self, replica_argv: Sequence[str], lighthouse_argv: Sequence[str] = (),
                  env: Optional[Dict[str, str]] = None, echo: bool = False,
-                 timeout: float = 60.0) -> None:
+                 timeout: float = 60.0,
+                 module: str = "torchft_tpu_torch.examples.train_ddp") -> None:
         self._argv = list(replica_argv)
+        # the replicas' entry point: ``python -m <module> <replica_argv>``
+        self._module = module
         self._env = dict(os.environ if env is None else env)
         self._echo = echo
         self._cond = threading.Condition()
@@ -295,7 +299,7 @@ class Fleet:
         with self._cond:
             self.lines[rid] = sink
         self.procs[rid] = self._popen(
-            [sys.executable, "-m", "torchft_tpu_torch.examples.train_ddp", *self._argv],
+            [sys.executable, "-m", self._module, *self._argv],
             f"replica {rid}",
             dict(self._env, TORCHFT_LIGHTHOUSE=self.addr, REPLICA_GROUP_ID=str(rid)), sink,
         )

@@ -9,9 +9,14 @@ swallowed into a zeros result, and the two-phase commit
 (``should_commit``, ``:3202``).
 
 Replica groups here are single-rank (each replica group is one worker,
-the leader of its own store and manager server) and the quorum is always
-async: a healing replica sits its first step out. The reference's
-multi-rank groups, synchronous quorum and ``max_retries`` are not ported.
+the leader of its own store and manager server). The quorum is async by
+default (``use_async_quorum``, ``:224``): it runs on the quorum thread
+while the step computes, and a healing replica sits its first step out.
+With ``use_async_quorum=False`` (what DiLoCo needs) ``start_quorum`` waits
+for the quorum and applies a heal there and then (``:767-842``), so the
+healed replica takes part in the same step. The reference's multi-rank
+groups, ``max_retries`` and ``start_quorum``'s ``allow_heal`` /
+``shrink_only`` / ``timeout`` are not ported.
 The heal rides ``checkpoint_transport`` (``:233``, ``:308-315``): the
 port's ``HTTPTransport`` by default, or a ``PGTransport`` over a recovery
 process group of its own, which the Manager reconfigures with its PG at
@@ -151,6 +156,7 @@ class Manager:
         load_state_dict: Optional[Callable[[Any], None]],
         state_dict: Optional[Callable[[], Any]],
         min_replica_size: int,
+        use_async_quorum: bool = True,
         timeout: "float | timedelta" = 60.0,
         quorum_timeout: "float | timedelta | None" = None,
         replica_id: Optional[str] = None,
@@ -167,6 +173,8 @@ class Manager:
         if set_reroute is not None:
             set_reroute(self._on_collective_reroute)
         self._min_replica_size = min_replica_size
+        # DiLoCo reads this attribute by name (local_sgd.py)
+        self._use_async_quorum = use_async_quorum
         self._timeout = _to_seconds(timeout)
         self._quorum_timeout = (
             _to_seconds(quorum_timeout) if quorum_timeout is not None else self._timeout
@@ -287,13 +295,23 @@ class Manager:
     # --------------------------------------------------------------- quorum
     def start_quorum(self) -> None:
         """Start computing a new quorum (on the quorum thread) and ready the
-        manager for a new step. Call before the forward pass."""
+        manager for a new step. Call before the forward pass. Under the
+        synchronous quorum it returns once the quorum is in, with a heal
+        already applied (``last_quorum_healed()`` true); a failed recovery
+        leaves the step's vote to fail."""
         if self._quorum_future is not None:
             self._quorum_future.result()
         self._errored = None
         self._healing = False
         self._last_quorum_healed = False
         self._quorum_future = self._executor.submit(self._async_quorum)
+        if not self._use_async_quorum:
+            self.wait_quorum()
+            if self._healing and self._pending_state_dict is not None:
+                # the forward pass runs on the recovered state
+                self._apply_pending_state_dict()
+            # a failed recovery has reported its error: retry at the next quorum
+            self._healing = False
 
     def wait_quorum(self) -> None:
         if self._quorum_future is None:
@@ -318,9 +336,14 @@ class Manager:
 
         self._bump_metric("quorums")
         # async quorum: healing replicas sit this step out, so the
-        # participating world is the max-step cohort
-        self._participating_replica_rank = quorum.max_replica_rank
-        self._participating_replica_world_size = quorum.max_world_size
+        # participating world is the max-step cohort; the sync quorum heals
+        # first, so everyone counts
+        if self._use_async_quorum:
+            self._participating_replica_rank = quorum.max_replica_rank
+            self._participating_replica_world_size = quorum.max_world_size
+        else:
+            self._participating_replica_rank = quorum.replica_rank
+            self._participating_replica_world_size = quorum.replica_world_size
 
         if quorum.quorum_id != self._quorum_id:
             store_prefixed_addr = (
@@ -902,7 +925,11 @@ class Manager:
     def is_participating(self) -> bool:
         if self._participating_replica_rank is None:
             return False
-        return not self._healing
+        if self._healing:
+            # start_quorum never leaves a sync-quorum replica healing
+            assert self._use_async_quorum
+            return False
+        return True
 
     def last_quorum_healed(self) -> bool:
         """True iff the most recent quorum live-healed this replica."""

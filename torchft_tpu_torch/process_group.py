@@ -33,6 +33,10 @@ are staged through page-locked host memory, and ``recv_into`` a CUDA
 tensor lands the frame in that tensor's storage. One generation carries
 either p2p or collective traffic, never both (frame order on a shared
 socket): a checkpoint transport gets a process group of its own.
+
+``FakeProcessGroupWrapper`` (``:2269``) wraps a process group for tests:
+it fails the futures of chosen ops, or the next ``configure``, and
+delegates everything else.
 """
 
 from __future__ import annotations
@@ -71,7 +75,10 @@ from torchft_tpu_torch.work import DummyWork, Future, FutureWork, Work
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ReduceOp", "ProcessGroup", "ProcessGroupDummy", "ProcessGroupHost"]
+__all__ = [
+    "ReduceOp", "ProcessGroup", "ProcessGroupDummy", "ProcessGroupHost",
+    "FakeProcessGroupWrapper",
+]
 
 
 class ReduceOp(enum.Enum):
@@ -1116,6 +1123,7 @@ class ProcessGroupHost(ProcessGroup):
             # threads, and mixing them could reorder frames on a socket
             self.mode: Optional[str] = None
             self._mode_lock = threading.Lock()
+            self.thread: Optional[threading.Thread] = None
 
         def claim_mode(self, mode: str) -> None:
             with self._mode_lock:
@@ -1193,10 +1201,11 @@ class ProcessGroupHost(ProcessGroup):
         if old is not None:
             old.abort()
             old.queue.put(None)
-        threading.Thread(
+        gen.thread = threading.Thread(
             target=self._dispatch_loop, args=(gen,), daemon=True,
             name=f"pg_host_dispatch_r{replica_rank}",
-        ).start()
+        )
+        gen.thread.start()
 
     def abort(self) -> None:
         with self._lock:
@@ -1210,6 +1219,10 @@ class ProcessGroupHost(ProcessGroup):
         if gen is not None:
             gen.abort()
             gen.queue.put(None)
+            # the aborted mesh fails an op in flight at once; past the join
+            # no thread of this PG holds it (or what its observers hold)
+            if gen.thread is not None and gen.thread is not threading.current_thread():
+                gen.thread.join(timeout=self._timeout)
 
     def errored(self) -> Optional[Exception]:
         with self._lock:
@@ -1385,6 +1398,100 @@ class ProcessGroupHost(ProcessGroup):
             return out
 
         return self._submit(_run, mode="p2p")
+
+
+class FakeProcessGroupWrapper(ProcessGroup):
+    """Test-only fault injection around ``pg``: ``report_future_error``
+    fails the futures of upcoming ops, ``report_configure_error`` the next
+    ``configure``; every other call goes to ``pg``. Nothing on the main
+    path wraps a process group in it."""
+
+    def __init__(self, pg: ProcessGroup) -> None:
+        super().__init__()
+        self._pg = pg
+        self._next_error: Optional[Exception] = None
+        self._next_error_skip = 0
+        self._next_error_times = 0
+        self._next_configure_error: Optional[Exception] = None
+
+    def report_future_error(self, e: Exception, skip_ops: int = 0, times: int = 1) -> None:
+        """Fail upcoming ops' futures with ``e``: the next ``skip_ops`` ops
+        pass untouched, then ``times`` consecutive ops fail."""
+        self._next_error = e
+        self._next_error_skip = int(skip_ops)
+        self._next_error_times = max(1, int(times))
+
+    def report_configure_error(self, e: Exception) -> None:
+        """The next ``configure`` raises ``e``."""
+        self._next_configure_error = e
+
+    def set_reroute_observer(self, fn: Optional[Callable[[tuple, int], None]]) -> None:
+        setter = getattr(self._pg, "set_reroute_observer", None)
+        if setter is not None:
+            setter(fn)
+
+    def wire_stats(self) -> Dict[str, float]:
+        return self._pg.wire_stats()
+
+    def configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+        if self._next_configure_error is not None:
+            e, self._next_configure_error = self._next_configure_error, None
+            raise e
+        self._pg.configure(store_addr, replica_rank, replica_world_size, quorum_id=quorum_id)
+
+    def abort(self) -> None:
+        self._pg.abort()
+
+    def shutdown(self) -> None:
+        self._pg.shutdown()
+
+    def errored(self) -> Optional[Exception]:
+        return self._pg.errored()
+
+    def size(self) -> int:
+        return self._pg.size()
+
+    def rank(self) -> int:
+        return self._pg.rank()
+
+    def set_timeout(self, timeout: "float | timedelta") -> None:
+        self._pg.set_timeout(timeout)
+
+    def _maybe_fail(self, work: Work) -> Work:
+        if self._next_error is None:
+            return work
+        if self._next_error_skip > 0:
+            self._next_error_skip -= 1
+            return work
+        e = self._next_error
+        self._next_error_times -= 1
+        if self._next_error_times <= 0:
+            self._next_error = None
+        fut: Future = Future()
+
+        def _fail(_f: Future) -> None:
+            try:
+                fut.set_exception(e)
+            except RuntimeError:
+                pass
+
+        work.get_future().add_done_callback(_fail)
+        return FutureWork(fut)
+
+    def allreduce(self, arrays, op=ReduceOp.SUM):
+        return self._maybe_fail(self._pg.allreduce(arrays, op))
+
+    def allgather(self, arrays):
+        return self._maybe_fail(self._pg.allgather(arrays))
+
+    def alltoall(self, input_chunks):
+        return self._maybe_fail(self._pg.alltoall(input_chunks))
+
+    def send(self, arrays, dst, tag=0):
+        return self._maybe_fail(self._pg.send(arrays, dst, tag))
+
+    def recv(self, src, tag=0):
+        return self._maybe_fail(self._pg.recv(src, tag))
 
 
 def _stage_p2p(x: Any) -> Any:

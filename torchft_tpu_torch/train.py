@@ -1,4 +1,5 @@
-"""Fault-tolerant DDP training of Llama: the port's trainer.
+"""Fault-tolerant training of Llama: the port's trainer, per-step DDP or
+semi-synchronous DiLoCo.
 
 Counterpart of ``examples/train_ddp.py``'s ``build_trainer`` and train loop,
 running the Llama model. Replica groups are threads of one process on one
@@ -17,8 +18,22 @@ replica's live model and optimizer state on its device (the
 ``PGTransport`` template is ``Manager.state_dict_template``; AdamW's state
 exists, zero, from the start so every heal carries the same tree).
 
+With ``--diloco`` (``examples/train_llama_hsdp.py --diloco``,
+``:158-256``) the replicas train semi-synchronously: the Manager takes the
+synchronous quorum, each inner step is forward, backward and AdamW with no
+allreduce, and ``DiLoCo`` syncs one fragment every ``sync_every /
+num_fragments`` inner steps (its pseudogradient through the fp8 streamed
+allreduce under ``--quantize``, the outer Nesterov SGD, the merge), the
+allreduce overlapping ``--fragment-sync-delay`` inner steps. ``--steps``
+and ``--fail-at`` count inner steps; a restarted replica learns the global
+step at its first quorum and re-clamps its count to it. The defaults are
+the reference's semi-sync config (sync every 20, 2 fragments, delay 1,
+outer lr 0.7). A heal carries the fragments' globals and momentum too.
+
     python -m torchft_tpu_torch.train --config bench_1b --steps 6 \\
         --batch-size 1 --seq-len 2048 --quantize --fail-at 3 [--transport pg]
+    python -m torchft_tpu_torch.train --config bench_1b --steps 40 --diloco \\
+        --quantize --fail-at 14 [--transport pg]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -39,12 +54,13 @@ import torch
 
 from torchft_tpu_torch.checkpointing import PGTransport
 from torchft_tpu_torch.coordination import LighthouseServer
+from torchft_tpu_torch.local_sgd import DiLoCo
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models.llama import CONFIGS, Llama
 from torchft_tpu_torch.ops import attention as attn_ops
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.process_group import ProcessGroupHost
-from torchft_tpu_torch.utils import resolve_device
+from torchft_tpu_torch.utils import resolve_device, tensors_sha256
 
 __all__ = ["TrainConfig", "InjectedFailure", "build_trainer", "run_replicas", "main"]
 
@@ -73,6 +89,13 @@ class TrainConfig:
     fail_at: Optional[int] = None
     # the heal's checkpoint transport: "http" or "pg"
     transport: str = "http"
+    # semi-synchronous DiLoCo instead of the per-step allreduce; steps and
+    # fail_at then count inner steps
+    diloco: bool = False
+    sync_every: int = 20
+    num_fragments: int = 2
+    fragment_sync_delay: int = 1
+    outer_lr: float = 0.7
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -148,8 +171,10 @@ def _train_replica(
         timeout=TIMEOUT_S,
         quorum_timeout=TIMEOUT_S,
         checkpoint_transport=transport,
+        # DiLoCo picks each sync's fragment from the step: every replica
+        # must be in the quorum first
+        use_async_quorum=not cfg.diloco,
     )
-    optimizer = OptimizerWrapper(manager, optim)
     tokens_per_step = cfg.batch_size * cfg.seq_len
 
     def sync() -> float:
@@ -160,7 +185,11 @@ def _train_replica(
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
+    optimizer = OptimizerWrapper(manager, optim)
     try:
+        if cfg.diloco:
+            return _diloco_loop(cfg, replica_id, model, optim, make_batch, manager, pg, sync,
+                                on_step, failed, stop)
         while manager.current_step() < cfg.steps:
             if stop.is_set():
                 raise RuntimeError(f"replica {replica_id}: a peer replica failed")
@@ -217,6 +246,102 @@ def _train_replica(
         manager.shutdown(wait=False)
         if recovery_pg is not None:
             recovery_pg.shutdown()
+
+
+def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.optim.Optimizer,
+                 make_batch: Callable, manager: Manager, pg: ProcessGroupHost,
+                 sync: Callable[[], float], on_step: Callable[[Dict[str, Any]], None],
+                 failed: threading.Event, stop: threading.Event) -> Dict[str, Any]:
+    """Inner AdamW steps with a DiLoCo step after each; returns the final
+    parameters and fragment state (the live tensors: the replica is done)."""
+    params = dict(model.named_parameters())
+    diloco = DiLoCo(
+        manager, params,
+        lambda ps: torch.optim.SGD(ps, lr=cfg.outer_lr, momentum=0.9, nesterov=True),
+        sync_every=cfg.sync_every, num_fragments=cfg.num_fragments,
+        fragment_sync_delay=cfg.fragment_sync_delay, should_quantize=cfg.quantize,
+        # a heal lands in these tensors in place: the tree stays valid
+        get_params=lambda: params,
+    )
+    # the per-fragment cycle DiLoCo derived from the real partition
+    per_cycle = diloco.sync_every
+
+    def storage() -> List[int]:
+        # every tensor a heal lands in: model, AdamW state, fragment state
+        tensors = [*params.values(), *(t for st in optim.state.values() for t in st.values()),
+                   *diloco.state_tensors()]
+        return [t.data_ptr() for t in tensors if isinstance(t, torch.Tensor)]
+
+    storage0 = storage()
+    tokens_per_step = cfg.batch_size * cfg.seq_len
+    inner = 0
+    while inner < cfg.steps:
+        if stop.is_set():
+            raise RuntimeError(f"replica {replica_id}: a peer replica failed")
+        t0 = sync()
+        optim.zero_grad()
+        inputs, targets = make_batch(inner)
+        loss = model.loss(inputs, targets)
+        loss.backward()
+        if replica_id == 1 and cfg.fail_at == inner and not failed.is_set():
+            failed.set()
+            raise InjectedFailure(f"replica {replica_id} crashed at inner step {inner}")
+        optim.step()
+        t1 = sync()
+        wire0 = pg.wire_stats()
+        commits0 = manager.metrics()["commits"]
+        diloco.step(params)
+        t2 = sync()
+        wire1 = pg.wire_stats()
+        syncs = diloco.last_step_syncs
+        entry: Dict[str, Any] = {
+            "replica": replica_id,
+            "inner_step": inner,
+            # the committed outer steps so far (a heal moves it forward)
+            "outer_step": manager.current_step(),
+            "loss": loss.item(),
+            "attention": attn_ops.LAST_DISPATCH,
+            # "prepare" (quorum, pseudogradient, allreduce issued) and/or
+            # "perform" (wait, vote, outer step, merge), with the fragment
+            "sync": [f"{kind}:{frag}" for kind, frag in syncs],
+            "healed": any(kind == "prepare" for kind, _ in syncs) and manager.last_quorum_healed(),
+            "step_ms": (t2 - t0) * 1e3,
+            # forward + backward + AdamW
+            "inner_ms": (t1 - t0) * 1e3,
+            "diloco_ms": (t2 - t1) * 1e3,
+            "tokens_per_s": tokens_per_step / (t2 - t0),
+            "wire_bytes_sent": wire1["bytes_sent"] - wire0["bytes_sent"],
+            "wire_busy_s": wire1["busy_s"] - wire0["busy_s"],
+        }
+        performed = [frag for kind, frag in syncs if kind == "perform"]
+        if performed:
+            frag = diloco.fragments[performed[0]]
+            timings = manager.timings()
+            entry.update({
+                "committed": manager.metrics()["commits"] > commits0,
+                # issue to completion of the fragment's allreduce, and of
+                # it the wait at the perform
+                "sync_allreduce_ms": frag.last_allreduce_s * 1e3,
+                "sync_wait_ms": frag.last_wait_s * 1e3,
+                "participants": manager.num_participants(),
+                **{k: timings.get(k, 0.0) for k in PIPELINE_TIMINGS},
+            })
+        on_step(entry)
+        # committed outer steps are the global clock (train_llama_hsdp.py:240)
+        inner = max(inner + 1, manager.current_step() * per_cycle)
+    diloco.flush(params)
+    return {
+        "params": {n: p.detach() for n, p in model.named_parameters()},
+        # every fragment's globals and momentum (DiLoCo.state_tensors)
+        "fragment_state": diloco.state_tensors(),
+        "step": manager.current_step(),
+        "inner_steps": inner,
+        # whether every live tensor kept its storage through the heals (a PG
+        # heal lands in place; HTTP's optimizer load replaces AdamW's state)
+        "storage_kept": storage() == storage0,
+        "metrics": manager.metrics(),
+        "timings": manager.timings(),
+    }
 
 
 def run_replicas(
@@ -300,21 +425,37 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--transport", choices=["http", "pg"], default="http",
                    help="heal transport: http, or pg (a recovery process group)")
     p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--diloco", action="store_true",
+                   help="semi-sync across replica groups (DiLoCo) instead of the per-step "
+                        "allreduce; --steps and --fail-at count inner steps")
+    p.add_argument("--sync-every", type=int, default=20)
+    p.add_argument("--num-fragments", type=int, default=2)
+    p.add_argument("--fragment-sync-delay", type=int, default=1)
+    p.add_argument("--outer-lr", type=float, default=0.7)
     args = p.parse_args(argv)
     cfg = TrainConfig(
         config=args.config, steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, quantize=args.quantize,
-        fail_at=args.fail_at, transport=args.transport,
+        fail_at=args.fail_at, transport=args.transport, diloco=args.diloco,
+        sync_every=args.sync_every, num_fragments=args.num_fragments,
+        fragment_sync_delay=args.fragment_sync_delay, outer_lr=args.outer_lr,
     )
     results = run_replicas(
         cfg, args.device, on_step=lambda e: print(json.dumps(e), flush=True)
     )
+    digests = []
     for i, r in enumerate(results):
         losses = [e["loss"] for e in r["log"]]
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"replica {i}: non-finite loss")
-        print(json.dumps({"replica": i, "step": r["step"], "restarts": r["restarts"],
-                          "metrics": r["metrics"]}), flush=True)
+        line = {"replica": i, "step": r["step"], "restarts": r["restarts"],
+                "metrics": r["metrics"]}
+        if cfg.diloco:
+            line["fragments_sha256"] = tensors_sha256(r["fragment_state"])
+            digests.append(line["fragments_sha256"])
+        print(json.dumps(line), flush=True)
+    if len(set(digests)) > 1:
+        raise SystemExit(f"replicas' fragment state differs: {digests}")
 
 
 if __name__ == "__main__":

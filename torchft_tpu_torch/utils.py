@@ -1,13 +1,14 @@
-"""Device resolution shared by the port's entry points, and the divide the
-landings of the allreduce share."""
+"""Device resolution shared by the port's entry points, the divide the
+landings of the allreduce share, and the digest the entry points print."""
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+import hashlib
+from typing import Any, Iterable, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "true_divide"]
+__all__ = ["resolve_device", "tensors_sha256", "true_divide"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -31,3 +32,13 @@ def true_divide(x: Any, n: int) -> Any:
     if isinstance(x, torch.Tensor):
         return torch.div(x, torch.tensor(n, dtype=x.dtype, device=x.device))
     return (x / n).astype(x.dtype)
+
+
+def tensors_sha256(tensors: Iterable[torch.Tensor]) -> str:
+    """sha256 of the tensors' shapes, dtypes and bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(f"{tuple(t.shape)}{t.dtype}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
