@@ -117,9 +117,23 @@
    CPU-to-card load into fragment globals runs), replica 1 SIGKILLed once
    it printed its outer-step-4 line and restarted. Checks every exit code,
    the heal, equal fragment digests and the fp8 launches in each child.
-   Both process phases leave their transcripts in ``chiprun_out/``.
+   Every process phase leaves its transcript in ``chiprun_out/``.
 11. LocalSGD on the card: two replica threads average trees of CUDA
    tensors, bitwise equal to the same call on CPU tensors.
+12. Runs the ``train_llama_hsdp`` counterpart's demo on the card at
+   bench_1b width and depth: ``python -m
+   torchft_tpu_torch.examples.train_llama_hsdp --demo --config bench_1b
+   --batch-size 1 --seq-len 2048 --attention ulysses --transport pg
+   --steps 6 --kill-at-step 2``, two replica groups of one rank each (a
+   world-1 NCCL in-group process group per process, FSDP2 over it), the
+   unquantized bf16 gradient allreduce, every rank of group 1 SIGKILLed
+   after its step-2 line, restarted and healed over PG into its live local
+   shards. Checks the exit code (the demo's own gates: the heal and equal
+   group digests), the storage kept by the healed tensors, splash
+   attention and K1's forward, dq and dK/dV launched in each process;
+   prints the median steady step, tokens/s per replica, the heal's
+   seconds, chunks and MiB/s and each process's peak device memory; the
+   transcript stays in ``chiprun_out/train_llama_hsdp.log``.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -897,6 +911,84 @@ def check_local_sgd_on_card(device: torch.device) -> None:
             if not same_bits(card[rid][k], host[rid][k]) or not same_bits(card[rid][k], card[0][k]):
                 raise RuntimeError(f"LocalSGD on the card: replica {rid} leaf {k} differs")
     log("LocalSGD of CUDA trees over two replica threads: bitwise equal to the CPU call")
+
+
+def check_train_llama_hsdp_processes() -> dict:
+    """The train_llama_hsdp counterpart's demo as processes on the card at
+    bench_1b (docstring, 12); returns each group rank process's launches."""
+    steps, kill_at, B, S = 6, 2, 1, 2048
+    argv = [sys.executable, "-m", "torchft_tpu_torch.examples.train_llama_hsdp", "--demo",
+            "--config", "bench_1b", "--batch-size", str(B), "--seq-len", str(S),
+            "--attention", "ulysses", "--transport", "pg", "--steps", str(steps),
+            "--kill-at-step", str(kill_at), "--device", "cuda", "--timeout", "120"]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=900)
+    except subprocess.TimeoutExpired as e:
+        save_transcript("train_llama_hsdp.log", (e.stdout or b"").decode().splitlines())
+        raise RuntimeError("train_llama_hsdp demo: no end within 900 s") from e
+    lines = (out.stdout + out.stderr).splitlines()
+    save_transcript("train_llama_hsdp.log", lines)
+    elapsed = time.perf_counter() - t0
+
+    def fail(msg: str) -> RuntimeError:
+        return RuntimeError(msg + "\n--- transcript ---\n" + "\n".join(lines[-80:]))
+
+    if out.returncode != 0:
+        raise fail(f"train_llama_hsdp demo exited {out.returncode}")
+    restart = next(i for i, line in enumerate(lines) if "--- restarting replica 1 ---" in line)
+    # the restarted incarnation's lines, and group 0's
+    done = {}
+    for i, line in enumerate(lines):
+        if "] done: " in line:
+            rid = int(line.split("[replica ", 1)[1].split()[0])
+            if rid == 0 or i > restart:
+                done[rid] = json.loads(line.split("] done: ", 1)[1])
+    if sorted(done) != [0, 1]:
+        raise fail(f"train_llama_hsdp demo: done lines of groups {sorted(done)}")
+    if done[1]["metrics"]["heals"] < 1 or not done[1]["storage_kept"]:
+        raise fail(f"train_llama_hsdp demo: group 1 did not heal in place: {done[1]}")
+    if done[0]["group_sha256"] != done[1]["group_sha256"]:
+        raise fail("train_llama_hsdp demo: the groups' digests differ")
+    for rid, d in done.items():
+        if d["attention"] != "splash":
+            raise fail(f"train_llama_hsdp group {rid}: attention dispatched to {d['attention']}")
+        for kernel in ("splash_fwd", "splash_dq", "splash_dkv"):
+            if d["launches"][kernel] == 0:
+                raise fail(f"{kernel} never launched in train_llama_hsdp group {rid}")
+    # steady: both groups in, no heal received, past each incarnation's first step
+    steady = []
+    for line in lines:
+        if "] step=" in line and "participants=2" in line and "healed=False" in line:
+            step = int(line.split("] step=", 1)[1].split()[0])
+            if step > 1:
+                steady.append({k: float(re.search(rf"{k}=([0-9.]+)", line).group(1))
+                               for k in ("step_ms", "compute_ms", "allreduce_ms")})
+    if not steady:
+        raise fail("train_llama_hsdp demo: no steady step")
+    med = {k: statistics.median(e[k] for e in steady) for k in steady[0]}
+    each = ", ".join(f"{e['step_ms']:.1f}" for e in steady)
+    t = {"send": done[0]["timings"], "recv": done[1]["timings"]}
+    log(f"train_llama_hsdp bench_1b ({elapsed:.1f} s, 2 groups x 1 rank, ulysses -> splash, "
+        f"{steps} steps, every rank of group 1 killed after step {kill_at}, PG heal in place): "
+        f"median over {len(steady)} steady steps: step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
+        f"{med['compute_ms']:.1f} + allreduce {med['allreduce_ms']:.1f} + commit+optimizer "
+        f"{med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms "
+        f"({B * S / med['step_ms'] * 1e3:.1f} tokens/s per replica; each step_ms: "
+        f"{each}); heal_send_s "
+        f"{t['send'].get('heal_send_s', float('nan')):.3f} heal_recv_s "
+        f"{t['recv'].get('heal_recv_s', float('nan')):.3f} heal_chunks "
+        f"{t['recv'].get('heal_chunks', 0):.0f} heal_mb_per_s "
+        f"{t['recv'].get('heal_mb_per_s', float('nan')):.1f}; group digests equal "
+        f"{done[0]['group_sha256'][:16]}")
+    for rid, d in done.items():
+        pipeline = {k: round(v, 4) for k, v in d["timings"].items() if k.startswith("allreduce")}
+        log(f"train_llama_hsdp group {rid} rank 0: steps {d['step']}, step_ms median "
+            f"{d['step_ms_median']:.1f}, peak device memory {d['peak_memory_bytes'] / 2**30:.2f} "
+            f"GiB, last allreduce's stages {pipeline}, metrics {d['metrics']}, launches "
+            f"{d['launches']}")
+    return {rid: d["launches"] for rid, d in done.items()}
 
 
 def bench_1b_grad_specs() -> dict:
@@ -1812,6 +1904,7 @@ def main() -> int:
     diloco_launches = check_diloco_bench_1b(device, cfg)
     diloco_proc_launches = check_train_diloco_processes()
     check_local_sgd_on_card(device)
+    hsdp_launches = check_train_llama_hsdp_processes()
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -1861,8 +1954,11 @@ def main() -> int:
                     # K1 in bf16 runs in training, every other one on its
                     # model path (check_model_path)
                     "launches": launches[key] if key in on_path else path_launches[key],
-                    # bench_1b under DiLoCo runs K1 in bf16 only
-                    **({"launches_diloco": {"bench_1b": diloco_launches[key]}}
+                    # bench_1b under DiLoCo and the HSDP counterpart run K1
+                    # in bf16 only
+                    **({"launches_diloco": {"bench_1b": diloco_launches[key]},
+                        "launches_hsdp": {f"group {rid}": d[key]
+                                          for rid, d in hsdp_launches.items()}}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],

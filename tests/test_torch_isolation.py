@@ -13,6 +13,7 @@ import torch
 
 import torchft_tpu_torch
 from torchft_tpu_torch import train
+from torchft_tpu_torch.examples import train_llama_hsdp
 from torchft_tpu_torch.models.llama import CONFIGS, Llama
 from torchft_tpu_torch.utils import resolve_device
 
@@ -29,7 +30,9 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_reference_package():
     modules = _port_modules()
-    for name in ("manager", "ops.quantization", "local_sgd", "knobs", "examples.train_diloco"):
+    for name in ("manager", "ops.quantization", "local_sgd", "knobs", "examples.train_diloco",
+                 "parallel.mesh", "parallel.ring_attention", "parallel.ulysses",
+                 "examples.train_llama_hsdp"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -60,6 +63,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         train.main(["--config", "debug", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.run_replicas(train.TrainConfig(config="debug", diloco=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_llama_hsdp.main(["--config", "debug", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert Llama(CONFIGS["debug"], device="cpu").embed.device.type == "cpu"
 

@@ -534,3 +534,77 @@ def test_diloco_on_an_async_quorum_manager_raises_as_the_reference():
             m.shutdown(wait=False)
         lh.shutdown()
         jlh.shutdown()
+
+
+def _multi_rank_groups(manager_cls, lighthouse_cls, pg_cls, to_leaf, to_np):
+    """The reference's ``TestMultiRankGroups`` scenario: 2 replica groups x 2
+    group ranks as threads, a synchronous quorum that the group leader's
+    manager server barriers over both ranks, 3 steps of ``w -= avg(0.1
+    w)``. Returns ``{(group, rank): (w, step)}``."""
+    lighthouse = lighthouse_cls(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=5000,
+                                quorum_tick_ms=20, heartbeat_timeout_ms=2000)
+    addr = f"127.0.0.1:{lighthouse.port}"
+    groups, ranks, steps = 2, 2, 3
+    store_ready = {g: threading.Event() for g in range(groups)}
+    store_addrs = {}
+    # every rank's last vote is answered before a leader's server stops
+    finished = threading.Barrier(groups * ranks, timeout=60)
+
+    def worker(group, rank):
+        params = {"w": to_leaf(np.full(4, float(group + 1), np.float32))}
+
+        def load_state(sd):
+            params["w"] = to_leaf(np.asarray(to_np(sd["w"]), np.float32))
+
+        kwargs = dict(pg=pg_cls(timeout=10.0), load_state_dict=load_state,
+                      state_dict=lambda: {"w": params["w"]}, min_replica_size=2,
+                      use_async_quorum=False, replica_id=f"mrg_{group}", timeout=10.0,
+                      quorum_timeout=10.0, group_rank=rank, group_world_size=ranks,
+                      lighthouse_addr=addr)
+        if rank == 0:
+            manager = manager_cls(**kwargs)
+            store_addrs[group] = manager.store_addr
+            store_ready[group].set()
+        else:
+            assert store_ready[group].wait(20)
+            manager = manager_cls(store_addr=store_addrs[group], **kwargs)
+        try:
+            for _ in range(steps):
+                manager.start_quorum()
+                grads = {"w": to_leaf(to_np(params["w"]) * np.float32(0.1))}
+                reduced = manager.allreduce(grads).get_future().wait(timeout=30)
+                if manager.should_commit():
+                    params["w"] = to_leaf(to_np(params["w"]) - to_np(reduced["w"]))
+            finished.wait()
+            return to_np(params["w"]).copy(), manager.current_step()
+        finally:
+            manager.shutdown(wait=False)
+
+    try:
+        with ThreadPoolExecutor(max_workers=groups * ranks) as ex:
+            futs = {(g, r): ex.submit(worker, g, r) for g in range(groups) for r in range(ranks)}
+            return {k: f.result(timeout=120) for k, f in futs.items()}
+    finally:
+        lighthouse.shutdown()
+
+
+def test_multi_rank_groups_hold_each_stratum_as_the_reference():
+    """Every rank of a group runs its own Manager at its group rank; rank 0
+    owns the store and the manager server, the others find it through
+    ``store_addr``. Rank r of every group holds the same state after 3
+    steps, and that state is the reference's, bit for bit."""
+    ref = _multi_rank_groups(JaxManager, JaxLighthouse, JaxPGHost, jnp.asarray, np.asarray)
+    got = _multi_rank_groups(Manager, LighthouseServer, ProcessGroupHost, torch.from_numpy,
+                             lambda t: t.numpy())
+    for (group, rank), (w, step) in got.items():
+        assert step == 3
+        np.testing.assert_array_equal(w, got[(0, rank)][0])
+        np.testing.assert_array_equal(w, ref[(group, rank)][0])
+        assert ref[(group, rank)][1] == 3
+
+
+def test_a_follower_rank_needs_the_leaders_store():
+    with pytest.raises(ValueError, match="store_addr"):
+        Manager(pg=ProcessGroupHost(timeout=TIMEOUT), load_state_dict=None, state_dict=None,
+                min_replica_size=1, lighthouse_addr="127.0.0.1:1", group_rank=1,
+                group_world_size=2)

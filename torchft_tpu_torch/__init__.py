@@ -8,7 +8,9 @@ it. What runs today (see ROADMAP.md for what is still to port):
 - ``coordination``: ctypes binding to the repo's native C++ control plane
   (lighthouse, manager server, rendezvous store), built from ``native/``;
 - ``manager.Manager``: per-step quorum (async, or synchronous with
-  ``use_async_quorum=False``), the managed allreduce (streamed in buckets
+  ``use_async_quorum=False``) for replica groups of one rank or several
+  (``group_rank``, ``group_world_size``, ``store_addr``), the managed
+  allreduce (streamed in buckets
   by default, fp8-coded with error feedback when quantized; serial on
   request), two-phase commit and live heal over the ``checkpointing``
   transports (HTTP, or ``PGTransport`` in place);
@@ -22,11 +24,14 @@ it. What runs today (see ROADMAP.md for what is still to port):
   codec, with the hand-written CUDA fp8 rowwise kernels in
   ``ops/csrc/fp8_rowwise.cu``;
 - ``models.llama``: the Llama-3 family as an ``nn.Module``;
+- ``parallel``: the parallelism inside a replica group (the HSDP mesh and
+  its sharding by FSDP2 and tensor parallelism, ring and Ulysses
+  attention over the sequence);
 - ``train``: the fault-tolerant trainer of Llama that ``chip_smoke.py``
   drives, per-step DDP or semi-synchronous DiLoCo (``--diloco``), and
-  ``examples.train_ddp`` / ``examples.train_diloco``: the counterparts of
-  ``examples/train_ddp.py`` and ``examples/train_diloco.py``, replica
-  groups as processes.
+  ``examples.train_ddp`` / ``examples.train_diloco`` /
+  ``examples.train_llama_hsdp``: the counterparts of the reference's
+  examples, replica groups as processes (HSDP: one process a rank).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

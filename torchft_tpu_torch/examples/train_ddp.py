@@ -242,22 +242,30 @@ class Fleet:
     """The lighthouse CLI and the replica processes of one run (``python -m
     module``, this example's by default), each a fresh interpreter
     (spawned, never forked: a child may hold a CUDA context) in a session
-    of its own. Every output line is kept, per replica and in one
-    transcript. ``close()`` kills whatever still runs."""
+    of its own. A replica group of ``ranks`` > 1 is that many processes,
+    started together with torchrun's variables (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``/``MASTER_PORT``) on a rendezvous store the fleet hosts
+    for each incarnation, as torchrun's agent does. Every output line is
+    kept, per replica group and in one transcript. ``close()`` kills
+    whatever still runs."""
 
     def __init__(self, replica_argv: Sequence[str], lighthouse_argv: Sequence[str] = (),
                  env: Optional[Dict[str, str]] = None, echo: bool = False,
                  timeout: float = 60.0,
-                 module: str = "torchft_tpu_torch.examples.train_ddp") -> None:
+                 module: str = "torchft_tpu_torch.examples.train_ddp",
+                 ranks: int = 1) -> None:
         self._argv = list(replica_argv)
         # the replicas' entry point: ``python -m <module> <replica_argv>``
         self._module = module
+        self._ranks = ranks
         self._env = dict(os.environ if env is None else env)
         self._echo = echo
         self._cond = threading.Condition()
         self.transcript: List[str] = []
         self.lines: Dict[int, List[str]] = {}
-        self.procs: Dict[int, subprocess.Popen] = {}
+        # each replica group's processes, in rank order
+        self.procs: Dict[int, List[subprocess.Popen]] = {}
+        self._stores: Dict[int, Any] = {}
         self.lighthouse = self._popen(
             [sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--bind", "127.0.0.1:0",
              *lighthouse_argv], "lighthouse", self._env, None,
@@ -286,28 +294,39 @@ class Fleet:
                     if sink is not None:
                         sink.append(line.rstrip())
                     self._cond.notify_all()
-                if self._echo:
-                    print(f"{tag}: {line.rstrip()}", flush=True)
+                    if self._echo:  # under the lock: one line at a time
+                        print(f"{tag}: {line.rstrip()}", flush=True)
 
         threading.Thread(target=pump, daemon=True, name=f"fleet_{tag}").start()
         return proc
 
-    def spawn(self, rid: int) -> subprocess.Popen:
-        """Start replica ``rid`` (a restart replaces its process and its
-        lines)."""
+    def spawn(self, rid: int) -> List[subprocess.Popen]:
+        """Start replica group ``rid``, all its ranks (a restart replaces its
+        processes and its lines)."""
         sink: List[str] = []
         with self._cond:
             self.lines[rid] = sink
-        self.procs[rid] = self._popen(
-            [sys.executable, "-m", self._module, *self._argv],
-            f"replica {rid}",
-            dict(self._env, TORCHFT_LIGHTHOUSE=self.addr, REPLICA_GROUP_ID=str(rid)), sink,
-        )
+        env = dict(self._env, TORCHFT_LIGHTHOUSE=self.addr, REPLICA_GROUP_ID=str(rid))
+        envs = [env]
+        if self._ranks > 1:
+            from torch.distributed import TCPStore
+
+            # a fresh store per incarnation: no key of a killed one survives
+            store = TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+            self._stores[rid] = store
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+                       WORLD_SIZE=str(self._ranks), TORCHELASTIC_USE_AGENT_STORE="True")
+            envs = [dict(env, RANK=str(r)) for r in range(self._ranks)]
+        self.procs[rid] = [
+            self._popen([sys.executable, "-m", self._module, *self._argv],
+                        f"replica {rid}" + (f" rank {r}" if self._ranks > 1 else ""), e, sink)
+            for r, e in enumerate(envs)
+        ]
         return self.procs[rid]
 
     def wait_line(self, rid: Optional[int], needle: str, timeout: float) -> str:
-        """The first line of replica ``rid`` (None: any process) holding
-        ``needle``; raises TimeoutError after ``timeout`` seconds."""
+        """The first line of replica group ``rid`` (None: any process)
+        holding ``needle``; raises TimeoutError after ``timeout`` seconds."""
         deadline = time.monotonic() + timeout
         with self._cond:
             while True:
@@ -321,36 +340,43 @@ class Fleet:
                 self._cond.wait(left)
 
     def kill(self, rid: int) -> None:
-        """SIGKILL replica ``rid`` and reap it."""
-        proc = self.procs[rid]
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
+        """SIGKILL every process of replica group ``rid`` and reap them."""
+        for proc in self.procs[rid]:
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:  # it exited since the poll
+                    pass
+            proc.wait()
 
     def wait(self, timeout: float) -> Dict[int, int]:
-        """Every replica's exit code; one still running past ``timeout`` is
-        killed and counted as 1."""
+        """Every replica group's exit code (the OR of its processes'); a
+        group still running past ``timeout`` is killed and counted as 1."""
         deadline = time.monotonic() + timeout
         rcs = {}
-        for rid, proc in self.procs.items():
+        for rid, procs in self.procs.items():
             try:
-                rcs[rid] = proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+                rcs[rid] = 0
+                for proc in procs:
+                    rcs[rid] |= proc.wait(timeout=max(0.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 self.kill(rid)
                 rcs[rid] = 1
         return rcs
 
-    def done(self, rid: int) -> Dict[str, Any]:
-        """The JSON of replica ``rid``'s ``done:`` line."""
-        line = self.wait_line(rid, "] done: ", 0)
+    def done(self, rid: int, rank: Optional[int] = None) -> Dict[str, Any]:
+        """The JSON of replica group ``rid``'s ``done:`` line (of group rank
+        ``rank``, for a trainer whose lines name it)."""
+        needle = "] done: " if rank is None else f" rank {rank}] done: "
+        line = self.wait_line(rid, needle, 0)
         return json.loads(line.split("] done: ", 1)[1])
 
     def close(self) -> int:
         """Kill the replicas still running, stop the lighthouse with SIGTERM;
         returns the lighthouse's exit code."""
-        for proc in self.procs.values():
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
+        for rid in self.procs:
+            self.kill(rid)
+        self._stores.clear()
         if self.lighthouse.poll() is None:
             self.lighthouse.send_signal(signal.SIGTERM)
             try:

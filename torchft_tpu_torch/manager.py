@@ -8,15 +8,23 @@ managed allreduce (``:1679``, ``allreduce_streamed`` ``:1695``) with errors
 swallowed into a zeros result, and the two-phase commit
 (``should_commit``, ``:3202``).
 
-Replica groups here are single-rank (each replica group is one worker,
-the leader of its own store and manager server). The quorum is async by
-default (``use_async_quorum``, ``:224``): it runs on the quorum thread
-while the step computes, and a healing replica sits its first step out.
+A replica group is one worker or several (``group_world_size``, reference
+``:230-232``, ``:348-389``): group rank 0 leads it, owning the rendezvous
+store (unless ``store_addr`` names one) and the manager server, which
+barriers the group's ranks at every quorum and ANDs their commit votes,
+and publishes the server's address in the store as ``manager_addr``; every
+other rank reads it there. Each rank quorums, votes, forms its
+cross-group process group (store prefix ``.../torchft/{quorum_id}/{group
+rank}``) and heals from the same group rank of a healthy group.
+
+The quorum is async by default (``use_async_quorum``, ``:224``): it runs
+on the quorum thread while the step computes, and a healing replica sits
+its first step out.
 With ``use_async_quorum=False`` (what DiLoCo needs) ``start_quorum`` waits
 for the quorum and applies a heal there and then (``:767-842``), so the
-healed replica takes part in the same step. The reference's multi-rank
-groups, ``max_retries`` and ``start_quorum``'s ``allow_heal`` /
-``shrink_only`` / ``timeout`` are not ported.
+healed replica takes part in the same step. The reference's
+``max_retries`` and ``start_quorum``'s ``allow_heal`` / ``shrink_only`` /
+``timeout`` are not ported.
 The heal rides ``checkpoint_transport`` (``:233``, ``:308-315``): the
 port's ``HTTPTransport`` by default, or a ``PGTransport`` over a recovery
 process group of its own, which the Manager reconfigures with its PG at
@@ -69,6 +77,7 @@ import torch.utils._pytree as pytree
 from torchft_tpu_torch import bucketing
 from torchft_tpu_torch.checkpointing import CheckpointTransport, HTTPTransport, RWLock
 from torchft_tpu_torch.coordination import (
+    KvClient,
     KvStoreServer,
     ManagerClient,
     ManagerServer,
@@ -98,8 +107,6 @@ __all__ = ["Manager", "ExceptionWithTraceback"]
 LIGHTHOUSE_ENV = "TORCHFT_LIGHTHOUSE"
 BUCKET_CAP_MB_ENV = "TORCHFT_BUCKET_CAP_MB"
 STREAM_BUCKETS_ENV = "TORCHFT_STREAM_BUCKETS"
-# every replica group is one worker: rank 0 of a group of 1
-_GROUP_RANK = 0
 _CONNECT_TIMEOUT_S = 10.0
 _HEARTBEAT_INTERVAL_S = 0.1
 
@@ -167,7 +174,12 @@ class Manager:
         stream_buckets: Optional[bool] = None,
         compress: Optional[str] = None,
         checkpoint_transport: Optional[CheckpointTransport] = None,
+        store_addr: Optional[str] = None,
+        group_rank: int = 0,
+        group_world_size: int = 1,
     ) -> None:
+        if group_rank != 0 and store_addr is None:
+            raise ValueError("a group rank other than 0 needs the leader's store_addr")
         self._pg = pg
         set_reroute = getattr(pg, "set_reroute_observer", None)
         if set_reroute is not None:
@@ -219,24 +231,39 @@ class Manager:
             checkpoint_transport = HTTPTransport(timeout=self._timeout, hostname=hostname)
         self._checkpoint_transport: CheckpointTransport = checkpoint_transport
 
-        # the group's only rank leads it: it owns the rendezvous store and
-        # the manager server
-        self._store = KvStoreServer("0.0.0.0:0")
-        store_addr = f"{hostname}:{self._store.port}"
-        if lighthouse_addr is None:
-            lighthouse_addr = os.environ[LIGHTHOUSE_ENV]
-        self._replica_id = f"{replica_id or 'replica'}:{uuid.uuid4()}"
-        self._manager = ManagerServer(
-            replica_id=self._replica_id,
-            lighthouse_addr=lighthouse_addr,
-            hostname=hostname,
-            bind="0.0.0.0:0",
-            store_addr=store_addr,
-            world_size=1,
-            heartbeat_interval=_HEARTBEAT_INTERVAL_S,
-            connect_timeout=_CONNECT_TIMEOUT_S,
-        )
-        manager_addr = self._manager.address()
+        self._group_rank = group_rank
+        self._store: Optional[KvStoreServer] = None
+        self._manager: Optional[ManagerServer] = None
+        if group_rank == 0:
+            # the group's leader owns the rendezvous store (unless one is
+            # named) and the manager server, and publishes its address for
+            # the other ranks
+            if store_addr is None:
+                self._store = KvStoreServer("0.0.0.0:0")
+                store_addr = f"{hostname}:{self._store.port}"
+            if lighthouse_addr is None:
+                lighthouse_addr = os.environ[LIGHTHOUSE_ENV]
+            self._replica_id = f"{replica_id or 'replica'}:{uuid.uuid4()}"
+            self._manager = ManagerServer(
+                replica_id=self._replica_id,
+                lighthouse_addr=lighthouse_addr,
+                hostname=hostname,
+                bind="0.0.0.0:0",
+                store_addr=store_addr,
+                world_size=group_world_size,
+                heartbeat_interval=_HEARTBEAT_INTERVAL_S,
+                connect_timeout=_CONNECT_TIMEOUT_S,
+            )
+            manager_addr = self._manager.address()
+            KvClient(store_addr, connect_timeout=_CONNECT_TIMEOUT_S).set(
+                "manager_addr", manager_addr, timeout=self._timeout
+            )
+        else:
+            manager_addr = KvClient(store_addr, connect_timeout=_CONNECT_TIMEOUT_S).get(
+                "manager_addr", timeout=self._timeout
+            ).decode()
+            self._replica_id = replica_id or "replica"
+        self._store_addr = store_addr
         self._client = ManagerClient(manager_addr, connect_timeout=_CONNECT_TIMEOUT_S)
         # the commit vote rides its own client: the quorum thread's RPC is
         # in flight exactly when the main thread votes
@@ -281,7 +308,7 @@ class Manager:
         self._quorum_future: Optional[Any] = None
 
     def _log(self, level: int, msg: str) -> None:
-        logger.log(level, f"[{self._replica_id} step {self._step}] {msg}")
+        logger.log(level, f"[{self._replica_id}/{self._group_rank} step {self._step}] {msg}")
 
     # ------------------------------------------------------------- state fns
     def register_state_dict_fn(
@@ -321,7 +348,7 @@ class Manager:
     def _async_quorum(self) -> None:
         try:
             quorum = self._client._quorum(
-                group_rank=_GROUP_RANK,
+                group_rank=self._group_rank,
                 step=self._step,
                 checkpoint_metadata=self._checkpoint_transport.metadata(),
                 shrink_only=False,
@@ -347,7 +374,7 @@ class Manager:
 
         if quorum.quorum_id != self._quorum_id:
             store_prefixed_addr = (
-                f"{quorum.store_address}/torchft/{quorum.quorum_id}/{_GROUP_RANK}"
+                f"{quorum.store_address}/torchft/{quorum.quorum_id}/{self._group_rank}"
             )
             self._log(logging.INFO, f"reconfiguring for quorum_id={quorum.quorum_id}")
             try:
@@ -360,7 +387,7 @@ class Manager:
                 )
                 self._checkpoint_transport.configure(
                     f"{quorum.store_address}/torchft/{quorum.quorum_id}"
-                    f"/recovery/{_GROUP_RANK}",
+                    f"/recovery/{self._group_rank}",
                     quorum.replica_rank,
                     quorum.replica_world_size,
                     quorum_id=quorum.quorum_id,
@@ -412,7 +439,7 @@ class Manager:
         )
         metadata = ManagerClient(
             quorum.recover_src_manager_address, connect_timeout=_CONNECT_TIMEOUT_S
-        )._checkpoint_metadata(_GROUP_RANK, timeout=self._timeout)
+        )._checkpoint_metadata(self._group_rank, timeout=self._timeout)
         return self._checkpoint_transport.recv_checkpoint(
             src_rank=quorum.recover_src_replica_rank,
             metadata=metadata,
@@ -869,7 +896,7 @@ class Manager:
                 f"min={self._min_replica_size} errored={self._errored!r}",
             )
         should_commit = self._vote_client.should_commit(
-            _GROUP_RANK,
+            self._group_rank,
             self._step,
             local_should_commit,
             timeout=self._timeout,
@@ -912,6 +939,12 @@ class Manager:
 
     def current_step(self) -> int:
         return self._step
+
+    @property
+    def store_addr(self) -> str:
+        """The replica group's rendezvous store (its leader's), which the
+        other group ranks take as ``store_addr``."""
+        return self._store_addr
 
     def batches_committed(self) -> int:
         return self._batches_committed
@@ -965,8 +998,10 @@ class Manager:
     # ------------------------------------------------------------ lifecycle
     def shutdown(self, wait: bool = True) -> None:
         self._checkpoint_transport.shutdown(wait=wait)
-        self._manager.shutdown()
-        self._store.shutdown()
+        if self._manager is not None:
+            self._manager.shutdown()
+        if self._store is not None:
+            self._store.shutdown()
         self._executor.shutdown(wait=wait)
         self._staging_executor.shutdown(wait=wait, cancel_futures=not wait)
         self._unpack_executor.shutdown(wait=wait, cancel_futures=not wait)

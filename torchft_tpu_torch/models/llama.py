@@ -12,21 +12,34 @@ reference's stacked ``[L, ...]`` arrays (``convert.py`` maps between them):
 - the loss is ``logsumexp(logits) - logits[target]`` (``:255-309``), with
   the ``loss_chunk`` path that recomputes each sequence chunk's logits in
   backward;
-- ``remat=True`` checkpoints each layer, the counterpart of ``remat``.
+- ``remat=True`` checkpoints each layer, the counterpart of ``remat``;
+- ``attention_fn(q, k, v, cfg)`` replaces the attention, as the
+  reference's ``make_llama_layer_body(cfg, attention_fn)`` (``:181``), and
+  ``offset`` starts RoPE's positions (``:160``, ``:192``) at a sequence
+  shard's place in the whole sequence.
+
+Inside a replica group (``torchft_tpu_torch/parallel/mesh.py``) the
+weights may be DTensors: the layers compute on their local shards (head
+counts come from the local widths) and, when ``tp_group`` is set, join
+tensor-parallel shards Megatron's way: the input of each column-parallel
+block is copied to the tp ranks (its gradient summed over them), the
+output of each row-parallel block summed over them (its gradient copied),
+and the embedding's and the head's shards gathered.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from torchft_tpu_torch.ops.attention import causal_attention
-from torchft_tpu_torch.utils import resolve_device
+from torchft_tpu_torch.utils import local_shard, resolve_device
 
 __all__ = ["LlamaConfig", "CONFIGS", "Llama"]
 
@@ -93,21 +106,78 @@ def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * rms).to(x.dtype) * w
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """NeoX half-rotation rotary embedding; x: [B, S, H, hd]."""
+def _rope(x: torch.Tensor, theta: float,
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NeoX half-rotation rotary embedding; x: [B, S, H, hd], positions [S]
+    or [B, S] (default ``arange(S)``)."""
     S, hd = x.shape[1], x.shape[-1]
     freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
-    pos = torch.arange(S, dtype=torch.float32, device=x.device)
-    angles = pos[None, :, None, None] * freqs  # [1, S, 1, hd/2]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    pos = positions.to(device=x.device, dtype=torch.float32)
+    if pos.dim() == 1:
+        pos = pos[None]
+    angles = pos[:, :, None, None] * freqs  # [B or 1, S, 1, hd/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the gradient summed over the tp group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The partial sums of the tp group added up; the gradient copied."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """The tp group's shards of the last dim concatenated in rank order; the
+    gradient's own slice kept."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, dim=-1)[r].contiguous(), None
+
+
+def _tp(fn, x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else fn.apply(x, group)
+
+
 class LlamaLayer(nn.Module):
     """One pre-norm transformer layer (attention + SwiGLU MLP)."""
 
-    def __init__(self, cfg: LlamaConfig, attention: Optional[str]) -> None:
+    def __init__(self, cfg: LlamaConfig, attention: Optional[str],
+                 attention_fn: Optional[Callable] = None) -> None:
         super().__init__()
         d, hd = cfg.dim, cfg.head_dim
         kvd = cfg.n_kv_heads * hd
@@ -117,6 +187,9 @@ class LlamaLayer(nn.Module):
 
         self.cfg = cfg
         self.attention = attention
+        self.attention_fn = attention_fn
+        # the tensor-parallel group the weights are split over (None: whole)
+        self.tp_group = None
         self.attn_norm = nn.Parameter(torch.ones(d, dtype=cfg.dtype))
         self.wq = w(d, cfg.n_heads * hd)
         self.wk = w(d, kvd)
@@ -127,19 +200,25 @@ class LlamaLayer(nn.Module):
         self.w_up = w(d, cfg.ffn_hidden)
         self.w_down = w(cfg.ffn_hidden, d)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        B, S = h.shape[0], h.shape[1]
-        x = _rmsnorm(h, self.attn_norm, cfg.norm_eps)
-        q = (x @ self.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = (x @ self.wk).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        v = (x @ self.wv).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        q = _rope(q, cfg.rope_theta)
-        k = _rope(k, cfg.rope_theta)
-        attn = causal_attention(q, k, v, cfg, impl=self.attention)
-        h = h + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ self.wo
-        x = _rmsnorm(h, self.ffn_norm, cfg.norm_eps)
-        return h + (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+    def forward(self, h: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """h [B, S, dim]: the sequence positions ``offset`` to ``offset + S``."""
+        cfg, tp = self.cfg, self.tp_group
+        B, S, hd = h.shape[0], h.shape[1], cfg.head_dim
+        wq, wk, wv = local_shard(self.wq), local_shard(self.wk), local_shard(self.wv)
+        positions = torch.arange(offset, offset + S, device=h.device)
+        x = _tp(_CopyToTP, _rmsnorm(h, local_shard(self.attn_norm), cfg.norm_eps), tp)
+        q = _rope((x @ wq).reshape(B, S, wq.shape[1] // hd, hd), cfg.rope_theta, positions)
+        k = _rope((x @ wk).reshape(B, S, wk.shape[1] // hd, hd), cfg.rope_theta, positions)
+        v = (x @ wv).reshape(B, S, wv.shape[1] // hd, hd)
+        if self.attention_fn is not None:
+            attn = self.attention_fn(q, k, v, cfg)
+        else:
+            attn = causal_attention(q, k, v, cfg, impl=self.attention)
+        h = h + _tp(_ReduceFromTP, attn.reshape(B, S, -1) @ local_shard(self.wo), tp)
+        x = _tp(_CopyToTP, _rmsnorm(h, local_shard(self.ffn_norm), cfg.norm_eps), tp)
+        gate, up = x @ local_shard(self.w_gate), x @ local_shard(self.w_up)
+        mlp = (F.silu(gate) * up) @ local_shard(self.w_down)
+        return h + _tp(_ReduceFromTP, mlp, tp)
 
 
 class Llama(nn.Module):
@@ -147,7 +226,9 @@ class Llama(nn.Module):
     [D], ``lm_head`` [D, V], allocated on ``device`` (``cuda`` unless
     another is given). ``attention`` picks ``causal_attention``'s
     implementation (None: ``TORCHFT_TPU_ATTENTION`` on each call, "auto"
-    if unset); ``remat`` checkpoints each layer in training."""
+    if unset); ``attention_fn(q, k, v, cfg)``, when given, replaces it
+    (``torchft_tpu_torch.parallel``'s sequence-parallel attentions);
+    ``remat`` checkpoints each layer in training."""
 
     def __init__(
         self,
@@ -155,17 +236,25 @@ class Llama(nn.Module):
         device: "str | torch.device | None" = None,
         attention: Optional[str] = None,
         remat: bool = False,
+        attention_fn: Optional[Callable] = None,
     ) -> None:
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        self.tp_group = None
         with torch.device(resolve_device(device)):
             self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim, dtype=cfg.dtype))
             self.layers = nn.ModuleList(
-                LlamaLayer(cfg, attention) for _ in range(cfg.n_layers)
+                LlamaLayer(cfg, attention, attention_fn) for _ in range(cfg.n_layers)
             )
             self.final_norm = nn.Parameter(torch.ones(cfg.dim, dtype=cfg.dtype))
             self.lm_head = nn.Parameter(torch.empty(cfg.dim, cfg.vocab_size, dtype=cfg.dtype))
+
+    def set_tp_group(self, group) -> None:
+        """The process group the weights' tensor-parallel shards lie on."""
+        self.tp_group = group
+        for layer in self.layers:
+            layer.tp_group = group
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -180,45 +269,55 @@ class Llama(nn.Module):
                                device=generator.device)
             p.copy_(draw / fan_in ** 0.5)
 
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens int [B, S] -> final-norm hidden states [B, S, dim]."""
-        h = self.embed[tokens]
+    def hidden(self, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """tokens int [B, S] (sequence positions ``offset`` on) -> final-norm
+        hidden states [B, S, dim]."""
+        h = _tp(_GatherFromTP, local_shard(self.embed)[tokens], self.tp_group)
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
-                h = checkpoint(layer, h, use_reentrant=False)
+                h = checkpoint(layer, h, offset, use_reentrant=False)
             else:
-                h = layer(h)
-        return _rmsnorm(h, self.final_norm, self.cfg.norm_eps)
+                h = layer(h, offset)
+        return _rmsnorm(h, local_shard(self.final_norm), self.cfg.norm_eps)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
         """tokens int [B, S] -> logits f32 [B, S, vocab]."""
-        return (self.hidden(tokens) @ self.lm_head).to(torch.float32)
+        return _logits(self.hidden(tokens, offset), local_shard(self.lm_head), self.tp_group)
 
     def loss(
-        self, tokens: torch.Tensor, targets: torch.Tensor, loss_chunk: int = 0
+        self, tokens: torch.Tensor, targets: torch.Tensor, loss_chunk: int = 0,
+        offset: int = 0,
     ) -> torch.Tensor:
         """Mean next-token cross-entropy as logsumexp - target logit.
         ``loss_chunk > 0`` computes it over sequence chunks of that length,
         each chunk's logits recomputed in backward, so only [B, chunk,
         vocab] logits are live at once."""
+        lm_head = local_shard(self.lm_head)
         if loss_chunk <= 0:
-            return _chunk_loss_sum(self.hidden(tokens), self.lm_head, targets) / targets.numel()
+            return _chunk_loss_sum(self.hidden(tokens, offset), lm_head, targets,
+                                   self.tp_group) / targets.numel()
         B, S = tokens.shape
         if S % loss_chunk != 0:
             raise ValueError(f"loss_chunk {loss_chunk} must divide seq len {S}")
-        h = self.hidden(tokens)
+        h = self.hidden(tokens, offset)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for c in range(S // loss_chunk):
             sl = slice(c * loss_chunk, (c + 1) * loss_chunk)
             total = total + checkpoint(
-                _chunk_loss_sum, h[:, sl], self.lm_head, targets[:, sl],
+                _chunk_loss_sum, h[:, sl], lm_head, targets[:, sl], self.tp_group,
                 use_reentrant=False,
             )
         return total / (B * S)
 
 
-def _chunk_loss_sum(h: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    logits = (h @ lm_head).to(torch.float32)
+def _logits(h: torch.Tensor, lm_head: torch.Tensor, tp_group) -> torch.Tensor:
+    """f32 logits of the whole vocabulary from the head's (tp) shard."""
+    return _tp(_GatherFromTP, _tp(_CopyToTP, h, tp_group) @ lm_head, tp_group).to(torch.float32)
+
+
+def _chunk_loss_sum(h: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
+                    tp_group=None) -> torch.Tensor:
+    logits = _logits(h, lm_head, tp_group)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return (lse - tgt).sum()

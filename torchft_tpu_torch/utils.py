@@ -1,5 +1,6 @@
 """Device resolution shared by the port's entry points, the divide the
-landings of the allreduce share, and the digest the entry points print."""
+landings of the allreduce share, the digest the entry points print, and
+the local shard of a possibly distributed tensor."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from typing import Any, Iterable, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "tensors_sha256", "true_divide"]
+__all__ = ["local_shard", "resolve_device", "tensors_sha256", "true_divide"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -42,3 +43,11 @@ def tensors_sha256(tensors: Iterable[torch.Tensor]) -> str:
         h.update(f"{tuple(t.shape)}{t.dtype}".encode())
         h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
+
+
+def local_shard(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (under autograd its gradient flows back to
+    the DTensor; under ``no_grad`` it is the live storage), or the tensor
+    itself."""
+    to_local = getattr(t, "to_local", None)
+    return to_local() if to_local is not None else t
