@@ -134,6 +134,32 @@
    prints the median steady step, tokens/s per replica, the heal's
    seconds, chunks and MiB/s and each process's peak device memory; the
    transcript stays in ``chiprun_out/train_llama_hsdp.log``.
+13. The rest of the Manager and the collectives. (a)
+   ``reduce_scatter_quantized`` over two ``ProcessGroupHost`` ranks
+   (threads, loopback): on CUDA tensors (one K3 ``<false>`` launch over
+   the padded buffer, one K4 over the received chunks) against the same
+   call on CPU tensors (the plain versions), bit for bit, at 2^24 + 777
+   elements with a zero row, an overflow row, a non-finite row and a
+   subnormal row, for SUM and AVG; then the call at bench_1b's full
+   gradient count in 3 turns, each also split into its stages (K3, the
+   slicing onto the host wire, the alltoall, the landing and K4, the sum);
+   K3's and K4's launches are read from those turns. (b) bench_1b at full
+   width as three replica groups (threads on one card), the unquantized
+   bf16 allreduce, 6 steps healed over HTTP wire v3 in place, with the
+   reference's resilient-heal fault script (each fault fires at the start
+   of its step, as the reference's ``EventInjector``): replica 2 crashes
+   at step 2 and restarts, its assigned source (replica 0) drops every serve of
+   chunk 0 mid-body so the heal fails over to replica 1's standby
+   snapshot, which corrupts chunk 0 once (caught by its crc32, fetched
+   again), and one should_commit RPC flakes at step 4 (retried under
+   ``TORCHFT_RETRY_MAX_ATTEMPTS=2``; the HTTP transport's timeout 30 s).
+   Checks finite losses, every replica
+   at step 6, bitwise-equal replicas, on replica 2 a failover, a crc
+   failure and no error, a retried RPC, the healed tensors' storage kept,
+   splash attention and K1's three kernels launched; prints the median
+   steady step split as the trainer's, tokens/s per replica, both
+   sources' staging seconds, the heal's seconds, chunks and MiB/s, and
+   the peak device memory.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -739,9 +765,11 @@ def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
     (docstring, 9); returns the run's launches."""
     from torchft_tpu_torch.ops import attention as ta
     from torchft_tpu_torch.ops import quantization as q
-    from torchft_tpu_torch.train import run_replicas
+    from torchft_tpu_torch.train import Fault, run_replicas
 
-    dcfg = dataclasses.replace(cfg, steps=40, fail_at=14, transport="pg", diloco=True,
+    crash_at = 14
+    dcfg = dataclasses.replace(cfg, steps=40, faults=(Fault(1, crash_at, "crash", at="backward"),),
+                               transport="pg", diloco=True,
                                sync_every=20, num_fragments=2, fragment_sync_delay=1)
     q.reset_launches()
     ta.reset_launches()
@@ -800,7 +828,7 @@ def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
     heal = heal_numbers(results)
     tokens = dcfg.batch_size * dcfg.seq_len
     log(f"bench_1b DiLoCo ({elapsed:.1f} s, {dcfg.steps} inner steps, crash after inner "
-        f"{dcfg.fail_at}, heal over pg): fragment globals and momentum bitwise equal over "
+        f"{crash_at}, heal over pg): fragment globals and momentum bitwise equal over "
         f"{n_tensors} tensors; replica 0 inner steps 20-39: median step without a sync "
         f"{statistics.median(plain):.1f} ms, mean of all {per_inner:.1f} ms "
         f"({tokens / per_inner * 1e3:.1f} tokens/s per replica; median inner_ms "
@@ -989,6 +1017,247 @@ def check_train_llama_hsdp_processes() -> dict:
             f"GiB, last allreduce's stages {pipeline}, metrics {d['metrics']}, launches "
             f"{d['launches']}")
     return {rid: d["launches"] for rid, d in done.items()}
+
+
+def two_ranks(store, prefix: str, fn) -> list:
+    """``fn(rank, pg)`` on ranks 0 and 1 of a ``ProcessGroupHost`` mesh
+    (threads); returns their results, raising the first failure."""
+    from torchft_tpu_torch.process_group import ProcessGroupHost
+
+    out, errs = [None, None], []
+
+    def rank(r: int) -> None:
+        pg = ProcessGroupHost(timeout=300)
+        try:
+            pg.configure(f"127.0.0.1:{store.port}/{prefix}", r, 2)
+            out[r] = fn(r, pg)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+        finally:
+            pg.shutdown()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errs:
+        raise errs[0]
+    if None in out:
+        raise RuntimeError(f"{prefix}: a rank did not finish")
+    return out
+
+
+def rs_stages(x: torch.Tensor, pg) -> dict:
+    """One reduce_scatter_quantized (SUM) through the device engine's own
+    steps, with the card synchronized between them: K3 over the padded
+    buffer, the slicing of its codes onto the host wire, the alltoall, the
+    landing with K4 (np.stack, H2D, one launch), the f32 sum in rank
+    order. Milliseconds per stage."""
+    from torchft_tpu_torch.collectives import (
+        _ceil_div, _device_from_wire, _sum_ranks, _wire_from_device)
+    from torchft_tpu_torch.ops.quantization import fused_quantize_fp8
+
+    world = pg.size()
+    chunk_rows = max(1, _ceil_div(_ceil_div(x.numel(), world), ROW))
+    marks = [time.perf_counter()]
+
+    def mark() -> None:
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    q, scales, _ = fused_quantize_fp8(x, rows=world * chunk_rows)
+    mark()
+    sends = [_wire_from_device(q[r * chunk_rows:(r + 1) * chunk_rows],
+                               scales[r * chunk_rows:(r + 1) * chunk_rows], chunk_rows * ROW)
+             for r in range(world)]
+    del q, scales
+    mark()
+    recvd = pg.alltoall(sends).get_future().wait(300)
+    mark()
+    deq = _device_from_wire(list(recvd), x.device)
+    mark()
+    _sum_ranks(deq)
+    mark()
+    names = ("k3_ms", "slice_ms", "wire_ms", "land_k4_ms", "sum_ms")
+    return {k: (b - a) * 1e3 for k, a, b in zip(names, marks, marks[1:])}
+
+
+def check_reduce_scatter_on_card(device: torch.device, full_n: int, turns: int = 3) -> dict:
+    """Phase 13 (a): reduce_scatter_quantized of CUDA tensors bitwise
+    against the same call on CPU tensors, then timed at ``full_n`` with
+    its stages; returns every counter of ``LAUNCHES`` after the timed turns."""
+    from torchft_tpu_torch.collectives import reduce_scatter_quantized
+    from torchft_tpu_torch.coordination import KvStoreServer
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.process_group import ReduceOp
+
+    n = 2 ** 24 + 777
+    # rank 0: a zero row, an overflow row, a non-finite row, a subnormal row
+    inputs = [make_input("specials", n, device), make_input("wide_range", n, device)]
+    store = KvStoreServer("127.0.0.1:0")
+    try:
+        for op in (ReduceOp.SUM, ReduceOp.AVG):
+            # the card's call, then the CPU's
+            outs = [two_ranks(store, f"rs_{op.name}_{i}",
+                              lambda r, pg, dev=dev: reduce_scatter_quantized(
+                                  [inputs[r].to(dev)], op, pg).get_future().wait(300).cpu())
+                    for i, dev in enumerate((device, torch.device("cpu")))]
+            for r in range(2):
+                a, b = outs[0][r], outs[1][r]
+                if a.shape != b.shape or bits_differ(a, b):
+                    raise RuntimeError(f"reduce_scatter_quantized {op.name} rank {r}: CUDA and "
+                                       f"CPU chunks differ ({a.shape} vs {b.shape})")
+            log(f"reduce_scatter_quantized {op.name} (world 2, n={n}, specials): CUDA kernels "
+                f"== CPU plain versions, bitwise; chunk {outs[0][0].numel()} elements")
+        del inputs, outs
+        torch.cuda.empty_cache()
+
+        # the timed turns at bench_1b's gradient count: this phase's path
+        big = [make_input("random", full_n, device), make_input("wide_range", full_n, device)]
+        torch.cuda.synchronize()
+        q.reset_launches()
+        calls, stages = [], []
+        for turn in range(turns):
+            def call(r, pg):
+                pg.alltoall([np.zeros(1, np.float32)] * 2).get_future().wait(60)  # line up
+                t0 = time.perf_counter()
+                out = reduce_scatter_quantized([big[r]], ReduceOp.SUM, pg).get_future().wait(300)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3, out.numel()
+
+            res = two_ranks(store, f"rs_time_{turn}", call)
+            calls.append(max(ms for ms, _ in res))
+            chunk = res[0][1]
+            launches = dict(q.LAUNCHES)
+            st = two_ranks(store, f"rs_stages_{turn}", lambda r, pg: rs_stages(big[r], pg))
+            # the stage launches are not the path's
+            q.LAUNCHES.update(launches)
+            stages.append({k: max(s[k] for s in st) for k in st[0]})
+            log(f"reduce_scatter_quantized bench_1b turn {turn}: call {calls[-1]:.1f} ms "
+                f"(slower rank); stages " + " ".join(f"{k} {v:.1f}" for k, v in stages[-1].items()))
+        launches = dict(q.LAUNCHES)
+    finally:
+        store.shutdown()
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the device engine runs K3 <false> and K4, never the host rule's K3
+    if (launches["quantize_fp8_rowwise"] == 0 or launches["dequantize_fp8_rowwise"] == 0
+            or launches["quantize_fp8_rowwise_host"] != 0):
+        raise RuntimeError(f"reduce_scatter_quantized on the card launched {launches}")
+    med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+    log(f"reduce_scatter_quantized bench_1b (n={full_n}, world 2, SUM, chunk {chunk}, "
+        f"{turns} turns): call median {statistics.median(calls):.1f} ms (each "
+        f"{', '.join(f'{c:.1f}' for c in calls)}); stage medians "
+        + " ".join(f"{k} {v:.1f}" for k, v in med.items()) + f"; launches {launches}")
+    return launches
+
+
+def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
+    """Phase 13 (b): bench_1b as three replica groups with the reference's
+    resilient-heal fault script, healed over HTTP v3 in place (docstring,
+    13)."""
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.train import Fault, run_replicas
+
+    rcfg = dataclasses.replace(
+        cfg, replicas=3, steps=6, quantize=False, transport="http",
+        # the serve side's lock wait must outlast staging 6.45 GB (up to
+        # 9.9 s on the H100): a 3 s one answered a healer's metadata request
+        # 503 mid-staging, failing the init heal. The serving window's grace
+        # stays at its 10 s cap.
+        http_timeout=30.0, faults=(
+            Fault(2, 2, "crash"),
+            # the assigned source drops every serve of chunk 0: failover
+            Fault(0, 2, "kill_heal_chunk", chunk=0, times=-1),
+            # the standby then serves chunk 0 corrupted once
+            Fault(1, 2, "corrupt_heal_chunk", chunk=0, times=1),
+            Fault(0, 4, "flake_rpc", method="should_commit"),
+        ))
+    knobs = {"TORCHFT_RETRY_MAX_ATTEMPTS": "2", "TORCHFT_RETRY_BASE_S": "0.01"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    q.reset_launches()
+    ta.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = run_replicas(rcfg, device, on_step=lambda e: log(
+            f"resilient step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+            f"participants={e['participants']} committed={e['committed']} healed={e['healed']} "
+            f"attention={e['attention']} step_ms={e['step_ms']:.1f} "
+            f"compute_ms={e['compute_ms']:.1f} allreduce_ms={e['allreduce_ms']:.1f} "
+            f"tokens_per_s={e['tokens_per_s']:.1f} buckets={int(e['allreduce_buckets'])} "
+            f"wire_ms={e['allreduce_wire_s'] * 1e3:.1f}"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    entries = [e for r in results for e in r["log"]]
+    losses = [e["loss"] for e in entries]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"resilient heal: non-finite loss: {losses}")
+    if any(r["step"] != rcfg.steps for r in results):
+        raise RuntimeError(f"resilient heal: replicas stopped at {[r['step'] for r in results]}")
+    healed = results[2]
+    t2 = healed["timings"]
+    if healed["restarts"] != 1 or healed["metrics"]["heals"] < 1:
+        raise RuntimeError(f"resilient heal: replica 2 did not crash and heal: {healed['metrics']}")
+    if t2["heal_failovers"] < 1 or t2["chunk_crc_failures"] < 1 or healed["metrics"]["errors"]:
+        raise RuntimeError(f"resilient heal: replica 2 failovers {t2['heal_failovers']}, crc "
+                           f"failures {t2['chunk_crc_failures']}, errors "
+                           f"{healed['metrics']['errors']}")
+    retries = sum(r["timings"]["rpc_retries"] for r in results)
+    if retries < 1:
+        raise RuntimeError("resilient heal: no RPC was retried")
+    if not all(r["storage_kept"] for r in results):
+        raise RuntimeError("resilient heal: the HTTP heal moved a live tensor's storage")
+    p0 = results[0]["params"]
+    for i in (1, 2):
+        unequal = [k for k in p0 if not same_bits(p0[k], results[i]["params"][k])]
+        if unequal:
+            raise RuntimeError(f"resilient heal: replica {i} differs in {unequal[:5]}")
+    dispatch = {e["attention"] for e in entries}
+    if dispatch != {"splash"}:
+        raise RuntimeError(f"resilient heal: attention dispatched to {dispatch}, not splash")
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} never launched on the resilient-heal path")
+    steady = [e for e in entries if e["committed"] and e["participants"] == 3
+              and not e["healed"] and e["step"] > 0]
+    if not steady:
+        raise RuntimeError("resilient heal: no steady step")
+    med = {k: statistics.median(e[k] for e in steady)
+           for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
+    t0_, t1_ = results[0]["timings"], results[1]["timings"]
+    log(f"resilient heal bench_1b ({elapsed:.1f} s, 3 replicas, {rcfg.steps} steps, bf16 "
+        f"allreduce, HTTP v3 in place): replicas bitwise equal over {len(p0)} tensors; median of "
+        f"{len(steady)} steady steps: step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
+        f"{med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} ms + commit+optimizer "
+        f"{med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
+        f"{med['tokens_per_s']:.1f} tokens/s per replica")
+    log(f"resilient heal: replica 2 heal_recv_s {t2.get('heal_recv_s', float('nan')):.3f} "
+        f"heal_chunks {t2.get('heal_chunks', 0):.0f} heal_mb_per_s "
+        f"{t2.get('heal_mb_per_s', float('nan')):.1f} heal_attempts {t2['heal_attempts']:.0f} "
+        f"heal_failovers {t2['heal_failovers']:.0f} chunk_crc_failures "
+        f"{t2['chunk_crc_failures']:.0f}; replica 0 (assigned source) heal_send_s "
+        f"{t0_.get('heal_send_s', float('nan')):.3f}, replica 1 (standby) standby_send_s "
+        f"{t1_.get('standby_send_s', float('nan')):.3f}; rpc_retries "
+        f"{[r['timings']['rpc_retries'] for r in results]}; storage kept; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    del results, p0, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def bench_1b_grad_specs() -> dict:
@@ -1744,6 +2013,7 @@ def time_model_fwd_bwd(device: torch.device) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1754,7 +2024,7 @@ def main() -> int:
     from torchft_tpu_torch.ops import attention as ta
     from torchft_tpu_torch.ops import quantization as q
     from torchft_tpu_torch.ops._build import build
-    from torchft_tpu_torch.train import REPLICAS, TrainConfig, run_replicas
+    from torchft_tpu_torch.train import REPLICAS, Fault, TrainConfig, run_replicas
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1781,7 +2051,7 @@ def main() -> int:
         raise RuntimeError(f"ops/attention.py routes {routed}, chip_smoke.py expects {stated}")
 
     cfg = TrainConfig(config="bench_1b", steps=6, batch_size=1, seq_len=2048,
-                      quantize=True, fail_at=3)
+                      quantize=True, faults=(Fault(1, 3, "crash", at="backward"),))
     n_params = CONFIGS[cfg.config].num_params()
     stats, timing = check_kernels(device, n_params, world=REPLICAS)
     log(f"quantize at the reduced-chunk shape (n={timing['quantize']['chunk_n']}): "
@@ -1872,7 +2142,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_pg_transport_on_card(device)
-    pg_cfg = dataclasses.replace(cfg, steps=5, fail_at=2, transport="pg")
+    pg_crash = 2
+    pg_cfg = dataclasses.replace(cfg, steps=5, faults=(Fault(1, pg_crash, "crash", at="backward"),),
+                                 transport="pg")
     q.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1891,7 +2163,7 @@ def main() -> int:
         raise RuntimeError(f"PG run: replicas differ in {unequal[:5]}")
     pg_heal = heal_numbers(pg_results)
     log(f"bench_1b heal over PGTransport ({time.perf_counter() - t0:.1f} s, {pg_cfg.steps} "
-        f"steps, crash at {pg_cfg.fail_at}): replicas bitwise equal over {len(p0)} tensors; "
+        f"steps, crash at {pg_crash}): replicas bitwise equal over {len(p0)} tensors; "
         f"launches {dict(q.LAUNCHES)}")
     for label, h, peak in (("http", http_heal, http_peak), ("pg", pg_heal, pg_peak)):
         log(f"bench_1b heal {label}: heal_send_s {h['heal_send_s']:.3f} heal_recv_s "
@@ -1905,6 +2177,8 @@ def main() -> int:
     diloco_proc_launches = check_train_diloco_processes()
     check_local_sgd_on_card(device)
     hsdp_launches = check_train_llama_hsdp_processes()
+    rs_launches = check_reduce_scatter_on_card(device, n_params)
+    check_resilient_heal_bench_1b(device, cfg)
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -1939,6 +2213,8 @@ def main() -> int:
             "launches_diloco": {"bench_1b": diloco_launches[kname], **{
                 f"train_diloco replica {rid}": d[kname]
                 for rid, d in diloco_proc_launches.items()}},
+            # phase 13's reduce_scatter_quantized turns
+            "launches_reduce_scatter": rs_launches[kname],
             **sass_counts(build_report[instance]),
         })
     for dtype, (suffix, sources) in ATTN_DTYPES.items():
@@ -1966,6 +2242,7 @@ def main() -> int:
                     **sass_counts(build_report[ATTN_INSTANCE[dtype][kernel].format(
                         split=str(impl == "splash").lower())]),
                 })
+    log(f"chip_smoke.py: {time.perf_counter() - started:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -430,3 +430,85 @@ def test_cuda_f32_and_f16_run_only_their_routed_kernels(cuda_device, dtype, impl
     assert ta.LAST_DISPATCH == "xla"
     assert not any(ta.LAUNCHES.values())
     torch.testing.assert_close(out, ta.xla_attention(q, k, v), rtol=0, atol=0)
+
+
+def _rs_two_ranks(inputs, op, prefix):
+    """reduce_scatter_quantized of ``inputs[r]`` on ranks 0 and 1 of a host
+    process group (threads); each rank's chunk on the CPU, or its error."""
+    import threading
+
+    from torchft_tpu_torch.collectives import reduce_scatter_quantized
+    from torchft_tpu_torch.coordination import KvStoreServer
+    from torchft_tpu_torch.process_group import ProcessGroupHost
+
+    store = KvStoreServer("127.0.0.1:0")
+    out = [None, None]
+
+    def rank(r):
+        pg = ProcessGroupHost(timeout=60)
+        try:
+            pg.configure(f"127.0.0.1:{store.port}/{prefix}", r, 2)
+            out[r] = reduce_scatter_quantized([inputs[r]], op, pg).get_future().wait(60).cpu()
+        except Exception as e:  # noqa: BLE001 - the test reads it
+            out[r] = e
+        finally:
+            pg.shutdown()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    store.shutdown()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["SUM", "AVG"])
+def test_cuda_reduce_scatter_quantized_matches_cpu(cuda_device, op):
+    """The device engine on CUDA tensors (one quantize and one dequantize
+    launch a rank) against the same call on CPU tensors, bit for bit."""
+    from torchft_tpu_torch.process_group import ReduceOp
+
+    g = torch.Generator().manual_seed(11)
+    inputs = [torch.randn(512 * 300 + 77, generator=g) * 10 for _ in range(2)]
+    inputs[0][:512] = 0.0
+    inf_at = 600
+    inputs[1][inf_at] = float("inf")
+    tq.reset_launches()
+    card = _rs_two_ranks([x.to(cuda_device) for x in inputs], ReduceOp[op], f"rs_cuda_{op}")
+    assert tq.LAUNCHES["quantize_fp8_rowwise"] == 2 and tq.LAUNCHES["dequantize_fp8_rowwise"] == 2
+    cpu = _rs_two_ranks(inputs, ReduceOp[op], f"rs_cpu_{op}")
+    # rank 0's chunk is whole rows: the inf's rank and row within it
+    inf_rank, inf_off = divmod(inf_at, card[0].numel())
+    for r, (a, b) in enumerate(zip(card, cpu)):
+        assert isinstance(a, torch.Tensor) and a.shape == b.shape
+        # the inf's row decodes to NaNs, whose payloads may differ; no
+        # other element is NaN
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b))
+        rows = torch.unique(nan.nonzero().flatten() // 512).tolist()
+        assert rows == ([inf_off // 512] if r == inf_rank else []), (r, rows)
+        differ = (a[~nan].view(torch.int32) != b[~nan].view(torch.int32)).nonzero().flatten()
+        assert differ.numel() == 0, (r, differ[:8].tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_reduce_scatter_build_failure_raises(cuda_device, monkeypatch, tmp_path):
+    """A broken fp8_rowwise.cu fails reduce_scatter_quantized's Work with
+    nvcc's output: no plain version, no host engine in its place."""
+    from torchft_tpu_torch.ops import _build
+    from torchft_tpu_torch.process_group import ReduceOp
+
+    (tmp_path / "fp8_rowwise.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "_BUILD_DIR", str(tmp_path / "build"))
+    tq._kernels.cache_clear()
+    try:
+        tq.reset_launches()
+        out = _rs_two_ranks([torch.ones(2048, device=cuda_device)] * 2, ReduceOp.SUM, "rs_broken")
+        for e in out:
+            assert isinstance(e, RuntimeError) and "nvcc failed" in str(e)
+        assert not any(tq.LAUNCHES.values())
+    finally:
+        tq._kernels.cache_clear()

@@ -608,3 +608,539 @@ def test_a_follower_rank_needs_the_leaders_store():
         Manager(pg=ProcessGroupHost(timeout=TIMEOUT), load_state_dict=None, state_dict=None,
                 min_replica_size=1, lighthouse_addr="127.0.0.1:1", group_rank=1,
                 group_world_size=2)
+
+
+# ---------------------------------------------------------------------------
+# Unit cases with the remote endpoints mocked (``tests/test_manager.py``'s
+# ``make_manager``), each run on both packages with equal results, and the
+# prepare/commit split (``tests/test_prepare_commit.py``)
+# ---------------------------------------------------------------------------
+from unittest.mock import MagicMock, patch  # noqa: E402
+
+from torchft_tpu import coordination as ref_coord  # noqa: E402
+from torchft_tpu import manager as ref_manager_mod  # noqa: E402
+from torchft_tpu import process_group as ref_pg  # noqa: E402
+from torchft_tpu._test.event_injector import EventInjector  # noqa: E402
+from torchft_tpu_torch import coordination as port_coord  # noqa: E402
+from torchft_tpu_torch import manager as port_manager_mod  # noqa: E402
+from torchft_tpu_torch import process_group as port_pg  # noqa: E402
+
+
+class _Unit:
+    """One package's Manager with mocked server, store and clients."""
+
+    def __init__(self, port: bool) -> None:
+        self.port = port
+        self.mod = port_manager_mod if port else ref_manager_mod
+        self.pg = port_pg if port else ref_pg
+        self.coord = port_coord if port else ref_coord
+
+    def quorum(self, quorum_id=1, replica_rank=0, replica_world_size=2, heal=False,
+               max_step=0, max_replica_rank=0, max_world_size=2,
+               recover_src_replica_rank=None, recover_dst_replica_ranks=()):
+        return self.coord.QuorumResult(
+            quorum_id=quorum_id, replica_rank=replica_rank,
+            replica_world_size=replica_world_size,
+            recover_src_manager_address="mock://recover",
+            recover_src_replica_rank=recover_src_replica_rank,
+            recover_dst_replica_ranks=list(recover_dst_replica_ranks),
+            store_address="mockstore:1", max_step=max_step,
+            max_replica_rank=max_replica_rank, max_world_size=max_world_size, heal=heal,
+            replica_ids=["a", "b"],
+        )
+
+    def manager(self, pg=None, quorum=None, use_async_quorum=True, **kwargs):
+        pg = pg or self.pg.ProcessGroupDummy()
+        transport = MagicMock()
+        transport.metadata.return_value = "mock://ckpt"
+        transport.supports_multi_source = False
+        name = self.mod.__name__
+        with patch(f"{name}.ManagerServer") as server, patch(f"{name}.KvStoreServer") as store, \
+                patch(f"{name}.KvClient"), patch(f"{name}.ManagerClient") as client_cls:
+            server.return_value.address.return_value = "mock:1234"
+            store.return_value.port = 1
+            client = client_cls.return_value
+            if quorum is not None:
+                client._quorum.return_value = quorum
+            client.should_commit.side_effect = lambda rank, step, ok, timeout: ok
+            m = self.mod.Manager(
+                pg=pg,
+                load_state_dict=kwargs.pop("load_state_dict", MagicMock()),
+                state_dict=kwargs.pop("state_dict", lambda: {"w": np.ones(2)}),
+                min_replica_size=kwargs.pop("min_replica_size", 2),
+                use_async_quorum=use_async_quorum, replica_id="test",
+                lighthouse_addr="mock:1", checkpoint_transport=transport,
+                timeout=kwargs.pop("timeout", 5.0), **kwargs,
+            )
+        m._test_client = client
+        m._test_transport = transport
+        return m
+
+    def leaf(self, a):
+        return torch.from_numpy(np.array(a)) if self.port else np.array(a)
+
+
+UNITS = (_Unit(False), _Unit(True))
+
+
+def _on_both(case):
+    """``case(unit)`` on the reference, then the port: equal results."""
+    results = [case(u) for u in UNITS]
+    assert results[1] == results[0], results
+    return results[1]
+
+
+def test_unit_timeouts_forwarded_to_rpcs():
+    def case(u):
+        m = u.manager(quorum=u.quorum(), timeout=7.0, quorum_timeout=13.0)
+        m.start_quorum()
+        m.wait_quorum()
+        q_timeout = m._test_client._quorum.call_args.kwargs["timeout"]
+        ok = m.should_commit()
+        v_timeout = m._test_client.should_commit.call_args.kwargs["timeout"]
+        ok2 = (m.start_quorum(timeout=3.0), m.wait_quorum(),
+               m._test_client._quorum.call_args.kwargs["timeout"], m.should_commit(timeout=2.0),
+               m._test_client.should_commit.call_args.kwargs["timeout"])[2:]
+        m.shutdown(wait=False)
+        return q_timeout, ok, v_timeout, ok2
+
+    assert _on_both(case) == (13.0, True, 7.0, (3.0, True, 2.0))
+
+
+def test_unit_timeout_env_overrides(monkeypatch):
+    monkeypatch.setenv("TORCHFT_TIMEOUT_SEC", "9")
+    monkeypatch.setenv("TORCHFT_QUORUM_TIMEOUT_SEC", "11")
+    monkeypatch.setenv("TORCHFT_CONNECT_TIMEOUT_SEC", "4")
+
+    def case(u):
+        m = u.manager(quorum=u.quorum(), timeout=7.0, quorum_timeout=13.0, connect_timeout=2.0)
+        out = (m._timeout, m._quorum_timeout, m._connect_timeout)
+        m.shutdown(wait=False)
+        return out
+
+    assert _on_both(case) == (9.0, 11.0, 4.0)
+
+
+def test_unit_quorum_no_healing_skips_recovery_but_counts():
+    def case(u):
+        m = u.manager(quorum=u.quorum(heal=True, max_step=1, max_replica_rank=None,
+                                      recover_src_replica_rank=1))
+        m.start_quorum(allow_heal=False)
+        out = m.allreduce({"x": u.leaf(np.ones(2, np.float32))}).get_future().wait(10)
+        got = (np.asarray(out["x"]).tolist(), m.is_participating(), m.num_participants(),
+               m.should_commit(), m.current_step(), m.batches_committed(),
+               m._test_transport.recv_checkpoint.called,
+               m._test_transport.send_checkpoint.called)
+        m.shutdown(wait=False)
+        return got
+
+    assert _on_both(case) == ([0.0, 0.0], False, 2, True, 1, 2, False, False)
+
+
+def test_unit_max_retries_raises():
+    def case(u):
+        m = u.manager(quorum=u.quorum(max_world_size=1, replica_world_size=1),
+                      min_replica_size=2, max_retries=1)
+        m.start_quorum()
+        first = m.should_commit()  # failure 1: tolerated
+        m.start_quorum()
+        with pytest.raises(RuntimeError, match="max_retries") as e:
+            m.should_commit()  # failure 2 > max_retries
+        m.shutdown(wait=False)
+        return first, "2 times consecutively" in str(e.value)
+
+    assert _on_both(case) == (False, True)
+
+
+def test_unit_commit_failures_reported_and_forwarded():
+    def case(u):
+        m = u.manager(quorum=u.quorum(max_world_size=1, replica_world_size=1), min_replica_size=2)
+        m.start_quorum()
+        m.wait_quorum()
+        first = m._test_client._quorum.call_args.kwargs["commit_failures"]
+        vote = m.should_commit()
+        m.start_quorum()
+        m.wait_quorum()
+        second = m._test_client._quorum.call_args.kwargs["commit_failures"]
+        m.shutdown(wait=False)
+        return first, vote, second
+
+    assert _on_both(case) == (0, False, 1)
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_unit_fixed_with_spares(rank):
+    def case(u):
+        m = u.manager(quorum=u.quorum(replica_rank=rank, replica_world_size=3,
+                                      max_replica_rank=rank, max_world_size=3),
+                      min_replica_size=2, world_size_mode=u.mod.WorldSizeMode.FIXED_WITH_SPARES)
+        m.start_quorum()
+        got = (m.num_participants(), m.participating_rank(), m.is_participating(),
+               m.num_replicas())
+        m.shutdown(wait=False)
+        return got
+
+    # rank 2 is a spare past min_replica_size
+    assert _on_both(case) == ((2, 1, True, 3) if rank == 1 else (2, None, False, 3))
+
+
+def _auto_mode_pg(u):
+    class AutoModePG(u.pg.ProcessGroupDummy):
+        """Cannot know whether it needs the sync quorum until its first
+        configure resolves its mode."""
+
+        def __init__(self):
+            super().__init__()
+            self.resolved = False
+
+        @property
+        def requires_sync_quorum(self):
+            return not self.resolved
+
+        def configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+            super().configure(store_addr, replica_rank, replica_world_size, quorum_id)
+            self.resolved = True
+
+    return AutoModePG()
+
+
+@pytest.mark.parametrize("requested_async", [True, False])
+def test_unit_async_quorum_restored_only_if_requested(requested_async):
+    def case(u):
+        pg = _auto_mode_pg(u)
+        m = u.manager(pg=pg, quorum=u.quorum(), use_async_quorum=requested_async)
+        modes = [m._use_async_quorum]
+        m.start_quorum()
+        m.wait_quorum()
+        ok = m.should_commit()
+        m.start_quorum()
+        modes.append(m._use_async_quorum)
+        m.wait_quorum()
+        ok2 = m.should_commit()
+        m.shutdown(wait=False)
+        return modes, pg.resolved, ok, ok2
+
+    assert _on_both(case) == ([False, requested_async], True, True, True)
+
+
+def test_unit_introspection_and_state_fns():
+    def case(u):
+        loads = []
+        m = u.manager(quorum=u.quorum(quorum_id=5))
+        m.set_state_dict_fns(loads.append, lambda: {"v": 1})
+        before = (m.current_quorum_id(), m.participating_rank(), m.num_replicas())
+        m.start_quorum()
+        m.wait_quorum()
+        after = (m.current_quorum_id(), m.replica_rank(), m.num_replicas())
+        m.load_user_state_dict({"default": {"v": 2}, "other": 3})
+        m.disallow_state_dict_read()
+        m.allow_state_dict_read()
+        user = m.user_state_dict()
+        m.shutdown(wait=False)
+        return before, after, loads, user
+
+    assert _on_both(case) == ((-1, None, 0), (5, 0, 2), [{"v": 2}], {"default": {"v": 1}})
+
+
+def test_unit_resilience_counters_start_at_zero():
+    def case(u):
+        m = u.manager(quorum=u.quorum())
+        t = m.timings()
+        m.shutdown(wait=False)
+        return {k: t[k] for k in ("heal_attempts", "heal_failovers", "rpc_retries",
+                                  "chunk_crc_failures", "collective_reroute", "standby_skipped")}
+
+    assert set(_on_both(case).values()) == {0.0}
+
+
+def test_unit_rpc_retry_observer_counts():
+    def case(u):
+        m = u.manager(quorum=u.quorum())
+        observer = m._test_client.set_retry_observer.call_args.args[0]
+        observer("should_commit", 2, ConnectionError("blip"))
+        n = m.timings()["rpc_retries"]
+        m.shutdown(wait=False)
+        return n
+
+    assert _on_both(case) == 1.0
+
+
+@pytest.mark.parametrize("retry", [True, False])
+def test_rpc_retry_flag_matches_the_reference(retry):
+    """One injected connection loss on a lighthouse heartbeat: under the
+    retry policy the call succeeds on its second attempt and the observer
+    sees that one retry; ``retry=False`` makes exactly one attempt and
+    raises its error. Both packages alike."""
+    from torchft_tpu import retry as ref_retry
+    from torchft_tpu_torch import retry as port_retry
+
+    def case(coord, retry_mod):
+        lh = coord.LighthouseServer(bind="127.0.0.1:0", min_replicas=1)
+        attempts, retries = [], []
+
+        def hook(method, addr):
+            attempts.append(method)
+            return ConnectionError("injected") if len(attempts) == 1 else None
+
+        coord.set_rpc_fault_hook(hook)
+        try:
+            client = coord.LighthouseClient(
+                f"127.0.0.1:{lh.port}",
+                retry_policy=retry_mod.RetryPolicy(max_attempts=3, base_s=0.0))
+            client.set_retry_observer(
+                lambda m, a, e: retries.append((m, a, type(e).__name__)))
+            try:
+                client._client.call("heartbeat", {"replica_id": "r"}, 5.0, retry=retry)
+                outcome = "ok"
+            except ConnectionError as e:
+                outcome = str(e)
+        finally:
+            coord.set_rpc_fault_hook(None)
+            lh.shutdown()
+        return outcome, attempts, retries
+
+    ref = case(ref_coord, ref_retry)
+    assert case(port_coord, port_retry) == ref
+    if retry:
+        assert ref == ("ok", ["heartbeat"] * 2, [("heartbeat", 2, "ConnectionError")])
+    else:
+        assert ref == ("injected", ["heartbeat"], [])
+
+
+def test_unit_multi_source_heal_fails_over_through_the_transport():
+    """A multi-source transport gets the assigned source, then the
+    quorum's fallbacks, each metadata RPC made lazily; its events feed the
+    counters."""
+    def case(u):
+        q = u.quorum(heal=True, max_step=4, max_replica_rank=None, recover_src_replica_rank=0)
+        q.recover_src_fallbacks = [u.coord.FallbackPeer(replica_rank=2, address="peer2:1")]
+        m = u.manager(quorum=q)
+        transport = m._test_transport
+        transport.supports_multi_source = True
+
+        def recv_multi(sources, step, timeout, on_event=None):
+            on_event("heal_retry", chunk=0)
+            on_event("heal_failover", source=sources[1][0])
+            on_event("chunk_crc_failure", chunk=0)
+            return {"user": {"default": {"w": 3}}, "torchft": {"step": step,
+                                                               "batches_committed": 8}}
+
+        transport.recv_checkpoint_multi.side_effect = recv_multi
+        m.start_quorum()
+        m.wait_quorum()
+        labels = [s[0] for s in transport.recv_checkpoint_multi.call_args.args[0]]
+        ok = m.should_commit()
+        t = m.timings()
+        got = (labels, ok, m.current_step(), t["heal_attempts"], t["heal_failovers"],
+               t["chunk_crc_failures"], m.metrics()["heals"])
+        m.shutdown(wait=False)
+        return got
+
+    assert _on_both(case) == (["replica_rank_0@mock://recover", "replica_rank_2@peer2:1"],
+                              True, 5, 2.0, 1.0, 1.0, 1)
+
+
+def test_unit_standby_source_holds_the_window_open():
+    """Behind the cohort but not assigned: stage a standby snapshot once per
+    heal episode and keep serving across the commit."""
+    def case(u):
+        q = u.quorum(max_world_size=1, replica_world_size=2)
+        m = u.manager(quorum=q, min_replica_size=1)
+        m._test_transport.supports_multi_source = True
+        m.start_quorum()
+        m.wait_quorum()
+        staged = m._test_transport.send_checkpoint.call_args.kwargs["dst_ranks"]
+        m.should_commit()
+        held = not m._test_transport.disallow_checkpoint.called
+        m._test_client._quorum.return_value = u.quorum(max_world_size=2)
+        m.start_quorum()
+        m.wait_quorum()
+        m.should_commit()
+        closed = m._test_transport.disallow_checkpoint.called
+        sends = m._test_transport.send_checkpoint.call_count
+        m.shutdown(wait=False)
+        return staged, held, closed, sends
+
+    assert _on_both(case) == ([], True, True, 1)
+
+
+# -- tests/test_prepare_commit.py: TestPrepareConfigureBase ------------------
+def _split_pg(u, fail_commits: int = 0):
+    class SplitPG(u.pg.ProcessGroupDummy):
+        """A real prepare/commit split that records each phase's thread."""
+
+        def __init__(self) -> None:
+            super().__init__()
+            self.prepare_threads, self.commit_threads = [], []
+            self.commit_count = 0
+            self.fail_commits = fail_commits
+
+        def prepare_configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+            self.prepare_threads.append(threading.current_thread().name)
+
+            def commit():
+                self.commit_threads.append(threading.current_thread().name)
+                if self.fail_commits > 0:
+                    self.fail_commits -= 1
+                    raise RuntimeError("injected commit failure")
+                self.commit_count += 1
+                self.configure(store_addr, replica_rank, replica_world_size, quorum_id=quorum_id)
+
+            return commit
+
+    return SplitPG()
+
+
+def test_prepare_base_routes_through_a_shadowed_configure():
+    def case(u):
+        pg = u.pg.ProcessGroupDummy()
+        calls = []
+        orig = pg.configure
+        pg.configure = lambda *a, **k: (calls.append(a), orig(*a, **k))[-1]
+        out = pg.prepare_configure("s:1/x", 0, 1, quorum_id=2)
+        return out, len(calls), pg.configure_count
+
+    assert _on_both(case) == (None, 1, 1)
+
+
+def test_prepare_error_swallow_clears_immediately_for_an_unsplit_pg():
+    def case(u):
+        wrapper = u.pg.ErrorSwallowingProcessGroupWrapper(u.pg.ProcessGroupDummy())
+        wrapper.report_error(RuntimeError("boom"))
+        return wrapper.prepare_configure("s:1/x", 0, 1), wrapper.errored()
+
+    assert _on_both(case) == (None, None)
+
+
+def test_prepare_error_swallow_clears_at_commit_for_a_split_pg():
+    def case(u):
+        inner = _split_pg(u)
+        wrapper = u.pg.ErrorSwallowingProcessGroupWrapper(inner)
+        wrapper.report_error(RuntimeError("boom"))
+        commit = wrapper.prepare_configure("s:1/x", 0, 1, quorum_id=3)
+        before = wrapper.errored() is not None
+        commit()
+        return before, wrapper.errored(), inner.commit_count
+
+    assert _on_both(case) == (True, None, 1)
+
+
+# -- tests/test_prepare_commit.py: TestManagerPrepareCommit ------------------
+def test_prepare_on_the_quorum_thread_commit_on_main():
+    def case(u):
+        pg = _split_pg(u)
+        m = u.manager(pg=pg, quorum=u.quorum())
+        m.start_quorum()
+        m.wait_quorum()
+        before = (len(pg.prepare_threads), pg.prepare_threads[0].startswith("torchft_quorum"),
+                  pg.commit_count)
+        ok = m.should_commit()
+        t = m.timings()
+        got = (before, ok, pg.commit_count,
+               pg.commit_threads == [threading.current_thread().name],
+               t["quorum_overlap_s"] > 0, "configure_prepare_s" in t,
+               t["configure_commit_s"] >= 0)
+        m.shutdown(wait=False)
+        return got
+
+    assert _on_both(case) == ((1, True, 0), True, 1, True, True, True, True)
+
+
+def test_prepare_unsplit_pg_records_zero_commit_time():
+    def case(u):
+        m = u.manager(quorum=u.quorum())
+        m.start_quorum()
+        m.wait_quorum()
+        ok = m.should_commit()
+        got = (ok, m.timings()["configure_commit_s"])
+        m.shutdown(wait=False)
+        return got
+
+    assert _on_both(case) == (True, 0.0)
+
+
+def test_prepare_allreduce_applies_the_pending_commit():
+    def case(u):
+        pg = _split_pg(u)
+        m = u.manager(pg=pg, quorum=u.quorum())
+        m.start_quorum()
+        m.wait_quorum()
+        before = pg.commit_count
+        out = m.allreduce({"w": u.leaf(np.full((3,), 4.0, np.float32))}).get_future().wait(10)
+        got = (before, np.asarray(out["w"]).tolist(), pg.commit_count)
+        m.shutdown(wait=False)
+        return got
+
+    assert _on_both(case) == (0, [2.0, 2.0, 2.0], 1)
+
+
+def test_prepare_steady_state_step_skips_reconfigure():
+    def case(u):
+        pg = _split_pg(u)
+        m = u.manager(pg=pg, quorum=u.quorum())
+        counts = []
+        for _ in range(2):
+            m.start_quorum()
+            m.wait_quorum()
+            assert m.should_commit()
+            counts.append((len(pg.prepare_threads), pg.commit_count))
+        m.shutdown(wait=False)
+        return counts
+
+    assert _on_both(case) == [(1, 1), (1, 1)]
+
+
+def test_prepare_commit_failure_reports_error_and_forces_reconfigure():
+    def case(u):
+        pg = _split_pg(u, fail_commits=1)
+        m = u.manager(pg=pg, quorum=u.quorum())
+        m.start_quorum()
+        m.wait_quorum()
+        first = (m.should_commit(), m._quorum_id)
+        m.start_quorum()
+        m.wait_quorum()
+        got = (first, m.should_commit(), len(pg.prepare_threads), pg.commit_count)
+        m.shutdown(wait=False)
+        return got
+
+    assert _on_both(case) == ((False, -1), True, 2, 1)
+
+
+def test_prepare_stalled_does_not_block_the_step():
+    """A quorum landing while a step computes: the prepare stalls on the
+    quorum thread past the step, the main thread's compute finishes
+    untouched, and the commit lands afterwards at the vote (the
+    reference's jitted step is a torch computation here)."""
+    def case(u):
+        inner = _split_pg(u)
+        fake = u.pg.FakeProcessGroupWrapper(inner)
+        injector = EventInjector().stall_prepare_at(0, 0)
+        fake.set_prepare_hook(lambda: injector.check_prepare(0, 0))
+        m = u.manager(pg=fake, quorum=u.quorum())
+        try:
+            m.start_quorum()
+            assert injector.wait_prepare_stalled(timeout=30)
+            val = float((torch.arange(8.0) * 2.0).sum())
+            during = (val, m._quorum_future.done(), inner.commit_count)
+        finally:
+            injector.release_prepare()
+        got = (during, m.should_commit(), inner.commit_count,
+               inner.commit_threads == [threading.current_thread().name],
+               inner.prepare_threads[0].startswith("torchft_quorum"))
+        m.shutdown(wait=False)
+        return got
+
+    assert _on_both(case) == ((56.0, False, 0), True, 1, True, True)
+
+
+def test_prepare_shutdown_drops_the_pending_commit():
+    def case(u):
+        pg = _split_pg(u)
+        m = u.manager(pg=pg, quorum=u.quorum())
+        m.start_quorum()
+        m.wait_quorum()
+        pending = m._pending_pg_commit is not None
+        m.shutdown(wait=True)
+        return pending, m._pending_pg_commit, pg.commit_count
+
+    assert _on_both(case) == (True, None, 0)

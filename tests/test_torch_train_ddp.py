@@ -361,7 +361,8 @@ def test_trainer_heals_over_pg_as_over_http_and_frees_the_crashed_replica(monkey
         for transport in ("http", "pg"):
             built.clear()
             cfg = train.TrainConfig(config="debug", steps=4, seq_len=16, quantize=True,
-                                    fail_at=2, transport=transport)
+                                    faults=(train.Fault(1, 2, "crash", at="backward"),),
+                                    transport=transport)
             results = train.run_replicas(cfg, "cpu")
             assert results[1]["restarts"] == 1 and results[1]["metrics"]["heals"] >= 1
             for k, v in results[0]["params"].items():
@@ -376,3 +377,81 @@ def test_trainer_heals_over_pg_as_over_http_and_frees_the_crashed_replica(monkey
     assert recording.collected == [True, True]
     with pytest.raises(ValueError, match="transport"):
         train.run_replicas(train.TrainConfig(config="debug", transport="ftp"), "cpu")
+
+
+# -- (e) the Llama trainer's fault script ------------------------------------------
+
+def test_trainer_fault_script_heals_through_failover_and_crc(monkeypatch):
+    """The resilient-heal script the card runs at bench_1b (the reference's
+    ``TestResilientHeal``), on the debug Llama with three replicas: replica
+    2 crashes at the start of step 2; its assigned source drops every serve
+    of chunk 0, so the heal fails over to the standby, which corrupts
+    chunk 0 once; one should_commit RPC flakes at step 4. Every replica
+    reaches step 6 bitwise equal, the heal failed over and caught the crc
+    failure with no error, an RPC was retried and the storage kept."""
+    from torchft_tpu_torch import train
+    from torchft_tpu_torch.train import Fault
+
+    monkeypatch.setenv("TORCHFT_RETRY_MAX_ATTEMPTS", "2")
+    monkeypatch.setenv("TORCHFT_RETRY_BASE_S", "0.01")
+    faults = (
+        Fault(2, 2, "crash"),
+        Fault(0, 2, "kill_heal_chunk", chunk=0, times=-1),
+        Fault(1, 2, "corrupt_heal_chunk", chunk=0, times=1),
+        Fault(0, 4, "flake_rpc", method="should_commit"),
+    )
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = train.TrainConfig(config="debug", steps=6, seq_len=16, quantize=False,
+                                transport="http", replicas=3, http_timeout=3.0, faults=faults)
+        results = train.run_replicas(cfg, "cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert [r["step"] for r in results] == [6, 6, 6]
+    assert [r["restarts"] for r in results] == [0, 0, 1]
+    healed = results[2]
+    assert healed["metrics"]["heals"] >= 1 and healed["metrics"]["errors"] == 0
+    assert healed["timings"]["heal_failovers"] >= 1
+    assert healed["timings"]["chunk_crc_failures"] >= 1
+    assert sum(r["timings"]["rpc_retries"] for r in results) >= 1
+    assert all(r["storage_kept"] for r in results)
+    for r in results[1:]:
+        for k, v in results[0]["params"].items():
+            assert torch.equal(v, r["params"][k]), k
+
+
+def test_trainer_fault_script_fires_under_diloco(monkeypatch):
+    """Under ``diloco=True`` the script fires too, at either point of an
+    inner step: a crash at the start of inner step 5 heals, an RPC flake
+    after inner step 2's backward pass is retried, and the fragments'
+    state ends bitwise equal."""
+    from torchft_tpu_torch import train
+    from torchft_tpu_torch.train import Fault
+
+    monkeypatch.setenv("TORCHFT_RETRY_MAX_ATTEMPTS", "2")
+    monkeypatch.setenv("TORCHFT_RETRY_BASE_S", "0.01")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = train.TrainConfig(
+            config="debug", steps=8, seq_len=16, quantize=False, transport="http",
+            diloco=True, sync_every=4, num_fragments=2, fragment_sync_delay=1,
+            faults=(Fault(1, 5, "crash"),
+                    Fault(0, 2, "flake_rpc", method="should_commit", at="backward")))
+        results = train.run_replicas(cfg, "cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert results[1]["restarts"] == 1 and results[1]["metrics"]["heals"] >= 1
+    assert sum(r["timings"]["rpc_retries"] for r in results) >= 1
+    assert results[0]["step"] == results[1]["step"]
+    s0, s1 = results[0]["fragment_state"], results[1]["fragment_state"]
+    assert len(s0) == len(s1) and all(torch.equal(a, b) for a, b in zip(s0, s1))
+
+
+@pytest.mark.parametrize("bad", [{"kind": "explode"}, {"kind": "crash", "at": "end"}])
+def test_fault_rejects_unknown_kinds_and_points(bad):
+    from torchft_tpu_torch.train import Fault
+
+    with pytest.raises(ValueError, match="unknown fault"):
+        Fault(0, 1, **bad)

@@ -95,7 +95,9 @@ def flatten_state(
                 host = t.cpu()
             else:
                 host = t.clone() if snapshot else t
-            host = host.contiguous().reshape(-1).view(torch.uint8).numpy()
+            # an empty tensor's flat view has stride 0, which .view refuses
+            host = (host.contiguous().reshape(-1).view(torch.uint8).numpy()
+                    if host.numel() else np.zeros(0, np.uint8))
             metas.append(TensorMeta(
                 dtype=_dtype_name(t.dtype), shape=tuple(t.shape), nbytes=host.nbytes
             ))

@@ -352,6 +352,9 @@ def _byte_view(t: Any) -> Any:
     written by a heal does not fail a backward the healing replica has in
     flight (its gradients are discarded: it sits the step out)."""
     if isinstance(t, torch.Tensor):
+        if t.numel() == 0:  # an empty flat view has stride 0, which .view refuses
+            return torch.empty(0, dtype=torch.uint8, device=t.device) if t.is_cuda \
+                else np.zeros(0, np.uint8)
         flat = t.data.reshape(-1).view(torch.uint8)
         return flat if flat.is_cuda else flat.numpy()
     return t.reshape(-1).view(np.uint8)

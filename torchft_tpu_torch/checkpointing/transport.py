@@ -110,6 +110,10 @@ class StreamTimings:
     total_bytes: int = 0
     total_s: float = 0.0
     chunks: List[ChunkStat] = field(default_factory=list)
+    # resilience counters of a multi-source receive
+    retries: int = 0  # same-source resumes and re-fetches
+    failovers: int = 0  # switches to a fallback source mid-heal
+    crc_failures: int = 0  # chunks re-fetched after a crc32 mismatch
 
     @property
     def num_chunks(self) -> int:
@@ -222,6 +226,32 @@ class CheckpointTransport(ABC):
         self, src_rank: int, metadata: str, step: int, timeout: "float | timedelta"
     ) -> Any:
         """Fetch the state for ``step`` from ``src_rank``."""
+
+    # pull-based transports that can fetch a step from any up-to-date peer
+    # set this and implement recv_checkpoint_multi; a push-based transport
+    # (PGTransport: only the assigned source sends) keeps it False, so the
+    # Manager never waits on a fallback peer that will never send
+    supports_multi_source: bool = False
+
+    def recv_checkpoint_multi(
+        self,
+        sources: List[Tuple[str, Callable[[], str]]],
+        step: int,
+        timeout: "float | timedelta",
+        on_event: Optional[Callable[..., None]] = None,
+    ) -> Any:
+        """Fetch the state for ``step`` from an ordered list of candidate
+        sources, failing over mid-transfer when one dies.
+
+        ``sources`` is ``[(label, metadata_fn), ...]``: ``metadata_fn``
+        resolves a peer's transport metadata lazily (the manager's
+        checkpoint_metadata RPC), so an unreachable fallback costs nothing
+        unless it is tried. ``on_event(kind, **fields)`` receives
+        ``heal_retry``, ``heal_failover`` and ``chunk_crc_failure`` as they
+        happen."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support multi-source receive"
+        )
 
     def last_recv_timings(self) -> Optional[StreamTimings]:
         """Chunk-stream stats of the most recent ``recv_checkpoint`` (None

@@ -12,8 +12,19 @@ Makefile's sources plus ``capi.cc``) straight into
 under its own file lock. The library's name carries a hash of the native
 sources, headers and flags, so an edited source rebuilds. It never loads the JAX package's library and never
 runs ``make`` (which writes ``native/*.o`` and would race that package's
-build). RPCs are single attempts: the reference's jittered retry policy is
-not ported yet.
+build).
+
+Every RPC runs under the reference's bounded retry layer (``_RawClient``,
+``torchft_tpu/coordination.py:795-930``): ``RetryPolicy.from_env()``
+(``TORCHFT_RETRY_*``; ``TORCHFT_RETRY_MAX_ATTEMPTS=1`` disables it) with
+the caller's timeout as the deadline budget, full jitter after a
+connection loss and bounded jitter after a timeout, and the last
+underlying exception re-raised on exhaustion. ``retry=False`` opts a call
+out (non-idempotent or fire-and-forget RPCs); ``set_retry_observer`` on a
+client sees every retry; ``set_rpc_fault_hook`` injects RPC faults in
+tests. A quorum result names, beyond its assigned recovery source, the
+other up-to-date peers a healing replica may fail over to
+(``recover_src_fallbacks``).
 """
 
 from __future__ import annotations
@@ -26,9 +37,12 @@ import os
 import subprocess
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
+
+from torchft_tpu_torch.retry import RetryBudgetExhausted, RetryPolicy, retry_call
 
 __all__ = [
+    "FallbackPeer",
     "QuorumResult",
     "LighthouseServer",
     "LighthouseClient",
@@ -37,6 +51,7 @@ __all__ = [
     "KvStoreServer",
     "KvClient",
     "ensure_native_built",
+    "set_rpc_fault_hook",
 ]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -192,6 +207,19 @@ def _new_handle(ctor: str, arg: bytes, what: str) -> Tuple[ctypes.CDLL, ctypes.c
 
 # --------------------------------------------------------------------- types
 @dataclass
+class FallbackPeer:
+    """An up-to-date peer a healing replica can fail over to if its assigned
+    recovery source dies mid-transfer."""
+
+    replica_rank: int
+    address: str  # manager RPC address (host:port)
+
+    @staticmethod
+    def _from_json(d: dict) -> "FallbackPeer":
+        return FallbackPeer(replica_rank=d.get("replica_rank", 0), address=d.get("address", ""))
+
+
+@dataclass
 class QuorumResult:
     """Per-rank manager quorum response (same fields as the reference's)."""
 
@@ -208,6 +236,9 @@ class QuorumResult:
     heal: bool
     commit_failures: int = 0
     replica_ids: List[str] = field(default_factory=list)
+    # the other max-step peers, in the native quorum's round-robin order
+    # after the assigned source; empty when not healing
+    recover_src_fallbacks: List[FallbackPeer] = field(default_factory=list)
 
     @staticmethod
     def _from_json(d: dict) -> "QuorumResult":
@@ -225,6 +256,9 @@ class QuorumResult:
             heal=d.get("heal", False),
             commit_failures=d.get("commit_failures", 0),
             replica_ids=list(d.get("replica_ids", [])),
+            recover_src_fallbacks=[
+                FallbackPeer._from_json(f) for f in d.get("recover_src_fallbacks", [])
+            ],
         )
 
 
@@ -333,11 +367,46 @@ class KvStoreServer(_Server):
 
 
 # ------------------------------------------------------------------- clients
-class _RawClient:
-    """Framed-JSON RPC client over the native transport (one attempt per
-    call; the caller's timeout is the deadline)."""
+# Test-only fault injection: called before every RPC attempt with (method,
+# addr); it may sleep (a slow link) and return an exception to raise in
+# place of the call (a flaky or partitioned server).
+_rpc_fault_hook: Optional[Callable[[str, str], Optional[Exception]]] = None
 
-    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
+
+def set_rpc_fault_hook(hook: Optional[Callable[[str, str], Optional[Exception]]]) -> None:
+    """Install (or clear, with None) the process-wide RPC fault hook."""
+    global _rpc_fault_hook
+    _rpc_fault_hook = hook
+
+
+# connection-class failures (_UNAVAILABLE and _ERROR raise RuntimeError,
+# stalls TimeoutError) are retried; _NOT_FOUND and _INVALID are answers
+_RETRYABLE_RPC_ERRORS = (TimeoutError, RuntimeError, ConnectionError)
+# a restarted server drops every client at once: their retries back off
+# with full jitter so the reconnects spread over the whole window;
+# timeouts keep the bounded jitter, which paces the deadline
+_FULL_JITTER_RPC_ERRORS = (ConnectionError, RuntimeError)
+
+
+def _seconds(timeout: "float | timedelta") -> float:
+    return timeout.total_seconds() if isinstance(timeout, timedelta) else float(timeout)
+
+
+class _RawClient:
+    """Framed-JSON RPC client over the native transport.
+
+    Every call runs under the retry policy with the caller's timeout as the
+    whole budget; the native client re-dials a stale connection on each
+    attempt, so a server blip shorter than the budget is a slower call, not
+    an error. On exhaustion the last underlying exception is re-raised, so
+    callers see the exception types a single attempt gives."""
+
+    def __init__(
+        self,
+        addr: str,
+        connect_timeout: "float | timedelta" = 10.0,
+        retry_policy: Optional[RetryPolicy] = None,
+    ) -> None:
         self._lib = _load()
         handle = ctypes.c_void_p()
         err = ctypes.c_char_p()
@@ -348,12 +417,47 @@ class _RawClient:
         _raise_for_status(status, _take_str(self._lib, err), "client create failed")
         self._handle = handle
         self.addr = addr
+        self._retry_policy = retry_policy if retry_policy is not None else RetryPolicy.from_env()
+        # (method, attempt, prior exception) before every retry attempt
+        self.on_retry: Optional[Callable[[str, int, BaseException], None]] = None
 
-    def call(self, method: str, params: dict, timeout: "float | timedelta") -> dict:
+    def call(
+        self, method: str, params: dict, timeout: "float | timedelta", retry: bool = True
+    ) -> dict:
+        """One RPC under the retry policy; ``retry=False`` makes exactly one
+        attempt (non-idempotent or fire-and-forget RPCs)."""
+        params_json = json.dumps(params).encode()
+        policy = self._retry_policy
+        if not retry or not policy.enabled:
+            return self._call_once(method, params_json, timeout)
+
+        def on_attempt(attempt: int, prior: Optional[BaseException]) -> None:
+            if attempt > 1 and prior is not None and self.on_retry is not None:
+                self.on_retry(method, attempt, prior)
+
+        try:
+            return retry_call(
+                lambda remaining: self._call_once(method, params_json, remaining),
+                policy,
+                timeout=_seconds(timeout),
+                retryable=_RETRYABLE_RPC_ERRORS,
+                full_jitter_on=_FULL_JITTER_RPC_ERRORS,
+                on_attempt=on_attempt,
+            )
+        except RetryBudgetExhausted as e:
+            assert e.last_exception is not None
+            raise e.last_exception from e
+
+    def _call_once(self, method: str, params_json: bytes, timeout: "float | timedelta") -> dict:
+        hook = _rpc_fault_hook
+        if hook is not None:
+            injected = hook(method, self.addr)
+            if injected is not None:
+                raise injected
         result = ctypes.c_char_p()
         err = ctypes.c_char_p()
         status = self._lib.tft_client_call(
-            self._handle, method.encode(), json.dumps(params).encode(),
+            self._handle, method.encode(), params_json,
             _ms(timeout), ctypes.byref(result), ctypes.byref(err),
         )
         err_s = _take_str(self._lib, err)
@@ -370,11 +474,27 @@ class _RawClient:
             pass
 
 
-class LighthouseClient:
-    """Client for the lighthouse service (status and heartbeats)."""
+class _Client:
+    """A client of one service: its ``_RawClient`` and retry observer."""
 
-    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
-        self._client = _RawClient(addr, connect_timeout)
+    def __init__(
+        self,
+        addr: str,
+        connect_timeout: "float | timedelta" = 10.0,
+        retry_policy: Optional[RetryPolicy] = None,
+    ) -> None:
+        self._client = _RawClient(addr, connect_timeout, retry_policy)
+
+    def set_retry_observer(
+        self, fn: Optional[Callable[[str, int, BaseException], None]]
+    ) -> None:
+        """``fn(method, attempt, prior_exc)`` runs before each retry attempt
+        (never before the first)."""
+        self._client.on_retry = fn
+
+
+class LighthouseClient(_Client):
+    """Client for the lighthouse service (status and heartbeats)."""
 
     def heartbeat(self, replica_id: str, timeout: "float | timedelta" = 5.0) -> dict:
         return self._client.call("heartbeat", {"replica_id": replica_id}, timeout)
@@ -383,11 +503,8 @@ class LighthouseClient:
         return self._client.call("status", {}, timeout)
 
 
-class ManagerClient:
+class ManagerClient(_Client):
     """Client for a replica group's manager service."""
-
-    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
-        self._client = _RawClient(addr, connect_timeout)
 
     def _quorum(
         self,
@@ -432,12 +549,9 @@ class ManagerClient:
         return resp["should_commit"]
 
 
-class KvClient:
+class KvClient(_Client):
     """Client for the rendezvous KV store (values are bytes, carried as
     ``b64:``-prefixed base64 on the wire)."""
-
-    def __init__(self, addr: str, connect_timeout: "float | timedelta" = 10.0) -> None:
-        self._client = _RawClient(addr, connect_timeout)
 
     def set(self, key: str, value: "bytes | str", timeout: "float | timedelta" = 10.0) -> None:
         import base64

@@ -22,13 +22,31 @@ on the quorum thread while the step computes, and a healing replica sits
 its first step out.
 With ``use_async_quorum=False`` (what DiLoCo needs) ``start_quorum`` waits
 for the quorum and applies a heal there and then (``:767-842``), so the
-healed replica takes part in the same step. The reference's
-``max_retries`` and ``start_quorum``'s ``allow_heal`` / ``shrink_only`` /
-``timeout`` are not ported.
+healed replica takes part in the same step; a process group that says
+``requires_sync_quorum`` forces it, re-read at every ``start_quorum``
+(``:248-265``, ``:785-800``). ``start_quorum(allow_heal=False)`` neither
+serves nor receives a heal; ``shrink_only`` and ``timeout`` go to the
+quorum RPC. Under ``WorldSizeMode.FIXED_WITH_SPARES`` at most
+``min_replica_size`` replicas contribute and the rest are spares
+(``:1074-1086``). ``should_commit`` raises once the vote failed more than
+``max_retries`` times in a row.
+
+A reconfigure has two halves (``:1110-1175``, ``:1479``): the quorum thread
+runs the process group's ``prepare_configure``, and the commit it returns,
+if any, runs on the main thread at the next safe point (``start_quorum``,
+``allreduce``, ``should_commit``); ``timings()`` carries
+``configure_prepare_s``, ``configure_commit_s`` and ``quorum_overlap_s``.
 The heal rides ``checkpoint_transport`` (``:233``, ``:308-315``): the
 port's ``HTTPTransport`` by default, or a ``PGTransport`` over a recovery
 process group of its own, which the Manager reconfigures with its PG at
-every new quorum under the ``.../recovery/{group_rank}`` store prefix.
+every new quorum under the ``.../recovery/{group_rank}`` store prefix. A
+transport that ``supports_multi_source`` (HTTP) heals from the assigned
+source and fails over, mid-chunk, to the other up-to-date peers the quorum
+names (``_heal_sources``, ``:1263``); those peers stage a standby snapshot
+while a heal is under way and hold it open across their commits
+(``:1183-1225``). Both manager clients retry their RPCs under the
+``TORCHFT_RETRY_*`` policy; ``timings()`` counts ``rpc_retries``,
+``heal_attempts``, ``heal_failovers`` and ``chunk_crc_failures``.
 
 The allreduce takes the reference's host-plane paths. By default (as the
 reference's) a multi-leaf tree STREAMS (``:1891-2200``): ``bucketing``
@@ -50,7 +68,10 @@ process group), the policy, degrade, redundancy, health and serving
 planes are not ported yet.
 
 Knobs, each environment variable > constructor argument > default:
-``TORCHFT_BUCKET_CAP_MB`` / ``bucket_cap_bytes`` (1 GiB; 0 disables
+``TORCHFT_TIMEOUT_SEC`` / ``timeout``, ``TORCHFT_QUORUM_TIMEOUT_SEC`` /
+``quorum_timeout`` (``timeout``), ``TORCHFT_CONNECT_TIMEOUT_SEC`` /
+``connect_timeout`` (10 s), ``TORCHFT_QUORUM_RETRIES`` / ``quorum_retries``
+(0; the argument wins here, as the reference's), ``TORCHFT_BUCKET_CAP_MB`` / ``bucket_cap_bytes`` (1 GiB; 0 disables
 bucketing), ``TORCHFT_STREAM_BUCKETS`` / ``stream_buckets`` (on; "0",
 "false", "no" or "off" turn it off), ``TORCHFT_COMPRESS`` / ``compress``
 ("off", "fp8" or "int8"; "off", and ``should_quantize`` picks fp8).
@@ -68,6 +89,7 @@ import uuid
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
+from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -102,17 +124,35 @@ from torchft_tpu_torch.work import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Manager", "ExceptionWithTraceback"]
+__all__ = ["Manager", "ExceptionWithTraceback", "WorldSizeMode"]
 
 LIGHTHOUSE_ENV = "TORCHFT_LIGHTHOUSE"
+TIMEOUT_SEC_ENV = "TORCHFT_TIMEOUT_SEC"
+QUORUM_TIMEOUT_SEC_ENV = "TORCHFT_QUORUM_TIMEOUT_SEC"
+CONNECT_TIMEOUT_SEC_ENV = "TORCHFT_CONNECT_TIMEOUT_SEC"
+QUORUM_RETRIES_ENV = "TORCHFT_QUORUM_RETRIES"
 BUCKET_CAP_MB_ENV = "TORCHFT_BUCKET_CAP_MB"
 STREAM_BUCKETS_ENV = "TORCHFT_STREAM_BUCKETS"
-_CONNECT_TIMEOUT_S = 10.0
 _HEARTBEAT_INTERVAL_S = 0.1
+# cumulative resilience counters, kept in timings()
+_COUNTERS = ("heal_attempts", "heal_failovers", "rpc_retries", "chunk_crc_failures",
+             "collective_reroute", "standby_skipped")
 
 
 def _to_seconds(t: "float | timedelta") -> float:
     return t.total_seconds() if isinstance(t, timedelta) else float(t)
+
+
+class WorldSizeMode(Enum):
+    """Gradient semantics under a changing world size.
+
+    DYNAMIC: any quorum of at least ``min_replica_size`` contributes; the
+    batch size varies. FIXED_WITH_SPARES: at most ``min_replica_size``
+    replicas contribute and the rest are hot spares contributing zeros, so
+    the gradient's scale stays fixed."""
+
+    DYNAMIC = "dynamic"
+    FIXED_WITH_SPARES = "fixed_with_spares"
 
 
 class ExceptionWithTraceback(Exception):
@@ -166,6 +206,7 @@ class Manager:
         use_async_quorum: bool = True,
         timeout: "float | timedelta" = 60.0,
         quorum_timeout: "float | timedelta | None" = None,
+        connect_timeout: "float | timedelta | None" = None,
         replica_id: Optional[str] = None,
         lighthouse_addr: Optional[str] = None,
         init_sync: bool = True,
@@ -177,6 +218,9 @@ class Manager:
         store_addr: Optional[str] = None,
         group_rank: int = 0,
         group_world_size: int = 1,
+        world_size_mode: WorldSizeMode = WorldSizeMode.DYNAMIC,
+        max_retries: Optional[int] = None,
+        quorum_retries: Optional[int] = None,
     ) -> None:
         if group_rank != 0 and store_addr is None:
             raise ValueError("a group rank other than 0 needs the leader's store_addr")
@@ -187,10 +231,26 @@ class Manager:
         self._min_replica_size = min_replica_size
         # DiLoCo reads this attribute by name (local_sgd.py)
         self._use_async_quorum = use_async_quorum
-        self._timeout = _to_seconds(timeout)
-        self._quorum_timeout = (
-            _to_seconds(quorum_timeout) if quorum_timeout is not None else self._timeout
-        )
+        # the caller's choice: a process group's requires_sync_quorum
+        # overrides it only while the group says so (start_quorum)
+        self._requested_async_quorum = use_async_quorum
+        if use_async_quorum and getattr(pg, "requires_sync_quorum", False):
+            logger.info("pg %s requires sync quorum; overriding use_async_quorum",
+                        type(pg).__name__)
+            self._use_async_quorum = False
+        self._timeout = float(os.environ.get(TIMEOUT_SEC_ENV, _to_seconds(timeout)))
+        self._quorum_timeout = float(os.environ.get(
+            QUORUM_TIMEOUT_SEC_ENV,
+            _to_seconds(quorum_timeout) if quorum_timeout is not None else self._timeout,
+        ))
+        self._connect_timeout = float(os.environ.get(
+            CONNECT_TIMEOUT_SEC_ENV,
+            _to_seconds(connect_timeout) if connect_timeout is not None else 10.0,
+        ))
+        self._replica_world_size_mode = world_size_mode
+        self._max_retries = max_retries
+        if quorum_retries is None:
+            quorum_retries = int(os.environ.get(QUORUM_RETRIES_ENV, 0))
         self._init_sync = init_sync
 
         env_cap = os.environ.get(BUCKET_CAP_MB_ENV)
@@ -252,24 +312,26 @@ class Manager:
                 store_addr=store_addr,
                 world_size=group_world_size,
                 heartbeat_interval=_HEARTBEAT_INTERVAL_S,
-                connect_timeout=_CONNECT_TIMEOUT_S,
+                connect_timeout=self._connect_timeout,
+                quorum_retries=quorum_retries,
             )
             manager_addr = self._manager.address()
-            KvClient(store_addr, connect_timeout=_CONNECT_TIMEOUT_S).set(
+            KvClient(store_addr, connect_timeout=self._connect_timeout).set(
                 "manager_addr", manager_addr, timeout=self._timeout
             )
         else:
-            manager_addr = KvClient(store_addr, connect_timeout=_CONNECT_TIMEOUT_S).get(
+            manager_addr = KvClient(store_addr, connect_timeout=self._connect_timeout).get(
                 "manager_addr", timeout=self._timeout
             ).decode()
             self._replica_id = replica_id or "replica"
         self._store_addr = store_addr
-        self._client = ManagerClient(manager_addr, connect_timeout=_CONNECT_TIMEOUT_S)
+        self._client = ManagerClient(manager_addr, connect_timeout=self._connect_timeout)
         # the commit vote rides its own client: the quorum thread's RPC is
         # in flight exactly when the main thread votes
-        self._vote_client = ManagerClient(
-            manager_addr, connect_timeout=_CONNECT_TIMEOUT_S
-        )
+        self._vote_client = ManagerClient(manager_addr, connect_timeout=self._connect_timeout)
+        # every retried RPC of either client counts in timings()
+        self._client.set_retry_observer(self._on_rpc_retry)
+        self._vote_client.set_retry_observer(self._on_rpc_retry)
 
         self._step = 0
         self._quorum_id = -1
@@ -286,12 +348,21 @@ class Manager:
             "allreduces": 0,
             "errors": 0,
         }
-        self._timings: Dict[str, float] = {}
+        # the last quorum cycle's phase seconds and the cumulative
+        # resilience counters
+        self._timings: Dict[str, float] = {name: 0.0 for name in _COUNTERS}
         self._healing = False
         self._last_quorum_healed = False
+        # True while this replica holds a standby failover snapshot open for
+        # a heal under way elsewhere: should_commit keeps the window open
+        self._standby_source = False
         self._pending_state_dict: Optional[Dict[str, Any]] = None
+        # the main-thread half of a reconfigure, stashed by the quorum thread
+        self._pending_pg_commit: Optional[Callable[[], None]] = None
+        self._pending_commit_lock = threading.Lock()
         self._participating_replica_rank: Optional[int] = None
         self._participating_replica_world_size = 0
+        self._num_replicas = 0
 
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torchft_quorum")
         # one ordered worker stages every allreduce: collectives start in
@@ -319,21 +390,59 @@ class Manager:
             self._load_state_dict_fns[key] = load_fn
             self._user_state_dicts[key] = value_fn
 
+    def set_state_dict_fns(
+        self, load_state_dict: Callable[[Any], None], state_dict: Callable[[], Any]
+    ) -> None:
+        """Deprecated alias of ``register_state_dict_fn("default", ...)``
+        (the constructor's slot, so replicas registering either way heal
+        from each other)."""
+        self._log(logging.WARNING, "set_state_dict_fns is deprecated, use register_state_dict_fn")
+        self.register_state_dict_fn("default", load_state_dict, state_dict)
+
+    def allow_state_dict_read(self) -> None:
+        if self._state_dict_lock.w_locked():
+            self._state_dict_lock.w_release()
+
+    def disallow_state_dict_read(self) -> None:
+        if not self._state_dict_lock.w_locked():
+            self._state_dict_lock.w_acquire()
+
     # --------------------------------------------------------------- quorum
-    def start_quorum(self) -> None:
+    def start_quorum(
+        self,
+        allow_heal: bool = True,
+        shrink_only: bool = False,
+        timeout: "float | timedelta | None" = None,
+    ) -> None:
         """Start computing a new quorum (on the quorum thread) and ready the
         manager for a new step. Call before the forward pass. Under the
         synchronous quorum it returns once the quorum is in, with a heal
         already applied (``last_quorum_healed()`` true); a failed recovery
-        leaves the step's vote to fail."""
+        leaves the step's vote to fail. ``allow_heal=False`` neither serves
+        nor receives a heal (a replica behind the cohort sits the step
+        out); ``shrink_only`` and ``timeout`` (default the quorum timeout)
+        go to the quorum RPC."""
         if self._quorum_future is not None:
             self._quorum_future.result()
+            # a commit left over from the last quorum lands before the next
+            # prepare runs against the old world
+            self._commit_pending_configure()
+        if (self._requested_async_quorum and not self._use_async_quorum
+                and not getattr(self._pg, "requires_sync_quorum", False)):
+            self._log(logging.INFO, "pg no longer requires sync quorum; restoring async quorum")
+            self._use_async_quorum = True
         self._errored = None
         self._healing = False
         self._last_quorum_healed = False
-        self._quorum_future = self._executor.submit(self._async_quorum)
+        self._quorum_future = self._executor.submit(
+            self._async_quorum,
+            allow_heal=allow_heal,
+            shrink_only=shrink_only,
+            quorum_timeout=_to_seconds(timeout) if timeout is not None else self._quorum_timeout,
+        )
         if not self._use_async_quorum:
             self.wait_quorum()
+            self._commit_pending_configure()
             if self._healing and self._pending_state_dict is not None:
                 # the forward pass runs on the recovered state
                 self._apply_pending_state_dict()
@@ -345,14 +454,25 @@ class Manager:
             raise RuntimeError("must call start_quorum first")
         self._quorum_future.result()
 
-    def _async_quorum(self) -> None:
+    def _async_quorum(self, allow_heal: bool, shrink_only: bool, quorum_timeout: float) -> None:
+        # the whole control-plane cycle on the quorum thread: with the async
+        # quorum, work the step no longer waits for
+        t0 = time.perf_counter()
+        try:
+            self._async_quorum_body(allow_heal, shrink_only, quorum_timeout)
+        finally:
+            self._record_timing("quorum_overlap_s", time.perf_counter() - t0)
+
+    def _async_quorum_body(
+        self, allow_heal: bool, shrink_only: bool, quorum_timeout: float
+    ) -> None:
         try:
             quorum = self._client._quorum(
                 group_rank=self._group_rank,
                 step=self._step,
                 checkpoint_metadata=self._checkpoint_transport.metadata(),
-                shrink_only=False,
-                timeout=self._quorum_timeout,
+                shrink_only=shrink_only,
+                timeout=quorum_timeout,
                 init_sync=self._init_sync,
                 commit_failures=self._commit_failures,
             )
@@ -361,16 +481,26 @@ class Manager:
             self.report_error(e)
             return
 
+        self._num_replicas = quorum.replica_world_size
         self._bump_metric("quorums")
-        # async quorum: healing replicas sit this step out, so the
+        # async quorum, or no heal: replicas behind sit this step out, so the
         # participating world is the max-step cohort; the sync quorum heals
         # first, so everyone counts
-        if self._use_async_quorum:
+        if self._use_async_quorum or not allow_heal:
             self._participating_replica_rank = quorum.max_replica_rank
             self._participating_replica_world_size = quorum.max_world_size
         else:
             self._participating_replica_rank = quorum.replica_rank
             self._participating_replica_world_size = quorum.replica_world_size
+        if self._replica_world_size_mode == WorldSizeMode.FIXED_WITH_SPARES:
+            # spares past min_replica_size contribute zeros: the gradient's
+            # scale stays fixed
+            self._participating_replica_world_size = min(
+                self._participating_replica_world_size, self._min_replica_size
+            )
+            if (self._participating_replica_rank is not None
+                    and self._participating_replica_rank >= self._min_replica_size):
+                self._participating_replica_rank = None
 
         if quorum.quorum_id != self._quorum_id:
             store_prefixed_addr = (
@@ -379,12 +509,20 @@ class Manager:
             self._log(logging.INFO, f"reconfiguring for quorum_id={quorum.quorum_id}")
             try:
                 self._bump_metric("reconfigures")
-                self._pg.configure(
+                # everything control-plane runs here; a commit that must
+                # touch live state runs on the main thread at a safe point
+                t_prep = time.perf_counter()
+                pg_commit = self._pg.prepare_configure(
                     store_prefixed_addr,
                     quorum.replica_rank,
                     quorum.replica_world_size,
                     quorum_id=quorum.quorum_id,
                 )
+                self._record_timing("configure_prepare_s", time.perf_counter() - t_prep)
+                with self._pending_commit_lock:
+                    self._pending_pg_commit = pg_commit
+                if pg_commit is None:
+                    self._record_timing("configure_commit_s", 0.0)
                 self._checkpoint_transport.configure(
                     f"{quorum.store_address}/torchft/{quorum.quorum_id}"
                     f"/recovery/{self._group_rank}",
@@ -401,6 +539,8 @@ class Manager:
                 self.report_error(e)
                 return
 
+        if not allow_heal:
+            return
         try:
             if quorum.recover_dst_replica_ranks:
                 self._log(
@@ -415,8 +555,38 @@ class Manager:
                     timeout=self._timeout,
                 )
                 self._record_timing("heal_send_s", time.perf_counter() - t0)
+            # a standby failover source: someone is behind but we got no
+            # destination. A healer whose source dies fails over to the
+            # quorum's fallback peers, which works only if they staged the
+            # step: stage once per heal episode and hold the window open
+            # across commits until nobody is behind. Pull-based transports
+            # only (a push transport's standby would never be asked).
+            standby_wanted = (
+                not quorum.recover_dst_replica_ranks
+                and quorum.max_world_size < quorum.replica_world_size
+                and self._checkpoint_transport.supports_multi_source
+            )
+            standby = standby_wanted and not quorum.heal
+            if standby_wanted and quorum.heal:
+                # behind ourselves: our state is the pre-heal copy
+                self._log(logging.WARNING,
+                          f"refusing to stage a standby snapshot for step {quorum.max_step}: "
+                          "this replica is itself healing")
+                self._bump_counter("standby_skipped")
+            if standby and not self._standby_source:
+                self._log(logging.INFO, f"staging a standby snapshot for step {quorum.max_step}")
+                t0 = time.perf_counter()
+                self._checkpoint_transport.send_checkpoint(
+                    dst_ranks=[],
+                    step=quorum.max_step,
+                    state_dict=self._manager_state_dict(),
+                    timeout=self._timeout,
+                )
+                self._record_timing("standby_send_s", time.perf_counter() - t0)
+            self._standby_source = standby
             if quorum.heal:
                 self._healing = True
+                self._bump_counter("heal_attempts")
                 t0 = time.perf_counter()
                 self._pending_state_dict = self._recv_checkpoint(quorum)
                 self._record_timing("heal_recv_s", time.perf_counter() - t0)
@@ -432,15 +602,64 @@ class Manager:
             self._log(logging.ERROR, f"recovery failed: {e}")
             self.report_error(e)
 
+    def _heal_sources(self, quorum: Any) -> List[Tuple[str, Callable[[], str]]]:
+        """The candidate sources of a multi-peer heal, in order: the
+        assigned source, then the other up-to-date peers in the native
+        quorum's round-robin order. Each is ``(label, metadata_fn)``, the
+        metadata RPC made only if the transport tries that source."""
+
+        def metadata_fn(addr: str) -> Callable[[], str]:
+            def fetch() -> str:
+                client = ManagerClient(addr, connect_timeout=self._connect_timeout)
+                client.set_retry_observer(self._on_rpc_retry)
+                return client._checkpoint_metadata(self._group_rank, timeout=self._timeout)
+
+            return fetch
+
+        sources = [(
+            f"replica_rank_{quorum.recover_src_replica_rank}"
+            f"@{quorum.recover_src_manager_address}",
+            metadata_fn(quorum.recover_src_manager_address),
+        )]
+        for peer in quorum.recover_src_fallbacks:
+            sources.append((f"replica_rank_{peer.replica_rank}@{peer.address}",
+                            metadata_fn(peer.address)))
+        return sources
+
+    def _on_heal_event(self, kind: str, **fields: Any) -> None:
+        """The transport's resilient-heal events, counted in timings()."""
+        counter = {
+            "heal_retry": "heal_attempts",
+            "heal_failover": "heal_failovers",
+            "chunk_crc_failure": "chunk_crc_failures",
+        }.get(kind)
+        if counter is not None:
+            self._bump_counter(counter)
+        self._log(logging.WARNING, f"heal event {kind}: {fields}")
+
     def _recv_checkpoint(self, quorum: Any) -> Dict[str, Any]:
+        """Fetch the heal, failing over across up-to-date peers when the
+        transport can (pull-based HTTP); a push-based transport stays on
+        the assigned source, the only one sending."""
+        transport = self._checkpoint_transport
+        if transport.supports_multi_source:
+            sources = self._heal_sources(quorum)
+            self._log(logging.INFO, f"healing from step {quorum.max_step}, candidate sources "
+                                    f"{[label for label, _ in sources]}")
+            return transport.recv_checkpoint_multi(
+                sources, step=quorum.max_step, timeout=self._timeout,
+                on_event=self._on_heal_event,
+            )
         self._log(
             logging.INFO,
             f"healing from {quorum.recover_src_manager_address} step {quorum.max_step}",
         )
-        metadata = ManagerClient(
-            quorum.recover_src_manager_address, connect_timeout=_CONNECT_TIMEOUT_S
-        )._checkpoint_metadata(self._group_rank, timeout=self._timeout)
-        return self._checkpoint_transport.recv_checkpoint(
+        client = ManagerClient(
+            quorum.recover_src_manager_address, connect_timeout=self._connect_timeout
+        )
+        client.set_retry_observer(self._on_rpc_retry)
+        metadata = client._checkpoint_metadata(self._group_rank, timeout=self._timeout)
+        return transport.recv_checkpoint(
             src_rank=quorum.recover_src_replica_rank,
             metadata=metadata,
             step=quorum.max_step,
@@ -461,6 +680,24 @@ class Manager:
             self._pending_state_dict = None
         self._last_quorum_healed = True
         self._bump_metric("heals")
+
+    def _commit_pending_configure(self) -> None:
+        """Run the main-thread half of a reconfigure, if the last prepare
+        left one. A failed commit fails the step and forces the next
+        quorum to reconfigure even under the same quorum id."""
+        with self._pending_commit_lock:
+            commit, self._pending_pg_commit = self._pending_pg_commit, None
+        if commit is None:
+            return
+        t0 = time.perf_counter()
+        try:
+            commit()
+        except Exception as e:  # noqa: BLE001 - swallowed into the vote
+            self._quorum_id = -1
+            self._log(logging.ERROR, f"pg configure commit failed: {e}")
+            self.report_error(e)
+        finally:
+            self._record_timing("configure_commit_s", time.perf_counter() - t0)
 
     # ------------------------------------------------------------ allreduce
     def allreduce(
@@ -531,6 +768,9 @@ class Manager:
         if self.errored():
             return DummyWork(zeros()), None
         self.wait_quorum()
+        # a reconfigure that landed during the forward pass commits here,
+        # before the collective touches the process group
+        self._commit_pending_configure()
         if self.errored():
             return DummyWork(zeros()), None
         num_participants = self.num_participants()
@@ -834,9 +1074,14 @@ class Manager:
     def _on_collective_reroute(self, pair: tuple, attempt: int) -> None:
         """The compressed ring re-formed around a dead link mid-collective:
         a re-routed slow step, counted in timings()["collective_reroute"]."""
-        with self._metrics_lock:
-            self._timings["collective_reroute"] = self._timings.get("collective_reroute", 0.0) + 1
+        self._bump_counter("collective_reroute")
         self._log(logging.WARNING, f"collective re-routed around dead link {pair} (attempt {attempt})")
+
+    def _on_rpc_retry(self, method: str, attempt: int, exc: BaseException) -> None:
+        """A control-plane RPC retried: a blip shorter than its timeout is a
+        slower step, counted in timings()["rpc_retries"]."""
+        self._bump_counter("rpc_retries")
+        self._log(logging.WARNING, f"RPC {method} retrying (attempt {attempt}) after {exc!r}")
 
     def _record_pipeline_timings(self, marks: List[Dict[str, Tuple[float, float]]]) -> None:
         """Fold one streamed allreduce's stage marks into timings()."""
@@ -873,14 +1118,20 @@ class Manager:
         return fut.then(callback)
 
     # ------------------------------------------------------------- commit
-    def should_commit(self) -> bool:
+    def should_commit(self, timeout: "float | timedelta | None" = None) -> bool:
         """Two-phase commit vote across the replica group: True iff every
-        rank of this group is healthy and enough replicas participate."""
+        rank of this group is healthy and enough replicas participate.
+        ``timeout`` bounds the vote's RPC (default the Manager's timeout).
+        Raises once the vote failed more than ``max_retries`` times in a
+        row."""
         if self._quorum_future is not None:
             try:
                 self._quorum_future.result()
             except Exception as e:  # noqa: BLE001 - swallowed into the vote
                 self.report_error(e)
+        # the commit lands before pg.errored() is read: the old world may be
+        # errored by the fault that changed the membership
+        self._commit_pending_configure()
         if (err := self._pg.errored()) is not None:
             self.report_error(err)
         if self._healing and self._pending_state_dict is not None:
@@ -899,9 +1150,10 @@ class Manager:
             self._group_rank,
             self._step,
             local_should_commit,
-            timeout=self._timeout,
+            timeout=_to_seconds(timeout) if timeout is not None else self._timeout,
         )
-        self._checkpoint_transport.disallow_checkpoint()
+        if not self._standby_source:
+            self._checkpoint_transport.disallow_checkpoint()
         if should_commit:
             self._step += 1
             self._batches_committed += self.num_participants()
@@ -910,6 +1162,11 @@ class Manager:
         else:
             self._commit_failures += 1
             self._bump_metric("commit_failures")
+            if self._max_retries is not None and self._commit_failures > self._max_retries:
+                msg = (f"should_commit failed {self._commit_failures} times consecutively, "
+                       f"exceeding max_retries={self._max_retries}")
+                self._log(logging.ERROR, msg)
+                raise RuntimeError(msg)
         return should_commit
 
     # -------------------------------------------------------- introspection
@@ -937,6 +1194,19 @@ class Manager:
         with self._state_dict_lock.r_lock():
             return {key: fn() for key, fn in self._user_state_dicts.items()}
 
+    def load_user_state_dict(self, user_state: Dict[str, Any]) -> None:
+        """Feed a ``user_state_dict()`` composite back through every
+        registered load fn (a cold restart's counterpart of a heal)."""
+        with self._state_dict_lock.w_lock():
+            for key, load_fn in self._load_state_dict_fns.items():
+                if key in user_state:
+                    load_fn(user_state[key])
+
+    def current_quorum_id(self) -> int:
+        """The id of the last quorum joined (-1 before the first): it moves
+        exactly when the membership changes or after commit failures."""
+        return self._quorum_id
+
     def current_step(self) -> int:
         return self._step
 
@@ -949,11 +1219,24 @@ class Manager:
     def batches_committed(self) -> int:
         return self._batches_committed
 
+    def participating_rank(self) -> Optional[int]:
+        if self._quorum_future is None:
+            return None
+        self.wait_quorum()
+        return self._participating_replica_rank
+
+    def replica_rank(self) -> Optional[int]:
+        return self.participating_rank()
+
     def num_participants(self) -> int:
         if self._quorum_future is None:
             return 0
         self.wait_quorum()
         return self._participating_replica_world_size
+
+    def num_replicas(self) -> int:
+        """Replicas in the current quorum, non-participants included."""
+        return self._num_replicas
 
     def is_participating(self) -> bool:
         if self._participating_replica_rank is None:
@@ -972,6 +1255,11 @@ class Manager:
         with self._metrics_lock:
             self._metrics[name] += 1
 
+    def _bump_counter(self, name: str, n: float = 1.0) -> None:
+        """Add to a cumulative resilience counter of timings()."""
+        with self._metrics_lock:
+            self._timings[name] = self._timings.get(name, 0.0) + n
+
     def metrics(self) -> Dict[str, int]:
         """Lifetime counters: quorums, reconfigures, heals, commits,
         commit_failures, allreduces, errors."""
@@ -983,20 +1271,31 @@ class Manager:
             self._timings[name] = value
 
     def timings(self) -> Dict[str, float]:
-        """Wall-clock seconds of the last heal send/receive
-        (``heal_send_s``, ``heal_recv_s``), the chunks and MiB/s of the
-        last streamed receive (``heal_chunks``, ``heal_mb_per_s``) and,
+        """Wall-clock seconds of the last quorum cycle on the quorum thread
+        (``quorum_overlap_s``) and of its reconfigure's halves
+        (``configure_prepare_s``, ``configure_commit_s``), of the last heal
+        send/receive (``heal_send_s``, ``heal_recv_s``) and of the last
+        standby snapshot's staging (``standby_send_s``), the chunks and
+        MiB/s of the last streamed receive (``heal_chunks``,
+        ``heal_mb_per_s``) and,
         once an allreduce has streamed, of its stages summed over buckets
         (``allreduce_pack_s``, ``allreduce_wire_s``, ``allreduce_unpack_s``),
         its bucket count (``allreduce_buckets``) and ``overlap_efficiency``:
         the share of wire time that ran while another bucket was in some
-        stage. Also the lifetime count of compressed-ring re-routes
-        (``collective_reroute``) once one has happened."""
+        stage. Also lifetime counts: compressed-ring re-routes
+        (``collective_reroute``), retried RPCs (``rpc_retries``), heal
+        attempts and same-source chunk retries (``heal_attempts``),
+        failovers to another source (``heal_failovers``), chunks fetched
+        again after a crc32 mismatch (``chunk_crc_failures``) and refused
+        standby snapshots (``standby_skipped``)."""
         with self._metrics_lock:
             return dict(self._timings)
 
     # ------------------------------------------------------------ lifecycle
     def shutdown(self, wait: bool = True) -> None:
+        # a commit staged for a world that is going away never runs
+        with self._pending_commit_lock:
+            self._pending_pg_commit = None
         self._checkpoint_transport.shutdown(wait=wait)
         if self._manager is not None:
             self._manager.shutdown()

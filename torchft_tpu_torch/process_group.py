@@ -34,9 +34,17 @@ tensor lands the frame in that tensor's storage. One generation carries
 either p2p or collective traffic, never both (frame order on a shared
 socket): a checkpoint transport gets a process group of its own.
 
-``FakeProcessGroupWrapper`` (``:2269``) wraps a process group for tests:
-it fails the futures of chosen ops, or the next ``configure``, and
-delegates everything else.
+Configure has the reference's two phases (``prepare_configure``,
+``:151``): the Manager runs ``prepare_configure`` on its quorum thread and
+applies the commit it returns, if any, from the main thread at the next
+safe point. Every process group here configures fully in the prepare and
+returns None.
+
+Wrappers: ``ErrorSwallowingProcessGroupWrapper`` (``:2104-2268``) turns a
+failed op into its input and keeps the error until the next configure;
+``ManagedProcessGroup`` (``:2461``) routes ``allreduce`` through a
+Manager; ``FakeProcessGroupWrapper`` (``:2269``) fails the futures of
+chosen ops, or the next ``configure``, for tests.
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "ReduceOp", "ProcessGroup", "ProcessGroupDummy", "ProcessGroupHost",
-    "FakeProcessGroupWrapper",
+    "ErrorSwallowingProcessGroupWrapper", "FakeProcessGroupWrapper", "ManagedProcessGroup",
 ]
 
 
@@ -175,6 +183,22 @@ class ProcessGroup(ABC):
     ) -> None:
         """(Re)initialize the communicator for a new quorum. ``store_addr``
         is ``"host:port/prefix"`` into the rendezvous store."""
+
+    def prepare_configure(
+        self,
+        store_addr: str,
+        replica_rank: int,
+        replica_world_size: int,
+        quorum_id: int = 0,
+    ) -> Optional[Callable[[], None]]:
+        """Two-phase configure: do now what is safe off the main thread and
+        return the main-thread commit, or None when nothing is left.
+
+        The default is all prepare: it runs ``self.configure`` (the
+        attribute, so a configure shadowed on the instance still sees every
+        reconfigure) and returns None."""
+        self.configure(store_addr, replica_rank, replica_world_size, quorum_id=quorum_id)
+        return None
 
     @abstractmethod
     def abort(self) -> None:
@@ -1400,6 +1424,182 @@ class ProcessGroupHost(ProcessGroup):
         return self._submit(_run, mode="p2p")
 
 
+class _ErrorSwallowingWork(Work):
+    """A Work whose failure reports the error to its wrapper and resolves
+    to a default value instead of raising."""
+
+    def __init__(
+        self, pg: "ErrorSwallowingProcessGroupWrapper", work: Work,
+        default_fn: Callable[[], Any],
+    ) -> None:
+        self._future: Future = Future()
+
+        def _transfer(f: Future) -> None:
+            exc = f.exception()
+            if exc is None:
+                self._future.set_result(f.value())
+                return
+            pg.report_error(exc if isinstance(exc, Exception) else RuntimeError(str(exc)))
+            # the default is built only on the error path, and a default
+            # that raises fails the future rather than stranding it
+            try:
+                self._future.set_result(default_fn())
+            except Exception as e:  # noqa: BLE001 - resolves the future
+                try:
+                    self._future.set_exception(e)
+                except RuntimeError:
+                    pass
+
+        work.get_future().add_done_callback(_transfer)
+
+    def wait(self, timeout: "float | timedelta | None" = None) -> bool:
+        self._future.wait(timeout)
+        return True
+
+    def get_future(self) -> Future:
+        return self._future
+
+
+class ErrorSwallowingProcessGroupWrapper(ProcessGroup):
+    """Swallows collective errors: after the first error every op returns
+    its input (host copies) until the next configure, so a replica keeps
+    stepping through a dead communicator and the Manager discards the step
+    at its vote. For a process group whose configure commits on the main
+    thread, the error clears at the commit, when the new communicator is
+    live."""
+
+    def __init__(self, pg: ProcessGroup) -> None:
+        super().__init__()
+        self._pg = pg
+        self._error: Optional[Exception] = None
+
+    @property
+    def device_native(self) -> bool:
+        # the Manager reads the data plane's capability off the outermost PG
+        return getattr(self._pg, "device_native", False)
+
+    def parent(self) -> ProcessGroup:
+        return self._pg
+
+    def error(self) -> Optional[Exception]:
+        return self._error
+
+    def report_error(self, e: Exception) -> None:
+        self._error = e
+
+    def configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+        self._error = None
+        self._pg.configure(store_addr, replica_rank, replica_world_size, quorum_id=quorum_id)
+
+    def prepare_configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+        inner = self._pg.prepare_configure(
+            store_addr, replica_rank, replica_world_size, quorum_id=quorum_id
+        )
+        if inner is None:
+            self._error = None
+            return None
+
+        def commit() -> None:
+            inner()
+            self._error = None
+
+        return commit
+
+    def abort(self) -> None:
+        self._pg.abort()
+
+    def shutdown(self) -> None:
+        self._pg.shutdown()
+
+    def errored(self) -> Optional[Exception]:
+        return self._error or self._pg.errored()
+
+    def size(self) -> int:
+        return self._pg.size()
+
+    def rank(self) -> int:
+        return self._pg.rank()
+
+    def set_timeout(self, timeout: "float | timedelta") -> None:
+        self._pg.set_timeout(timeout)
+
+    def _guard(self, fn: Callable[[], Work], default_fn: Callable[[], Any]) -> Work:
+        """``default_fn`` runs only on the error path: it stages the
+        payload to the host."""
+        if self._error is not None:
+            return DummyWork(default_fn())
+        try:
+            return _ErrorSwallowingWork(self, fn(), default_fn)
+        except Exception as e:  # noqa: BLE001 - the swallow contract
+            self.report_error(e)
+            return DummyWork(default_fn())
+
+    def allreduce(self, arrays, op=ReduceOp.SUM):
+        return self._guard(lambda: self._pg.allreduce(arrays, op),
+                           lambda: [_to_host(a) for a in arrays])
+
+    def allgather(self, arrays):
+        # one entry per rank, as the op's result
+        return self._guard(lambda: self._pg.allgather(arrays),
+                           lambda: [[_to_host(a) for a in arrays] for _ in range(self._pg.size())])
+
+    def alltoall(self, input_chunks):
+        return self._guard(lambda: self._pg.alltoall(input_chunks),
+                           lambda: [_to_host(a) for a in input_chunks])
+
+    def send(self, arrays, dst, tag=0):
+        return self._guard(lambda: self._pg.send(arrays, dst, tag), lambda: None)
+
+    def recv(self, src, tag=0):
+        return self._guard(lambda: self._pg.recv(src, tag), lambda: None)
+
+
+class ManagedProcessGroup(ProcessGroup):
+    """A process group whose ``allreduce`` runs through a Manager (quorum
+    participation, error swallowing), for data-parallel code written
+    against a process group. ``size`` and ``rank`` are the quorum's; every
+    other collective raises."""
+
+    def __init__(self, manager: Any) -> None:
+        super().__init__()
+        self._manager = manager
+
+    def allreduce(self, arrays, op=ReduceOp.SUM):
+        return self._manager.allreduce(list(arrays), reduce_op=op)
+
+    def size(self) -> int:
+        return self._manager.num_participants()
+
+    def rank(self) -> int:
+        # None before the first quorum; the contract is an int
+        r = self._manager.replica_rank()
+        return 0 if r is None else r
+
+    def configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+        raise RuntimeError("ManagedProcessGroup is configured by its Manager")
+
+    def abort(self) -> None:
+        self._manager._pg.abort()
+
+    def shutdown(self) -> None:
+        self._manager._pg.shutdown()
+
+    def errored(self) -> Optional[Exception]:
+        return self._manager._pg.errored()
+
+    def allgather(self, arrays):
+        raise NotImplementedError("managed PG only routes allreduce")
+
+    def alltoall(self, input_chunks):
+        raise NotImplementedError("managed PG only routes allreduce")
+
+    def send(self, arrays, dst, tag=0):
+        raise NotImplementedError("managed PG only routes allreduce")
+
+    def recv(self, src, tag=0):
+        raise NotImplementedError("managed PG only routes allreduce")
+
+
 class FakeProcessGroupWrapper(ProcessGroup):
     """Test-only fault injection around ``pg``: ``report_future_error``
     fails the futures of upcoming ops, ``report_configure_error`` the next
@@ -1413,6 +1613,13 @@ class FakeProcessGroupWrapper(ProcessGroup):
         self._next_error_skip = 0
         self._next_error_times = 0
         self._next_configure_error: Optional[Exception] = None
+        # test hook run at the start of prepare_configure (on the quorum
+        # thread): it can stall the prepare past a step boundary
+        self._on_prepare: Optional[Callable[[], None]] = None
+
+    def set_prepare_hook(self, fn: Optional[Callable[[], None]]) -> None:
+        """``fn()`` runs at the start of every ``prepare_configure``."""
+        self._on_prepare = fn
 
     def report_future_error(self, e: Exception, skip_ops: int = 0, times: int = 1) -> None:
         """Fail upcoming ops' futures with ``e``: the next ``skip_ops`` ops
@@ -1438,6 +1645,16 @@ class FakeProcessGroupWrapper(ProcessGroup):
             e, self._next_configure_error = self._next_configure_error, None
             raise e
         self._pg.configure(store_addr, replica_rank, replica_world_size, quorum_id=quorum_id)
+
+    def prepare_configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+        if self._on_prepare is not None:
+            self._on_prepare()
+        if self._next_configure_error is not None:
+            e, self._next_configure_error = self._next_configure_error, None
+            raise e
+        return self._pg.prepare_configure(
+            store_addr, replica_rank, replica_world_size, quorum_id=quorum_id
+        )
 
     def abort(self) -> None:
         self._pg.abort()

@@ -2,9 +2,10 @@
 
 Counterpart of ``torchft_tpu/retry.py`` (``RetryPolicy`` ``:59``,
 ``from_env`` ``:114``, ``retry_call`` ``:143``), copied so the port
-imports nothing of the JAX package. In the port only the compressed
-ring's re-route loop (``process_group._ring_allreduce_compressed``) uses
-it; the control plane's RPC retry is not ported yet.
+imports nothing of the JAX package. The control plane's RPCs
+(``coordination._RawClient``), the HTTP heal's same-source chunk retries
+(``checkpointing/http_transport.py``) and the compressed ring's re-route
+loop (``process_group._ring_allreduce_compressed``) run under it.
 
 - ``RetryPolicy``: attempts, base backoff, backoff ceiling and jitter
   fraction, resolvable from the ``TORCHFT_RETRY_*`` environment variables

@@ -10,13 +10,30 @@ fp8-quantized) gradient allreduce, the commit vote, then the optimizer
 step. With the Manager's defaults the allreduce streams the gradients in
 1 GiB buckets, fp8-coded with error feedback when ``quantize`` is set;
 each step's log entry carries the pipeline's stage seconds and the bytes
-and busy seconds of its wire. A replica told to fail raises after its backward pass at that step,
-restarts with a fresh model and Manager, and heals from a peer: over HTTP,
-or with ``transport="pg"`` (``--transport pg``) over a recovery
-``ProcessGroupHost`` each replica owns, received in place into the
-replica's live model and optimizer state on its device (the
-``PGTransport`` template is ``Manager.state_dict_template``; AdamW's state
-exists, zero, from the start so every heal carries the same tree).
+and busy seconds of its wire. A replica told to crash raises, restarts
+with a fresh model and Manager, and heals from a peer: over HTTP
+(wire v3: crc32-checked chunks that resume mid-body and fail over to the
+other up-to-date replicas), or with ``transport="pg"`` (``--transport
+pg``) over a recovery ``ProcessGroupHost`` each replica owns. Either way
+the heal lands in place in the replica's live model and optimizer state
+on its device (the transport's template is ``Manager.state_dict_template``;
+AdamW's state exists, zero, from the start so every heal carries the same
+tree), and each replica reports whether its tensors kept their storage.
+
+``--replicas N`` runs N replica groups (2 by default); the lighthouse
+wants all of them in every quorum. ``TrainConfig.faults`` is a fault
+script of ``Fault(replica, step, kind, at=...)`` entries, each fired once
+when that replica reaches that step's point ``at``: ``"start"`` (before
+the step's quorum, where the reference's ``EventInjector`` fires) or
+``"backward"`` (after the backward pass: the step's quorum is in, so a
+crash there makes the survivors discard the step; ``--fail-at N`` is
+``Fault(1, N, "crash", at="backward")``). Kinds:
+``crash`` (the replica raises and restarts), ``kill_heal_chunk`` and
+``corrupt_heal_chunk`` (its HTTP transport drops or corrupts the serves of
+``chunk``, ``times`` times, -1 for every serve), ``flake_rpc`` (the next
+``times`` calls of RPC ``method``, by any replica, fail once each).
+``--http-timeout`` sets the HTTP transport's own timeout (its serve
+socket's and its serving window's grace).
 
 With ``--diloco`` (``examples/train_llama_hsdp.py --diloco``,
 ``:158-256``) the replicas train semi-synchronously: the Manager takes the
@@ -34,6 +51,8 @@ outer lr 0.7). A heal carries the fragments' globals and momentum too.
         --batch-size 1 --seq-len 2048 --quantize --fail-at 3 [--transport pg]
     python -m torchft_tpu_torch.train --config bench_1b --steps 40 --diloco \\
         --quantize --fail-at 14 [--transport pg]
+    python -m torchft_tpu_torch.train --config bench_1b --replicas 3 --no-quantize \\
+        --fail-at 2 --http-timeout 5
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -48,11 +67,12 @@ import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from torchft_tpu_torch.checkpointing import PGTransport
+from torchft_tpu_torch import coordination
+from torchft_tpu_torch.checkpointing import HTTPTransport, PGTransport
 from torchft_tpu_torch.coordination import LighthouseServer
 from torchft_tpu_torch.local_sgd import DiLoCo
 from torchft_tpu_torch.manager import Manager
@@ -62,11 +82,78 @@ from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.process_group import ProcessGroupHost
 from torchft_tpu_torch.utils import resolve_device, tensors_sha256
 
-__all__ = ["TrainConfig", "InjectedFailure", "build_trainer", "run_replicas", "main"]
+__all__ = ["TrainConfig", "Fault", "InjectedFailure", "build_trainer", "run_replicas", "main"]
 
 
 class InjectedFailure(Exception):
     """A scripted replica crash."""
+
+
+FAULT_KINDS = ("crash", "kill_heal_chunk", "corrupt_heal_chunk", "flake_rpc")
+# where in a step a fault fires: before its quorum, or after its backward pass
+FAULT_POINTS = ("start", "backward")
+
+
+@dataclasses.dataclass(frozen=True)
+class Fault:
+    """One scripted fault: fires once, when ``replica`` reaches point ``at``
+    of ``step`` (an inner step under DiLoCo)."""
+
+    replica: int
+    step: int
+    kind: str
+    chunk: int = 0  # the heal chunk of kill_heal_chunk / corrupt_heal_chunk
+    times: int = 1  # serves (-1: every serve) or RPC calls that fail
+    method: str = "should_commit"  # the RPC of flake_rpc
+    at: str = "start"  # FAULT_POINTS
+
+    def __post_init__(self) -> None:
+        if self.kind not in FAULT_KINDS:
+            raise ValueError(f"unknown fault kind {self.kind!r}: expected one of {FAULT_KINDS}")
+        if self.at not in FAULT_POINTS:
+            raise ValueError(f"unknown fault point {self.at!r}: expected one of {FAULT_POINTS}")
+
+
+class _FaultScript:
+    """The faults of one run, shared by every incarnation of a replica, so
+    each fires once. ``flake_rpc`` installs a process-wide RPC fault hook,
+    removed by ``close``."""
+
+    def __init__(self, faults: Tuple[Fault, ...]) -> None:
+        self._lock = threading.Lock()
+        self._pending = list(faults)
+        self._rpc_flakes: Dict[str, int] = {}
+        self.fired: List[Fault] = []
+
+    def check(self, replica: int, step: int, at: str, transport: Any) -> None:
+        with self._lock:
+            due = [f for f in self._pending if (f.replica, f.step, f.at) == (replica, step, at)]
+            for f in due:
+                self._pending.remove(f)
+                self.fired.append(f)
+        for f in due:
+            if f.kind == "crash":
+                raise InjectedFailure(f"replica {replica} crashed at step {step}")
+            if f.kind == "flake_rpc":
+                with self._lock:
+                    self._rpc_flakes[f.method] = self._rpc_flakes.get(f.method, 0) + f.times
+                coordination.set_rpc_fault_hook(self._rpc_hook)
+            else:
+                if not isinstance(transport, HTTPTransport):
+                    raise ValueError(f"{f.kind} needs the HTTP transport")
+                mode = "die" if f.kind == "kill_heal_chunk" else "corrupt"
+                transport.inject_chunk_fault(f.chunk, mode, times=f.times)
+
+    def _rpc_hook(self, method: str, addr: str) -> Optional[Exception]:
+        with self._lock:
+            if self._rpc_flakes.get(method, 0) <= 0:
+                return None
+            self._rpc_flakes[method] -= 1
+        return ConnectionError(f"injected rpc flake: {method} -> {addr}")
+
+    def close(self) -> None:
+        if any(f.kind == "flake_rpc" for f in self.fired):
+            coordination.set_rpc_fault_hook(None)
 
 
 REPLICAS = 2
@@ -85,17 +172,22 @@ class TrainConfig:
     batch_size: int = 1
     seq_len: int = 2048
     quantize: bool = True
-    # replica 1 crashes after its backward pass at this step (None: never)
-    fail_at: Optional[int] = None
     # the heal's checkpoint transport: "http" or "pg"
     transport: str = "http"
     # semi-synchronous DiLoCo instead of the per-step allreduce; steps and
-    # fail_at then count inner steps
+    # faults then count inner steps
     diloco: bool = False
     sync_every: int = 20
     num_fragments: int = 2
     fragment_sync_delay: int = 1
     outer_lr: float = 0.7
+    # replica groups (threads); the lighthouse wants all of them
+    replicas: int = REPLICAS
+    # the HTTP transport's own timeout in seconds (0: TIMEOUT_S)
+    http_timeout: float = 0.0
+    # scripted faults, each fired once (Fault); --fail-at N is
+    # Fault(1, N, "crash", at="backward")
+    faults: Tuple[Fault, ...] = ()
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -139,8 +231,8 @@ def _train_replica(
     lighthouse_addr: str,
     device: torch.device,
     on_step: Callable[[Dict[str, Any]], None],
-    failed: threading.Event,
     stop: threading.Event,
+    script: _FaultScript,
 ) -> Dict[str, Any]:
     model, optim, make_batch = build_trainer(cfg, replica_id, device)
 
@@ -152,14 +244,18 @@ def _train_replica(
         return {"model": model.state_dict(), "optim": optim.state_dict()}
 
     pg = ProcessGroupHost(timeout=TIMEOUT_S)
-    transport = recovery_pg = None
+    recovery_pg = None
     manager: Optional[Manager] = None
+    transport: Any
     if cfg.transport == "pg":
         # its own PG: one generation carries p2p or collective traffic
         recovery_pg = ProcessGroupHost(timeout=TIMEOUT_S)
         transport = PGTransport(recovery_pg, timeout=TIMEOUT_S,
                                 state_dict_template=lambda: manager.state_dict_template())
-    elif cfg.transport != "http":
+    elif cfg.transport == "http":
+        transport = HTTPTransport(timeout=cfg.http_timeout or TIMEOUT_S,
+                                  state_dict_template=lambda: manager.state_dict_template())
+    else:
         raise ValueError(f"unknown transport {cfg.transport!r}")
     manager = Manager(
         pg=pg,
@@ -186,23 +282,29 @@ def _train_replica(
         return time.perf_counter()
 
     optimizer = OptimizerWrapper(manager, optim)
+
+    def storage() -> List[int]:
+        # every tensor a heal lands in: the model and AdamW's state
+        tensors = [*model.parameters(), *(t for st in optim.state.values() for t in st.values())]
+        return [t.data_ptr() for t in tensors if isinstance(t, torch.Tensor)]
+
+    storage0 = storage()
     try:
         if cfg.diloco:
-            return _diloco_loop(cfg, replica_id, model, optim, make_batch, manager, pg, sync,
-                                on_step, failed, stop)
+            return _diloco_loop(cfg, replica_id, model, optim, make_batch, manager, pg,
+                                transport, sync, on_step, stop, script)
         while manager.current_step() < cfg.steps:
             if stop.is_set():
                 raise RuntimeError(f"replica {replica_id}: a peer replica failed")
             step = manager.current_step()
+            script.check(replica_id, step, "start", transport)
             t0 = sync()
             optimizer.zero_grad()
             inputs, targets = make_batch(step)
             loss = model.loss(inputs, targets)
             loss.backward()
             t1 = sync()
-            if replica_id == 1 and cfg.fail_at == step and not failed.is_set():
-                failed.set()
-                raise InjectedFailure(f"replica {replica_id} crashed at step {step}")
+            script.check(replica_id, step, "backward", transport)
             grads = {n: p.grad for n, p in model.named_parameters()}
             wire0 = pg.wire_stats()
             avg = manager.allreduce(grads, should_quantize=cfg.quantize).get_future().wait()
@@ -239,6 +341,9 @@ def _train_replica(
         return {
             "params": {n: p.detach().clone() for n, p in model.named_parameters()},
             "step": manager.current_step(),
+            # whether the model and AdamW's state kept their storage through
+            # the heals (both transports land in place)
+            "storage_kept": storage() == storage0,
             "metrics": manager.metrics(),
             "timings": manager.timings(),
         }
@@ -249,9 +354,9 @@ def _train_replica(
 
 
 def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.optim.Optimizer,
-                 make_batch: Callable, manager: Manager, pg: ProcessGroupHost,
+                 make_batch: Callable, manager: Manager, pg: ProcessGroupHost, transport: Any,
                  sync: Callable[[], float], on_step: Callable[[Dict[str, Any]], None],
-                 failed: threading.Event, stop: threading.Event) -> Dict[str, Any]:
+                 stop: threading.Event, script: _FaultScript) -> Dict[str, Any]:
     """Inner AdamW steps with a DiLoCo step after each; returns the final
     parameters and fragment state (the live tensors: the replica is done)."""
     params = dict(model.named_parameters())
@@ -278,14 +383,13 @@ def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.o
     while inner < cfg.steps:
         if stop.is_set():
             raise RuntimeError(f"replica {replica_id}: a peer replica failed")
+        script.check(replica_id, inner, "start", transport)
         t0 = sync()
         optim.zero_grad()
         inputs, targets = make_batch(inner)
         loss = model.loss(inputs, targets)
         loss.backward()
-        if replica_id == 1 and cfg.fail_at == inner and not failed.is_set():
-            failed.set()
-            raise InjectedFailure(f"replica {replica_id} crashed at inner step {inner}")
+        script.check(replica_id, inner, "backward", transport)
         optim.step()
         t1 = sync()
         wire0 = pg.wire_stats()
@@ -336,8 +440,8 @@ def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.o
         "fragment_state": diloco.state_tensors(),
         "step": manager.current_step(),
         "inner_steps": inner,
-        # whether every live tensor kept its storage through the heals (a PG
-        # heal lands in place; HTTP's optimizer load replaces AdamW's state)
+        # whether every live tensor kept its storage through the heals (a
+        # heal lands in place through the transport's template)
         "storage_kept": storage() == storage0,
         "metrics": manager.metrics(),
         "timings": manager.timings(),
@@ -349,24 +453,25 @@ def run_replicas(
     device: "str | torch.device | None" = None,
     on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
 ) -> List[Dict[str, Any]]:
-    """Train two replica groups as threads against an
+    """Train ``cfg.replicas`` replica groups as threads against an
     in-process lighthouse; returns each replica's final state, metrics and
     per-step log. A crashed replica restarts (with a fresh model and
     Manager) until it finishes."""
     dev = resolve_device(device)
-    # min_replicas=REPLICAS holds the survivor in quorum while a crashed replica
-    # restarts, so the rejoin always goes through a heal
+    n_replicas = cfg.replicas
+    # min_replicas = every replica holds the survivors in quorum while a
+    # crashed replica restarts, so the rejoin always goes through a heal
     lighthouse = LighthouseServer(
-        bind="127.0.0.1:0", min_replicas=REPLICAS,
+        bind="127.0.0.1:0", min_replicas=n_replicas,
         join_timeout_ms=1000, quorum_tick_ms=20, heartbeat_timeout_ms=2000,
     )
     addr = f"127.0.0.1:{lighthouse.port}"
-    failed = threading.Event()
     # set when a replica fails for real: the others stop at their next step
     # instead of waiting in quorum for a peer that will not come back
     stop = threading.Event()
     errors: List[BaseException] = []
-    logs: List[List[Dict[str, Any]]] = [[] for _ in range(REPLICAS)]
+    logs: List[List[Dict[str, Any]]] = [[] for _ in range(n_replicas)]
+    script = _FaultScript(cfg.faults)
     log_lock = threading.Lock()
 
     def record(entry: Dict[str, Any]) -> None:
@@ -379,7 +484,7 @@ def run_replicas(
         restarts = 0
         while True:
             try:
-                out = _train_replica(cfg, i, addr, dev, record, failed, stop)
+                out = _train_replica(cfg, i, addr, dev, record, stop, script)
                 out["restarts"] = restarts
                 return out
             except InjectedFailure:
@@ -400,11 +505,12 @@ def run_replicas(
                 torch.cuda.empty_cache()
 
     try:
-        with ThreadPoolExecutor(max_workers=REPLICAS) as ex:
-            futs = [ex.submit(replica, i) for i in range(REPLICAS)]
+        with ThreadPoolExecutor(max_workers=n_replicas) as ex:
+            futs = [ex.submit(replica, i) for i in range(n_replicas)]
             for f in futs:
                 f.exception()
     finally:
+        script.close()
         lighthouse.shutdown()
     if errors:
         raise errors[0]
@@ -421,9 +527,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--seq-len", type=int, default=2048)
     p.add_argument("--quantize", action=argparse.BooleanOptionalAction, default=True)
-    p.add_argument("--fail-at", type=int, default=None)
+    p.add_argument("--fail-at", type=int, default=None,
+                   help="replica 1 crashes after this step's backward pass")
+    p.add_argument("--replicas", type=int, default=REPLICAS,
+                   help="replica groups (threads); the lighthouse wants all of them")
     p.add_argument("--transport", choices=["http", "pg"], default="http",
                    help="heal transport: http, or pg (a recovery process group)")
+    p.add_argument("--http-timeout", type=float, default=0.0,
+                   help="the HTTP transport's own timeout in seconds (default: the "
+                        f"trainer's {TIMEOUT_S:.0f} s)")
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--diloco", action="store_true",
                    help="semi-sync across replica groups (DiLoCo) instead of the per-step "
@@ -436,9 +548,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = TrainConfig(
         config=args.config, steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, quantize=args.quantize,
-        fail_at=args.fail_at, transport=args.transport, diloco=args.diloco,
+        faults=() if args.fail_at is None else (Fault(1, args.fail_at, "crash", at="backward"),),
+        transport=args.transport, diloco=args.diloco,
         sync_every=args.sync_every, num_fragments=args.num_fragments,
         fragment_sync_delay=args.fragment_sync_delay, outer_lr=args.outer_lr,
+        replicas=args.replicas, http_timeout=args.http_timeout,
     )
     results = run_replicas(
         cfg, args.device, on_step=lambda e: print(json.dumps(e), flush=True)
