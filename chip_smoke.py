@@ -31,7 +31,7 @@
    streamed allreduce of CUDA tensors against the same calls on CPU
    tensors, bit for bit: fp8 with error feedback over 3 steps, and raw
    bf16. Then the fp8 allreduce of bench_1b's gradient tree over two
-   replica Managers, serial and streamed, 3 turns each in alternation,
+   replica Managers, serial and streamed, 2 turns each in alternation,
    with the streamed stage sums, ``overlap_efficiency`` and the wire's
    bytes and busy seconds; the serial engine's quantize launches are read
    from this phase.
@@ -124,7 +124,7 @@
    bench_1b width and depth: ``python -m
    torchft_tpu_torch.examples.train_llama_hsdp --demo --config bench_1b
    --batch-size 1 --seq-len 2048 --attention ulysses --transport pg
-   --steps 6 --kill-at-step 2``, two replica groups of one rank each (a
+   --steps 4 --kill-at-step 2``, two replica groups of one rank each (a
    world-1 NCCL in-group process group per process, FSDP2 over it), the
    unquantized bf16 gradient allreduce, every rank of group 1 SIGKILLed
    after its step-2 line, restarted and healed over PG into its live local
@@ -145,7 +145,7 @@
    slicing onto the host wire, the alltoall, the landing and K4, the sum);
    K3's and K4's launches are read from those turns. (b) bench_1b at full
    width as three replica groups (threads on one card), the unquantized
-   bf16 allreduce, 6 steps healed over HTTP wire v3 in place, with the
+   bf16 allreduce, 5 steps healed over HTTP wire v3 in place, with the
    reference's resilient-heal fault script (each fault fires at the start
    of its step, as the reference's ``EventInjector``): replica 2 crashes
    at step 2 and restarts, its assigned source (replica 0) drops every serve of
@@ -154,12 +154,32 @@
    again), and one should_commit RPC flakes at step 4 (retried under
    ``TORCHFT_RETRY_MAX_ATTEMPTS=2``; the HTTP transport's timeout 30 s).
    Checks finite losses, every replica
-   at step 6, bitwise-equal replicas, on replica 2 a failover, a crc
+   at step 5, bitwise-equal replicas, on replica 2 a failover, a crc
    failure and no error, a retried RPC, the healed tensors' storage kept,
    splash attention and K1's three kernels launched; prints the median
    steady step split as the trainer's, tokens/s per replica, both
    sources' staging seconds, the heal's seconds, chunks and MiB/s, and
    the peak device memory.
+14. The model layer. (a) One replica's bench_1b forward + backward (full
+   width and depth, batch 1, seq 2048) under the remat modes in turns
+   (none, none, dots, attn, full): per mode the median of 3 steps, the
+   step's peak device memory above the resting model and K1's launches in
+   one step. Checks K1's forward at 20 launches a step under none, dots
+   and attn and 40 under full (dq and dK/dV 20), the loss bitwise equal
+   across modes and every gradient bitwise equal to none's (or, if two
+   runs of none differ, within their spread). (b) The MoE at bench_moe
+   width and depth (1.80 G parameters, head dim 64) as the trainer's
+   ``--model moe --config bench_moe --batch-size 1 --seq-len 2048
+   --no-quantize --steps 6 --fail-at 3`` runs it: two replica threads,
+   full remat, the unquantized bf16 allreduce, replica 1 crashing after
+   step 3's backward pass and healing over HTTP in place. Checks finite
+   losses, the discarded step, the heal, bitwise-equal replicas with their
+   storage kept, splash attention and K1's head-dim-64 kernels launched
+   (and no other); prints the median steady step split as the trainer's,
+   tokens/s per replica, the aux loss, the dropped share, the heal's
+   seconds, chunks and MiB/s and the peak memory. (c) K1's bf16 kernels at
+   bench_moe's attention shape (B 1, S 2048, Hq 16, Hkv 8, hd 64) against
+   their plain versions, timed beside their bound and SDPA.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -944,7 +964,7 @@ def check_local_sgd_on_card(device: torch.device) -> None:
 def check_train_llama_hsdp_processes() -> dict:
     """The train_llama_hsdp counterpart's demo as processes on the card at
     bench_1b (docstring, 12); returns each group rank process's launches."""
-    steps, kill_at, B, S = 6, 2, 1, 2048
+    steps, kill_at, B, S = 4, 2, 1, 2048
     argv = [sys.executable, "-m", "torchft_tpu_torch.examples.train_llama_hsdp", "--demo",
             "--config", "bench_1b", "--batch-size", str(B), "--seq-len", str(S),
             "--attention", "ulysses", "--transport", "pg", "--steps", str(steps),
@@ -1163,7 +1183,9 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
     from torchft_tpu_torch.train import Fault, run_replicas
 
     rcfg = dataclasses.replace(
-        cfg, replicas=3, steps=6, quantize=False, transport="http",
+        # 5 steps (6 before phase 14 needed the time): the flake at step 4
+        # still lands on a step that the three replicas run
+        cfg, replicas=3, steps=5, quantize=False, transport="http",
         # the serve side's lock wait must outlast staging 6.45 GB (up to
         # 9.9 s on the H100): a 3 s one answered a healer's metadata request
         # 503 mid-staging, failing the init heal. The serving window's grace
@@ -1258,6 +1280,194 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# phase 14 (a): the remat modes in their turns (none twice: the second
+# gives the spread between two runs of one mode), and the K1 forward
+# launches each makes in a bench_1b step: one a layer, two under "full"
+REMAT_TURNS = ("none", "none", "dots", "attn", "full")
+REMAT_FWD_PER_LAYER = {"none": 1, "dots": 1, "attn": 1, "full": 2}
+# phase 14 (c): K1 at bench_moe's attention shape (B, S, Hq, Hkv, hd)
+BENCH_MOE_ATTN = (1, 2048, 16, 8, 64)
+# the instances the MoE's attention runs at head dim 64 (bf16, splash)
+HD64_INSTANCE = {"fwd": "attention_fwd_kernel<64, true, __nv_bfloat16>",
+                 "dq": "attention_dq_kernel<64, __nv_bfloat16>",
+                 "dkv": "attention_dkv_kernel<64, __nv_bfloat16>"}
+
+
+def check_remat_bench_1b(device: torch.device) -> dict:
+    """Phase 14 (a): one replica's bench_1b forward + backward (full width
+    and depth, batch 1, seq 2048, K1) under each remat mode in turns:
+    per mode the median of 3 steps by CUDA events, the step's peak device
+    memory above the resting model, and K1's launches in one step. The
+    loss is bitwise equal across modes and every gradient bitwise equal to
+    "none"'s; K1's forward launches once a layer, twice under "full".
+    Returns per mode its numbers."""
+    from torchft_tpu_torch.models.llama import CONFIGS, Llama
+    from torchft_tpu_torch.ops import attention as ta
+
+    cfg = CONFIGS["bench_1b"]
+    model = Llama(cfg, device=device, remat="none")
+    model.init_weights(torch.Generator(device=device).manual_seed(21))
+    g = torch.Generator(device=device).manual_seed(22)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2049), generator=g, device=device)
+
+    def step() -> torch.Tensor:
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(toks[:, :-1], toks[:, 1:])
+        loss.backward()
+        return loss.detach()
+
+    out, base = {}, None
+    for mode in REMAT_TURNS:
+        model.remat = mode
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.synchronize()
+        resting = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ta.reset_launches()
+        loss = step()
+        torch.cuda.synchronize()
+        launches = {k: ta.LAUNCHES[f"splash_{k}"] for k in ATTN_MATMULS}
+        peak = torch.cuda.max_memory_allocated() - resting
+        grads = [p.grad for p in model.parameters()]
+        if base is None:
+            base = (loss, [x.clone() for x in grads])
+            diff, unequal = 0.0, []
+        else:
+            unequal = [i for i, (a, b) in enumerate(zip(grads, base[1])) if not same_bits(a, b)]
+            diff = max((max_abs_err(grads[i].float(), base[1][i].float()) for i in unequal),
+                       default=0.0)
+        ms = timed_ms(step, 3)
+        r = out.setdefault(mode, {"ms": [], "peak_gib": 0.0})
+        r["ms"].append(ms)
+        r["peak_gib"] = max(r["peak_gib"], peak / 2**30)
+        r.update(launches=launches, loss_equal=same_bits(loss, base[0]),
+                 grads_unequal=len(unequal), grads_max_diff=diff)
+        log(f"remat {mode} (bench_1b, one replica, B 1, S 2048): forward+backward {ms:.1f} ms, "
+            f"peak above the resting model {peak / 2**30:.2f} GiB, K1 launches {launches}, loss "
+            f"{loss.item():.6f} (bitwise equal to none: {r['loss_equal']}), gradients unlike "
+            f"none's first run: {len(unequal)} of {len(grads)} (max abs diff {diff:.3e})")
+    spread = out["none"]["grads_max_diff"]
+    for mode, r in out.items():
+        want = REMAT_FWD_PER_LAYER[mode] * cfg.n_layers
+        if r["launches"] != {"fwd": want, "dq": cfg.n_layers, "dkv": cfg.n_layers}:
+            raise RuntimeError(f"remat {mode}: K1 launched {r['launches']} in a step, not fwd "
+                               f"{want}, dq and dkv {cfg.n_layers}")
+        if not r["loss_equal"]:
+            raise RuntimeError(f"remat {mode}: the loss differs from none's")
+        # bitwise, unless two runs of "none" already differ: then within their spread
+        if r["grads_unequal"] and not r["grads_max_diff"] <= spread:
+            raise RuntimeError(f"remat {mode}: {r['grads_unequal']} gradients differ from none's "
+                               f"(max abs {r['grads_max_diff']:.3e}, none-vs-none {spread:.3e})")
+    del model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_bench_moe(device: torch.device) -> dict:
+    """Phase 14 (b): the MoE at bench_moe width and depth as the trainer's
+    ``--model moe --config bench_moe --batch-size 1 --seq-len 2048
+    --no-quantize --steps 6 --fail-at 3`` runs it: two replica threads,
+    full remat, the unquantized bf16 allreduce, replica 1 crashing after
+    step 3's backward pass and healing over HTTP in place. Returns the
+    run's launches."""
+    from torchft_tpu_torch.models.moe import MOE_CONFIGS
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.train import Fault, TrainConfig, run_replicas
+
+    mcfg = TrainConfig(model="moe", config="bench_moe", steps=6, batch_size=1, seq_len=2048,
+                       quantize=False, transport="http", remat="full",
+                       faults=(Fault(1, 3, "crash", at="backward"),))
+    model_cfg = MOE_CONFIGS[mcfg.config]
+    if model_cfg.head_dim != 64:
+        raise RuntimeError(f"bench_moe's head dim is {model_cfg.head_dim}, not 64")
+    q.reset_launches()
+    ta.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = run_replicas(mcfg, device, on_step=lambda e: log(
+        f"moe step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+        f"aux_loss={e['aux_loss']:.4f} dropped={e['dropped']:.4f} "
+        f"participants={e['participants']} committed={e['committed']} healed={e['healed']} "
+        f"attention={e['attention']} step_ms={e['step_ms']:.1f} compute_ms={e['compute_ms']:.1f} "
+        f"allreduce_ms={e['allreduce_ms']:.1f} tokens_per_s={e['tokens_per_s']:.1f} "
+        f"buckets={int(e['allreduce_buckets'])} wire_ms={e['allreduce_wire_s'] * 1e3:.1f}"))
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    entries = [e for r in results for e in r["log"]]
+    losses = [e["loss"] for e in entries]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"bench_moe: non-finite loss: {losses}")
+    if any(r["step"] != mcfg.steps for r in results):
+        raise RuntimeError(f"bench_moe: replicas stopped at {[r['step'] for r in results]}")
+    if results[1]["restarts"] != 1 or results[1]["metrics"]["heals"] < 1:
+        raise RuntimeError(f"bench_moe: replica 1 did not crash and heal: {results[1]['metrics']}")
+    if results[0]["metrics"]["commit_failures"] < 1:
+        raise RuntimeError(f"bench_moe: no step was discarded: {results[0]['metrics']}")
+    if not all(r["storage_kept"] for r in results):
+        raise RuntimeError("bench_moe: the HTTP heal moved a live tensor's storage")
+    p0, p1 = results[0]["params"], results[1]["params"]
+    unequal = [k for k in p0 if not same_bits(p0[k], p1[k])]
+    if unequal:
+        raise RuntimeError(f"bench_moe: replicas differ in {unequal[:5]}")
+    dispatch = {e["attention"] for e in entries}
+    if dispatch != {"splash"}:
+        raise RuntimeError(f"bench_moe: attention dispatched to {dispatch}, not splash")
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} (head dim 64) never launched on the bench_moe path")
+    others = {k: n for k, n in launches.items()
+              if n and k not in ("splash_fwd", "splash_dq", "splash_dkv")}
+    if others:
+        raise RuntimeError(f"bench_moe: other kernels launched: {others}")
+    steady = [e for e in entries if e["committed"] and e["participants"] == 2
+              and not e["healed"] and e["step"] > 0]
+    if not steady:
+        raise RuntimeError("bench_moe: no steady step")
+    med = {k: statistics.median(e[k] for e in steady)
+           for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s", "aux_loss",
+                     "dropped")}
+    h = heal_numbers(results)
+    n_params = model_cfg.num_params()
+    log(f"bench_moe ({elapsed:.1f} s, {n_params:,} params, 2 replicas, {mcfg.steps} steps, bf16 "
+        f"allreduce, HTTP heal in place): replicas bitwise equal over {len(p0)} tensors; median "
+        f"of {len(steady)} steady steps: step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
+        f"{med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} ms + "
+        f"commit+optimizer {med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
+        f"{med['tokens_per_s']:.1f} tokens/s per replica; aux loss {med['aux_loss']:.4f}, "
+        f"dropped {med['dropped']:.4f}; heal: heal_send_s {h['heal_send_s']:.3f} heal_recv_s "
+        f"{h['heal_recv_s']:.3f} heal_chunks {h['heal_chunks']:.0f} heal_mb_per_s "
+        f"{h['heal_mb_per_s']:.1f}; storage kept; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    del results, p0, p1, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_bench_moe_attention(device: torch.device):
+    """Phase 14 (c): K1's bf16 forward, dq and dK/dV at bench_moe's
+    attention shape (head dim 64) against their plain versions, timed
+    beside their bound and SDPA; returns (stats, timing) keyed as
+    ``LAUNCHES``."""
+    from torchft_tpu_torch.ops import attention as ta
+
+    B, S, hq, hkv, hd = BENCH_MOE_ATTN
+    g = torch.Generator(device=device).manual_seed(64)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=device).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    stats = {f"splash_{kernel}": {"err": 0.0, "ratio": 0.0, "share": 0.0}
+             for kernel in ATTN_MATMULS}
+    timing = {}
+    check_attention_case(ta, "bench_moe", "splash", q, k, v, "", stats, timing)
+    return stats, timing
 
 
 def bench_1b_grad_specs() -> dict:
@@ -1482,7 +1692,7 @@ def check_streamed_on_card(device: torch.device) -> None:
             raise RuntimeError(f"streamed allreduce ({name}): CUDA and CPU results differ")
 
 
-def time_streamed_vs_serial(device: torch.device, specs: dict, turns: int = 3) -> dict:
+def time_streamed_vs_serial(device: torch.device, specs: dict, turns: int = 2) -> dict:
     """The fp8-quantized allreduce of bench_1b's gradient tree (random bf16
     leaves of its parameter shapes, seeded) over two replica Managers:
     serial (``stream_buckets=False``) and streamed (the default: 1 GiB fp8
@@ -1731,7 +1941,7 @@ def check_attention_case(ta, label, impl, q, k, v, suffix, stats, timing) -> Non
             # SDPA's backward computes dq, dk and dv in one call
             "library_ms": sdpa_fwd if kernel == "fwd" else sdpa_bwd,
         }
-        log(f"attention {key} bench_1b timing: kernel {r['ms']:.4f} ms "
+        log(f"attention {key} {label} timing: kernel {r['ms']:.4f} ms "
             f"(one call with its host time {r['call_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.3f} ms, sdpa {'fwd' if kernel == 'fwd' else 'bwd'} "
             f"{r['library_ms']:.4f} ms in the same dtype, bound {bound:.4f} ms ({by}, "
@@ -1881,7 +2091,7 @@ def check_model_path(device: torch.device, dtype: torch.dtype, impl: str, want: 
     from torchft_tpu_torch.ops import attention as ta
 
     cfg = dataclasses.replace(CONFIGS["bench_1b"], n_layers=2, dtype=dtype)
-    model = Llama(cfg, device=device, attention=impl)
+    model = Llama(cfg, device=device, attention=impl, remat="none")
     model.init_weights(torch.Generator(device=device).manual_seed(11))
     g = torch.Generator(device=device).manual_seed(12)
     toks = torch.randint(0, cfg.vocab_size, (1, 2049), generator=g, device=device)
@@ -1936,7 +2146,7 @@ def check_attention_env(device: torch.device) -> None:
     from torchft_tpu_torch.ops import attention as ta
 
     cfg = dataclasses.replace(CONFIGS["bench_1b"], n_layers=2)
-    model = Llama(cfg, device=device)
+    model = Llama(cfg, device=device, remat="none")
     model.init_weights(torch.Generator(device=device).manual_seed(15))
     g = torch.Generator(device=device).manual_seed(16)
     toks = torch.randint(0, cfg.vocab_size, (1, 2049), generator=g, device=device)
@@ -2179,6 +2389,9 @@ def main() -> int:
     hsdp_launches = check_train_llama_hsdp_processes()
     rs_launches = check_reduce_scatter_on_card(device, n_params)
     check_resilient_heal_bench_1b(device, cfg)
+    remat = check_remat_bench_1b(device)
+    moe_launches = check_moe_bench_moe(device)
+    moe_stats, moe_timing = check_bench_moe_attention(device)
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -2234,7 +2447,10 @@ def main() -> int:
                     # in bf16 only
                     **({"launches_diloco": {"bench_1b": diloco_launches[key]},
                         "launches_hsdp": {f"group {rid}": d[key]
-                                          for rid, d in hsdp_launches.items()}}
+                                          for rid, d in hsdp_launches.items()},
+                        # one bench_1b step under each remat mode (phase 14)
+                        "launches_remat": {mode: r["launches"][kernel]
+                                           for mode, r in remat.items()}}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],
@@ -2242,6 +2458,19 @@ def main() -> int:
                     **sass_counts(build_report[ATTN_INSTANCE[dtype][kernel].format(
                         split=str(impl == "splash").lower())]),
                 })
+    for kernel in ATTN_MATMULS:
+        key = f"splash_{kernel}"
+        kernels.append({
+            "name": f"{HD64_INSTANCE[kernel].split('<')[0]} (splash, head dim 64: bench_moe)",
+            "route": "cuda",
+            "source": f"torchft_tpu_torch/ops/csrc/{HOPPER}",
+            "replaces": f"torchft_tpu/ops/attention.py:{ATTN_REPLACES['splash']}",
+            # the bench_moe training run (phase 14 (b))
+            "launches": moe_launches[key],
+            "max_abs_err": moe_stats[key]["err"],
+            **moe_timing[key],
+            **sass_counts(build_report[HD64_INSTANCE[kernel]]),
+        })
     log(f"chip_smoke.py: {time.perf_counter() - started:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {smi}", flush=True)

@@ -512,3 +512,70 @@ def test_cuda_reduce_scatter_build_failure_raises(cuda_device, monkeypatch, tmp_
         assert not any(tq.LAUNCHES.values())
     finally:
         tq._kernels.cache_clear()
+
+
+@pytest.mark.cuda
+def test_cuda_attention_ops_dispatch_to_the_kernels(cuda_device):
+    """The ``torchft_tpu_torch::attention_fwd`` / ``::attention_bwd`` ops on
+    CUDA tensors launch the kernels through their wrappers, bit for bit the
+    wrappers' outputs; ``plain=True`` runs the plain versions there and
+    launches nothing. ``opcheck`` passes on the CUDA registrations."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(1, 256, h, 64, generator=g).to(cuda_device, torch.bfloat16)
+               for h in (4, 2, 2))
+    ta.reset_launches()
+    o, lse = ta.attention_fwd_op(q, k, v, 1.0, "splash", False)
+    do = torch.randn_like(o)
+    dq, dk, dv = ta.attention_bwd_op(q, k, v, o, lse, do, 1.0, "splash", False)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ta.LAUNCHES.items() if c} == {
+        "splash_fwd": 1, "splash_dq": 1, "splash_dkv": 1}
+    wo, wlse = ta.attention_fwd(q, k, v, 1.0, "splash")
+    delta = ta.attention_delta(wo, do)
+    assert torch.equal(o, wo) and torch.equal(lse, wlse)
+    assert torch.equal(dq, ta.attention_dq(q, k, v, wlse, delta, do, 1.0, "splash"))
+    wdk, wdv = ta.attention_dkv(q, k, v, wlse, delta, do, 1.0, "splash")
+    assert torch.equal(dk, wdk) and torch.equal(dv, wdv)
+    ta.reset_launches()
+    po, plse = ta.attention_fwd_op(q, k, v, 1.0, "splash", True)
+    torch.cuda.synchronize()
+    assert not any(ta.LAUNCHES.values())
+    assert torch.equal(po, ta.attention_fwd_plain(q, k, v, 1.0, True)[0].contiguous())
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.library.opcheck(ta.attention_fwd_op, (*leaves, 1.0, "splash", False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,forwards", [("none", 1), ("dots", 1), ("attn", 1), ("full", 2)])
+def test_cuda_remat_modes_launch_the_forward_once_a_layer(cuda_device, mode, forwards):
+    """A 2-layer bf16 Llama with head dim 64 on the card under each remat
+    mode: K1's forward launches once a layer (twice under "full"), dq and
+    dK/dV once; the loss and every gradient bitwise equal to "none"'s."""
+    import dataclasses
+
+    from torchft_tpu_torch.models.llama import CONFIGS, Llama
+
+    cfg = dataclasses.replace(CONFIGS["debug"], dim=256, n_heads=4, n_kv_heads=2,
+                              dtype=torch.bfloat16)
+    model = Llama(cfg, device=cuda_device, remat="none")
+    model.init_weights(torch.Generator(device=cuda_device).manual_seed(5))
+    toks = torch.randint(0, cfg.vocab_size, (2, 129),
+                         generator=torch.Generator(device=cuda_device).manual_seed(6),
+                         device=cuda_device)
+    runs = []
+    for m in ("none", mode):
+        model.remat = m
+        model.zero_grad(set_to_none=True)
+        ta.reset_launches()
+        loss = model.loss(toks[:, :-1], toks[:, 1:])
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), [p.grad.clone() for p in model.parameters()],
+                     dict(ta.LAUNCHES)))
+    (base_loss, base_grads, _), (loss, grads, launched) = runs
+    assert {n: c for n, c in launched.items() if c} == {
+        "splash_fwd": forwards * cfg.n_layers, "splash_dq": cfg.n_layers,
+        "splash_dkv": cfg.n_layers}
+    assert torch.equal(loss, base_loss)
+    for a, b in zip(grads, base_grads):
+        assert torch.equal(a, b)

@@ -15,6 +15,7 @@ import torchft_tpu_torch
 from torchft_tpu_torch import train
 from torchft_tpu_torch.examples import train_llama_hsdp
 from torchft_tpu_torch.models.llama import CONFIGS, Llama
+from torchft_tpu_torch.models.moe import MOE_CONFIGS, MoE
 from torchft_tpu_torch.utils import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,7 +33,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     modules = _port_modules()
     for name in ("manager", "ops.quantization", "local_sgd", "knobs", "examples.train_diloco",
                  "parallel.mesh", "parallel.ring_attention", "parallel.ulysses",
-                 "examples.train_llama_hsdp"):
+                 "examples.train_llama_hsdp", "models.remat", "models.moe"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -65,6 +66,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         train.run_replicas(train.TrainConfig(config="debug", diloco=True))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_llama_hsdp.main(["--config", "debug", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoE(MOE_CONFIGS["debug"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.run_replicas(train.TrainConfig(model="moe", config="debug"))
     assert resolve_device("cpu") == torch.device("cpu")
     assert Llama(CONFIGS["debug"], device="cpu").embed.device.type == "cpu"
 

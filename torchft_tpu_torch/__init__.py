@@ -23,7 +23,11 @@ it. What runs today (see ROADMAP.md for what is still to port):
 - ``collectives.allreduce_quantized`` (the serial path) and the bucket
   codec, with the hand-written CUDA fp8 rowwise kernels in
   ``ops/csrc/fp8_rowwise.cu``;
-- ``models.llama``: the Llama-3 family as an ``nn.Module``;
+- ``models.llama``: the Llama-3 family as an ``nn.Module``; ``models.moe``:
+  its Mixture-of-Experts variant (GShard top-k routing with capacity,
+  expert parallelism over ``ep``); ``models.remat``: the rematerialization
+  modes both share ("none", "dots", "attn", "full"), which name the
+  attention output by the custom ops of ``ops.attention`` (exported here);
 - ``parallel``: the parallelism inside a replica group (the HSDP mesh and
   its sharding by FSDP2 and tensor parallelism, ring and Ulysses
   attention over the sequence);
@@ -37,6 +41,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD
+from torchft_tpu_torch.models.moe import MOE_CONFIGS, MoE, MoEConfig
+from torchft_tpu_torch.models.remat import ATTN_OUT_NAME, REMAT_MODES, remat_wrap
 
-__all__ = ["DiLoCo", "LocalSGD"]
+__all__ = ["DiLoCo", "LocalSGD", "MoE", "MoEConfig", "MOE_CONFIGS", "remat_wrap", "ATTN_OUT_NAME",
+           "REMAT_MODES"]
 __version__ = "0.1.0"

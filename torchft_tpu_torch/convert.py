@@ -3,7 +3,9 @@
 The reference's Llama keeps per-layer weights stacked along a leading
 ``[L, ...]`` axis (``torchft_tpu/models/llama.py:llama_init``); the port's
 ``Llama`` holds one module per layer with the same names and ``[in, out]``
-layout. The ``examples/train_ddp.py`` CNN keeps the reference's layouts in
+layout. The MoE's (``torchft_tpu/models/moe.py:moe_init``) stacks its
+experts as ``[L, E, d, H]`` and its f32 router as ``[L, d, E]``; the port's
+``MoE`` keeps ``[E, d, H]`` and ``[d, E]`` per layer. The ``examples/train_ddp.py`` CNN keeps the reference's layouts in
 the port (``conv`` HWIO, ``w1`` over the NHWC flatten), so its parameters,
 and the momentum of its ``optax.sgd(lr, momentum=0.9)`` state (the trace
 of the chain's ``TraceState``), carry over as they are. So do the
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["cnn_momentum_from_jax", "cnn_params_from_jax", "llama_params_from_jax",
-           "mlp_params_from_jax"]
+           "mlp_params_from_jax", "moe_params_from_jax"]
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -32,12 +34,19 @@ def _tensor(a: Any) -> torch.Tensor:
 
 def llama_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{"embed", "layers": {name: [L, ...]}, "final_norm", "lm_head"}`` of
-    host arrays -> a state dict for ``Llama.load_state_dict``."""
+    host arrays -> a state dict for ``Llama.load_state_dict``: each layer's
+    slice of each stacked leaf, dtype and bits kept. The MoE's tree (its
+    ``layers`` adding ``router`` [L, d, E] f32 and ``w_gate``/``w_up``
+    [L, E, d, H], ``w_down`` [L, E, H, d]) maps the same way, so
+    ``moe_params_from_jax`` is this function under the MoE's name."""
     out = {k: _tensor(tree[k]) for k in ("embed", "final_norm", "lm_head")}
     for name, stacked in tree["layers"].items():
         for i in range(stacked.shape[0]):
             out[f"layers.{i}.{name}"] = _tensor(stacked[i])
     return out
+
+
+moe_params_from_jax = llama_params_from_jax
 
 
 def cnn_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -12,7 +12,9 @@ reference's stacked ``[L, ...]`` arrays (``convert.py`` maps between them):
 - the loss is ``logsumexp(logits) - logits[target]`` (``:255-309``), with
   the ``loss_chunk`` path that recomputes each sequence chunk's logits in
   backward;
-- ``remat=True`` checkpoints each layer, the counterpart of ``remat``;
+- ``remat`` takes the reference's modes ("none", "dots", "attn", "full",
+  or the bools; ``models/remat.py``), "dots" by default as the
+  reference's ``llama_loss``;
 - ``attention_fn(q, k, v, cfg)`` replaces the attention, as the
   reference's ``make_llama_layer_body(cfg, attention_fn)`` (``:181``), and
   ``offset`` starts RoPE's positions (``:160``, ``:192``) at a sequence
@@ -30,7 +32,7 @@ and the embedding's and the head's shards gathered.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -38,7 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from torchft_tpu_torch.models.remat import remat_wrap, resolve_remat
 from torchft_tpu_torch.ops.attention import causal_attention
+from torchft_tpu_torch.parallel.mesh import llama_param_specs
 from torchft_tpu_torch.utils import local_shard, resolve_device
 
 __all__ = ["LlamaConfig", "CONFIGS", "Llama"]
@@ -173,35 +177,32 @@ def _tp(fn, x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else fn.apply(x, group)
 
 
-class LlamaLayer(nn.Module):
-    """One pre-norm transformer layer (attention + SwiGLU MLP)."""
+class AttentionBlock(nn.Module):
+    """The attention half of a pre-norm layer and the FFN's norm, which
+    every model family shares (``models/moe.py`` adds a sparse FFN)."""
 
     def __init__(self, cfg: LlamaConfig, attention: Optional[str],
                  attention_fn: Optional[Callable] = None) -> None:
         super().__init__()
         d, hd = cfg.dim, cfg.head_dim
-        kvd = cfg.n_kv_heads * hd
-
-        def w(*shape: int) -> nn.Parameter:
-            return nn.Parameter(torch.empty(*shape, dtype=cfg.dtype))
-
         self.cfg = cfg
         self.attention = attention
         self.attention_fn = attention_fn
         # the tensor-parallel group the weights are split over (None: whole)
         self.tp_group = None
         self.attn_norm = nn.Parameter(torch.ones(d, dtype=cfg.dtype))
-        self.wq = w(d, cfg.n_heads * hd)
-        self.wk = w(d, kvd)
-        self.wv = w(d, kvd)
-        self.wo = w(cfg.n_heads * hd, d)
+        self.wq = self.weight(d, cfg.n_heads * hd)
+        self.wk = self.weight(d, cfg.n_kv_heads * hd)
+        self.wv = self.weight(d, cfg.n_kv_heads * hd)
+        self.wo = self.weight(cfg.n_heads * hd, d)
         self.ffn_norm = nn.Parameter(torch.ones(d, dtype=cfg.dtype))
-        self.w_gate = w(d, cfg.ffn_hidden)
-        self.w_up = w(d, cfg.ffn_hidden)
-        self.w_down = w(cfg.ffn_hidden, d)
 
-    def forward(self, h: torch.Tensor, offset: int = 0) -> torch.Tensor:
-        """h [B, S, dim]: the sequence positions ``offset`` to ``offset + S``."""
+    def weight(self, *shape: int) -> nn.Parameter:
+        return nn.Parameter(torch.empty(*shape, dtype=self.cfg.dtype))
+
+    def attend(self, h: torch.Tensor, offset: int) -> torch.Tensor:
+        """h + the attention block's output; h [B, S, dim] holds the
+        sequence positions ``offset`` to ``offset + S``."""
         cfg, tp = self.cfg, self.tp_group
         B, S, hd = h.shape[0], h.shape[1], cfg.head_dim
         wq, wk, wv = local_shard(self.wq), local_shard(self.wk), local_shard(self.wv)
@@ -214,11 +215,30 @@ class LlamaLayer(nn.Module):
             attn = self.attention_fn(q, k, v, cfg)
         else:
             attn = causal_attention(q, k, v, cfg, impl=self.attention)
-        h = h + _tp(_ReduceFromTP, attn.reshape(B, S, -1) @ local_shard(self.wo), tp)
-        x = _tp(_CopyToTP, _rmsnorm(h, local_shard(self.ffn_norm), cfg.norm_eps), tp)
+        return h + _tp(_ReduceFromTP, attn.reshape(B, S, -1) @ local_shard(self.wo), tp)
+
+    def ffn_input(self, h: torch.Tensor) -> torch.Tensor:
+        """The FFN's normed input (its tp gradient not yet summed)."""
+        return _rmsnorm(h, local_shard(self.ffn_norm), self.cfg.norm_eps)
+
+
+class LlamaLayer(AttentionBlock):
+    """One pre-norm transformer layer (attention + SwiGLU MLP)."""
+
+    def __init__(self, cfg: LlamaConfig, attention: Optional[str],
+                 attention_fn: Optional[Callable] = None) -> None:
+        super().__init__(cfg, attention, attention_fn)
+        self.w_gate = self.weight(cfg.dim, cfg.ffn_hidden)
+        self.w_up = self.weight(cfg.dim, cfg.ffn_hidden)
+        self.w_down = self.weight(cfg.ffn_hidden, cfg.dim)
+
+    def forward(self, h: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """h [B, S, dim]: the sequence positions ``offset`` to ``offset + S``."""
+        h = self.attend(h, offset)
+        x = _tp(_CopyToTP, self.ffn_input(h), self.tp_group)
         gate, up = x @ local_shard(self.w_gate), x @ local_shard(self.w_up)
         mlp = (F.silu(gate) * up) @ local_shard(self.w_down)
-        return h + _tp(_ReduceFromTP, mlp, tp)
+        return h + _tp(_ReduceFromTP, mlp, self.tp_group)
 
 
 class Llama(nn.Module):
@@ -228,24 +248,29 @@ class Llama(nn.Module):
     implementation (None: ``TORCHFT_TPU_ATTENTION`` on each call, "auto"
     if unset); ``attention_fn(q, k, v, cfg)``, when given, replaces it
     (``torchft_tpu_torch.parallel``'s sequence-parallel attentions);
-    ``remat`` checkpoints each layer in training."""
+    ``remat`` is each layer's rematerialization mode in training
+    (``models/remat.py``; "dots" by default, as the reference's
+    ``llama_loss``)."""
+
+    layer_cls = LlamaLayer
 
     def __init__(
         self,
         cfg: LlamaConfig,
         device: "str | torch.device | None" = None,
         attention: Optional[str] = None,
-        remat: bool = False,
+        remat: Any = "dots",
         attention_fn: Optional[Callable] = None,
     ) -> None:
         super().__init__()
+        resolve_remat(remat)
         self.cfg = cfg
         self.remat = remat
         self.tp_group = None
         with torch.device(resolve_device(device)):
             self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim, dtype=cfg.dtype))
             self.layers = nn.ModuleList(
-                LlamaLayer(cfg, attention, attention_fn) for _ in range(cfg.n_layers)
+                self.layer_cls(cfg, attention, attention_fn) for _ in range(cfg.n_layers)
             )
             self.final_norm = nn.Parameter(torch.ones(cfg.dim, dtype=cfg.dtype))
             self.lm_head = nn.Parameter(torch.empty(cfg.dim, cfg.vocab_size, dtype=cfg.dtype))
@@ -256,15 +281,26 @@ class Llama(nn.Module):
         for layer in self.layers:
             layer.tp_group = group
 
+    def param_specs(self) -> Dict[str, Any]:
+        """Each parameter's placement over the mesh axes
+        (``parallel.apply_hsdp`` reads it)."""
+        return llama_param_specs(self.cfg)
+
+    def set_parallel(self, mesh) -> None:
+        """Called by ``parallel.apply_hsdp`` with the model's mesh; the dense
+        Llama needs no group beyond ``tp``'s."""
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Dense weights ~ N(0, 1/fan_in) drawn in f32, norms at 1 (the
-        reference's init; the draws differ from jax.random's)."""
+        reference's init; the draws differ from jax.random's). A weight's
+        fan-in is its ``in`` dim: ``[in, out]``, or ``[E, in, out]`` for
+        stacked experts; the embedding's is its width."""
         for name, p in self.named_parameters():
             if name.endswith("norm"):
                 p.fill_(1.0)
                 continue
-            fan_in = p.shape[1] if name == "embed" else p.shape[0]
+            fan_in = p.shape[1] if name == "embed" else p.shape[-2]
             draw = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                                device=generator.device)
             p.copy_(draw / fan_in ** 0.5)
@@ -272,12 +308,19 @@ class Llama(nn.Module):
     def hidden(self, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
         """tokens int [B, S] (sequence positions ``offset`` on) -> final-norm
         hidden states [B, S, dim]."""
-        h = _tp(_GatherFromTP, local_shard(self.embed)[tokens], self.tp_group)
+        h = self.embed_tokens(tokens)
         for layer in self.layers:
-            if self.remat and torch.is_grad_enabled():
-                h = checkpoint(layer, h, offset, use_reentrant=False)
-            else:
-                h = layer(h, offset)
+            h = self.layer_fn(layer)(h, offset)
+        return self.final_hidden(h)
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return _tp(_GatherFromTP, local_shard(self.embed)[tokens], self.tp_group)
+
+    def layer_fn(self, layer: nn.Module) -> Callable:
+        """``layer`` under the model's remat mode when autograd records."""
+        return remat_wrap(layer, self.remat) if torch.is_grad_enabled() else layer
+
+    def final_hidden(self, h: torch.Tensor) -> torch.Tensor:
         return _rmsnorm(h, local_shard(self.final_norm), self.cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:

@@ -31,6 +31,15 @@ output [B, S, Hq, hd].
   ``TypeError`` for every choice but ``"xla"``; the materialized path
   never stands in for a kernel.
 
+The fused paths run as two custom ops of the dispatcher,
+``torchft_tpu_torch::attention_fwd`` (-> o, lse) and ``::attention_bwd``
+(-> dq, dk, dv), with fake and autograd registrations: the plain versions
+are their CPU kernels, the kernel wrappers their CUDA kernels. The
+materialized path's output passes through ``::attn_out``, an identity,
+while autograd records.
+Selective remat (``models/remat.py``) names the attention output by these
+ops, as the reference names it by ``checkpoint_name``.
+
 The kernel wrappers (``attention_fwd``, ``attention_dq``,
 ``attention_dkv``) launch the CUDA kernels on a CUDA tensor, counting each
 launch in ``LAUNCHES``, and run the plain torch version below on a CPU
@@ -84,6 +93,9 @@ __all__ = [
     "attention_dq_plain",
     "attention_dkv_plain",
     "attention_delta",
+    "attention_fwd_op",
+    "attention_bwd_op",
+    "attn_out",
     "resolve_impl",
     "ATTENTION_ENV",
     "KERNEL_HEAD_DIMS",
@@ -442,33 +454,103 @@ def _stat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-class _CausalAttention(torch.autograd.Function):
-    """Causal attention through the kernel wrappers (or, with ``plain``, the
-    plain versions on any device), saving q, k, v, o and lse."""
+# ---------------------------------------------------------------------------
+# The kernels as operators of the dispatcher
+# ---------------------------------------------------------------------------
+# Selective remat (models/remat.py) chooses what to save by the operator that
+# made a tensor, so the fused attention is a custom op, forward and backward,
+# under the port's namespace: its CPU kernel is the plain version, its CUDA
+# kernel the kernel wrapper (which launches or raises), dispatched on the
+# device of its inputs; ``plain`` runs the plain version on either. The
+# forward's (o, lse) are one output, so a policy that saves it keeps both.
+OPS_NAMESPACE = "torchft_tpu_torch"
 
-    @staticmethod
-    def forward(ctx, q, k, v, sm_scale: float, impl: str, plain: bool):
-        if plain:
-            o, lse = attention_fwd_plain(q, k, v, sm_scale, impl == "splash")
-        else:
-            o, lse = attention_fwd(q, k, v, sm_scale, impl)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (sm_scale, impl, plain)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        sm_scale, impl, plain = ctx.args
-        do = do.contiguous()
-        delta = attention_delta(o, do)
-        if plain:
-            dq = attention_dq_plain(q, k, v, lse, delta, do, sm_scale)
-            dk, dv = attention_dkv_plain(q, k, v, lse, delta, do, sm_scale)
-        else:
-            dq = attention_dq(q, k, v, lse, delta, do, sm_scale, impl)
-            dk, dv = attention_dkv(q, k, v, lse, delta, do, sm_scale, impl)
-        return dq, dk, dv, None, None, None
+@torch.library.custom_op(f"{OPS_NAMESPACE}::attention_fwd", mutates_args=(), device_types="cpu")
+def attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
+                     impl: str, plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of causal attention ("splash": P in f32; "flash": P
+    rounded): the plain version on the CPU."""
+    return _attention_fwd(q, k, v, sm_scale, impl, True)
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::attention_bwd", mutates_args=(), device_types="cpu")
+def attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                     lse: torch.Tensor, do: torch.Tensor, sm_scale: float, impl: str,
+                     plain: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's o and lse and the output's gradient
+    ``do``: the plain versions on the CPU."""
+    return _attention_bwd(q, k, v, o, lse, do, sm_scale, impl, True)
+
+
+def _attention_fwd(q, k, v, sm_scale: float, impl: str, plain: bool):
+    if plain:
+        o, lse = attention_fwd_plain(q, k, v, sm_scale, impl == "splash")
+        return o.contiguous(), lse
+    return attention_fwd(q, k, v, sm_scale, impl)
+
+
+def _attention_bwd(q, k, v, o, lse, do, sm_scale: float, impl: str, plain: bool):
+    delta = attention_delta(o, do)
+    if plain:
+        dq = attention_dq_plain(q, k, v, lse, delta, do, sm_scale)
+        dk, dv = attention_dkv_plain(q, k, v, lse, delta, do, sm_scale)
+    else:
+        dq = attention_dq(q, k, v, lse, delta, do, sm_scale, impl)
+        dk, dv = attention_dkv(q, k, v, lse, delta, do, sm_scale, impl)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+attention_fwd_op.register_kernel("cuda", _attention_fwd)
+attention_bwd_op.register_kernel("cuda", _attention_bwd)
+
+
+@attention_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v, sm_scale, impl, plain):
+    lse = q.new_empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)
+    return torch.empty_like(q, memory_format=torch.contiguous_format), lse
+
+
+@attention_bwd_op.register_fake
+def _attention_bwd_fake(q, k, v, o, lse, do, sm_scale, impl, plain):
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
+
+
+def _attention_fwd_setup(ctx, inputs, output) -> None:
+    q, k, v, sm_scale, impl, plain = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.args = (sm_scale, impl, plain)
+
+
+def _attention_fwd_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = attention_bwd_op(q, k, v, o, lse, do.contiguous(), *ctx.args)
+    return dq, dk, dv, None, None, None
+
+
+attention_fwd_op.register_autograd(_attention_fwd_backward, setup_context=_attention_fwd_setup)
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::attn_out", mutates_args=())
+def attn_out(x: torch.Tensor) -> torch.Tensor:
+    """The identity (a copy: an operator's output may not alias its input)
+    on an attention output made of plain ops, so that selective remat can
+    name it as it names the fused forward's: the counterpart of the
+    reference's ``checkpoint_name(..., ATTN_OUT_NAME)``."""
+    return x.clone()
+
+
+@attn_out.register_fake
+def _attn_out_fake(x):
+    return torch.empty_like(x)
+
+
+attn_out.register_autograd(lambda ctx, g: g)
+
+
+def _fused(q, k, v, sm_scale: float, impl: str, plain: bool) -> torch.Tensor:
+    return attention_fwd_op(q, k, v, sm_scale, impl, plain)[0]
 
 
 @functools.lru_cache(maxsize=8)
@@ -481,14 +563,14 @@ def splash_scale(hd: int, dtype: torch.dtype) -> float:
 def splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """K1: q pre-scaled in its own dtype, then the kernel with scale 1."""
     qs = q * splash_scale(q.shape[-1], q.dtype)
-    return _CausalAttention.apply(qs, k, v, 1.0, "splash", plain)
+    return _fused(qs, k, v, 1.0, "splash", plain)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """K2: 1/sqrt(hd) applied to the f32 scores inside the kernel; GQA K/V
     read in place (the reference repeats them; dK/dV summed over the group
     is the transpose of that repeat)."""
-    return _CausalAttention.apply(q, k, v, 1.0 / math.sqrt(q.shape[-1]), "flash", plain)
+    return _fused(q, k, v, 1.0 / math.sqrt(q.shape[-1]), "flash", plain)
 
 
 def splash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -542,7 +624,9 @@ def causal_attention(
     global LAST_DISPATCH
     LAST_DISPATCH = resolve_impl(impl, q.shape, k.shape[2], q.is_cuda, q.dtype)
     if LAST_DISPATCH == "xla":
-        return xla_attention(q, k, v, cfg)
+        out = xla_attention(q, k, v, cfg)
+        # only a recorded graph has a remat policy to name it for
+        return attn_out(out) if torch.is_grad_enabled() else out
     if LAST_DISPATCH == "splash":
         return splash_attention(q, k, v)
     return flash_attention(q, k, v)

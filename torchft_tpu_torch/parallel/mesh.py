@@ -18,7 +18,14 @@ torchtitan applies them: tensor-parallel placements first, then FSDP2's
   ``fsdp``; with ``sp > 1`` FSDP shards over the flattened ``(fsdp, sp)``
   dims (torchtitan's ``dp_shard_cp``), so its reduce-scatter also sums
   the sequence shards' gradients;
-- batch: rows over ``fsdp``, sequence over ``sp``.
+- batch: rows over ``fsdp``, sequence over ``sp``; replicated over ``ep``;
+- a parameter whose table entry names ``ep`` (the MoE's experts,
+  ``models/moe.py:moe_param_specs``) keeps this rank's ``E / ep`` slice of
+  its leading dim as a plain local tensor.
+
+Each model carries its table (``param_specs()``) and learns the groups it
+computes over (``set_parallel(mesh)``), so this module knows no model
+family.
 
 ``shrink_mesh`` and ``degrade_axes`` (the degrade plane) are not ported
 yet.
@@ -103,38 +110,45 @@ def fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
 
 
 def apply_hsdp(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
-    """Shard the port's ``Llama`` in place by ``llama_param_specs``: with
-    ``tp > 1`` every weight becomes a DTensor over ``tp`` and the model's
-    layers join their shards over the tp group; then ``fully_shard`` each
-    layer and the root over ``fsdp`` (and ``sp``), each weight on its
-    ``fsdp`` dim. Every rank must hold the same full weights first. FSDP2
-    shards every parameter it manages, so the norms, replicated in the
-    reference, ride its default ``Shard(0)``: where their bytes live
-    changes, not what is computed. ``model.loss`` runs under FSDP's hooks
-    as ``forward`` does. FSDP's lazy init (which may move a padded shard)
-    runs here, so every local shard's storage is final before a heal
-    lands in it."""
-    specs = llama_param_specs()
+    """Shard the port's ``Llama`` or ``MoE`` in place by its
+    ``param_specs()``: with ``ep > 1`` each ``ep``-split weight keeps this
+    rank's slice; with ``tp > 1`` every weight becomes a DTensor over
+    ``tp`` and the model's layers join their shards over the tp group;
+    ``model.set_parallel(mesh)`` tells the model the rest of its groups;
+    then ``fully_shard`` each layer and the root over ``fsdp`` (and
+    ``sp``), each weight on its ``fsdp`` dim. Every rank must hold the same
+    full weights first. FSDP2 shards every parameter it manages, so the
+    norms, replicated in the reference, ride its default ``Shard(0)``:
+    where their bytes live changes, not what is computed. ``model.loss``
+    runs under FSDP's hooks as ``forward`` does. FSDP's lazy init (which
+    may move a padded shard) runs here, so every local shard's storage is
+    final before a heal lands in it."""
+    specs = model.param_specs()
     names = {}
-    tp_mesh = mesh["tp"]
+    tp_mesh, ep_mesh = mesh["tp"], mesh["ep"]
     for name, param in list(model.named_parameters()):
         owner, attr = model, name
         if "." in name:
             path, attr = name.rsplit(".", 1)
             owner = model.get_submodule(path)
+        spec = _spec_of(specs, name)
+        if ep_mesh.size() > 1 and "ep" in spec:
+            mine = param.data.chunk(ep_mesh.size(), dim=0)[ep_mesh.get_local_rank()]
+            param = nn.Parameter(mine.clone())
+            setattr(owner, attr, param)
         if tp_mesh.size() > 1:
-            placement = _spec_of(specs, name)["tp"]
-            param = nn.Parameter(distribute_tensor(param.data, tp_mesh, [placement]))
+            param = nn.Parameter(distribute_tensor(param.data, tp_mesh, [spec["tp"]]))
             setattr(owner, attr, param)
         names[param] = name
     if tp_mesh.size() > 1:
         model.set_tp_group(tp_mesh.get_group())
+    model.set_parallel(mesh)
+    dp_mesh = fsdp_mesh(mesh)
 
     def placement(param: nn.Parameter):
         shard = _spec_of(specs, names[param])["fsdp"]
         return shard if isinstance(shard, Shard) else None
 
-    dp_mesh = fsdp_mesh(mesh)
     for layer in model.layers:
         fully_shard(layer, mesh=dp_mesh, shard_placement_fn=placement)
     fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
@@ -165,7 +179,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     """The HSDP train step of a sharded model (``apply_hsdp``): ``step(tokens,
     targets)`` takes the whole batch, keeps this rank's slice, runs forward
     and backward (FSDP averages the gradients over ``fsdp`` and ``sp``) and
-    the optimizer, and returns the loss averaged over the group."""
+    the optimizer, and returns the loss averaged over the group. The layers
+    run under the model's own ``remat`` mode, set where it is built (the
+    reference's ``make_train_step(remat=...)`` takes it here instead)."""
 
     def step(tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         local_tokens, offset = shard_batch(tokens, mesh)

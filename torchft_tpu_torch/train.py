@@ -1,5 +1,5 @@
-"""Fault-tolerant training of Llama: the port's trainer, per-step DDP or
-semi-synchronous DiLoCo.
+"""Fault-tolerant training of Llama or its MoE variant: the port's trainer,
+per-step DDP or semi-synchronous DiLoCo.
 
 Counterpart of ``examples/train_ddp.py``'s ``build_trainer`` and train loop,
 running the Llama model. Replica groups are threads of one process on one
@@ -19,6 +19,13 @@ the heal lands in place in the replica's live model and optimizer state
 on its device (the transport's template is ``Manager.state_dict_template``;
 AdamW's state exists, zero, from the start so every heal carries the same
 tree), and each replica reports whether its tensors kept their storage.
+
+``--model moe`` trains the MoE family (``models/moe.py``; ``--config``
+then names one of ``MOE_CONFIGS``): its loss carries the aux term, and
+each step's log entry its ``aux_loss`` and ``dropped`` (the share of the
+batch's token-slots past their expert's capacity). ``--remat`` is each
+layer's rematerialization mode (``models/remat.py``), "full" by default,
+the reference bench's choice (``bench.py:93``).
 
 ``--replicas N`` runs N replica groups (2 by default); the lighthouse
 wants all of them in every quorum. ``TrainConfig.faults`` is a fault
@@ -53,6 +60,13 @@ outer lr 0.7). A heal carries the fragments' globals and momentum too.
         --quantize --fail-at 14 [--transport pg]
     python -m torchft_tpu_torch.train --config bench_1b --replicas 3 --no-quantize \\
         --fail-at 2 --http-timeout 5
+    python -m torchft_tpu_torch.train --model moe --config bench_moe --no-quantize \\
+        --fail-at 3
+
+A replica's result sums its resilience counters (the Manager's lifetime
+counters: ``rpc_retries``, heals, ...) over all its incarnations, so what a crashed
+incarnation counted (an RPC flake fired on any replica's next call) is not
+lost with it.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -75,8 +89,10 @@ from torchft_tpu_torch import coordination
 from torchft_tpu_torch.checkpointing import HTTPTransport, PGTransport
 from torchft_tpu_torch.coordination import LighthouseServer
 from torchft_tpu_torch.local_sgd import DiLoCo
-from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.manager import _COUNTERS, Manager
 from torchft_tpu_torch.models.llama import CONFIGS, Llama
+from torchft_tpu_torch.models.moe import MOE_CONFIGS, MoE
+from torchft_tpu_torch.models.remat import REMAT_MODES
 from torchft_tpu_torch.ops import attention as attn_ops
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.process_group import ProcessGroupHost
@@ -86,7 +102,10 @@ __all__ = ["TrainConfig", "Fault", "InjectedFailure", "build_trainer", "run_repl
 
 
 class InjectedFailure(Exception):
-    """A scripted replica crash."""
+    """A scripted replica crash. ``counters`` carries the crashed
+    incarnation's resilience counters to the replica's result."""
+
+    counters: Dict[str, float] = {}
 
 
 FAULT_KINDS = ("crash", "kill_heal_chunk", "corrupt_heal_chunk", "flake_rpc")
@@ -163,11 +182,18 @@ PIPELINE_TIMINGS = ("allreduce_pack_s", "allreduce_wire_s", "allreduce_unpack_s"
                     "allreduce_buckets", "overlap_efficiency")
 # RPC, allreduce and heal deadline: well above a bench_1b step and heal
 TIMEOUT_S = 120.0
+# the model families --model chooses from, each with its configs
+MODELS = {"llama": (Llama, CONFIGS), "moe": (MoE, MOE_CONFIGS)}
 
 
 @dataclasses.dataclass
 class TrainConfig:
     config: str = "bench_1b"
+    # the model family: "llama" (CONFIGS) or "moe" (MOE_CONFIGS)
+    model: str = "llama"
+    # each layer's remat mode (REMAT_MODES): the reference bench's "full"
+    # keeps two bench_1b replicas on a card
+    remat: str = "full"
     steps: int = 6
     batch_size: int = 1
     seq_len: int = 2048
@@ -197,11 +223,11 @@ def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
     quorum's init_sync heal is what makes them identical. Batches depend on
     (replica, step) only, so a restarted replica sees the batches it would
     have seen."""
-    model_cfg = CONFIGS[cfg.config]
+    model_cls, configs = MODELS[cfg.model]
+    model_cfg = configs[cfg.config]
     # the reference's dispatch (TORCHFT_TPU_ATTENTION, else splash for GQA on
-    # the card) and its bench's remat="full": per-layer recompute keeps two
-    # bench_1b replicas on a card
-    model = Llama(model_cfg, device=device, remat=True)
+    # the card)
+    model = model_cls(model_cfg, device=device, remat=cfg.remat)
     gen = torch.Generator(device=device)
     gen.manual_seed(replica_id)
     model.init_weights(gen)
@@ -337,6 +363,7 @@ def _train_replica(
                 # this step's wire
                 "wire_bytes_sent": wire1["bytes_sent"] - wire0["bytes_sent"],
                 "wire_busy_s": wire1["busy_s"] - wire0["busy_s"],
+                **_moe_stats(model),
             })
         return {
             "params": {n: p.detach().clone() for n, p in model.named_parameters()},
@@ -347,10 +374,27 @@ def _train_replica(
             "metrics": manager.metrics(),
             "timings": manager.timings(),
         }
+    except InjectedFailure as e:
+        e.counters = _resilience(manager)
+        raise
     finally:
         manager.shutdown(wait=False)
         if recovery_pg is not None:
             recovery_pg.shutdown()
+
+
+def _resilience(manager: Manager) -> Dict[str, float]:
+    """What a replica's result sums over its incarnations: the Manager's
+    lifetime counters of ``timings()`` and ``metrics()``'s heals."""
+    timings = manager.timings()
+    return {**{k: timings[k] for k in _COUNTERS}, "heals": manager.metrics()["heals"]}
+
+
+def _moe_stats(model: Llama) -> Dict[str, float]:
+    """The MoE's aux loss and dropped share of the step (nothing for Llama)."""
+    if not isinstance(model, MoE):
+        return {}
+    return {"aux_loss": model.last_aux.item(), "dropped": model.last_dropped.item()}
 
 
 def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.optim.Optimizer,
@@ -416,6 +460,7 @@ def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.o
             "tokens_per_s": tokens_per_step / (t2 - t0),
             "wire_bytes_sent": wire1["bytes_sent"] - wire0["bytes_sent"],
             "wire_busy_s": wire1["busy_s"] - wire0["busy_s"],
+            **_moe_stats(model),
         }
         performed = [frag for kind, frag in syncs if kind == "perform"]
         if performed:
@@ -482,13 +527,19 @@ def run_replicas(
 
     def replica(i: int) -> Dict[str, Any]:
         restarts = 0
+        # the crashed incarnations' resilience counters
+        carried: Dict[str, float] = {}
         while True:
             try:
                 out = _train_replica(cfg, i, addr, dev, record, stop, script)
                 out["restarts"] = restarts
+                for k, n in carried.items():
+                    (out["metrics"] if k == "heals" else out["timings"])[k] += n
                 return out
-            except InjectedFailure:
+            except InjectedFailure as e:
                 restarts += 1
+                for k, n in e.counters.items():
+                    carried[k] = carried.get(k, 0) + n
             except BaseException as e:
                 with log_lock:
                     if not stop.is_set():
@@ -522,7 +573,13 @@ def run_replicas(
 
 def main(argv: Optional[List[str]] = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", default="bench_1b", choices=sorted(CONFIGS))
+    p.add_argument("--model", default="llama", choices=sorted(MODELS),
+                   help="the model family: llama (CONFIGS) or moe (MOE_CONFIGS)")
+    p.add_argument("--config", default="bench_1b",
+                   help="a config of the model family (llama: %s; moe: %s)"
+                        % (", ".join(sorted(CONFIGS)), ", ".join(sorted(MOE_CONFIGS))))
+    p.add_argument("--remat", default="full", choices=REMAT_MODES,
+                   help="each layer's rematerialization mode")
     p.add_argument("--steps", type=int, default=6)
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--seq-len", type=int, default=2048)
@@ -545,8 +602,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--fragment-sync-delay", type=int, default=1)
     p.add_argument("--outer-lr", type=float, default=0.7)
     args = p.parse_args(argv)
+    if args.config not in MODELS[args.model][1]:
+        p.error(f"--config {args.config!r} is not a {args.model} config: "
+                f"{sorted(MODELS[args.model][1])}")
     cfg = TrainConfig(
-        config=args.config, steps=args.steps, batch_size=args.batch_size,
+        config=args.config, model=args.model, remat=args.remat, steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, quantize=args.quantize,
         faults=() if args.fail_at is None else (Fault(1, args.fail_at, "crash", at="backward"),),
         transport=args.transport, diloco=args.diloco,
