@@ -170,7 +170,7 @@
    runs of none differ, within their spread). (b) The MoE at bench_moe
    width and depth (1.80 G parameters, head dim 64) as the trainer's
    ``--model moe --config bench_moe --batch-size 1 --seq-len 2048
-   --no-quantize --steps 6 --fail-at 3`` runs it: two replica threads,
+   --no-quantize --steps 5 --fail-at 3`` runs it: two replica threads,
    full remat, the unquantized bf16 allreduce, replica 1 crashing after
    step 3's backward pass and healing over HTTP in place. Checks finite
    losses, the discarded step, the heal, bitwise-equal replicas with their
@@ -180,6 +180,34 @@
    seconds, chunks and MiB/s and the peak memory. (c) K1's bf16 kernels at
    bench_moe's attention shape (B 1, S 2048, Hq 16, Hkv 8, hd 64) against
    their plain versions, timed beside their bound and SDPA.
+15. The redundancy plane at bench_1b (full width and depth, B 1, S 2048,
+   AdamW, full remat): three replica threads and one hot spare, the fp8
+   allreduce at the Manager's defaults, HTTP heals, the shard directory
+   beside the lighthouse, ``--redundancy 2,1`` with retain 1 and
+   a generation every ``RED_INTERVAL`` (2) commits, 8 steps, the
+   allocator's segments expandable (the card is ~92% full). Replica 2
+   crashes at the start of step 3, once the other members have staged
+   that step's generation, and restarts (at the start, not after the
+   backward pass: one more member staging at the crash took the host past
+   its 96 GiB, PERF.md): as its store died with it, its heal reconstructs
+   through the parity shard (``reconstructs`` 1, ``reconstruct_failures`` 0 in the
+   rejoined incarnation, two shards ok and one failed), in place. Replica
+   1 dies at the start of step 5, once replica 0 has staged that step's
+   generation and the spare has prefetched it; the death notice makes the
+   directory promote the spare, whose ``promote()`` loads that generation
+   in place and joins with no heal; the quorum of replicas 0 and 2 and
+   the spare trains to the end. Checks finite losses, every member left
+   and the spare at step 8 with no error, bitwise equal, storage kept, no step committed twice
+   within an incarnation and the committed frontier never moving back,
+   no shard put to a dead store (the directory retires the crashed
+   incarnation and leaves the dead out of placement), splash attention,
+   and K1's three kernels, K3-host and K4 launched in the
+   phase. Prints the reconstruct's seconds and MB/s beside phase 6's HTTP
+   pull of the same 6.45 GB, the steady step split as phase 6's, the
+   staging's hot path (``shard_stage_hot_s``), snapshot, encode and put
+   seconds per replica, the spare's promotion step and the time and steps
+   from the death to its first commit, the device peak, the host's
+   MemAvailable before and during the phase and this process's peak RSS.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -191,6 +219,7 @@ it, the host's time to launch included. Without CUDA it exits non-zero and print
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -1370,7 +1399,7 @@ def check_remat_bench_1b(device: torch.device) -> dict:
 def check_moe_bench_moe(device: torch.device) -> dict:
     """Phase 14 (b): the MoE at bench_moe width and depth as the trainer's
     ``--model moe --config bench_moe --batch-size 1 --seq-len 2048
-    --no-quantize --steps 6 --fail-at 3`` runs it: two replica threads,
+    --no-quantize --steps 5 --fail-at 3`` runs it: two replica threads,
     full remat, the unquantized bf16 allreduce, replica 1 crashing after
     step 3's backward pass and healing over HTTP in place. Returns the
     run's launches."""
@@ -1379,7 +1408,7 @@ def check_moe_bench_moe(device: torch.device) -> dict:
     from torchft_tpu_torch.ops import quantization as q
     from torchft_tpu_torch.train import Fault, TrainConfig, run_replicas
 
-    mcfg = TrainConfig(model="moe", config="bench_moe", steps=6, batch_size=1, seq_len=2048,
+    mcfg = TrainConfig(model="moe", config="bench_moe", steps=5, batch_size=1, seq_len=2048,
                        quantize=False, transport="http", remat="full",
                        faults=(Fault(1, 3, "crash", at="backward"),))
     model_cfg = MOE_CONFIGS[mcfg.config]
@@ -2222,6 +2251,226 @@ def time_model_fwd_bwd(device: torch.device) -> dict:
     return out
 
 
+# phase 15: the redundancy plane at bench_1b (docstring, 15)
+RED_MEMBERS, RED_STEPS = 3, 8
+RED_CRASH = (2, 3)  # crashes at the step's start and restarts: healed by reconstruct
+RED_DEATH = (1, 5)  # dies at the step's start, for good: the spare takes its place
+# a generation every second commit: the host (101 GB on the H100 machine)
+# holds the stores' 29 GB, each stager's blob and parity, the spare's
+# resident generation and a heal's snapshots, not every member's staging
+# of every commit at once (PERF.md, PR 15)
+RED_INTERVAL = 2
+
+
+class HostMemory:
+    """Samples this process's resident set and the host's MemAvailable
+    every 0.2 s on a thread, for a phase's host peak."""
+
+    def __init__(self) -> None:
+        self.peak_rss = 0
+        self.min_available = self.available()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def available() -> int:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+        return -1
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.2):
+            self.peak_rss = max(self.peak_rss, self.rss())
+            self.min_available = min(self.min_available, self.available())
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def check_redundancy_bench_1b(device: torch.device, cfg, http_heal: dict) -> dict:
+    """Phase 15: bench_1b as three replica threads and one hot spare with
+    the redundancy plane on (k 2, m 1, retain 1, a generation staged every
+    RED_INTERVAL commits); replica 2 crashes and heals by reconstruct through
+    the parity shard, replica 1 dies and the spare takes its place
+    (docstring, 15).
+    Returns the phase's launches."""
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.train import Fault, run_replicas
+
+    rcfg = dataclasses.replace(
+        cfg, replicas=RED_MEMBERS, steps=RED_STEPS, quantize=True, transport="http",
+        redundancy=(2, 1), redundancy_retain=1, redundancy_interval=RED_INTERVAL, spares=1,
+        faults=(Fault(RED_CRASH[0], RED_CRASH[1], "crash"),
+                Fault(RED_DEATH[0], RED_DEATH[1], "die")))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the earlier phases' freed heap and cached page-locked blocks go back
+    # to the host before the phase's ~80 GB peak
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:
+        empty_host()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    log(f"redundancy: host MemAvailable {HostMemory.available() / 2**30:.1f} GiB, this process's "
+        f"RSS {HostMemory.rss() / 2**30:.1f} GiB before the phase")
+    q.reset_launches()
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    # four bench_1b replicas and a promotion fill the card to ~70 GiB of
+    # its 79: a cache of fixed segments failed a 1 GiB request with 5.8
+    # GiB reserved but free (an H100 80GB, the crash after a backward
+    # pass), and segments that grow serve it. The phase runs last; it sets
+    # them back
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    host = HostMemory()
+    t0 = time.perf_counter()
+    try:
+        results = run_replicas(rcfg, device, on_step=lambda e: log(
+            f"redundancy step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+            f"participants={e['participants']} committed={e['committed']} healed={e['healed']} "
+            f"attention={e['attention']} step_ms={e['step_ms']:.1f} "
+            f"compute_ms={e['compute_ms']:.1f} allreduce_ms={e['allreduce_ms']:.1f} "
+            f"stage_hot_ms={e['stage_hot_ms']:.1f} tokens_per_s={e['tokens_per_s']:.1f}"))
+    finally:
+        host.stop()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    died, spare, rejoined = results[RED_DEATH[0]], results[RED_MEMBERS], results[RED_CRASH[0]]
+    alive = [r for i, r in enumerate(results) if i != RED_DEATH[0]]
+    entries = [e for r in results for e in r["log"]]
+    losses = [e["loss"] for e in entries]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"redundancy: non-finite loss: {losses}")
+    # the crash healed by reconstruct, through the parity shard
+    last = rejoined.get("last_incarnation", {})
+    if rejoined.get("restarts") != 1 or last.get("reconstructs") != 1 \
+            or last.get("reconstruct_failures") != 0:
+        raise RuntimeError(f"redundancy: replica {RED_CRASH[0]}'s rejoin did not heal by "
+                           f"reconstruct: restarts {rejoined.get('restarts')}, {last}")
+    red = rejoined["redundancy"]
+    if red.get("reconstruct_shards_ok") != 2 or rejoined["timings"]["shard_fetch_failed"] < 1:
+        raise RuntimeError(f"redundancy: the reconstruct did not decode through parity: {red}")
+    # the death covered by the spare
+    if not died.get("died") or spare.get("promotion", {}).get("replaces") != died["replica_id"]:
+        raise RuntimeError(f"redundancy: the spare did not replace replica {RED_DEATH[0]}: "
+                           f"{spare.get('promotion')}, {died.get('replica_id')}")
+    bad = [(r["step"], r["metrics"]["errors"]) for r in alive
+           if r["step"] != RED_STEPS or r["metrics"]["errors"]]
+    if bad:
+        raise RuntimeError(f"redundancy: members at (step, errors) {bad}")
+    # the dead stores: the crashed incarnation retired, the dead left out
+    # of placement
+    put_failed = [r["timings"]["shard_put_failed"] for r in alive]
+    if any(put_failed):
+        raise RuntimeError(f"redundancy: shards put to a dead store: {put_failed}")
+    p0 = alive[0]["params"]
+    for r in alive[1:]:
+        unequal = [k for k in p0 if not same_bits(p0[k], r["params"][k])]
+        if unequal:
+            raise RuntimeError(f"redundancy: members differ in {unequal[:5]}")
+    if not all(r["storage_kept"] for r in alive):
+        raise RuntimeError("redundancy: a heal or the promotion moved a live tensor's storage")
+    # no committed step lost: within an incarnation each step commits once,
+    # and the fleet's committed frontier never moves back
+    for r in results:
+        for inc in _incarnations(r["log"]):
+            steps = [e["step"] for e in inc if e["committed"]]
+            if steps != sorted(set(steps)):
+                raise RuntimeError(f"redundancy: a step committed twice: {steps}")
+    frontier = -1
+    for e in sorted((e for e in entries if e["committed"]), key=lambda e: e["at"]):
+        if e["step"] < frontier - 1:
+            raise RuntimeError(f"redundancy: step {e['step']} committed behind the frontier "
+                               f"{frontier}")
+        frontier = max(frontier, e["step"])
+    if frontier != RED_STEPS - 1:
+        raise RuntimeError(f"redundancy: the frontier ended at {frontier}")
+
+    # the spare started from its prefetched generation of the death's
+    # step: no heal, so no peer pull
+    st = spare["timings"]
+    if spare["redundancy"].get("spare_promote_step") != RED_DEATH[1] or st["heal_attempts"] \
+            or st["reconstruct_failures"]:
+        raise RuntimeError(f"redundancy: the spare did not join from its prefetch of step "
+                           f"{RED_DEATH[1]}: {spare['redundancy']}, heal_attempts "
+                           f"{st['heal_attempts']}")
+    spare_commits = [e for e in spare["log"] if e["committed"]]
+    death_ms = (spare_commits[0]["at"] - died["died_at"]) * 1e3
+    death_steps = spare_commits[0]["step"] - RED_DEATH[1]
+    steady = [e for e in entries if e["committed"] and e["participants"] == RED_MEMBERS
+              and not e["healed"] and e["step"] > 0]
+    med = {k: statistics.median(e[k] for e in steady)
+           for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
+    staged = [e["stage_hot_ms"] for e in steady if e["stage_hot_ms"] > 0]
+    unstaged = [e["step_ms"] for e in steady if e["stage_hot_ms"] == 0]
+    log(f"redundancy bench_1b ({elapsed:.1f} s, {RED_MEMBERS} replicas + 1 spare, {RED_STEPS} "
+        f"steps, fp8 allreduce, k 2 m 1 retain 1 interval {RED_INTERVAL}): members and the promoted spare "
+        f"bitwise equal over {len(p0)} tensors; median of {len(steady)} steady steps: step "
+        f"{med['step_ms']:.1f} ms = quorum+fwd+bwd {med['compute_ms']:.1f} ms (the staging's hot "
+        f"path within it) + allreduce {med['allreduce_ms']:.1f} ms + commit+optimizer "
+        f"{med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
+        f"{med['tokens_per_s']:.1f} tokens/s per replica; staged steps' hot path "
+        f"shard_stage_hot_s median {statistics.median(staged) if staged else float('nan'):.1f} ms "
+        f"over {len(staged)}; steady steps that staged nothing: "
+        f"{len(unstaged)}")
+    for i, r in enumerate(results):
+        if "redundancy" in r:
+            rr = r["redundancy"]
+            log(f"redundancy replica {i}: " + ", ".join(
+                f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in rr.items()))
+    log(f"redundancy heal: replica {RED_CRASH[0]} reconstruct_s {red['reconstruct_s']:.3f} "
+        f"({red['reconstruct_mb_per_s']:.1f} MB/s), shards ok {red['reconstruct_shards_ok']:.0f}, "
+        f"failed {rejoined['timings']['shard_fetch_failed']:.0f}, corrupt "
+        f"{rejoined['timings']['shard_corrupt']:.0f}; phase 1's HTTP peer pull of the same "
+        f"state in this call: heal_recv_s {http_heal['heal_recv_s']:.3f} "
+        f"({http_heal['heal_mb_per_s']:.1f} MiB/s), the source staging in "
+        f"{http_heal['heal_send_s']:.3f} s")
+    log(f"redundancy spare: promoted in place of {died['replica_id']} at prefetched step "
+        f"{spare['redundancy'].get('spare_promote_step', float('nan')):.0f}; from the death to "
+        f"the spare's first commit {death_ms:.1f} ms and {death_steps} step(s) (it committed "
+        f"step {spare_commits[0]['step']}; replica {RED_DEATH[0]} died at the start of step "
+        f"{RED_DEATH[1]}, once the spare held that step's generation; no heal); promote() "
+        f"waited {spare['promotion']['promote_s']:.1f} s from the spare's start")
+    log(f"redundancy memory: device peak {peak / 2**30:.2f} GiB; host: this process's peak RSS "
+        f"{host.peak_rss / 2**30:.1f} GiB, MemAvailable at least {host.min_available / 2**30:.1f} "
+        f"GiB during the phase; launches {launches}")
+    dispatch = {e["attention"] for e in entries}
+    if dispatch != {"splash"}:
+        raise RuntimeError(f"redundancy: attention dispatched to {dispatch}, not splash")
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv", "quantize_fp8_rowwise_host",
+                   "dequantize_fp8_rowwise"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} never launched on the redundancy path")
+    del results, p0, entries, alive
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _incarnations(log_entries: list) -> list:
+    """A replica's log cut where its step went back (a restart)."""
+    out, cur, last = [], [], None
+    for e in log_entries:
+        if last is not None and e["step"] < last:
+            out.append(cur)
+            cur = []
+        cur.append(e)
+        last = e["step"]
+    return out + [cur] if cur else out
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2392,6 +2641,7 @@ def main() -> int:
     remat = check_remat_bench_1b(device)
     moe_launches = check_moe_bench_moe(device)
     moe_stats, moe_timing = check_bench_moe_attention(device)
+    red_launches = check_redundancy_bench_1b(device, cfg, http_heal)
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -2428,6 +2678,8 @@ def main() -> int:
                 for rid, d in diloco_proc_launches.items()}},
             # phase 13's reduce_scatter_quantized turns
             "launches_reduce_scatter": rs_launches[kname],
+            # phase 15: bench_1b with the redundancy plane
+            "launches_redundancy": red_launches[kname],
             **sass_counts(build_report[instance]),
         })
     for dtype, (suffix, sources) in ATTN_DTYPES.items():
@@ -2450,7 +2702,9 @@ def main() -> int:
                                           for rid, d in hsdp_launches.items()},
                         # one bench_1b step under each remat mode (phase 14)
                         "launches_remat": {mode: r["launches"][kernel]
-                                           for mode, r in remat.items()}}
+                                           for mode, r in remat.items()},
+                        # phase 15: bench_1b with the redundancy plane
+                        "launches_redundancy": red_launches[key]}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],

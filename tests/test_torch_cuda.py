@@ -579,3 +579,54 @@ def test_cuda_remat_modes_launch_the_forward_once_a_layer(cuda_device, mode, for
     assert torch.equal(loss, base_loss)
     for a, b in zip(grads, base_grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_reconstruct_lands_in_a_cuda_template_in_place(cuda_device):
+    """The redundancy plane's heal: shards staged from a CUDA state (the
+    blob's device-to-host snapshot), a data holder dead, the decode through
+    parity, and the leaves landed in a CUDA template: bitwise, with every
+    tensor's data_ptr() kept."""
+    from torchft_tpu_torch import redundancy as rd
+    from torchft_tpu_torch.checkpointing.erasure import encode_shards, shard_crc
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def state():
+        return {"w": torch.randn(257, 129, generator=g, device=cuda_device).to(torch.bfloat16),
+                "m": torch.randn(1000, generator=g, device=cuda_device),
+                "step": torch.tensor(4.0), "lr": 3e-4}
+
+    src, template = state(), state()
+    ptrs = [template["w"].data_ptr(), template["m"].data_ptr(), template["step"].data_ptr()]
+    directory = rd.ShardDirectory(poll_s=0.05, dead_after_s=60.0)
+    stores = [rd.ShardStore(f"h{i}") for i in range(3)]
+    try:
+        blob = rd.pack_state_blob(src)
+        epoch = directory.register("own", "pod0", "", False)[1]["epoch"]
+        entries = []
+        for i, (shard, store) in enumerate(zip(encode_shards(blob, 2, 1), stores)):
+            store.put("own", 3, i, bytes(shard))
+            entries.append({"idx": i, "crc": shard_crc(shard), "url": store.url,
+                            "holder": store.replica_id})
+        assert directory.announce({"replica_id": "own", "epoch": epoch, "seq": 1, "step": 3,
+                                   "k": 2, "m": 1, "data_len": len(blob),
+                                   "shards": entries})[0] == 200
+        stores[0].shutdown()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        step, got, stats = rd.reconstruct_state(directory.url, owner="own", timeout=10.0,
+                                                template=template)
+        torch.cuda.synchronize()
+    finally:
+        for s in stores:
+            s.shutdown()
+        directory.shutdown()
+    assert step == 3 and stats["shards_failed"] == 1
+    assert [got["w"].data_ptr(), got["m"].data_ptr(), got["step"].data_ptr()] == ptrs
+    assert got["w"].device == cuda_device
+    assert torch.equal(got["w"].view(torch.int16), src["w"].view(torch.int16))
+    assert torch.equal(got["m"].view(torch.int32), src["m"].view(torch.int32))
+    assert float(got["step"]) == 4.0 and got["lr"] == 3e-4
+    # the heal allocated no second copy of the state on the card
+    assert torch.cuda.memory_allocated() == allocated

@@ -100,3 +100,16 @@ def test_ab_scripts_import_no_jax_and_no_reference_package(script):
     roots = _import_roots(script)
     assert "torchft_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
+
+
+@pytest.mark.parametrize("module", ["redundancy", "checkpointing.erasure", "healthwatch",
+                                    "observability", "coordination", "manager", "lighthouse",
+                                    "train"])
+def test_redundancy_plane_imports_no_jax_even_lazily(module):
+    """The redundancy plane's modules and the ones it touches: every import,
+    at top level or inside a function (``ShardDirectory._poll_health``,
+    ``_maybe_promote``, ``LighthouseServer``'s directory), stays in the
+    port."""
+    roots = _import_roots(os.path.join("torchft_tpu_torch", *module.split(".")) + ".py")
+    assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
+    assert f"torchft_tpu_torch.{module}" in _port_modules()

@@ -123,7 +123,8 @@ def _parsed(module, argv):
 
 @pytest.mark.parametrize("argv", [[], ["--min_replicas", "3", "--quorum-tick-ms", "7"],
                                   ["--bind", "127.0.0.1:0", "--join_timeout_ms", "9",
-                                   "--heartbeat-timeout-ms", "11"]])
+                                   "--heartbeat-timeout-ms", "11"],
+                                  ["--redundancy-directory"], ["--redundancy_directory"]])
 def test_cli_options_are_the_references(argv):
     """Defaults and spellings: the port's CLI hands its server what the
     reference's hands its own, for every option the port takes."""
@@ -134,10 +135,34 @@ def test_cli_options_are_the_references(argv):
     ref = _parsed(jax_lighthouse, argv)
     assert port == {k: ref[k] for k in port}
     assert sorted(port) == ["bind", "heartbeat_timeout_ms", "join_timeout_ms", "min_replicas",
-                            "quorum_tick_ms"]
+                            "quorum_tick_ms", "redundancy_directory"]
 
 
 def test_cli_exits_nonzero_on_an_unknown_flag():
     out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--history", "x"],
                          cwd=REPO, capture_output=True, text=True, timeout=60)
     assert out.returncode != 0 and "unrecognized arguments" in out.stderr
+
+
+def test_cli_co_hosts_the_shard_directory():
+    """``--redundancy-directory``: the CLI logs the directory's URL, which
+    answers its status, and stops cleanly."""
+    import json
+    import time
+    import urllib.request
+
+    proc, _addr, lines = _start(["--bind", "127.0.0.1:0", "--redundancy-directory"])
+    try:
+        deadline = time.monotonic() + 30
+        url = None
+        while url is None and time.monotonic() < deadline:
+            url = next((ln.split("shard directory serving at ", 1)[1].split()[0]
+                        for ln in list(lines) if "shard directory serving at " in ln), None)
+            time.sleep(0.02)
+        assert url is not None, "\n".join(lines)
+        with urllib.request.urlopen(f"{url}/redundancy/status", timeout=10) as r:
+            status = json.loads(r.read().decode())
+        assert status["entries"] == {} and status["peers"] == []
+    finally:
+        rc = _stop(proc, signal.SIGTERM, lines)
+    assert rc == 0, "\n".join(lines)

@@ -30,10 +30,12 @@ __all__ = [
     "TreeSpecPayload",
     "alloc_leaf",
     "can_absorb",
+    "describe_state",
     "flatten_state",
     "leaf_from_bytes",
     "payload_memoryview",
     "place_leaf_like",
+    "place_state_like",
     "split_chunks",
     "template_leaves_for",
     "tree_from_leaves",
@@ -74,6 +76,28 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
+def describe_state(state: Any) -> Tuple[TreeSpecPayload, List[Any]]:
+    """A state pytree's spec and its leaves, with no copy: tensor leaves
+    detached, every other leaf pickled to bytes (its payload)."""
+    leaves, treedef = pytree.tree_flatten(state)
+    metas: List[TensorMeta] = []
+    out: List[Any] = []
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach()
+            metas.append(TensorMeta(
+                dtype=_dtype_name(t.dtype), shape=tuple(t.shape),
+                nbytes=t.numel() * t.element_size(),
+            ))
+            out.append(t)
+        else:
+            buf = pickle.dumps(leaf)
+            metas.append(TensorMeta(dtype="", shape=(), nbytes=len(buf), kind="pickled"))
+            out.append(buf)
+    skeleton = pytree.tree_unflatten(list(range(len(leaves))), treedef)
+    return TreeSpecPayload(pickle.dumps(skeleton), metas), out
+
+
 def flatten_state(
     state: Any, snapshot: bool = True
 ) -> Tuple[TreeSpecPayload, List[Any]]:
@@ -85,29 +109,19 @@ def flatten_state(
     the live state), else a view of its memory where it is contiguous (a
     transport whose send completes before it returns streams straight from
     the caller's tensors). Other leaves are pickled bytes."""
-    leaves, treedef = pytree.tree_flatten(state)
-    metas: List[TensorMeta] = []
+    spec, leaves = describe_state(state)
     payloads: List[Any] = []
-    for leaf in leaves:
-        if isinstance(leaf, torch.Tensor):
-            t = leaf.detach()
+    for t in leaves:
+        if isinstance(t, torch.Tensor):
             if t.is_cuda:
                 host = t.cpu()
             else:
                 host = t.clone() if snapshot else t
             # an empty tensor's flat view has stride 0, which .view refuses
-            host = (host.contiguous().reshape(-1).view(torch.uint8).numpy()
-                    if host.numel() else np.zeros(0, np.uint8))
-            metas.append(TensorMeta(
-                dtype=_dtype_name(t.dtype), shape=tuple(t.shape), nbytes=host.nbytes
-            ))
-            payloads.append(host)
-        else:
-            buf = pickle.dumps(leaf)
-            metas.append(TensorMeta(dtype="", shape=(), nbytes=len(buf), kind="pickled"))
-            payloads.append(buf)
-    skeleton = pytree.tree_unflatten(list(range(len(leaves))), treedef)
-    return TreeSpecPayload(pickle.dumps(skeleton), metas), payloads
+            t = (host.contiguous().reshape(-1).view(torch.uint8).numpy()
+                 if host.numel() else np.zeros(0, np.uint8))
+        payloads.append(t)
+    return spec, payloads
 
 
 def payload_memoryview(payload: Any) -> memoryview:
@@ -239,6 +253,27 @@ def place_leaf_like(host_leaf: torch.Tensor, template: Any, logger: Any) -> Any:
     except Exception:  # noqa: BLE001 - fall back to the wire buffer
         logger.exception("failed to place leaf onto template")
     return host_leaf
+
+
+def place_state_like(state: Any, template: Any, logger: Any) -> Any:
+    """``state`` with each tensor leaf landed in the matching leaf of
+    ``template`` (a pytree of the same structure) by ``place_leaf_like``:
+    on the card one host-to-device copy into the template's own storage.
+    Other leaves stay ``state``'s. A template of another structure takes
+    nothing (``template_leaves_for``'s one warning) and ``state`` is
+    returned as it is."""
+    leaves, treedef = pytree.tree_flatten(state)
+    t_leaves, t_def = pytree.tree_flatten(template)
+    if t_def != treedef:
+        logger.warning(
+            "state structure differs from the template's; in-place placement "
+            "degraded (state %s vs template %s)", str(treedef)[:200], str(t_def)[:200],
+        )
+        return state
+    return pytree.tree_unflatten([
+        place_leaf_like(leaf, t, logger) if isinstance(leaf, torch.Tensor) else leaf
+        for leaf, t in zip(leaves, t_leaves)
+    ], treedef)
 
 
 def _is_final(meta: TensorMeta, buf: Any) -> bool:

@@ -289,7 +289,13 @@ class _Server:
 
 class LighthouseServer(_Server):
     """In-process lighthouse quorum server (native C++), with the native
-    health ledger at its defaults (observe mode)."""
+    health ledger at its defaults (observe mode).
+
+    ``redundancy_directory=True`` co-hosts the redundancy plane's
+    ``ShardDirectory`` (reference ``coordination.py:348``, ``:428-440``):
+    it tracks where each replica's erasure-coded shard generations live,
+    polls this lighthouse's health ledger for deaths and promotes hot
+    spares; ``redundancy_directory_url()`` is its URL (None without it)."""
 
     _prefix = "lighthouse"
 
@@ -300,6 +306,7 @@ class LighthouseServer(_Server):
         join_timeout_ms: int = 60000,
         quorum_tick_ms: int = 100,
         heartbeat_timeout_ms: int = 5000,
+        redundancy_directory: bool = False,
     ) -> None:
         opts = {
             "bind": bind,
@@ -312,9 +319,24 @@ class LighthouseServer(_Server):
             "tft_lighthouse_new_v2", json.dumps(opts).encode(),
             "lighthouse start failed",
         ))
+        self.redundancy_directory = None
+        if redundancy_directory:
+            # lazy: redundancy.py imports LighthouseClient back from here
+            # for the directory's health poll
+            from torchft_tpu_torch.redundancy import ShardDirectory
+
+            self.redundancy_directory = ShardDirectory(lighthouse_addr=self.address())
 
     def address(self) -> str:
         return _take_str(self._lib, self._lib.tft_lighthouse_address(self._handle))
+
+    def redundancy_directory_url(self) -> Optional[str]:
+        return self.redundancy_directory.url if self.redundancy_directory is not None else None
+
+    def shutdown(self) -> None:
+        if self.redundancy_directory is not None:
+            self.redundancy_directory.shutdown()
+        super().shutdown()
 
 
 class ManagerServer(_Server):
@@ -494,13 +516,19 @@ class _Client:
 
 
 class LighthouseClient(_Client):
-    """Client for the lighthouse service (status and heartbeats)."""
+    """Client for the lighthouse service (status, heartbeats and health)."""
 
     def heartbeat(self, replica_id: str, timeout: "float | timedelta" = 5.0) -> dict:
         return self._client.call("heartbeat", {"replica_id": replica_id}, timeout)
 
     def status(self, timeout: "float | timedelta" = 5.0) -> dict:
         return self._client.call("status", {}, timeout)
+
+    def health(self, timeout: "float | timedelta" = 5.0) -> dict:
+        """The native health ledger's dump (reference ``coordination.py:999``):
+        ``replicas`` (each one's ``state``, ``score``, ``last_beat_ms_ago``,
+        ...), ``excluded``, ``recent_events``, ``mode``."""
+        return self._client.call("health", {}, timeout)
 
 
 class ManagerClient(_Client):

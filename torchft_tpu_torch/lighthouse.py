@@ -8,9 +8,12 @@ Counterpart of ``torchft_tpu/lighthouse.py:24-127`` over the port's native
 and point workers at it with ``TORCHFT_LIGHTHOUSE=host:port``. It logs
 ``lighthouse listening at <address>`` once it serves, and exits with 0 on
 SIGINT or SIGTERM. Each flag also takes its underscore spelling
-(``--min_replicas``). The reference's ``--history``, ``--serve-registry``,
-``--serve-drain-on``, ``--redundancy-directory`` and ``--policy`` come
-with their planes.
+(``--min_replicas``). ``--redundancy-directory`` (reference ``:65``)
+co-hosts the redundancy plane's shard directory and logs ``shard
+directory serving at <url> (epoch <epoch>)``; point replicas at it with
+``TORCHFT_REDUNDANCY_DIRECTORY=<url>``. The reference's ``--history``,
+``--serve-registry``, ``--serve-drain-on`` and ``--policy`` come with
+their planes.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--quorum-tick-ms", "--quorum_tick_ms", type=int, default=100)
     parser.add_argument("--heartbeat-timeout-ms", "--heartbeat_timeout_ms", type=int,
                         default=5000)
+    parser.add_argument("--redundancy-directory", "--redundancy_directory", action="store_true",
+                        help="co-host a redundancy-plane shard directory: it tracks "
+                             "erasure-coded shard placements, detects owner deaths and "
+                             "promotes hot spares; point replicas at it with "
+                             "TORCHFT_REDUNDANCY_DIRECTORY")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -47,9 +55,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         join_timeout_ms=args.join_timeout_ms,
         quorum_tick_ms=args.quorum_tick_ms,
         heartbeat_timeout_ms=args.heartbeat_timeout_ms,
+        redundancy_directory=args.redundancy_directory,
     )
     try:
         logging.info("lighthouse listening at %s", server.address())
+        if server.redundancy_directory is not None:
+            logging.info("shard directory serving at %s (epoch %s)",
+                         server.redundancy_directory.url, server.redundancy_directory.epoch)
         stop.wait()
     finally:
         server.shutdown()

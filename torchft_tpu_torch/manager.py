@@ -63,9 +63,28 @@ the SERIAL path: one collective for the whole tree on one ordered staging
 thread, fp8-quantized through ``collectives.allreduce_quantized`` when
 asked (CUDA tensors take its device engine); an unquantized tree is
 bucketed into that one collective. A non-participant contributes zeros and
-never touches the residuals. The device-plane streaming branch (an XLA
-process group), the policy, degrade, redundancy, health and serving
-planes are not ported yet.
+never touches the residuals.
+
+The redundancy plane (``redundancy.py``; reference ``:630-680``,
+``:797-805``, ``:1326-1414``, ``:2818-2943``) attaches when
+``TORCHFT_REDUNDANCY_K`` >= 1 and a shard directory is configured (each
+``TORCHFT_REDUNDANCY_*`` variable > the ``redundancy`` config's field >
+default): the group leader stages its committed state at the start of
+the round after each commit (``shard_stage_hot_s``, in ``timings()`` on
+a round that staged, is what the step pays), and a heal first tries
+``reconstruct_state`` of the quorum's step, landing in place in
+``state_dict_template()``, before the peer pull; a failed reconstruct
+bumps ``reconstruct_failures`` and falls back to the pull.
+``spare=True`` makes a hot spare: no store, no manager server, no
+lighthouse heartbeat until ``promote()`` returns (it waits for the
+directory's promotion, loads the prefetched generation through the
+registered load fns, in place, and joins the control plane). With
+``k == 0`` nothing of the plane runs. The plane stages and heals a whole
+one-rank group: a group of more ranks with the plane on raises
+``ValueError`` (each rank would need its own shards). The device-plane
+streaming branch (an XLA process group), the policy, degrade, health and
+serving planes, the plane's policy adjusters and its trace spans are not
+ported yet.
 
 Knobs, each environment variable > constructor argument > default:
 ``TORCHFT_TIMEOUT_SEC`` / ``timeout``, ``TORCHFT_QUORUM_TIMEOUT_SEC`` /
@@ -98,6 +117,7 @@ import torch.utils._pytree as pytree
 
 from torchft_tpu_torch import bucketing
 from torchft_tpu_torch.checkpointing import CheckpointTransport, HTTPTransport, RWLock
+from torchft_tpu_torch.checkpointing._serialization import place_state_like
 from torchft_tpu_torch.coordination import (
     KvClient,
     KvStoreServer,
@@ -112,6 +132,13 @@ from torchft_tpu_torch.ops.quantization import (
     resolve_compress_mode,
 )
 from torchft_tpu_torch.process_group import ProcessGroup, ReduceOp
+from torchft_tpu_torch.redundancy import (
+    REDUNDANCY_DIRECTORY_ENV,
+    HotSpare,
+    RedundancyConfig,
+    ShardStager,
+    reconstruct_state,
+)
 from torchft_tpu_torch.utils import true_divide
 from torchft_tpu_torch.work import (
     DummyWork,
@@ -136,7 +163,11 @@ STREAM_BUCKETS_ENV = "TORCHFT_STREAM_BUCKETS"
 _HEARTBEAT_INTERVAL_S = 0.1
 # cumulative resilience counters, kept in timings()
 _COUNTERS = ("heal_attempts", "heal_failovers", "rpc_retries", "chunk_crc_failures",
-             "collective_reroute", "standby_skipped")
+             "collective_reroute", "standby_skipped",
+             # the redundancy plane: staging and reconstruct
+             "shards_staged", "shard_stage_skipped", "shard_stage_dropped",
+             "shard_stage_failed", "shard_put_failed", "shard_announce_rejected",
+             "reconstructs", "reconstruct_failures", "shard_corrupt", "shard_fetch_failed")
 
 
 def _to_seconds(t: "float | timedelta") -> float:
@@ -221,9 +252,25 @@ class Manager:
         world_size_mode: WorldSizeMode = WorldSizeMode.DYNAMIC,
         max_retries: Optional[int] = None,
         quorum_retries: Optional[int] = None,
+        spare: bool = False,
+        redundancy: Optional[RedundancyConfig] = None,
     ) -> None:
+        """``redundancy`` is the plane's config under the
+        ``TORCHFT_REDUNDANCY_*`` environment (a variable set wins over its
+        field); ``spare=True`` needs its directory."""
         if group_rank != 0 and store_addr is None:
             raise ValueError("a group rank other than 0 needs the leader's store_addr")
+        # the plane's config is read before anything starts, so a bad one
+        # raises with nothing to tear down
+        red_cfg = RedundancyConfig.from_env(base=redundancy)
+        if spare and not red_cfg.directory:
+            raise ValueError("Manager(spare=True) requires a shard directory "
+                             f"(${REDUNDANCY_DIRECTORY_ENV})")
+        if group_world_size > 1 and (spare or red_cfg.enabled):
+            # the leader stages its own ranks' state only, and a heal would
+            # land the leader's shards in every rank
+            raise ValueError("the redundancy plane serves one-rank replica groups only: this "
+                             f"group has {group_world_size} ranks")
         self._pg = pg
         set_reroute = getattr(pg, "set_reroute_observer", None)
         if set_reroute is not None:
@@ -294,44 +341,32 @@ class Manager:
         self._group_rank = group_rank
         self._store: Optional[KvStoreServer] = None
         self._manager: Optional[ManagerServer] = None
-        if group_rank == 0:
-            # the group's leader owns the rendezvous store (unless one is
-            # named) and the manager server, and publishes its address for
-            # the other ranks
-            if store_addr is None:
-                self._store = KvStoreServer("0.0.0.0:0")
-                store_addr = f"{hostname}:{self._store.port}"
-            if lighthouse_addr is None:
-                lighthouse_addr = os.environ[LIGHTHOUSE_ENV]
+        self._client: Optional[ManagerClient] = None
+        self._vote_client: Optional[ManagerClient] = None
+        self._store_addr = store_addr
+        # a hot spare shadows the fleet without joining the quorum: no
+        # store, no manager server, no heartbeat until promote() runs the
+        # leader's half of this constructor (_join_control_plane)
+        self._spare = spare
+        # _start_control_plane's arguments, kept for promote()
+        self._spare_join_args: Optional[Tuple[Any, ...]] = None
+        if spare:
+            if group_rank != 0:
+                raise ValueError("Manager(spare=True) is a whole-replica role: only group_rank 0 "
+                                 "may construct it")
+            self._replica_id = f"{replica_id or 'spare'}:{uuid.uuid4()}"
+            self._spare_join_args = (hostname, store_addr, lighthouse_addr, group_world_size,
+                                     quorum_retries)
+        elif group_rank == 0:
             self._replica_id = f"{replica_id or 'replica'}:{uuid.uuid4()}"
-            self._manager = ManagerServer(
-                replica_id=self._replica_id,
-                lighthouse_addr=lighthouse_addr,
-                hostname=hostname,
-                bind="0.0.0.0:0",
-                store_addr=store_addr,
-                world_size=group_world_size,
-                heartbeat_interval=_HEARTBEAT_INTERVAL_S,
-                connect_timeout=self._connect_timeout,
-                quorum_retries=quorum_retries,
-            )
-            manager_addr = self._manager.address()
-            KvClient(store_addr, connect_timeout=self._connect_timeout).set(
-                "manager_addr", manager_addr, timeout=self._timeout
-            )
+            self._start_control_plane(hostname, store_addr, lighthouse_addr, group_world_size,
+                                      quorum_retries)
         else:
             manager_addr = KvClient(store_addr, connect_timeout=self._connect_timeout).get(
                 "manager_addr", timeout=self._timeout
             ).decode()
             self._replica_id = replica_id or "replica"
-        self._store_addr = store_addr
-        self._client = ManagerClient(manager_addr, connect_timeout=self._connect_timeout)
-        # the commit vote rides its own client: the quorum thread's RPC is
-        # in flight exactly when the main thread votes
-        self._vote_client = ManagerClient(manager_addr, connect_timeout=self._connect_timeout)
-        # every retried RPC of either client counts in timings()
-        self._client.set_retry_observer(self._on_rpc_retry)
-        self._vote_client.set_retry_observer(self._on_rpc_retry)
+            self._connect_clients(manager_addr)
 
         self._step = 0
         self._quorum_id = -1
@@ -377,6 +412,65 @@ class Manager:
             max_workers=1, thread_name_prefix="torchft_unpack"
         )
         self._quorum_future: Optional[Any] = None
+
+        # the redundancy plane (reference :630-680): k == 0 attaches nothing
+        self._redundancy_cfg: Optional[RedundancyConfig] = None
+        self._shard_stager: Optional[ShardStager] = None
+        self._hot_spare: Optional[HotSpare] = None
+        self._redundancy_stage_pending = False
+        try:
+            if spare:
+                self._redundancy_cfg = red_cfg
+                self._hot_spare = HotSpare(red_cfg, spare_id=self._replica_id,
+                                           on_metric=self._on_redundancy_metric)
+            elif red_cfg.enabled:
+                self._redundancy_cfg = red_cfg
+                if group_rank == 0:
+                    self._shard_stager = ShardStager(red_cfg, self._replica_id,
+                                                     on_metric=self._on_redundancy_metric)
+        except Exception:  # noqa: BLE001 - the plane is advisory
+            logger.exception("redundancy plane failed to attach; continuing without it")
+            self._redundancy_cfg = None
+            self._shard_stager = None
+
+    def _start_control_plane(
+        self, hostname: str, store_addr: Optional[str], lighthouse_addr: Optional[str],
+        group_world_size: int, quorum_retries: int,
+    ) -> None:
+        """The group leader's wiring: the rendezvous store (unless one is
+        named), the manager server (which heartbeats the lighthouse) and
+        its address published for the other ranks."""
+        if store_addr is None:
+            self._store = KvStoreServer("0.0.0.0:0")
+            store_addr = f"{hostname}:{self._store.port}"
+        if lighthouse_addr is None:
+            lighthouse_addr = os.environ[LIGHTHOUSE_ENV]
+        self._manager = ManagerServer(
+            replica_id=self._replica_id,
+            lighthouse_addr=lighthouse_addr,
+            hostname=hostname,
+            bind="0.0.0.0:0",
+            store_addr=store_addr,
+            world_size=group_world_size,
+            heartbeat_interval=_HEARTBEAT_INTERVAL_S,
+            connect_timeout=self._connect_timeout,
+            quorum_retries=quorum_retries,
+        )
+        manager_addr = self._manager.address()
+        KvClient(store_addr, connect_timeout=self._connect_timeout).set(
+            "manager_addr", manager_addr, timeout=self._timeout
+        )
+        self._store_addr = store_addr
+        self._connect_clients(manager_addr)
+
+    def _connect_clients(self, manager_addr: str) -> None:
+        self._client = ManagerClient(manager_addr, connect_timeout=self._connect_timeout)
+        # the commit vote rides its own client: the quorum thread's RPC is
+        # in flight exactly when the main thread votes
+        self._vote_client = ManagerClient(manager_addr, connect_timeout=self._connect_timeout)
+        # every retried RPC of either client counts in timings()
+        self._client.set_retry_observer(self._on_rpc_retry)
+        self._vote_client.set_retry_observer(self._on_rpc_retry)
 
     def _log(self, level: int, msg: str) -> None:
         logger.log(level, f"[{self._replica_id}/{self._group_rank} step {self._step}] {msg}")
@@ -431,6 +525,15 @@ class Manager:
                 and not getattr(self._pg, "requires_sync_quorum", False)):
             self._log(logging.INFO, "pg no longer requires sync quorum; restoring async quorum")
             self._use_async_quorum = True
+        with self._metrics_lock:
+            self._timings.pop("shard_stage_hot_s", None)
+        if self._shard_stager is not None and self._redundancy_stage_pending:
+            # the last round committed and the caller applied its update:
+            # the state is the generation a healer joining THIS round
+            # loads, announced before this round's barrier (reference
+            # :797-805)
+            self._redundancy_stage_pending = False
+            self._stage_redundancy_committed()
         self._errored = None
         self._healing = False
         self._last_quorum_healed = False
@@ -642,6 +745,12 @@ class Manager:
         transport can (pull-based HTTP); a push-based transport stays on
         the assigned source, the only one sending."""
         transport = self._checkpoint_transport
+        # with the redundancy plane on, a parallel reconstruct of the
+        # quorum's step first; any failure falls back to the pull
+        if self._redundancy_cfg is not None and self._redundancy_cfg.enabled:
+            state = self._reconstruct_checkpoint(quorum)
+            if state is not None:
+                return state
         if transport.supports_multi_source:
             sources = self._heal_sources(quorum)
             self._log(logging.INFO, f"healing from step {quorum.max_step}, candidate sources "
@@ -1155,6 +1264,11 @@ class Manager:
         if not self._standby_source:
             self._checkpoint_transport.disallow_checkpoint()
         if should_commit:
+            if self._shard_stager is not None:
+                # staged at the next round's start, labelled with the step
+                # a healer joining it needs, once the caller applied this
+                # round's update (reference :3293-3302)
+                self._redundancy_stage_pending = True
             self._step += 1
             self._batches_committed += self.num_participants()
             self._commit_failures = 0
@@ -1287,12 +1401,131 @@ class Manager:
         attempts and same-source chunk retries (``heal_attempts``),
         failovers to another source (``heal_failovers``), chunks fetched
         again after a crc32 mismatch (``chunk_crc_failures``) and refused
-        standby snapshots (``standby_skipped``)."""
+        standby snapshots (``standby_skipped``). With the redundancy plane
+        on: this round's staging hot path (``shard_stage_hot_s``, absent
+        on a round that staged nothing), the stager's and the last
+        reconstruct's seconds, and the plane's counters (``_COUNTERS``)."""
         with self._metrics_lock:
             return dict(self._timings)
 
+    # ------------------------------------------------------ redundancy plane
+    def _on_redundancy_metric(self, name: str, value: float) -> None:
+        """ShardStager / HotSpare -> timings(): a counter of ``_COUNTERS``
+        adds up, any other name is a last-value timing."""
+        if name in _COUNTERS:
+            self._bump_counter(name, value)
+        else:
+            self._record_timing(name, value)
+
+    def _on_redundancy_event(self, kind: str, info: Dict[str, Any]) -> None:
+        """reconstruct_state -> the per-shard fault counters."""
+        if kind in ("shard_corrupt", "shard_fetch_failed"):
+            self._bump_counter(kind)
+            self._log(logging.WARNING, f"redundancy event {kind}: {info}")
+
+    def _reconstruct_checkpoint(self, quorum: Any) -> Optional[Dict[str, Any]]:
+        """The parallel shard reconstruct of the quorum's step, landed in
+        place in ``state_dict_template()``; None to fall back to the peer
+        pull (it never raises: the plane speeds a heal up, the heal does
+        not depend on it). ``reconstruct_state`` raises, before it lands
+        anything, when no live owner announced that step."""
+        try:
+            step, state, stats = reconstruct_state(
+                self._redundancy_cfg.directory, step=quorum.max_step, timeout=self._timeout,
+                on_event=self._on_redundancy_event, template=self._manager_state_dict(),
+            )
+        except Exception as e:  # noqa: BLE001 - fall back to the peer pull
+            self._log(logging.WARNING,
+                      f"shard reconstruct unavailable ({e!r}); falling back to peer heal")
+            self._bump_counter("reconstruct_failures")
+            return None
+        self._bump_counter("reconstructs")
+        self._record_timing("reconstruct_s", stats["reconstruct_s"])
+        self._record_timing("reconstruct_mb_per_s", stats["mb_per_s"])
+        self._record_timing("reconstruct_shards_ok", float(stats["shards_ok"]))
+        self._log(logging.INFO, f"healed step {step} by parallel reconstruct: "
+                                f"{stats['shards_ok']} shards ok, {stats['shards_failed']} failed, "
+                                f"{stats['shards_corrupt']} corrupt, {stats['mb_per_s']:.1f} MB/s")
+        return state
+
+    def _stage_redundancy_committed(self) -> None:
+        """Hand the committed composite state, labelled with the step
+        about to run, to the ShardStager: the hot path pays one host
+        snapshot and a queue put (``shard_stage_hot_s``, recorded when the
+        interval did not skip the round). Never raises."""
+        t0 = time.perf_counter()
+        try:
+            if self._shard_stager.stage(self._step, self._manager_state_dict()):
+                self._record_timing("shard_stage_hot_s", time.perf_counter() - t0)
+        except Exception:  # noqa: BLE001 - the plane is advisory
+            self._bump_counter("shard_stage_failed")
+            logger.exception("redundancy shard staging failed")
+
+    def last_staged_step(self) -> int:
+        """The newest step this replica's stager announced (-1: none, or
+        no stager)."""
+        return self._shard_stager.last_staged_step() if self._shard_stager is not None else -1
+
+    def prefetched_step(self) -> int:
+        """The newest generation this hot spare holds (-1: none yet, or not
+        a spare waiting for its promotion)."""
+        spare = self._hot_spare
+        return spare.prefetched_step() if spare is not None else -1
+
+    def promote(self, timeout: "float | timedelta | None" = None) -> Dict[str, Any]:
+        """Hot-spare promotion (reference :2837-2900): wait until the shard
+        directory promotes this spare, load the freshest prefetched
+        generation through the registered load fns (its tensors landed in
+        place in ``state_dict_template()`` first), and only then join the
+        control plane (store, manager server, heartbeat: the lighthouse
+        sees the spare from here on). Returns the promotion record. A
+        promoted spare stages its own generations like any leader."""
+        if not self._spare or self._hot_spare is None:
+            raise RuntimeError("promote() requires Manager(spare=True)")
+        budget = _to_seconds(timeout) if timeout is not None else None
+        result = self._hot_spare.wait_promoted(timeout=budget)
+        if result is None:
+            raise TimeoutError(f"spare {self._replica_id} not promoted within {budget}s")
+        state_step, state, promotion = result
+        # its resident generation goes with it once loaded
+        self._hot_spare.shutdown()
+        self._hot_spare = None
+        if state is not None:
+            state = place_state_like(state, self._manager_state_dict(), logger)
+            self.load_user_state_dict(state.get("user", {}))
+            self.load_state_dict(state["torchft"])
+            self._log(logging.INFO, f"spare promoted at prefetched step {state_step} "
+                                    f"(replacing {promotion.get('replaces')!r})")
+        else:
+            self._log(logging.WARNING, "spare promoted with no prefetched generation: joining "
+                                       "cold; its first quorum heals it")
+        del state
+        self._join_control_plane()
+        cfg = self._redundancy_cfg
+        if cfg is not None and cfg.enabled:
+            try:
+                self._shard_stager = ShardStager(cfg, self._replica_id,
+                                                 on_metric=self._on_redundancy_metric)
+            except Exception:  # noqa: BLE001 - the plane is advisory
+                logger.exception("promoted spare could not start its shard stager")
+        self._record_timing("spare_promote_step", float(state_step))
+        return promotion
+
+    def _join_control_plane(self) -> None:
+        """The leader's half of the constructor, deferred to promotion."""
+        args, self._spare_join_args = self._spare_join_args, None
+        self._start_control_plane(*args)
+
     # ------------------------------------------------------------ lifecycle
     def shutdown(self, wait: bool = True) -> None:
+        # the redundancy plane first: its threads hold nothing the rest of
+        # the teardown needs
+        if self._shard_stager is not None:
+            self._shard_stager.shutdown()
+            self._shard_stager = None
+        if self._hot_spare is not None:
+            self._hot_spare.shutdown()
+            self._hot_spare = None
         # a commit staged for a world that is going away never runs
         with self._pending_commit_lock:
             self._pending_pg_commit = None

@@ -42,6 +42,36 @@ crash there makes the survivors discard the step; ``--fail-at N`` is
 ``--http-timeout`` sets the HTTP transport's own timeout (its serve
 socket's and its serving window's grace).
 
+``--redundancy K,M`` turns the redundancy plane on (``redundancy.py``):
+a shard directory runs beside the lighthouse, every replica's Manager
+stages its committed state as ``K`` data + ``M`` parity shards on its
+peers every ``--redundancy-interval`` commits, keeping
+``--redundancy-retain`` generations an owner in each store, and a heal
+first reconstructs from the shards. ``--spares N`` adds hot spares
+(``Manager(spare=True)``): each prefetches every generation, and when a
+member ``die``s (a fault kind: a crash with no restart) the script posts
+the death to the directory (``mark_dead``, its path for an operator's or
+a harness's notice), which promotes a spare; the spare's ``promote()``
+loads its prefetched generation into its own model and optimizer, in
+place, joins the quorum and trains like any member. The directory's
+announce-gap detector waits ``DEAD_AFTER_S``: its default window is
+shorter than staging a bench_1b generation takes. With the plane on, a
+``crash`` first waits until the other members have staged that step's
+generation, so the rejoiner's heal finds it announced (the reference's
+reconstruct waits at most 2 s for an announce, less than staging
+bench_1b's 6.45 GB takes), and a ``die`` until another member has staged
+it and every spare has prefetched it: the death of a steady fleet, whose
+spare starts from the generation of the step it joins. Fault kinds of
+the plane: ``corrupt_shard``
+(the stores serve shard ``shard`` of replica ``owner``'s generations
+with one byte flipped, ``times`` times, -1 for every serve) and
+``kill_shard_source`` (they drop those serves mid-body; ``shard`` None:
+every shard of the owner), the reference ``EventInjector``'s methods of
+those names. Each replica's result carries ``redundancy``: its
+reconstructs and their seconds and MB/s, the staging's hot-path,
+snapshot, encode and put seconds, the shard counters, and for a spare
+``spare_promote_step`` and the seconds ``promote()`` took.
+
 With ``--diloco`` (``examples/train_llama_hsdp.py --diloco``,
 ``:158-256``) the replicas train semi-synchronously: the Manager takes the
 synchronous quorum, each inner step is forward, backward and AdamW with no
@@ -62,6 +92,8 @@ outer lr 0.7). A heal carries the fragments' globals and momentum too.
         --fail-at 2 --http-timeout 5
     python -m torchft_tpu_torch.train --model moe --config bench_moe --no-quantize \\
         --fail-at 3
+    python -m torchft_tpu_torch.train --config bench_1b --replicas 3 --redundancy 2,1 \\
+        --redundancy-retain 1 --spares 1 --fail-at 3
 
 A replica's result sums its resilience counters (the Manager's lifetime
 counters: ``rpc_retries``, heals, ...) over all its incarnations, so what a crashed
@@ -96,6 +128,12 @@ from torchft_tpu_torch.models.remat import REMAT_MODES
 from torchft_tpu_torch.ops import attention as attn_ops
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.process_group import ProcessGroupHost
+from torchft_tpu_torch.redundancy import (
+    DirectoryClient,
+    RedundancyConfig,
+    ShardDirectory,
+    set_redundancy_fault_hook,
+)
 from torchft_tpu_torch.utils import resolve_device, tensors_sha256
 
 __all__ = ["TrainConfig", "Fault", "InjectedFailure", "build_trainer", "run_replicas", "main"]
@@ -108,7 +146,15 @@ class InjectedFailure(Exception):
     counters: Dict[str, float] = {}
 
 
-FAULT_KINDS = ("crash", "kill_heal_chunk", "corrupt_heal_chunk", "flake_rpc")
+class InjectedDeath(InjectedFailure):
+    """A scripted permanent death: the replica does not restart.
+    ``replica_id`` is its Manager's id (the directory's name for it)."""
+
+    replica_id = ""
+
+
+FAULT_KINDS = ("crash", "kill_heal_chunk", "corrupt_heal_chunk", "flake_rpc",
+               "corrupt_shard", "kill_shard_source", "die")
 # where in a step a fault fires: before its quorum, or after its backward pass
 FAULT_POINTS = ("start", "backward")
 
@@ -125,6 +171,10 @@ class Fault:
     times: int = 1  # serves (-1: every serve) or RPC calls that fail
     method: str = "should_commit"  # the RPC of flake_rpc
     at: str = "start"  # FAULT_POINTS
+    # corrupt_shard / kill_shard_source: the shard index (None: any) of
+    # replica ``owner``'s generations (-1: the replica firing the fault)
+    shard: Optional[int] = None
+    owner: int = -1
 
     def __post_init__(self) -> None:
         if self.kind not in FAULT_KINDS:
@@ -136,12 +186,18 @@ class Fault:
 class _FaultScript:
     """The faults of one run, shared by every incarnation of a replica, so
     each fires once. ``flake_rpc`` installs a process-wide RPC fault hook,
-    removed by ``close``."""
+    the shard faults a process-wide redundancy fault hook, both removed by
+    ``close``. ``before_fault(replica, step, kind)``, when given, runs
+    before a ``crash`` or a ``die`` fires."""
 
-    def __init__(self, faults: Tuple[Fault, ...]) -> None:
+    def __init__(self, faults: Tuple[Fault, ...],
+                 before_fault: Optional[Callable[[int, int, str], None]] = None) -> None:
         self._lock = threading.Lock()
         self._pending = list(faults)
         self._rpc_flakes: Dict[str, int] = {}
+        # (verdict, owner prefix, shard or None) -> serves left (-1: every)
+        self._shard_faults: Dict[Tuple[str, str, Optional[int]], int] = {}
+        self._before_fault = before_fault
         self.fired: List[Fault] = []
 
     def check(self, replica: int, step: int, at: str, transport: Any) -> None:
@@ -151,9 +207,20 @@ class _FaultScript:
                 self._pending.remove(f)
                 self.fired.append(f)
         for f in due:
+            if f.kind in ("crash", "die") and self._before_fault is not None:
+                self._before_fault(replica, step, f.kind)
+            if f.kind == "die":
+                raise InjectedDeath(f"replica {replica} died at step {step}")
             if f.kind == "crash":
                 raise InjectedFailure(f"replica {replica} crashed at step {step}")
-            if f.kind == "flake_rpc":
+            if f.kind in ("corrupt_shard", "kill_shard_source"):
+                owner = replica if f.owner < 0 else f.owner
+                verdict = "corrupt" if f.kind == "corrupt_shard" else "die"
+                shard = 0 if f.shard is None and verdict == "corrupt" else f.shard
+                with self._lock:
+                    self._shard_faults[(verdict, f"replica_{owner}:", shard)] = f.times
+                set_redundancy_fault_hook(self._shard_hook)
+            elif f.kind == "flake_rpc":
                 with self._lock:
                     self._rpc_flakes[f.method] = self._rpc_flakes.get(f.method, 0) + f.times
                 coordination.set_rpc_fault_hook(self._rpc_hook)
@@ -170,13 +237,43 @@ class _FaultScript:
             self._rpc_flakes[method] -= 1
         return ConnectionError(f"injected rpc flake: {method} -> {addr}")
 
+    def _shard_hook(self, event: str, info: Dict[str, Any]) -> Optional[str]:
+        """EventInjector's redundancy hook: a store's serve of an armed
+        owner's shard is corrupted or dropped mid-body."""
+        if event != "shard_get":
+            return None
+        owner, idx = str(info.get("owner", "")), int(info.get("idx", -1))
+        with self._lock:
+            for key, left in self._shard_faults.items():
+                verdict, prefix, shard = key
+                if left == 0 or not owner.startswith(prefix) or shard not in (None, idx):
+                    continue
+                if left > 0:
+                    self._shard_faults[key] = left - 1
+                return verdict
+        return None
+
     def close(self) -> None:
         if any(f.kind == "flake_rpc" for f in self.fired):
             coordination.set_rpc_fault_hook(None)
+        if any(f.kind in ("corrupt_shard", "kill_shard_source") for f in self.fired):
+            set_redundancy_fault_hook(None)
 
 
 REPLICAS = 2
 LR = 3e-4
+# the trainer's shard directory: deaths come from the fault script's
+# notices; the announce-gap detector's default window (2 s) is shorter
+# than staging one bench_1b generation takes, so it waits this long and
+# never takes a slow stager for a death
+DEAD_AFTER_S = 600.0
+# timings() keys of the redundancy plane in a replica's result
+REDUNDANCY_KEYS = ("reconstructs", "reconstruct_failures", "reconstruct_s", "reconstruct_mb_per_s",
+                   "reconstruct_shards_ok",
+                   "shard_stage_hot_s", "shard_stage_snapshot_s", "shard_encode_s", "shard_put_s",
+                   "shard_stage_s", "shards_staged", "shard_stage_dropped", "shard_stage_failed",
+                   "shard_put_failed", "shard_announce_rejected", "shard_corrupt",
+                   "shard_fetch_failed", "spare_promote_step", "spare_prefetch_s")
 # Manager.timings() keys of the streamed allreduce, copied into each step's log
 PIPELINE_TIMINGS = ("allreduce_pack_s", "allreduce_wire_s", "allreduce_unpack_s",
                     "allreduce_buckets", "overlap_efficiency")
@@ -214,6 +311,14 @@ class TrainConfig:
     # scripted faults, each fired once (Fault); --fail-at N is
     # Fault(1, N, "crash", at="backward")
     faults: Tuple[Fault, ...] = ()
+    # the redundancy plane: (k, m) shards, k 0 = off; staged every
+    # redundancy_interval commits, redundancy_retain generations an owner
+    # kept in each store
+    redundancy: Tuple[int, int] = (0, 1)
+    redundancy_interval: int = 1
+    redundancy_retain: int = 2
+    # hot spares (threads beside the replicas), promoted when a member dies
+    spares: int = 0
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -259,7 +364,16 @@ def _train_replica(
     on_step: Callable[[Dict[str, Any]], None],
     stop: threading.Event,
     script: _FaultScript,
+    plane: Optional[RedundancyConfig] = None,
+    spare: bool = False,
+    done: Optional[threading.Event] = None,
+    live: Optional[Dict[int, Manager]] = None,
+    shadowing: Optional[Dict[int, Manager]] = None,
 ) -> Dict[str, Any]:
+    """One incarnation of a replica (``spare``: of a hot spare, which first
+    waits for its promotion and returns ``{"promoted": False}`` if
+    ``done`` is set before it). ``live`` maps each running member to its
+    Manager, ``shadowing`` each spare not yet promoted."""
     model, optim, make_batch = build_trainer(cfg, replica_id, device)
 
     def load_state(sd: Dict[str, Any]) -> None:
@@ -296,6 +410,8 @@ def _train_replica(
         # DiLoCo picks each sync's fragment from the step: every replica
         # must be in the quorum first
         use_async_quorum=not cfg.diloco,
+        redundancy=plane,
+        spare=spare,
     )
     tokens_per_step = cfg.batch_size * cfg.seq_len
 
@@ -315,7 +431,28 @@ def _train_replica(
         return [t.data_ptr() for t in tensors if isinstance(t, torch.Tensor)]
 
     storage0 = storage()
+    promotion: Optional[Dict[str, Any]] = None
     try:
+        if spare:
+            # shadowing: the lighthouse does not see this Manager until
+            # promote() returns
+            t_p = time.perf_counter()
+            if shadowing is not None:
+                shadowing[replica_id] = manager
+            while promotion is None:
+                if stop.is_set() or (done is not None and done.is_set()):
+                    return {"promoted": False, "step": manager.current_step(),
+                            "metrics": manager.metrics(), "timings": manager.timings()}
+                try:
+                    promotion = manager.promote(timeout=0.5)
+                except TimeoutError:
+                    continue
+            if shadowing is not None:
+                del shadowing[replica_id]
+            promotion = {**promotion, "promote_s": time.perf_counter() - t_p,
+                         "promoted_at": time.monotonic()}
+        if live is not None:
+            live[replica_id] = manager
         if cfg.diloco:
             return _diloco_loop(cfg, replica_id, model, optim, make_batch, manager, pg,
                                 transport, sync, on_step, stop, script)
@@ -363,21 +500,35 @@ def _train_replica(
                 # this step's wire
                 "wire_bytes_sent": wire1["bytes_sent"] - wire0["bytes_sent"],
                 "wire_busy_s": wire1["busy_s"] - wire0["busy_s"],
+                # the redundancy plane's hot path on a step that staged
+                # (within compute_ms), and when the step ended (monotonic
+                # clock)
+                "stage_hot_ms": timings.get("shard_stage_hot_s", 0.0) * 1e3,
+                "at": time.monotonic(),
                 **_moe_stats(model),
             })
-        return {
+        out = {
             "params": {n: p.detach().clone() for n, p in model.named_parameters()},
             "step": manager.current_step(),
             # whether the model and AdamW's state kept their storage through
-            # the heals (both transports land in place)
+            # the heals and a promotion (every path lands in place)
             "storage_kept": storage() == storage0,
             "metrics": manager.metrics(),
             "timings": manager.timings(),
         }
+        if promotion is not None:
+            out["promotion"] = promotion
+        return out
     except InjectedFailure as e:
         e.counters = _resilience(manager)
+        if isinstance(e, InjectedDeath):
+            e.replica_id = manager._replica_id
         raise
     finally:
+        if live is not None and live.get(replica_id) is manager:
+            del live[replica_id]
+        if shadowing is not None and shadowing.get(replica_id) is manager:
+            del shadowing[replica_id]
         manager.shutdown(wait=False)
         if recovery_pg is not None:
             recovery_pg.shutdown()
@@ -498,25 +649,67 @@ def run_replicas(
     device: "str | torch.device | None" = None,
     on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
 ) -> List[Dict[str, Any]]:
-    """Train ``cfg.replicas`` replica groups as threads against an
-    in-process lighthouse; returns each replica's final state, metrics and
-    per-step log. A crashed replica restarts (with a fresh model and
-    Manager) until it finishes."""
+    """Train ``cfg.replicas`` replica groups (and ``cfg.spares`` hot spares)
+    as threads against an in-process lighthouse; returns each one's final
+    state, metrics and per-step log, the spares after the replicas. A
+    crashed replica restarts (with a fresh model and Manager) until it
+    finishes; one that ``die``s does not, and its result says ``died``."""
     dev = resolve_device(device)
     n_replicas = cfg.replicas
-    # min_replicas = every replica holds the survivors in quorum while a
+    n_all = n_replicas + cfg.spares
+    k, m = cfg.redundancy
+    if not k and (cfg.spares or any(f.kind == "die" for f in cfg.faults)):
+        raise ValueError("hot spares and a `die` fault need the redundancy plane "
+                         "(redundancy k >= 1)")
+    # min_replicas = every member holds the survivors in quorum while a
     # crashed replica restarts, so the rejoin always goes through a heal
+    # (with the plane on: of the generation staged before the crash)
     lighthouse = LighthouseServer(
         bind="127.0.0.1:0", min_replicas=n_replicas,
         join_timeout_ms=1000, quorum_tick_ms=20, heartbeat_timeout_ms=2000,
     )
     addr = f"127.0.0.1:{lighthouse.port}"
+    plane = directory = None
+    if k > 0:
+        # the shard directory beside the lighthouse, polling its health
+        directory = ShardDirectory(lighthouse_addr=addr, dead_after_s=DEAD_AFTER_S)
+        plane = RedundancyConfig(
+            k=k, m=m, directory=directory.url, interval=cfg.redundancy_interval,
+            retain=cfg.redundancy_retain, timeout_s=TIMEOUT_S,
+        )
+        plane.validate()
     # set when a replica fails for real: the others stop at their next step
     # instead of waiting in quorum for a peer that will not come back
     stop = threading.Event()
     errors: List[BaseException] = []
-    logs: List[List[Dict[str, Any]]] = [[] for _ in range(n_replicas)]
-    script = _FaultScript(cfg.faults)
+    logs: List[List[Dict[str, Any]]] = [[] for _ in range(n_all)]
+    live: Dict[int, Manager] = {}
+    shadowing: Dict[int, Manager] = {}
+    # set once every member's thread has ended: an unpromoted spare stops
+    done = threading.Event()
+    members_left = [n_replicas]
+
+    def before_fault(replica: int, step: int, kind: str) -> None:
+        # a crash waits until every other member announced this step's
+        # generation: the restarted replica's heal needs one (see the
+        # module docstring), and one staged after the crash would place no
+        # shard on the crashed replica's store (a member whose interval
+        # skips this step holds the wait to its bound). A death waits
+        # until another member announced it and every spare holds it
+        if plane is None:
+            return
+        deadline = time.monotonic() + TIMEOUT_S
+        while time.monotonic() < deadline and not stop.is_set():
+            staged = [mgr.last_staged_step() >= step
+                      for j, mgr in list(live.items()) if j != replica]
+            if kind == "crash" and all(staged):
+                return
+            if kind == "die" and any(staged) and all(
+                    mgr.prefetched_step() >= step for mgr in list(shadowing.values())):
+                return
+            time.sleep(0.01)
+
+    script = _FaultScript(cfg.faults, before_fault=before_fault)
     log_lock = threading.Lock()
 
     def record(entry: Dict[str, Any]) -> None:
@@ -529,45 +722,74 @@ def run_replicas(
         restarts = 0
         # the crashed incarnations' resilience counters
         carried: Dict[str, float] = {}
-        while True:
-            try:
-                out = _train_replica(cfg, i, addr, dev, record, stop, script)
-                out["restarts"] = restarts
-                for k, n in carried.items():
-                    (out["metrics"] if k == "heals" else out["timings"])[k] += n
-                return out
-            except InjectedFailure as e:
-                restarts += 1
-                for k, n in e.counters.items():
-                    carried[k] = carried.get(k, 0) + n
-            except BaseException as e:
+        spare = i >= n_replicas
+        died: Optional[Dict[str, Any]] = None
+        try:
+            while died is None:
+                try:
+                    out = _train_replica(cfg, i, addr, dev, record, stop, script, plane=plane,
+                                         spare=spare and restarts == 0, done=done, live=live,
+                                         shadowing=shadowing)
+                    out["restarts"] = restarts
+                    # this incarnation's own heals (a restart's rejoin)
+                    out["last_incarnation"] = {
+                        key: out["timings"].get(key, 0.0)
+                        for key in ("reconstructs", "reconstruct_failures", "heal_attempts")}
+                    for k_, n in carried.items():
+                        (out["metrics"] if k_ == "heals" else out["timings"])[k_] += n
+                    return out
+                except InjectedDeath as e:
+                    for k_, n in e.counters.items():
+                        carried[k_] = carried.get(k_, 0) + n
+                    died = {"died": True, "died_at": time.monotonic(), "replica_id": e.replica_id,
+                            "restarts": restarts, "counters": carried}
+                except InjectedFailure as e:
+                    restarts += 1
+                    for k_, n in e.counters.items():
+                        carried[k_] = carried.get(k_, 0) + n
+                except BaseException as e:
+                    with log_lock:
+                        if not stop.is_set():
+                            errors.append(e)
+                            stop.set()
+                    raise
+                # past the handler (the crash's traceback is gone): the crashed
+                # or dead incarnation's model, optimizer state and EF residuals
+                # sit in reference cycles (its PGTransport's template closure
+                # holds its Manager); free them before the restart, or the
+                # spare promoted in a dead one's place, allocates its own, or
+                # the card holds both
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            # the death notice, once the dead replica's memory is freed
+            DirectoryClient(plane.directory, timeout=TIMEOUT_S).mark_dead(died["replica_id"])
+            return died
+        finally:
+            if not spare:
                 with log_lock:
-                    if not stop.is_set():
-                        errors.append(e)
-                        stop.set()
-                raise
-            # past the handler (the crash's traceback is gone): the crashed
-            # incarnation's model, optimizer state and EF residuals sit in
-            # reference cycles (its PGTransport's template closure holds its
-            # Manager); free them before the restart allocates its own, or
-            # the card holds both
-            gc.collect()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
+                    members_left[0] -= 1
+                    if members_left[0] == 0:
+                        done.set()
 
     try:
-        with ThreadPoolExecutor(max_workers=n_replicas) as ex:
-            futs = [ex.submit(replica, i) for i in range(n_replicas)]
+        with ThreadPoolExecutor(max_workers=n_all) as ex:
+            futs = [ex.submit(replica, i) for i in range(n_all)]
             for f in futs:
                 f.exception()
     finally:
         script.close()
+        if directory is not None:
+            directory.shutdown()
         lighthouse.shutdown()
     if errors:
         raise errors[0]
     results = [f.result() for f in futs]
     for i, r in enumerate(results):
         r["log"] = logs[i]
+        if plane is not None and "timings" in r:
+            r["redundancy"] = {key: r["timings"][key] for key in REDUNDANCY_KEYS
+                               if key in r["timings"]}
     return results
 
 
@@ -601,7 +823,20 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--num-fragments", type=int, default=2)
     p.add_argument("--fragment-sync-delay", type=int, default=1)
     p.add_argument("--outer-lr", type=float, default=0.7)
+    p.add_argument("--redundancy", default="0,1", metavar="K,M",
+                   help="the redundancy plane: K data + M parity shards a staged generation "
+                        "(K 0: off)")
+    p.add_argument("--redundancy-interval", type=int, default=1,
+                   help="stage every N commits")
+    p.add_argument("--redundancy-retain", type=int, default=2,
+                   help="generations an owner kept in each shard store")
+    p.add_argument("--spares", type=int, default=0,
+                   help="hot spares, promoted when a member dies (needs --redundancy)")
     args = p.parse_args(argv)
+    try:
+        red_k, red_m = (int(x) for x in args.redundancy.split(","))
+    except ValueError:
+        p.error(f"--redundancy takes K,M (two integers), not {args.redundancy!r}")
     if args.config not in MODELS[args.model][1]:
         p.error(f"--config {args.config!r} is not a {args.model} config: "
                 f"{sorted(MODELS[args.model][1])}")
@@ -613,6 +848,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         sync_every=args.sync_every, num_fragments=args.num_fragments,
         fragment_sync_delay=args.fragment_sync_delay, outer_lr=args.outer_lr,
         replicas=args.replicas, http_timeout=args.http_timeout,
+        redundancy=(red_k, red_m), redundancy_interval=args.redundancy_interval,
+        redundancy_retain=args.redundancy_retain, spares=args.spares,
     )
     results = run_replicas(
         cfg, args.device, on_step=lambda e: print(json.dumps(e), flush=True)
@@ -622,8 +859,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         losses = [e["loss"] for e in r["log"]]
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"replica {i}: non-finite loss")
+        if r.get("died") or r.get("promoted") is False:
+            print(json.dumps({"replica": i, "died": bool(r.get("died")),
+                              "promoted": r.get("promoted", True)}), flush=True)
+            continue
         line = {"replica": i, "step": r["step"], "restarts": r["restarts"],
                 "metrics": r["metrics"]}
+        if "redundancy" in r:
+            line["redundancy"] = r["redundancy"]
         if cfg.diloco:
             line["fragments_sha256"] = tensors_sha256(r["fragment_state"])
             digests.append(line["fragments_sha256"])
