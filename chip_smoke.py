@@ -102,7 +102,7 @@
    batch 1, seq 2048, two replica threads, inner AdamW steps, one of two
    fragments synced every 10 inner steps (sync every 20, delay 1) with its
    fp8 pseudogradient through the streamed allreduce, the outer Nesterov
-   SGD and the merge, 40 inner steps; replica 1 crashes after inner step
+   SGD and the merge, 30 inner steps; replica 1 crashes after inner step
    14 (after fragment 0's first sync, before fragment 1's prepare),
    restarts and heals over PGTransport into its live model, AdamW state,
    fragment globals and momentum (``data_ptr()`` kept). Checks finite
@@ -145,16 +145,16 @@
    slicing onto the host wire, the alltoall, the landing and K4, the sum);
    K3's and K4's launches are read from those turns. (b) bench_1b at full
    width as three replica groups (threads on one card), the unquantized
-   bf16 allreduce, 5 steps healed over HTTP wire v3 in place, with the
+   bf16 allreduce, 3 steps healed over HTTP wire v3 in place, with the
    reference's resilient-heal fault script (each fault fires at the start
    of its step, as the reference's ``EventInjector``): replica 2 crashes
    at step 2 and restarts, its assigned source (replica 0) drops every serve of
    chunk 0 mid-body so the heal fails over to replica 1's standby
    snapshot, which corrupts chunk 0 once (caught by its crc32, fetched
-   again), and one should_commit RPC flakes at step 4 (retried under
+   again), and one should_commit RPC flakes at step 2 (retried under
    ``TORCHFT_RETRY_MAX_ATTEMPTS=2``; the HTTP transport's timeout 30 s).
    Checks finite losses, every replica
-   at step 5, bitwise-equal replicas, on replica 2 a failover, a crc
+   at step 3, bitwise-equal replicas, on replica 2 a failover, a crc
    failure and no error, a retried RPC, the healed tensors' storage kept,
    splash attention and K1's three kernels launched; prints the median
    steady step split as the trainer's, tokens/s per replica, both
@@ -170,9 +170,9 @@
    runs of none differ, within their spread). (b) The MoE at bench_moe
    width and depth (1.80 G parameters, head dim 64) as the trainer's
    ``--model moe --config bench_moe --batch-size 1 --seq-len 2048
-   --no-quantize --steps 5 --fail-at 3`` runs it: two replica threads,
+   --no-quantize --steps 3 --fail-at 1`` runs it: two replica threads,
    full remat, the unquantized bf16 allreduce, replica 1 crashing after
-   step 3's backward pass and healing over HTTP in place. Checks finite
+   step 1's backward pass and healing over HTTP in place. Checks finite
    losses, the discarded step, the heal, bitwise-equal replicas with their
    storage kept, splash attention and K1's head-dim-64 kernels launched
    (and no other); prints the median steady step split as the trainer's,
@@ -184,7 +184,7 @@
    AdamW, full remat): three replica threads and one hot spare, the fp8
    allreduce at the Manager's defaults, HTTP heals, the shard directory
    beside the lighthouse, ``--redundancy 2,1`` with retain 1 and
-   a generation every ``RED_INTERVAL`` (2) commits, 8 steps, the
+   a generation every ``RED_INTERVAL`` (2) commits, 7 steps, the
    allocator's segments expandable (the card is ~92% full). Replica 2
    crashes at the start of step 3, once the other members have staged
    that step's generation, and restarts (at the start, not after the
@@ -197,7 +197,7 @@
    directory promote the spare, whose ``promote()`` loads that generation
    in place and joins with no heal; the quorum of replicas 0 and 2 and
    the spare trains to the end. Checks finite losses, every member left
-   and the spare at step 8 with no error, bitwise equal, storage kept, no step committed twice
+   and the spare at step 7 with no error, bitwise equal, storage kept, no step committed twice
    within an incarnation and the committed frontier never moving back,
    no shard put to a dead store (the directory retires the crashed
    incarnation and leaves the dead out of placement), splash attention,
@@ -208,6 +208,39 @@
    seconds per replica, the spare's promotion step and the time and steps
    from the death to its first commit, the device peak, the host's
    MemAvailable before and during the phase and this process's peak RSS.
+   Each Manager dumps its span ring into ``chiprun_out/trace_redundancy/``
+   (merged there into ``merged_trace.json``), and the phase prints each
+   incarnation's ``reconstruct`` and ``shard_stage`` spans.
+16. The health and tracing planes at bench_1b (full width and depth, B 1, S
+   2048, AdamW, full remat): three replica threads, the fp8 allreduce at
+   the Manager's defaults, HTTP heals, tracing on (the default) with every
+   span ring dumped and merged into ``chiprun_out/trace_health/``, the
+   lighthouse's history recorded there, every Manager serving
+   ``/metrics`` (``TORCHFT_METRICS_PORT=0``), and the health plane
+   ejecting (``--health eject``) with shortened knobs: ``MIN_SAMPLES`` 3,
+   ``EJECT_STEPS`` 2, ``PROBE_OK`` 2 and ``PROBATION_MS`` twice phase 6's
+   steady step. Replica 2 runs ``slow`` from step 3 (a host sleep before
+   each allreduce, twice its least ``step_s - wire_s`` so far) until it
+   sees itself ejected; it is then honest. Replica 0's step 1 runs under
+   ``torch.profiler`` (CPU and CUDA). A thread scrapes the lighthouse's
+   and each Manager's ``/metrics`` every second. Checks finite losses;
+   replica 2 out of the quorum within ``min_samples + eject_steps + 2`` of
+   its scored steps; replicas 0 and 1 committing at least 2 steps while it
+   is out; its readmission and heal over HTTP in place; the three bitwise
+   equal; its ``ejections`` and ``readmissions`` 1 each and the peers'
+   ``ejections`` 0; ``eject`` and ``readmit`` in the lighthouse's
+   ``recent_events``; the recorded telemetry replayed (``history_script``)
+   through the Python ``HealthLedger`` and the native ``health_replay``
+   to the same transitions, an ejection among them; the merged trace
+   holding each replica's ``quorum_rpc``, ``pack``/``wire``/``unpack``
+   and ``commit_vote`` and replica 2's ``heal_recv``; ``trace_dropped`` 0;
+   every scrape answered; the profiled step's Kineto trace holding
+   ``torchft::manager::wait_quorum`` and K1's forward kernel; the tracing
+   and telemetry cost (spans a step x the cost of one span + the
+   telemetry's publish, ``tracing_cost_us``, over the steady step) under
+   1%; K1's three kernels, K3-host and K4 launched. Prints the steady step
+   split, the ejected quorum's step, the heal on readmission, spans a
+   step, microseconds a span, the cost's share and the launches.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -817,7 +850,9 @@ def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
     from torchft_tpu_torch.train import Fault, run_replicas
 
     crash_at = 14
-    dcfg = dataclasses.replace(cfg, steps=40, faults=(Fault(1, crash_at, "crash", at="backward"),),
+    # 30 inner steps (40 before phase 16 needed the time): three syncs, the
+    # second cycle's 20-29 measured
+    dcfg = dataclasses.replace(cfg, steps=30, faults=(Fault(1, crash_at, "crash", at="backward"),),
                                transport="pg", diloco=True,
                                sync_every=20, num_fragments=2, fragment_sync_delay=1)
     q.reset_launches()
@@ -878,7 +913,8 @@ def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
     tokens = dcfg.batch_size * dcfg.seq_len
     log(f"bench_1b DiLoCo ({elapsed:.1f} s, {dcfg.steps} inner steps, crash after inner "
         f"{crash_at}, heal over pg): fragment globals and momentum bitwise equal over "
-        f"{n_tensors} tensors; replica 0 inner steps 20-39: median step without a sync "
+        f"{n_tensors} tensors; replica 0 inner steps 20-{dcfg.steps - 1}: median step without a "
+        f"sync "
         f"{statistics.median(plain):.1f} ms, mean of all {per_inner:.1f} ms "
         f"({tokens / per_inner * 1e3:.1f} tokens/s per replica; median inner_ms "
         f"{statistics.median(e['inner_ms'] for e in r0):.1f}); heal_send_s "
@@ -1203,6 +1239,26 @@ def check_reduce_scatter_on_card(device: torch.device, full_n: int, turns: int =
     return launches
 
 
+class _Env:
+    """Environment variables set for a phase, restored after it."""
+
+    def __init__(self, values: dict) -> None:
+        self._values = values
+        self._saved = {}
+
+    def __enter__(self) -> "_Env":
+        self._saved = {k: os.environ.get(k) for k in self._values}
+        os.environ.update(self._values)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for k, v in self._saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
     """Phase 13 (b): bench_1b as three replica groups with the reference's
     resilient-heal fault script, healed over HTTP v3 in place (docstring,
@@ -1212,9 +1268,10 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
     from torchft_tpu_torch.train import Fault, run_replicas
 
     rcfg = dataclasses.replace(
-        # 5 steps (6 before phase 14 needed the time): the flake at step 4
-        # still lands on a step that the three replicas run
-        cfg, replicas=3, steps=5, quantize=False, transport="http",
+        # 3 steps (6 before phase 14, 5 before phase 16 needed the time):
+        # step 1 is the steady one, step 2 takes the crash, the heal's two
+        # faults and the flake
+        cfg, replicas=3, steps=3, quantize=False, transport="http",
         # the serve side's lock wait must outlast staging 6.45 GB (up to
         # 9.9 s on the H100): a 3 s one answered a healer's metadata request
         # 503 mid-staging, failing the init heal. The serving window's grace
@@ -1225,18 +1282,15 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
             Fault(0, 2, "kill_heal_chunk", chunk=0, times=-1),
             # the standby then serves chunk 0 corrupted once
             Fault(1, 2, "corrupt_heal_chunk", chunk=0, times=1),
-            Fault(0, 4, "flake_rpc", method="should_commit"),
+            Fault(0, 2, "flake_rpc", method="should_commit"),
         ))
-    knobs = {"TORCHFT_RETRY_MAX_ATTEMPTS": "2", "TORCHFT_RETRY_BASE_S": "0.01"}
-    saved = {k: os.environ.get(k) for k in knobs}
-    os.environ.update(knobs)
     q.reset_launches()
     ta.reset_launches()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
+    with _Env({"TORCHFT_RETRY_MAX_ATTEMPTS": "2", "TORCHFT_RETRY_BASE_S": "0.01"}):
         results = run_replicas(rcfg, device, on_step=lambda e: log(
             f"resilient step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
             f"participants={e['participants']} committed={e['committed']} healed={e['healed']} "
@@ -1244,12 +1298,6 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
             f"compute_ms={e['compute_ms']:.1f} allreduce_ms={e['allreduce_ms']:.1f} "
             f"tokens_per_s={e['tokens_per_s']:.1f} buckets={int(e['allreduce_buckets'])} "
             f"wire_ms={e['allreduce_wire_s'] * 1e3:.1f}"))
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     elapsed = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {**q.LAUNCHES, **ta.LAUNCHES}
@@ -1399,18 +1447,20 @@ def check_remat_bench_1b(device: torch.device) -> dict:
 def check_moe_bench_moe(device: torch.device) -> dict:
     """Phase 14 (b): the MoE at bench_moe width and depth as the trainer's
     ``--model moe --config bench_moe --batch-size 1 --seq-len 2048
-    --no-quantize --steps 5 --fail-at 3`` runs it: two replica threads,
+    --no-quantize --steps 3 --fail-at 1`` runs it: two replica threads,
     full remat, the unquantized bf16 allreduce, replica 1 crashing after
-    step 3's backward pass and healing over HTTP in place. Returns the
+    step 1's backward pass and healing over HTTP in place. Returns the
     run's launches."""
     from torchft_tpu_torch.models.moe import MOE_CONFIGS
     from torchft_tpu_torch.ops import attention as ta
     from torchft_tpu_torch.ops import quantization as q
     from torchft_tpu_torch.train import Fault, TrainConfig, run_replicas
 
-    mcfg = TrainConfig(model="moe", config="bench_moe", steps=5, batch_size=1, seq_len=2048,
+    # 3 steps (5 before phase 16 needed the time): the crash after step 1's
+    # backward pass, its heal on the redo, step 2 the steady one
+    mcfg = TrainConfig(model="moe", config="bench_moe", steps=3, batch_size=1, seq_len=2048,
                        quantize=False, transport="http", remat="full",
-                       faults=(Fault(1, 3, "crash", at="backward"),))
+                       faults=(Fault(1, 1, "crash", at="backward"),))
     model_cfg = MOE_CONFIGS[mcfg.config]
     if model_cfg.head_dim != 64:
         raise RuntimeError(f"bench_moe's head dim is {model_cfg.head_dim}, not 64")
@@ -2252,7 +2302,8 @@ def time_model_fwd_bwd(device: torch.device) -> dict:
 
 
 # phase 15: the redundancy plane at bench_1b (docstring, 15)
-RED_MEMBERS, RED_STEPS = 3, 8
+# 7 steps (8 before phase 16 needed the time): the spare commits steps 5 and 6
+RED_MEMBERS, RED_STEPS = 3, 7
 RED_CRASH = (2, 3)  # crashes at the step's start and restarts: healed by reconstruct
 RED_DEATH = (1, 5)  # dies at the step's start, for good: the spare takes its place
 # a generation every second commit: the host (101 GB on the H100 machine)
@@ -2307,9 +2358,13 @@ def check_redundancy_bench_1b(device: torch.device, cfg, http_heal: dict) -> dic
     from torchft_tpu_torch.ops import quantization as q
     from torchft_tpu_torch.train import Fault, run_replicas
 
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                             "trace_redundancy")
+    shutil.rmtree(trace_dir, ignore_errors=True)
     rcfg = dataclasses.replace(
         cfg, replicas=RED_MEMBERS, steps=RED_STEPS, quantize=True, transport="http",
         redundancy=(2, 1), redundancy_retain=1, redundancy_interval=RED_INTERVAL, spares=1,
+        trace_dir=trace_dir,
         faults=(Fault(RED_CRASH[0], RED_CRASH[1], "crash"),
                 Fault(RED_DEATH[0], RED_DEATH[1], "die")))
     gc.collect()
@@ -2443,6 +2498,14 @@ def check_redundancy_bench_1b(device: torch.device, cfg, http_heal: dict) -> dic
         f"step {spare_commits[0]['step']}; replica {RED_DEATH[0]} died at the start of step "
         f"{RED_DEATH[1]}, once the spare held that step's generation; no heal); promote() "
         f"waited {spare['promotion']['promote_s']:.1f} s from the spare's start")
+    # the plane's spans, from the merged trace of every incarnation's dump
+    with open(os.path.join(trace_dir, "merged_trace.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"
+                 and e["name"] in ("reconstruct", "shard_stage")]
+    for rid in sorted({e["args"]["replica_id"] for e in spans}):
+        mine = [e for e in spans if e["args"]["replica_id"] == rid]
+        log(f"redundancy spans {rid}: " + ", ".join(
+            f"{e['name']} step {e['args'].get('step')} {e['dur'] / 1e3:.1f} ms" for e in mine))
     log(f"redundancy memory: device peak {peak / 2**30:.2f} GiB; host: this process's peak RSS "
         f"{host.peak_rss / 2**30:.1f} GiB, MemAvailable at least {host.min_available / 2**30:.1f} "
         f"GiB during the phase; launches {launches}")
@@ -2469,6 +2532,294 @@ def _incarnations(log_entries: list) -> list:
         cur.append(e)
         last = e["step"]
     return out + [cur] if cur else out
+
+
+# phase 16: the health and tracing planes at bench_1b (docstring, 16)
+# the run goes on past HW_STEPS until a step all three take part in
+HW_REPLICAS, HW_STEPS = 3, 11
+# replica 2 sleeps before each allreduce from this step (its warm-up
+# before: step 0's init heal, steps 1 and 2 its compute samples, step 1
+# under the profiler) until it sees itself ejected
+HW_SLOW = (2, 3)
+# the shortened healthwatch knobs of the phase (PROBATION_MS: about two of
+# phase 6's steady steps, set in the phase)
+HW_KNOBS = {"TORCHFT_HEALTH_MIN_SAMPLES": "3", "TORCHFT_HEALTH_EJECT_STEPS": "2",
+            "TORCHFT_HEALTH_PROBE_OK": "2", "TORCHFT_METRICS_PORT": "0"}
+HW_PROFILE_STEP = 1  # replica 0's step under torch.profiler
+# the tracing and telemetry cost's share of the steady step (bench.py:574-620)
+HW_COST_BAR = 0.01
+
+
+class Scraper:
+    """Scrapes every ``/metrics`` of a run (the lighthouse's and each live
+    Manager's, as ``fleet`` names them) every ``every`` seconds on a thread;
+    counts the answers and the failures per endpoint. A scrape that fails
+    after its endpoint left ``fleet`` (a Manager or the lighthouse shutting
+    down) is not counted."""
+
+    def __init__(self, fleet: dict, every: float = 1.0) -> None:
+        self.ok: dict = {}
+        self.failed: dict = {}
+        self._fleet = fleet
+        self._every = every
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _scrape(self, name: str, url: str, live) -> None:
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(url, timeout=10.0) as resp:
+                body = resp.read().decode()
+            if "# TYPE" not in body:
+                raise RuntimeError(f"no exposition from {url}")
+            self.ok[name] = self.ok.get(name, 0) + 1
+        except Exception as e:  # noqa: BLE001 - counted, gated after the run
+            if live():
+                self.failed.setdefault(name, []).append(repr(e)[:200])
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._every):
+            lh = self._fleet.get("lighthouse")
+            if lh is None:
+                continue
+            self._scrape("lighthouse", f"http://{lh}/metrics",
+                         lambda: self._fleet.get("lighthouse") == lh)
+            ports = self._fleet.get("metrics_ports", {})
+            for rid, port in list(ports.items()):
+                self._scrape(f"replica {rid}", f"http://127.0.0.1:{port}/metrics",
+                             lambda rid=rid, port=port: ports.get(rid) == port)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def tracing_cost_us(calls: int = 20000) -> dict:
+    """The port's per-span record cost (span, record_rel and instant in
+    turns, as bench.py:574-620) and the telemetry's per-step cost (a
+    publish to the heartbeat and the summary read back, on a live
+    ManagerServer), in microseconds."""
+    from torchft_tpu_torch.coordination import LighthouseServer, ManagerServer
+    from torchft_tpu_torch.tracing import SpanRecorder, TraceConfig
+
+    rec = SpanRecorder("cost", TraceConfig(buffer=4096))
+    rec.set_context(quorum_id=1, step=1)
+    t0 = time.perf_counter()
+    for i in range(calls):
+        with rec.span("bench_span", cat="commit"):
+            pass
+        pc = time.perf_counter()
+        rec.record_rel("bench_rel", cat="allreduce", t0_pc=pc - 1e-4, t1_pc=pc, bucket=i)
+        rec.instant("bench_instant", cat="rpc")
+    span_us = (time.perf_counter() - t0) / (3 * calls) * 1e6
+    lh = LighthouseServer(bind="127.0.0.1:0", min_replicas=1)
+    server = ManagerServer(replica_id="cost", lighthouse_addr=f"127.0.0.1:{lh.port}",
+                           bind="127.0.0.1:0", heartbeat_interval=0.1)
+    try:
+        n = 2000
+        t0 = time.perf_counter()
+        for i in range(n):
+            server.publish_telemetry({"step": i, "step_s": 1.0, "wire_s": 0.5,
+                                      "heal_attempts": 0.0, "rpc_retries": 0.0,
+                                      "collective_reroute": 0.0, "chunk_crc_failures": 0.0})
+            server.health()
+        telemetry_us = (time.perf_counter() - t0) / n * 1e6
+    finally:
+        server.shutdown()
+        lh.shutdown()
+    return {"span_us": span_us, "telemetry_us": telemetry_us}
+
+
+def check_health_tracing_bench_1b(device: torch.device, cfg, steady_step_ms: float) -> dict:
+    """Phase 16: bench_1b as three replica threads with the health plane
+    ejecting and tracing on; replica 2 runs slow until ejected, is
+    readmitted after probation and heals (docstring, 16). Returns the
+    phase's launches."""
+    from torchft_tpu_torch.coordination import health_replay
+    from torchft_tpu_torch.healthwatch import HealthConfig, HealthLedger, history_script
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.tracing import load_history
+    from torchft_tpu_torch.train import Fault, run_replicas
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                           "trace_health")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    probation_ms = int(2 * steady_step_ms)
+    hcfg = dataclasses.replace(
+        cfg, replicas=HW_REPLICAS, steps=HW_STEPS, quantize=True, transport="http",
+        health="eject", trace_dir=out_dir, profile_step=HW_PROFILE_STEP,
+        faults=(Fault(HW_SLOW[0], HW_SLOW[1], "slow", at="backward", times=-1),))
+    q.reset_launches()
+    ta.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # Kineto initializes on the first profiler's thread, and must on this
+    # one: replica 0's thread profiles its step
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device=device).add_(1)
+    fleet: dict = {}
+    t0 = time.perf_counter()
+    with _Env({**HW_KNOBS, "TORCHFT_HEALTH_PROBATION_MS": str(probation_ms)}):
+        health_cfg = HealthConfig.from_env()
+        scraper = Scraper(fleet)
+        try:
+            results = run_replicas(hcfg, device, fleet=fleet, on_step=lambda e: log(
+                f"health step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+                f"participants={e['participants']} committed={e['committed']} "
+                f"healed={e['healed']} health_state={e['health_state']:.0f} "
+                f"step_ms={e['step_ms']:.1f} compute_ms={e['compute_ms']:.1f} "
+                f"allreduce_ms={e['allreduce_ms']:.1f} slow_ms={e['slow_ms']:.1f} "
+                f"wire_ms={e['allreduce_wire_s'] * 1e3:.1f}"))
+        finally:
+            scraper.stop()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    entries = [e for r in results for e in r["log"]]
+    losses = [e["loss"] for e in entries]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"health: non-finite loss: {losses}")
+    slow = results[HW_SLOW[0]]
+    peers = [r for i, r in enumerate(results) if i != HW_SLOW[0]]
+    st = slow["timings"]
+
+    # the straggler: ejected within min_samples + eject_steps + 2 of its
+    # scored steps (its committed steps from the first slow one up to its
+    # exclusion, which its heal on readmission ends)
+    slow_log = slow["log"]
+    first_slow = next(i for i, e in enumerate(slow_log) if e["slow_ms"] > 0)
+    back = next((i for i, e in enumerate(slow_log) if i > first_slow and e["healed"]), None)
+    if back is None:
+        raise RuntimeError(f"health: replica {HW_SLOW[0]} was not readmitted and healed: "
+                           f"{fleet['health'].get('recent_events')}")
+    scored = sum(1 for e in slow_log[first_slow:back] if e["committed"])
+    bar = health_cfg.min_samples + health_cfg.eject_steps + 2
+    if scored > bar:
+        raise RuntimeError(f"health: ejected after {scored} scored steps, more than {bar}")
+    out = [[e for e in r["log"] if e["committed"] and e["participants"] == HW_REPLICAS - 1]
+           for r in peers]
+    if min(len(o) for o in out) < 2:
+        raise RuntimeError(f"health: the peers committed {[len(o) for o in out]} steps while "
+                           "replica 2 was out, fewer than 2")
+    if slow_log[back]["slow_ms"] or not slow["storage_kept"] or slow["metrics"]["errors"]:
+        raise RuntimeError(f"health: replica {HW_SLOW[0]} did not heal in place after its "
+                           f"readmission: {slow['metrics']}, storage kept {slow['storage_kept']}")
+    if (st["ejections"], st["readmissions"]) != (1.0, 1.0) or any(
+            r["timings"]["ejections"] for r in peers):
+        raise RuntimeError(f"health: ejections/readmissions {st['ejections']}/"
+                           f"{st['readmissions']}, peers' ejections "
+                           f"{[r['timings']['ejections'] for r in peers]}")
+    kinds = [e["kind"] for e in fleet["health"].get("recent_events", [])]
+    if "eject" not in kinds or "readmit" not in kinds:
+        raise RuntimeError(f"health: the lighthouse's recent_events hold {kinds}")
+    p0 = results[0]["params"]
+    for i in range(1, HW_REPLICAS):
+        unequal = [k for k in p0 if not same_bits(p0[k], results[i]["params"][k])]
+        if unequal:
+            raise RuntimeError(f"health: replica {i} differs in {unequal[:5]}")
+    # the recorded telemetry through both ledgers: the same transitions
+    history = load_history(os.path.join(out_dir, "lighthouse_history.jsonl"))
+    script = history_script(history)
+    opts = dict(health_cfg.to_json(), mode="eject", heartbeat_timeout_ms=2000,
+                min_replicas=HW_REPLICAS - 1)
+    native = [(e["t_ms"], e["kind"], e["replica_id"]) for e in health_replay(script, opts)["events"]]
+    ledger = HealthLedger(dataclasses.replace(health_cfg, mode="eject"), heartbeat_timeout_ms=2000,
+                          min_replicas=HW_REPLICAS - 1)
+    python = []
+    for x in script:
+        evs = (ledger.tick(x["t_ms"]) if x.get("tick")
+               else ledger.on_heartbeat(x["replica_id"], x.get("telemetry"), x["t_ms"]))
+        python += [(x["t_ms"], e["kind"], e["replica_id"]) for e in evs]
+    if native != python or not any(k == "eject" for _, k, _ in python):
+        raise RuntimeError(f"health: the replayed telemetry's transitions differ or hold no "
+                           f"eject: native {native}, python {python}")
+    live = [(e["kind"], e["replica_id"].split(":")[0]) for e in history
+            if e.get("kind") in ("straggler_warn", "eject", "readmit")]
+
+    # tracing: the merged trace's spans, the rings' losses, the scrapes
+    with open(fleet["trace"]) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    want = {"quorum_rpc", "pack", "wire", "unpack", "commit_vote"}
+    for i in range(HW_REPLICAS):
+        names = {e["name"] for e in spans if e["args"]["replica_id"].startswith(f"replica_{i}:")}
+        if not want <= names:
+            raise RuntimeError(f"health: replica {i}'s merged spans lack {want - names}")
+    if not any(e["name"] == "heal_recv" and e["args"]["replica_id"].startswith(
+            f"replica_{HW_SLOW[0]}:") for e in spans):
+        raise RuntimeError(f"health: no heal_recv span of replica {HW_SLOW[0]}")
+    dropped = [r["timings"]["trace_dropped"] for r in results]
+    if any(dropped):
+        raise RuntimeError(f"health: spans dropped {dropped}")
+    if scraper.failed or len(scraper.ok) != HW_REPLICAS + 1:
+        raise RuntimeError(f"health: /metrics scrapes answered {scraper.ok}, failed "
+                           f"{ {k: v[:2] for k, v in scraper.failed.items()} }")
+    prof_path = os.path.join(out_dir, f"profile_step{HW_PROFILE_STEP}.json")
+    with open(prof_path) as f:
+        prof = json.load(f)["traceEvents"]
+    # every kernel of three replicas' step: too large to bring back
+    os.remove(prof_path)
+    k1_fwd = ATTN_INSTANCE[torch.bfloat16]["fwd"].format(split="true").replace(" ", "")
+    kernels = {m.group(0).replace(" ", "") for e in prof if e.get("cat") == "kernel"
+               for m in [ATTN_KERNEL.search(e.get("name", ""))] if m}
+    ranges = {e.get("name") for e in prof if str(e.get("name", "")).startswith("torchft::")}
+    if "torchft::manager::wait_quorum" not in ranges or k1_fwd not in kernels:
+        raise RuntimeError(f"health: the profiled step lacks wait_quorum or K1's forward: "
+                           f"ranges {sorted(ranges)}, attention kernels {sorted(kernels)}")
+
+    # the cost: spans a step x the cost of one + the telemetry's, over the
+    # steady step
+    slept = {e["step"] for e in slow_log if e["slow_ms"] > 0}
+    steady = [e for e in entries if e["committed"] and e["participants"] == HW_REPLICAS
+              and not e["healed"] and e["step"] > 0 and e["step"] not in slept]
+    if not steady:
+        raise RuntimeError("health: no steady step")
+    med = {k: statistics.median(e[k] for e in steady)
+           for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
+    per_step = [sum(1 for e in spans if e["args"]["replica_id"].startswith(f"replica_{i}:"))
+                / max(1, sum(1 for e in results[i]["log"] if e["committed"]))
+                for i in range(HW_REPLICAS)]
+    cost = tracing_cost_us()
+    share = (max(per_step) * cost["span_us"] + cost["telemetry_us"]) / (med["step_ms"] * 1e3)
+    if share >= HW_COST_BAR:
+        raise RuntimeError(f"health: tracing and telemetry cost {share:.4%} of the step")
+    out_ms = statistics.median(e["step_ms"] for o in out for e in o)
+    h = slow["timings"]
+    log(f"health bench_1b ({elapsed:.1f} s, {HW_REPLICAS} replicas, fp8 allreduce, health eject: "
+        f"min_samples {health_cfg.min_samples}, eject_steps {health_cfg.eject_steps}, probation "
+        f"{health_cfg.probation_ms} ms, probe_ok {health_cfg.probe_ok}): replicas bitwise equal "
+        f"over {len(p0)} tensors at step {results[0]['step']}; median of {len(steady)} steady "
+        f"steps: step {med['step_ms']:.1f} ms = quorum+fwd+bwd {med['compute_ms']:.1f} ms + "
+        f"allreduce {med['allreduce_ms']:.1f} ms + commit+optimizer "
+        f"{med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
+        f"{med['tokens_per_s']:.1f} tokens/s per replica")
+    log(f"health straggler: replica {HW_SLOW[0]} slept "
+        f"{[round(e['slow_ms'], 1) for e in slow_log if e['slow_ms'] > 0]} ms before its "
+        f"allreduces, ejected after {scored} scored steps (bar {bar}); the ejected quorum's "
+        f"step {out_ms:.1f} ms median over {sum(len(o) for o in out)} peer steps "
+        f"({[len(o) for o in out]}); readmitted and healed: heal_recv_s "
+        f"{h.get('heal_recv_s', float('nan')):.3f} ({h.get('heal_mb_per_s', float('nan')):.1f} "
+        f"MiB/s, {h.get('heal_chunks', 0):.0f} chunks); ejections {st['ejections']:.0f}, "
+        f"readmissions {st['readmissions']:.0f}; live transitions {live}; replayed through both "
+        f"ledgers: {[(k, r.split(':')[0]) for _, k, r in python]}")
+    log(f"health tracing: {len(spans)} spans merged, spans per step "
+        f"{[round(x, 2) for x in per_step]}, {cost['span_us']:.3f} us a span, telemetry "
+        f"{cost['telemetry_us']:.3f} us a step: {share:.5%} of the steady step (bar "
+        f"{HW_COST_BAR:.0%}); trace_dropped {dropped}; /metrics scrapes answered {scraper.ok}; "
+        f"profiled step {HW_PROFILE_STEP} of replica 0 holds torchft::manager::wait_quorum and "
+        f"{k1_fwd} in one Kineto trace; device peak {peak / 2**30:.2f} GiB; launches {launches}")
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv", "quantize_fp8_rowwise_host",
+                   "dequantize_fp8_rowwise"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} never launched on the health path")
+    del results, p0, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2562,14 +2913,17 @@ def main() -> int:
     steady = [e for r in results for e in r["log"]
               if e["committed"] and e["participants"] == 2 and not e["healed"]
               and e["step"] > 0]
-    if steady:
-        med = {k: statistics.median(e[k] for e in steady)
-               for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
-        log("steady steps (2 participants, median of "
-            f"{len(steady)}): step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
-            f"{med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} ms + "
-            f"commit+optimizer {med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
-            f"{med['tokens_per_s']:.1f} tokens/s per replica")
+    if not steady:
+        raise RuntimeError("training: no steady step")
+    med = {k: statistics.median(e[k] for e in steady)
+           for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
+    # phase 16's probation is about two of these steps
+    ddp_step_ms = med["step_ms"]
+    log("steady steps (2 participants, median of "
+        f"{len(steady)}): step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
+        f"{med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} ms + "
+        f"commit+optimizer {med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
+        f"{med['tokens_per_s']:.1f} tokens/s per replica")
     losses = [e["loss"] for r in results for e in r["log"]]
     if not losses or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"non-finite loss: {losses}")
@@ -2642,6 +2996,7 @@ def main() -> int:
     moe_launches = check_moe_bench_moe(device)
     moe_stats, moe_timing = check_bench_moe_attention(device)
     red_launches = check_redundancy_bench_1b(device, cfg, http_heal)
+    health_launches = check_health_tracing_bench_1b(device, cfg, ddp_step_ms)
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -2680,6 +3035,8 @@ def main() -> int:
             "launches_reduce_scatter": rs_launches[kname],
             # phase 15: bench_1b with the redundancy plane
             "launches_redundancy": red_launches[kname],
+            # phase 16: bench_1b with the health and tracing planes
+            "launches_health": health_launches[kname],
             **sass_counts(build_report[instance]),
         })
     for dtype, (suffix, sources) in ATTN_DTYPES.items():
@@ -2704,7 +3061,9 @@ def main() -> int:
                         "launches_remat": {mode: r["launches"][kernel]
                                            for mode, r in remat.items()},
                         # phase 15: bench_1b with the redundancy plane
-                        "launches_redundancy": red_launches[key]}
+                        "launches_redundancy": red_launches[key],
+                        # phase 16: bench_1b with the health and tracing planes
+                        "launches_health": health_launches[key]}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],

@@ -35,3 +35,21 @@ def test_a_refused_launch_raises_and_is_not_counted(status, words):
     ta._launch(0, "splash_fwd")
     assert ta.LAUNCHES["splash_fwd"] == 1
     ta.reset_launches()
+
+
+def test_control_plane_library_name_follows_the_compiler_version(monkeypatch):
+    """The control-plane library built by one toolchain is not loaded by a
+    tree copied to a machine with another: its name hashes ``--version``."""
+    import subprocess
+
+    from torchft_tpu_torch import coordination
+
+    real = subprocess.run
+    names = []
+    for version in ("g++ 12.2.0", "g++ 13.3.0", "g++ 12.2.0"):
+        monkeypatch.setattr(
+            coordination.subprocess, "run",
+            lambda argv, *a, version=version, **k: subprocess.CompletedProcess(argv, 0, version, "")
+            if argv[1:] == ["--version"] else real(argv, *a, **k))
+        names.append(coordination._so_path("g++"))
+    assert names[0] == names[2] != names[1]

@@ -33,7 +33,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     modules = _port_modules()
     for name in ("manager", "ops.quantization", "local_sgd", "knobs", "examples.train_diloco",
                  "parallel.mesh", "parallel.ring_attention", "parallel.ulysses",
-                 "examples.train_llama_hsdp", "models.remat", "models.moe"):
+                 "examples.train_llama_hsdp", "models.remat", "models.moe", "tracing", "trace",
+                 "flight_recorder", "observability", "healthwatch"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -110,6 +111,17 @@ def test_redundancy_plane_imports_no_jax_even_lazily(module):
     at top level or inside a function (``ShardDirectory._poll_health``,
     ``_maybe_promote``, ``LighthouseServer``'s directory), stays in the
     port."""
+    roots = _import_roots(os.path.join("torchft_tpu_torch", *module.split(".")) + ".py")
+    assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
+    assert f"torchft_tpu_torch.{module}" in _port_modules()
+
+
+@pytest.mark.parametrize("module", ["tracing", "trace", "flight_recorder", "observability",
+                                    "healthwatch", "knobs", "process_group"])
+def test_observability_and_health_plane_import_no_jax_even_lazily(module):
+    """The health and observability planes: every import, at top level or
+    inside a function (``history_replay``'s loader, the OpenTelemetry
+    mirror), stays in the port."""
     roots = _import_roots(os.path.join("torchft_tpu_torch", *module.split(".")) + ".py")
     assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
     assert f"torchft_tpu_torch.{module}" in _port_modules()

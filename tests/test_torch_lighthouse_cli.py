@@ -124,7 +124,8 @@ def _parsed(module, argv):
 @pytest.mark.parametrize("argv", [[], ["--min_replicas", "3", "--quorum-tick-ms", "7"],
                                   ["--bind", "127.0.0.1:0", "--join_timeout_ms", "9",
                                    "--heartbeat-timeout-ms", "11"],
-                                  ["--redundancy-directory"], ["--redundancy_directory"]])
+                                  ["--redundancy-directory"], ["--redundancy_directory"],
+                                  ["--history", "history.jsonl"]])
 def test_cli_options_are_the_references(argv):
     """Defaults and spellings: the port's CLI hands its server what the
     reference's hands its own, for every option the port takes."""
@@ -134,12 +135,13 @@ def test_cli_options_are_the_references(argv):
     port = _parsed(lighthouse, argv)
     ref = _parsed(jax_lighthouse, argv)
     assert port == {k: ref[k] for k in port}
-    assert sorted(port) == ["bind", "heartbeat_timeout_ms", "join_timeout_ms", "min_replicas",
-                            "quorum_tick_ms", "redundancy_directory"]
+    assert sorted(port) == ["bind", "heartbeat_timeout_ms", "history_path", "join_timeout_ms",
+                            "min_replicas", "quorum_tick_ms", "redundancy_directory"]
 
 
 def test_cli_exits_nonzero_on_an_unknown_flag():
-    out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--history", "x"],
+    # the reference's --policy comes with the policy plane
+    out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--policy", "x"],
                          cwd=REPO, capture_output=True, text=True, timeout=60)
     assert out.returncode != 0 and "unrecognized arguments" in out.stderr
 
@@ -166,3 +168,23 @@ def test_cli_co_hosts_the_shard_directory():
     finally:
         rc = _stop(proc, signal.SIGTERM, lines)
     assert rc == 0, "\n".join(lines)
+
+
+def test_cli_records_its_history(tmp_path):
+    """``--history PATH``: the quorum the two Managers took is in the
+    JSONL, and ``python -m torchft_tpu_torch.trace history`` folds it."""
+    import json
+
+    path = tmp_path / "history.jsonl"
+    proc, addr, lines = _start(["--bind", "127.0.0.1:0", "--min-replicas", "2",
+                                "--quorum-tick-ms", "20", "--history", str(path)])
+    try:
+        assert all(committed for _, _, committed in _quorum_of_two(addr))
+    finally:
+        rc = _stop(proc, signal.SIGTERM, lines)
+    assert rc == 0, "\n".join(lines)
+    out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.trace", "history", str(path)],
+                         cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout)
+    assert summary["quorum_transitions"] >= 1 and len(summary["replicas"]) == 2, summary

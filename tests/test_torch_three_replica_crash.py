@@ -8,6 +8,16 @@ discarded. With three replicas one survivor sees the dead socket at once,
 while the other's ring receive waits on the survivor that failed first,
 whose connection stays open: it waits out its process group's timeout.
 
+The second case runs the same script on the compressed fp8 ring
+(``should_quantize``: each package's ``_ring_allreduce_compressed``, the
+debug Llama's gradients in several streamed buckets), the crasher
+sleeping a few seconds after its backward pass before it dies, as on the
+card, where the crash waited for the redundancy plane's staging. There,
+one survivor's allreduce waited out the Manager's 120 s timeout. On the
+CPU neither package stalls: the ring's re-route flood tells both
+survivors of the dead links, and both discard the step as soon as the
+crasher's sockets close.
+
 The reference runs the script first (its ``Manager``, ``ProcessGroupHost``
 and ``HTTPTransport`` as replica threads, gradients by ``jax.grad`` of
 ``llama_loss``), then the port's trainer (``train.run_replicas``) with the
@@ -40,9 +50,11 @@ class _Crash(Exception):
     pass
 
 
-def _reference_run():
+def _reference_run(quantize=False, delay_s=0.0):
     """The script on the reference: each replica's (step, committed,
-    step_ms) votes and final parameters."""
+    step_ms) votes. ``quantize``: the allreduce takes ``should_quantize``
+    (the compressed fp8 ring); ``delay_s``: the crasher sleeps that long
+    after its backward pass before it dies."""
     cfg = jl.CONFIGS["debug"]
     grad_fn = jax.jit(jax.value_and_grad(lambda p, t, y: jl.llama_loss(p, t, y, cfg)))
     fired = []
@@ -73,8 +85,9 @@ def _reference_run():
                     grads = jax.tree_util.tree_map(np.asarray, grads)
                     if (rid, step) == (1, CRASH_STEP) and not fired:
                         fired.append(rid)
+                        time.sleep(delay_s)
                         raise _Crash()
-                    avg = manager.allreduce(grads).get_future().wait()
+                    avg = manager.allreduce(grads, should_quantize=quantize).get_future().wait()
                     committed = manager.should_commit()
                     if committed:
                         params["p"] = jax.tree_util.tree_map(lambda p, a: p - 0.01 * a,
@@ -103,12 +116,20 @@ def _reference_run():
     return [votes for votes, _ in out]
 
 
-def _port_run(monkeypatch):
+def _port_run(monkeypatch, quantize=False, delay_s=0.0):
     from torchft_tpu_torch import train
     from torchft_tpu_torch.train import Fault
 
     monkeypatch.setattr(train, "TIMEOUT_S", TIMEOUT_S)
-    cfg = train.TrainConfig(config="debug", steps=STEPS, seq_len=16, quantize=False,
+    check = train._FaultScript.check
+
+    def delayed_check(self, replica, step, at, transport):
+        if (replica, step, at) == (1, CRASH_STEP, "backward"):
+            time.sleep(delay_s)
+        return check(self, replica, step, at, transport)
+
+    monkeypatch.setattr(train._FaultScript, "check", delayed_check)
+    cfg = train.TrainConfig(config="debug", steps=STEPS, seq_len=16, quantize=quantize,
                             replicas=REPLICAS, transport="http",
                             faults=(Fault(1, CRASH_STEP, "crash", at="backward"),))
     results = train.run_replicas(cfg, "cpu")
@@ -145,3 +166,30 @@ def test_a_crash_after_backward_stalls_one_survivor_for_the_pg_timeout_in_both(m
         # the timeout, and no longer than it (plus the step's own work)
         assert stalls[0] < 0.5 * bound_ms, (name, stalls)
         assert 0.9 * bound_ms <= stalls[1] <= bound_ms + 3e3, (name, stalls)
+
+
+# the crasher's sleep before it dies: the card's staging wait, scaled to
+# TIMEOUT_S (~20 s of 120 s there)
+CRASH_DELAY_S = 0.4 * TIMEOUT_S
+
+
+def test_a_crash_after_backward_on_the_fp8_ring_stalls_no_survivor_in_either(monkeypatch):
+    monkeypatch.setenv("TORCHFT_BUCKET_CAP_MB", "0.25")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = {
+            "reference": _reference_run(quantize=True, delay_s=CRASH_DELAY_S),
+            "port": _port_run(monkeypatch, quantize=True, delay_s=CRASH_DELAY_S),
+        }
+    finally:
+        torch.set_num_threads(n)
+    bound_ms = TIMEOUT_S * 1e3
+    for name, votes in runs.items():
+        for rid in (0, 2):
+            assert [s for s, c, _ in votes[rid] if c] == list(range(STEPS)), (name, rid)
+        # each survivor's discarded step: the crasher's sleep, then the
+        # failure at once; a survivor that waited out the timeout (counted
+        # from its allreduce's start) would take the whole bound
+        for stall in _discarded_ms(votes):
+            assert 0.8 * CRASH_DELAY_S * 1e3 <= stall < 0.9 * bound_ms, (name, stall)

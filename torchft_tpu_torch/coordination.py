@@ -10,7 +10,8 @@ This package builds its OWN shared library from ``native/*.cc`` (the
 Makefile's sources plus ``capi.cc``) straight into
 ``torchft_tpu_torch/_native/``, one ``g++`` per source started together,
 under its own file lock. The library's name carries a hash of the native
-sources, headers and flags, so an edited source rebuilds. It never loads the JAX package's library and never
+sources, headers, flags and the compiler's version, so an edited source,
+or a tree copied to a machine with another toolchain, rebuilds. It never loads the JAX package's library and never
 runs ``make`` (which writes ``native/*.o`` and would race that package's
 build).
 
@@ -37,8 +38,9 @@ import os
 import subprocess
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+from torchft_tpu_torch.healthwatch import HealthConfig
 from torchft_tpu_torch.retry import RetryBudgetExhausted, RetryPolicy, retry_call
 
 __all__ = [
@@ -51,6 +53,9 @@ __all__ = [
     "KvStoreServer",
     "KvClient",
     "ensure_native_built",
+    "health_replay",
+    "health_scores",
+    "history_replay",
     "set_rpc_fault_hook",
 ]
 
@@ -63,6 +68,12 @@ _SOURCES = (
     "lighthouse", "aggregator", "manager_server", "capi",
 )
 _CXXFLAGS = ("-std=c++17", "-O2", "-fPIC", "-pthread")
+# a compiler that links the C++ runtime statically (as the H100 machine's
+# $CXX does) puts a second libstdc++ in a process that already has torch's:
+# its symbols must bind inside the library, or the two runtimes' iostream
+# and locale state meet and a formatted double (the lighthouse's /metrics)
+# faults
+_LDFLAGS = ("-shared", "-pthread", "-Wl,--exclude-libs,ALL")
 
 # status codes from native/capi.cc
 _OK, _TIMEOUT, _ERROR, _NOT_FOUND, _INVALID, _UNAVAILABLE = range(6)
@@ -70,8 +81,10 @@ _OK, _TIMEOUT, _ERROR, _NOT_FOUND, _INVALID, _UNAVAILABLE = range(6)
 
 def _so_path(cxx: str) -> str:
     """The library's path, named by a hash of every native source and
-    header, the compiler and the flags."""
-    h = hashlib.sha256(" ".join((cxx, *_CXXFLAGS)).encode())
+    header, the compiler (its ``--version``: a tree copied to a machine
+    with another toolchain builds anew) and the flags."""
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
+    h = hashlib.sha256(" ".join((cxx, version, *_CXXFLAGS, *_LDFLAGS)).encode())
     files = [os.path.join(_NATIVE_SRC, f"{name}.cc") for name in _SOURCES]
     files += sorted(glob.glob(os.path.join(_NATIVE_SRC, "*.h")))
     for path in files:
@@ -122,7 +135,7 @@ def _build(cxx: str, so_path: str) -> None:
     if failed:
         raise RuntimeError("native control-plane build failed:\n" + "\n".join(failed))
     tmp = f"{so_path}.{os.getpid()}.tmp"
-    subprocess.run([cxx, "-shared", "-pthread", "-o", tmp, *objs], check=True)
+    subprocess.run([cxx, *_LDFLAGS, "-o", tmp, *objs], check=True)
     os.replace(tmp, so_path)
     for obj in objs:
         os.remove(obj)
@@ -146,7 +159,11 @@ def _load() -> ctypes.CDLL:
         "tft_lighthouse_port": ([vp], ctypes.c_int),
         "tft_lighthouse_shutdown": ([vp], None),
         "tft_lighthouse_free": ([vp], None),
+        "tft_lighthouse_retune_health": ([vp, cp, _P(cp), _P(cp)], ctypes.c_int),
         "tft_manager_new": ([cp, _P(vp), _P(cp)], ctypes.c_int),
+        "tft_manager_publish_telemetry": ([vp, cp, _P(cp)], ctypes.c_int),
+        "tft_manager_health": ([vp], vp),
+        "tft_manager_clock_skew": ([vp], vp),
         "tft_manager_address": ([vp], vp),
         "tft_manager_port": ([vp], ctypes.c_int),
         "tft_manager_shutdown": ([vp], None),
@@ -158,6 +175,9 @@ def _load() -> ctypes.CDLL:
         "tft_kvstore_port": ([vp], ctypes.c_int),
         "tft_kvstore_shutdown": ([vp], None),
         "tft_kvstore_free": ([vp], None),
+        "tft_health_scores": ([cp, cp, _P(cp), _P(cp)], ctypes.c_int),
+        "tft_health_replay": ([cp, cp, _P(cp), _P(cp)], ctypes.c_int),
+        "tft_history_replay": ([cp, _P(cp), _P(cp)], ctypes.c_int),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -288,9 +308,17 @@ class _Server:
 
 
 class LighthouseServer(_Server):
-    """In-process lighthouse quorum server (native C++), with the native
-    health ledger at its defaults (observe mode).
+    """In-process lighthouse quorum server (native C++) with its health
+    ledger and its own ``/metrics``, ``/health`` and ``/status`` beside the
+    RPC port.
 
+    ``health`` is the ledger's options (``HealthConfig.to_json()``'s
+    fields; reference ``coordination.py:336-403``): None reads
+    ``TORCHFT_HEALTH_*`` (``HealthConfig.from_env()``, observe mode by
+    default). ``history_path`` turns on the recorded history: an
+    append-only JSONL of quorum transitions, heals, health events and
+    telemetry snapshots, read back by ``history_replay`` or ``python -m
+    torchft_tpu_torch.trace history`` (empty: off).
     ``redundancy_directory=True`` co-hosts the redundancy plane's
     ``ShardDirectory`` (reference ``coordination.py:348``, ``:428-440``):
     it tracks where each replica's erasure-coded shard generations live,
@@ -307,13 +335,19 @@ class LighthouseServer(_Server):
         quorum_tick_ms: int = 100,
         heartbeat_timeout_ms: int = 5000,
         redundancy_directory: bool = False,
+        health: Optional[dict] = None,
+        history_path: str = "",
     ) -> None:
+        if health is None:
+            health = HealthConfig.from_env().to_json()
         opts = {
             "bind": bind,
             "min_replicas": min_replicas,
             "join_timeout_ms": join_timeout_ms,
             "quorum_tick_ms": quorum_tick_ms,
             "heartbeat_timeout_ms": heartbeat_timeout_ms,
+            "health": health,
+            "history_path": history_path,
         }
         super().__init__(*_new_handle(
             "tft_lighthouse_new_v2", json.dumps(opts).encode(),
@@ -332,6 +366,17 @@ class LighthouseServer(_Server):
 
     def redundancy_directory_url(self) -> Optional[str]:
         return self.redundancy_directory.url if self.redundancy_directory is not None else None
+
+    def retune_health(self, partial: dict) -> dict:
+        """Merge ``partial`` health options over the running ledger's and
+        return the result (reference ``coordination.py:509``)."""
+        out = ctypes.c_char_p()
+        err = ctypes.c_char_p()
+        status = self._lib.tft_lighthouse_retune_health(
+            self._handle, json.dumps(partial).encode(), ctypes.byref(out), ctypes.byref(err))
+        out_s = _take_str(self._lib, out)
+        _raise_for_status(status, _take_str(self._lib, err), "retune_health failed")
+        return json.loads(out_s or "{}")
 
     def shutdown(self) -> None:
         if self.redundancy_directory is not None:
@@ -375,6 +420,28 @@ class ManagerServer(_Server):
 
     def address(self) -> str:
         return _take_str(self._lib, self._lib.tft_manager_address(self._handle))
+
+    def publish_telemetry(self, telemetry: dict) -> None:
+        """Set the per-step telemetry every later heartbeat carries (the
+        lighthouse's ledger reads ``step``, ``step_s``, ``wire_s``; the rest
+        rides along to ``/health``)."""
+        err = ctypes.c_char_p()
+        status = self._lib.tft_manager_publish_telemetry(
+            self._handle, json.dumps(telemetry).encode(), ctypes.byref(err))
+        _raise_for_status(status, _take_str(self._lib, err), "publish_telemetry failed")
+
+    def health(self) -> dict:
+        """This replica's health summary from the last heartbeat's answer
+        (``state``, ``state_code``, ``score``, ``ejections``,
+        ``readmissions``); ``{}`` until a beat has returned."""
+        return json.loads(_take_str(self._lib, self._lib.tft_manager_health(self._handle)) or "{}")
+
+    def clock_skew(self) -> dict:
+        """This host's clock minus the lighthouse's, from heartbeat round
+        trips: ``skew_ms`` / ``rtt_ms`` of the fastest beat, ``samples`` (0
+        before the first beat returned)."""
+        return json.loads(
+            _take_str(self._lib, self._lib.tft_manager_clock_skew(self._handle)) or "{}")
 
 
 class KvStoreServer(_Server):
@@ -601,3 +668,43 @@ class KvClient(_Client):
         if value.startswith("b64:"):
             return base64.b64decode(value[4:])
         return value.encode()
+
+
+# ------------------------------------------------ the health plane's replays
+def _native_call(fn: str, what: str, *args: bytes) -> dict:
+    lib = _load()
+    result = ctypes.c_char_p()
+    err = ctypes.c_char_p()
+    status = getattr(lib, fn)(*args, ctypes.byref(result), ctypes.byref(err))
+    err_s = _take_str(lib, err)
+    result_s = _take_str(lib, result)
+    _raise_for_status(status, err_s, what)
+    return json.loads(result_s)
+
+
+def health_scores(windows: Dict[str, list], opts: dict) -> Dict[str, float]:
+    """The native ledger's straggler scores of ``windows`` (reference
+    ``coordination.py:1183``): held against ``healthwatch.straggler_scores``
+    by the tests."""
+    return _native_call("tft_health_scores", "health_scores failed",
+                        json.dumps(windows).encode(), json.dumps(opts).encode())
+
+
+def health_replay(script: list, opts: dict) -> dict:
+    """A scripted run of beats and ticks through the native ledger on a
+    synthetic clock; returns ``{"events", "ledger", "excluded"}``
+    (reference ``:1202``). Entries: ``{"t_ms", "replica_id",
+    "telemetry"?}`` beats and ``{"t_ms", "tick": true}`` ticks; ``opts`` is
+    the health options plus ``heartbeat_timeout_ms`` and ``min_replicas``."""
+    return _native_call("tft_health_replay", "health_replay failed",
+                        json.dumps(script).encode(), json.dumps(opts).encode())
+
+
+def history_replay(jsonl_text: str) -> dict:
+    """A recorded history (JSONL content, or a path to a plain or gzipped
+    file) through the native read path: ``{"events", "summary"}``
+    (reference ``:1224``); ``tracing.history_fold`` is its Python twin."""
+    from torchft_tpu_torch.tracing import load_history
+
+    normalized = "\n".join(json.dumps(e) for e in load_history(jsonl_text))
+    return _native_call("tft_history_replay", "history_replay failed", normalized.encode())

@@ -11,9 +11,15 @@ SIGINT or SIGTERM. Each flag also takes its underscore spelling
 (``--min_replicas``). ``--redundancy-directory`` (reference ``:65``)
 co-hosts the redundancy plane's shard directory and logs ``shard
 directory serving at <url> (epoch <epoch>)``; point replicas at it with
-``TORCHFT_REDUNDANCY_DIRECTORY=<url>``. The reference's ``--history``,
-``--serve-registry``, ``--serve-drain-on`` and ``--policy`` come with
-their planes.
+``TORCHFT_REDUNDANCY_DIRECTORY=<url>``. ``--history PATH`` (reference
+``:42-49``) records an append-only JSONL of quorum transitions, heals,
+health events and telemetry snapshots; fold it with ``python -m
+torchft_tpu_torch.trace history PATH``. The health ledger takes
+``TORCHFT_HEALTH_*`` from the environment (``healthwatch.HealthConfig``,
+read by ``LighthouseServer``:
+``TORCHFT_HEALTH_MODE=eject`` ejects stragglers; the default observes). The
+reference's ``--serve-registry``, ``--serve-drain-on`` and ``--policy``
+come with their planes.
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                              "erasure-coded shard placements, detects owner deaths and "
                              "promotes hot spares; point replicas at it with "
                              "TORCHFT_REDUNDANCY_DIRECTORY")
+    parser.add_argument("--history", default="", metavar="PATH",
+                        help="append-only JSONL of quorum transitions, heals, health events "
+                             "and telemetry snapshots; fold it with `python -m "
+                             "torchft_tpu_torch.trace history PATH` (default: off)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -56,6 +66,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         quorum_tick_ms=args.quorum_tick_ms,
         heartbeat_timeout_ms=args.heartbeat_timeout_ms,
         redundancy_directory=args.redundancy_directory,
+        history_path=args.history,
     )
     try:
         logging.info("lighthouse listening at %s", server.address())

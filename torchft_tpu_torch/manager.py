@@ -81,10 +81,30 @@ directory's promotion, loads the prefetched generation through the
 registered load fns, in place, and joins the control plane). With
 ``k == 0`` nothing of the plane runs. The plane stages and heals a whole
 one-rank group: a group of more ranks with the plane on raises
-``ValueError`` (each rank would need its own shards). The device-plane
-streaming branch (an XLA process group), the policy, degrade, health and
-serving planes, the plane's policy adjusters and its trace spans are not
-ported yet.
+``ValueError`` (each rank would need its own shards).
+
+The health plane (reference ``:511-552``, ``:2939-3105``): after each
+vote the group leader hands the step's telemetry (``step_s`` between
+votes, the allreduce's ``wire_s``, the resilience counters) to its
+heartbeat, and folds the lighthouse's health summary the last beat brought
+back into ``timings()`` (``health_state``, ``straggler_score``,
+``ejections``, ``readmissions``), with a ``torchft_health`` event, a
+flight-recorder breadcrumb and a span instant on every change of state.
+An ejected replica's quorum call waits until the lighthouse readmits it;
+it then heals like any replica behind. ``set_telemetry_transform``
+rewrites the telemetry (tests). Observability (reference ``:585-626``,
+``:2457-2776``): a span recorder (``tracer``, ``dump_trace``) records the
+quorum RPC, the reconfigure's halves, the heal's send and receive, the
+redundancy plane's ``reconstruct`` and ``shard_stage``, the commit vote,
+each streamed bucket's pack, wire and unpack, and instants for retries,
+re-routes, heal and shard events; the wait for the quorum, the quorum
+thread, the allreduce, the commit and the reconfigure's halves are also
+``torch.profiler`` ranges (``torchft::manager::...``). The structured
+streams (``observability.py``) carry quorum, commit, error, timing and
+health events; the flight recorder is dumped on a reported error, an
+exhausted heal and an ejection. ``metrics_port`` serves ``/metrics``.
+The device-plane streaming branch (an XLA process group) and the policy,
+degrade and serving planes are not ported yet.
 
 Knobs, each environment variable > constructor argument > default:
 ``TORCHFT_TIMEOUT_SEC`` / ``timeout``, ``TORCHFT_QUORUM_TIMEOUT_SEC`` /
@@ -94,6 +114,10 @@ Knobs, each environment variable > constructor argument > default:
 bucketing), ``TORCHFT_STREAM_BUCKETS`` / ``stream_buckets`` (on; "0",
 "false", "no" or "off" turn it off), ``TORCHFT_COMPRESS`` / ``compress``
 ("off", "fp8" or "int8"; "off", and ``should_quantize`` picks fp8).
+Two are the other way round, as in the reference: ``tracing`` >
+``TORCHFT_TRACE`` (on), and ``metrics_port`` > ``TORCHFT_METRICS_PORT``
+(none). The lighthouse's ``TORCHFT_HEALTH_*`` (``healthwatch.py``) decide
+what the telemetry does.
 """
 
 from __future__ import annotations
@@ -115,7 +139,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from torchft_tpu_torch import bucketing
+import torchft_tpu_torch.flight_recorder as _fr
+from torchft_tpu_torch import bucketing, knobs
 from torchft_tpu_torch.checkpointing import CheckpointTransport, HTTPTransport, RWLock
 from torchft_tpu_torch.checkpointing._serialization import place_state_like
 from torchft_tpu_torch.coordination import (
@@ -125,6 +150,21 @@ from torchft_tpu_torch.coordination import (
     ManagerServer,
 )
 from torchft_tpu_torch.futures import arm_deadline
+from torchft_tpu_torch.observability import (
+    ALLREDUCE_PIPELINE_PHASE,
+    COMMIT_EVENTS,
+    HEALTH_EVENTS,
+    METRICS_PORT_ENV,
+    TIMING_EVENTS,
+    MetricsRegistry,
+    MetricsServer,
+    emit_event_async,
+    get_event_drain,
+    log_error_event,
+    log_quorum_event,
+    trace_span,
+    traced,
+)
 from torchft_tpu_torch.ops.quantization import (
     compress_bucket,
     decompress_bucket,
@@ -139,6 +179,7 @@ from torchft_tpu_torch.redundancy import (
     ShardStager,
     reconstruct_state,
 )
+from torchft_tpu_torch.tracing import TRACE_BUFFER_ENV, SpanRecorder, TraceConfig
 from torchft_tpu_torch.utils import true_divide
 from torchft_tpu_torch.work import (
     DummyWork,
@@ -160,7 +201,6 @@ CONNECT_TIMEOUT_SEC_ENV = "TORCHFT_CONNECT_TIMEOUT_SEC"
 QUORUM_RETRIES_ENV = "TORCHFT_QUORUM_RETRIES"
 BUCKET_CAP_MB_ENV = "TORCHFT_BUCKET_CAP_MB"
 STREAM_BUCKETS_ENV = "TORCHFT_STREAM_BUCKETS"
-_HEARTBEAT_INTERVAL_S = 0.1
 # cumulative resilience counters, kept in timings()
 _COUNTERS = ("heal_attempts", "heal_failovers", "rpc_retries", "chunk_crc_failures",
              "collective_reroute", "standby_skipped",
@@ -168,6 +208,17 @@ _COUNTERS = ("heal_attempts", "heal_failovers", "rpc_retries", "chunk_crc_failur
              "shards_staged", "shard_stage_skipped", "shard_stage_dropped",
              "shard_stage_failed", "shard_put_failed", "shard_announce_rejected",
              "reconstructs", "reconstruct_failures", "shard_corrupt", "shard_fetch_failed")
+# timings() keys /metrics renders as counters (``_total``): the bumped ones,
+# the health plane's cumulative ejections and readmissions (the lighthouse
+# counts them) and the observability planes' losses; every other number is
+# a last-value gauge
+_COUNTER_TIMINGS = frozenset(_COUNTERS) | {"ejections", "readmissions", "dropped_events",
+                                           "trace_dropped"}
+# the healthwatch summary's keys in timings(), 0 until a heartbeat brings one
+_HEALTH_TIMINGS = ("health_state", "straggler_score", "ejections", "readmissions")
+# the health state's transitions as the torchft_health stream names them
+_HEALTH_TRANSITIONS = {"warn": "straggler_warn", "ejected": "eject", "probation": "readmit",
+                       "ok": "recovered", "degraded": "degrade_acked"}
 
 
 def _to_seconds(t: "float | timedelta") -> float:
@@ -254,10 +305,18 @@ class Manager:
         quorum_retries: Optional[int] = None,
         spare: bool = False,
         redundancy: Optional[RedundancyConfig] = None,
+        heartbeat_interval: "float | timedelta" = 0.1,
+        tracing: Optional[bool] = None,
+        metrics_port: Optional[int] = None,
     ) -> None:
         """``redundancy`` is the plane's config under the
         ``TORCHFT_REDUNDANCY_*`` environment (a variable set wins over its
-        field); ``spare=True`` needs its directory."""
+        field); ``spare=True`` needs its directory. ``heartbeat_interval``
+        is the leader's beat to the lighthouse, which carries its per-step
+        telemetry. ``tracing`` (over ``TORCHFT_TRACE``, on by default) turns
+        the span recorder on or off; ``metrics_port`` (over
+        ``TORCHFT_METRICS_PORT``; unset: none, 0: any free port) serves
+        ``/metrics``."""
         if group_rank != 0 and store_addr is None:
             raise ValueError("a group rank other than 0 needs the leader's store_addr")
         # the plane's config is read before anything starts, so a bad one
@@ -272,6 +331,7 @@ class Manager:
             raise ValueError("the redundancy plane serves one-rank replica groups only: this "
                              f"group has {group_world_size} ranks")
         self._pg = pg
+        self._heartbeat_interval = _to_seconds(heartbeat_interval)
         set_reroute = getattr(pg, "set_reroute_observer", None)
         if set_reroute is not None:
             set_reroute(self._on_collective_reroute)
@@ -332,6 +392,9 @@ class Manager:
         if state_dict is not None and load_state_dict is not None:
             self.register_state_dict_fn("default", load_state_dict, state_dict)
 
+        # the step and quorum every span and breadcrumb carries
+        self._step = 0
+        self._quorum_id = -1
         hostname = hostname or _socket.gethostname()
         if checkpoint_transport is None:
             # the heal URL uses the hostname the store and manager use
@@ -355,21 +418,29 @@ class Manager:
                 raise ValueError("Manager(spare=True) is a whole-replica role: only group_rank 0 "
                                  "may construct it")
             self._replica_id = f"{replica_id or 'spare'}:{uuid.uuid4()}"
+        elif group_rank == 0:
+            self._replica_id = f"{replica_id or 'replica'}:{uuid.uuid4()}"
+        else:
+            self._replica_id = replica_id or "replica"
+        # the span recorder: the argument over TORCHFT_TRACE (on by default)
+        trace_cfg = TraceConfig.from_env()
+        if tracing is not None:
+            trace_cfg.enabled = bool(tracing)
+        self._tracer = SpanRecorder(self._replica_id, trace_cfg)
+        # the saturation warning of timings() fires once
+        self._dropped_events_warned = False
+        if spare:
             self._spare_join_args = (hostname, store_addr, lighthouse_addr, group_world_size,
                                      quorum_retries)
         elif group_rank == 0:
-            self._replica_id = f"{replica_id or 'replica'}:{uuid.uuid4()}"
             self._start_control_plane(hostname, store_addr, lighthouse_addr, group_world_size,
                                       quorum_retries)
         else:
             manager_addr = KvClient(store_addr, connect_timeout=self._connect_timeout).get(
                 "manager_addr", timeout=self._timeout
             ).decode()
-            self._replica_id = replica_id or "replica"
             self._connect_clients(manager_addr)
 
-        self._step = 0
-        self._quorum_id = -1
         self._batches_committed = 0
         self._commit_failures = 0
         self._errored: Optional[ExceptionWithTraceback] = None
@@ -385,7 +456,15 @@ class Manager:
         }
         # the last quorum cycle's phase seconds and the cumulative
         # resilience counters
-        self._timings: Dict[str, float] = {name: 0.0 for name in _COUNTERS}
+        self._timings: Dict[str, float] = {name: 0.0 for name in (*_COUNTERS, *_HEALTH_TIMINGS)}
+        # healthwatch telemetry (_publish_step_telemetry): the last vote's
+        # time, outcome and quorum, the transform tests install, and the
+        # last health state seen
+        self._last_commit_t: Optional[float] = None
+        self._last_vote_committed = False
+        self._telemetry_quorum_id: Optional[int] = None
+        self._telemetry_transform: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None
+        self._last_health_state: Optional[str] = None
         self._healing = False
         self._last_quorum_healed = False
         # True while this replica holds a standby failover snapshot open for
@@ -412,6 +491,28 @@ class Manager:
             max_workers=1, thread_name_prefix="torchft_unpack"
         )
         self._quorum_future: Optional[Any] = None
+
+        # /metrics: the argument over TORCHFT_METRICS_PORT, none when both
+        # are unset. Histograms fill as timings are recorded, the rest at a
+        # scrape (_refresh_metrics). A port in use (two Managers on one
+        # host with a fixed port) leaves training without /metrics
+        self._metrics_registry: Optional[MetricsRegistry] = None
+        self._metrics_server: Optional[MetricsServer] = None
+        env_metrics = knobs.env_raw(METRICS_PORT_ENV, "")
+        if metrics_port is None and env_metrics != "":
+            try:
+                metrics_port = int(env_metrics)
+            except ValueError:
+                self._log(logging.WARNING, f"ignoring invalid {METRICS_PORT_ENV}={env_metrics!r}")
+        if metrics_port is not None:
+            try:
+                registry = MetricsRegistry()
+                self._metrics_server = MetricsServer(registry, port=metrics_port,
+                                                     refresh=self._refresh_metrics)
+                self._metrics_registry = registry
+            except OSError as e:
+                self._log(logging.WARNING, f"metrics server failed to bind port {metrics_port} "
+                                           f"({e}); continuing without /metrics")
 
         # the redundancy plane (reference :630-680): k == 0 attaches nothing
         self._redundancy_cfg: Optional[RedundancyConfig] = None
@@ -452,7 +553,7 @@ class Manager:
             bind="0.0.0.0:0",
             store_addr=store_addr,
             world_size=group_world_size,
-            heartbeat_interval=_HEARTBEAT_INTERVAL_S,
+            heartbeat_interval=self._heartbeat_interval,
             connect_timeout=self._connect_timeout,
             quorum_retries=quorum_retries,
         )
@@ -555,8 +656,10 @@ class Manager:
     def wait_quorum(self) -> None:
         if self._quorum_future is None:
             raise RuntimeError("must call start_quorum first")
-        self._quorum_future.result()
+        with trace_span("torchft::manager::wait_quorum"):
+            self._quorum_future.result()
 
+    @traced("torchft::manager::_async_quorum")
     def _async_quorum(self, allow_heal: bool, shrink_only: bool, quorum_timeout: float) -> None:
         # the whole control-plane cycle on the quorum thread: with the async
         # quorum, work the step no longer waits for
@@ -570,15 +673,16 @@ class Manager:
         self, allow_heal: bool, shrink_only: bool, quorum_timeout: float
     ) -> None:
         try:
-            quorum = self._client._quorum(
-                group_rank=self._group_rank,
-                step=self._step,
-                checkpoint_metadata=self._checkpoint_transport.metadata(),
-                shrink_only=shrink_only,
-                timeout=quorum_timeout,
-                init_sync=self._init_sync,
-                commit_failures=self._commit_failures,
-            )
+            with self._tracer.span("quorum_rpc", cat="quorum"):
+                quorum = self._client._quorum(
+                    group_rank=self._group_rank,
+                    step=self._step,
+                    checkpoint_metadata=self._checkpoint_transport.metadata(),
+                    shrink_only=shrink_only,
+                    timeout=quorum_timeout,
+                    init_sync=self._init_sync,
+                    commit_failures=self._commit_failures,
+                )
         except Exception as e:  # noqa: BLE001 - swallowed into the step's vote
             self._log(logging.ERROR, f"quorum RPC failed: {e}")
             self.report_error(e)
@@ -586,6 +690,7 @@ class Manager:
 
         self._num_replicas = quorum.replica_world_size
         self._bump_metric("quorums")
+        self._tracer.set_context(quorum_id=quorum.quorum_id, step=self._step)
         # async quorum, or no heal: replicas behind sit this step out, so the
         # participating world is the max-step cohort; the sync quorum heals
         # first, so everyone counts
@@ -610,33 +715,53 @@ class Manager:
                 f"{quorum.store_address}/torchft/{quorum.quorum_id}/{self._group_rank}"
             )
             self._log(logging.INFO, f"reconfiguring for quorum_id={quorum.quorum_id}")
+            log_quorum_event(
+                replica_id=self._replica_id,
+                group_rank=self._group_rank,
+                step=self._step,
+                quorum_id=quorum.quorum_id,
+                replica_rank=quorum.replica_rank,
+                replica_world_size=quorum.replica_world_size,
+                heal=quorum.heal,
+                recover_dst_replica_ranks=quorum.recover_dst_replica_ranks,
+            )
             try:
                 self._bump_metric("reconfigures")
                 # everything control-plane runs here; a commit that must
                 # touch live state runs on the main thread at a safe point
                 t_prep = time.perf_counter()
-                pg_commit = self._pg.prepare_configure(
-                    store_prefixed_addr,
-                    quorum.replica_rank,
-                    quorum.replica_world_size,
-                    quorum_id=quorum.quorum_id,
-                )
+                with trace_span("torchft::manager::_pg::prepare_configure"), \
+                        self._tracer.span("configure_prepare", cat="quorum"):
+                    pg_commit = self._pg.prepare_configure(
+                        store_prefixed_addr,
+                        quorum.replica_rank,
+                        quorum.replica_world_size,
+                        quorum_id=quorum.quorum_id,
+                    )
                 self._record_timing("configure_prepare_s", time.perf_counter() - t_prep)
                 with self._pending_commit_lock:
                     self._pending_pg_commit = pg_commit
                 if pg_commit is None:
                     self._record_timing("configure_commit_s", 0.0)
-                self._checkpoint_transport.configure(
-                    f"{quorum.store_address}/torchft/{quorum.quorum_id}"
-                    f"/recovery/{self._group_rank}",
-                    quorum.replica_rank,
-                    quorum.replica_world_size,
-                    quorum_id=quorum.quorum_id,
-                )
+                with trace_span("torchft::manager::_transport::configure"), \
+                        self._tracer.span("transport_configure", cat="quorum"):
+                    self._checkpoint_transport.configure(
+                        f"{quorum.store_address}/torchft/{quorum.quorum_id}"
+                        f"/recovery/{self._group_rank}",
+                        quorum.replica_rank,
+                        quorum.replica_world_size,
+                        quorum_id=quorum.quorum_id,
+                    )
                 # recorded only after both configures succeed: on failure
                 # the vote fails, the next quorum carries commit_failures>0
                 # and the lighthouse bumps the id for EVERY replica
                 self._quorum_id = quorum.quorum_id
+                # the flight recorder's reconfigure boundary
+                _fr.recorder.record("quorum_reconfigure", quorum_id=quorum.quorum_id,
+                                    replica=self._replica_id, group_rank=self._group_rank)
+                if pg_commit is None:
+                    # a split prepare logs its snapshot once its commit ran
+                    self._log_timing_snapshot("configure_prepare")
             except Exception as e:  # noqa: BLE001 - swallowed into the vote
                 self._log(logging.ERROR, f"pg configure failed: {e}")
                 self.report_error(e)
@@ -651,12 +776,15 @@ class Manager:
                     f"peers need recovery from us {quorum.recover_dst_replica_ranks}",
                 )
                 t0 = time.perf_counter()
-                self._checkpoint_transport.send_checkpoint(
-                    dst_ranks=quorum.recover_dst_replica_ranks,
-                    step=quorum.max_step,
-                    state_dict=self._manager_state_dict(),
-                    timeout=self._timeout,
-                )
+                with trace_span("torchft::manager::send_checkpoint"), \
+                        self._tracer.span("heal_send", cat="heal",
+                                          dst_ranks=list(quorum.recover_dst_replica_ranks)):
+                    self._checkpoint_transport.send_checkpoint(
+                        dst_ranks=quorum.recover_dst_replica_ranks,
+                        step=quorum.max_step,
+                        state_dict=self._manager_state_dict(),
+                        timeout=self._timeout,
+                    )
                 self._record_timing("heal_send_s", time.perf_counter() - t0)
             # a standby failover source: someone is behind but we got no
             # destination. A healer whose source dies fails over to the
@@ -691,7 +819,9 @@ class Manager:
                 self._healing = True
                 self._bump_counter("heal_attempts")
                 t0 = time.perf_counter()
-                self._pending_state_dict = self._recv_checkpoint(quorum)
+                with trace_span("torchft::manager::recv_checkpoint"), \
+                        self._tracer.span("heal_recv", cat="heal"):
+                    self._pending_state_dict = self._recv_checkpoint(quorum)
                 self._record_timing("heal_recv_s", time.perf_counter() - t0)
                 stream = self._checkpoint_transport.last_recv_timings()
                 if stream is not None:
@@ -739,6 +869,9 @@ class Manager:
         if counter is not None:
             self._bump_counter(counter)
         self._log(logging.WARNING, f"heal event {kind}: {fields}")
+        self._tracer.instant(kind, cat="heal", **fields)
+        _fr.recorder.record(kind, step=self._step, replica=self._replica_id,
+                            group_rank=self._group_rank, **fields)
 
     def _recv_checkpoint(self, quorum: Any) -> Dict[str, Any]:
         """Fetch the heal, failing over across up-to-date peers when the
@@ -755,10 +888,19 @@ class Manager:
             sources = self._heal_sources(quorum)
             self._log(logging.INFO, f"healing from step {quorum.max_step}, candidate sources "
                                     f"{[label for label, _ in sources]}")
-            return transport.recv_checkpoint_multi(
-                sources, step=quorum.max_step, timeout=self._timeout,
-                on_event=self._on_heal_event,
-            )
+            try:
+                return transport.recv_checkpoint_multi(
+                    sources, step=quorum.max_step, timeout=self._timeout,
+                    on_event=self._on_heal_event,
+                )
+            except Exception:
+                # every source failed: dump both rings while the heal's
+                # retries and failovers are still in them
+                fr_path = _fr.recorder.dump(
+                    reason="heal_exhausted", quorum_id=quorum.quorum_id,
+                    tag=f"{self._replica_id}_{self._group_rank}_s{quorum.max_step}_heal_exhausted")
+                self._auto_dump_trace("heal_exhausted", fr_path)
+                raise
         self._log(
             logging.INFO,
             f"healing from {quorum.recover_src_manager_address} step {quorum.max_step}",
@@ -800,13 +942,16 @@ class Manager:
             return
         t0 = time.perf_counter()
         try:
-            commit()
+            with trace_span("torchft::manager::configure_commit"), \
+                    self._tracer.span("configure_commit", cat="quorum"):
+                commit()
         except Exception as e:  # noqa: BLE001 - swallowed into the vote
             self._quorum_id = -1
             self._log(logging.ERROR, f"pg configure commit failed: {e}")
             self.report_error(e)
         finally:
             self._record_timing("configure_commit_s", time.perf_counter() - t0)
+            self._log_timing_snapshot("configure_commit")
 
     # ------------------------------------------------------------ allreduce
     def allreduce(
@@ -844,6 +989,7 @@ class Manager:
             stream = GradStream([fut], fut)
         return stream
 
+    @traced("torchft::manager::allreduce")
     def _allreduce(
         self,
         values: Any,
@@ -1184,19 +1330,34 @@ class Manager:
         """The compressed ring re-formed around a dead link mid-collective:
         a re-routed slow step, counted in timings()["collective_reroute"]."""
         self._bump_counter("collective_reroute")
+        self._tracer.instant("reroute", cat="rpc", link=list(pair), attempt=attempt)
         self._log(logging.WARNING, f"collective re-routed around dead link {pair} (attempt {attempt})")
+        _fr.recorder.record("collective_reroute", link=tuple(pair), attempt=attempt,
+                            step=self._step, replica=self._replica_id, group_rank=self._group_rank)
 
     def _on_rpc_retry(self, method: str, attempt: int, exc: BaseException) -> None:
         """A control-plane RPC retried: a blip shorter than its timeout is a
         slower step, counted in timings()["rpc_retries"]."""
         self._bump_counter("rpc_retries")
+        self._tracer.instant("rpc_retry", cat="rpc", method=method, attempt=attempt)
         self._log(logging.WARNING, f"RPC {method} retrying (attempt {attempt}) after {exc!r}")
+        _fr.recorder.record("rpc_retry", method=method, attempt=attempt, error=repr(exc),
+                            step=self._step, replica=self._replica_id, group_rank=self._group_rank)
 
     def _record_pipeline_timings(self, marks: List[Dict[str, Tuple[float, float]]]) -> None:
-        """Fold one streamed allreduce's stage marks into timings()."""
+        """Fold one streamed allreduce's stage marks into timings(), each
+        bucket's pack, wire and unpack into the span ring, and emit the
+        ``allreduce_pipeline`` snapshot."""
         stats = _pipeline_overlap_stats(marks)
         with self._metrics_lock:
             self._timings.update(stats)
+        for i, mark in enumerate(marks):
+            for stage in ("pack", "wire", "unpack"):
+                if stage in mark:
+                    t0_pc, t1_pc = mark[stage]
+                    self._tracer.record_rel(stage, cat="allreduce", t0_pc=t0_pc, t1_pc=t1_pc,
+                                            bucket=i)
+        self._log_timing_snapshot(ALLREDUCE_PIPELINE_PHASE)
 
     # ------------------------------------------------------------- errors
     def report_error(self, e: Exception) -> None:
@@ -1206,6 +1367,12 @@ class Manager:
             if self._errored is None:
                 self._metrics["errors"] += 1
             self._errored = ExceptionWithTraceback(e)
+        _fr.recorder.record("manager_error", error=str(e), step=self._step,
+                            replica=self._replica_id, group_rank=self._group_rank)
+        _fr.recorder.dump(reason="manager_error", quorum_id=self._quorum_id,
+                          tag=f"{self._replica_id}_{self._group_rank}_s{self._step}_manager_error")
+        log_error_event(replica_id=self._replica_id, group_rank=self._group_rank,
+                        step=self._step, quorum_id=self._quorum_id, error=str(e))
 
     def errored(self) -> Optional[ExceptionWithTraceback]:
         return self._errored
@@ -1227,17 +1394,22 @@ class Manager:
         return fut.then(callback)
 
     # ------------------------------------------------------------- commit
+    @traced("torchft::manager::should_commit")
     def should_commit(self, timeout: "float | timedelta | None" = None) -> bool:
         """Two-phase commit vote across the replica group: True iff every
         rank of this group is healthy and enough replicas participate.
         ``timeout`` bounds the vote's RPC (default the Manager's timeout).
         Raises once the vote failed more than ``max_retries`` times in a
-        row."""
+        row. The group leader then hands the step's telemetry to its
+        heartbeat (``_publish_step_telemetry``)."""
+        t_begin = time.perf_counter()
         if self._quorum_future is not None:
             try:
                 self._quorum_future.result()
             except Exception as e:  # noqa: BLE001 - swallowed into the vote
                 self.report_error(e)
+        # waiting for the quorum thread is overlap lost, not bookkeeping
+        join_s = time.perf_counter() - t_begin
         # the commit lands before pg.errored() is read: the old world may be
         # errored by the fault that changed the membership
         self._commit_pending_configure()
@@ -1255,11 +1427,25 @@ class Manager:
                 f"voting False: participants={self.num_participants()} "
                 f"min={self._min_replica_size} errored={self._errored!r}",
             )
-        should_commit = self._vote_client.should_commit(
-            self._group_rank,
-            self._step,
-            local_should_commit,
-            timeout=_to_seconds(timeout) if timeout is not None else self._timeout,
+        t_rpc = time.perf_counter()
+        with self._tracer.span("commit_vote", cat="commit", local=local_should_commit):
+            should_commit = self._vote_client.should_commit(
+                self._group_rank,
+                self._step,
+                local_should_commit,
+                timeout=_to_seconds(timeout) if timeout is not None else self._timeout,
+            )
+        rpc_s = time.perf_counter() - t_rpc
+        emit_event_async(
+            COMMIT_EVENTS,
+            replica_id=self._replica_id,
+            group_rank=self._group_rank,
+            step=self._step,
+            quorum_id=self._quorum_id,
+            committed=should_commit,
+            enough_replicas=enough_replicas,
+            errored=self._errored is not None,
+            num_participants=self.num_participants(),
         )
         if not self._standby_source:
             self._checkpoint_transport.disallow_checkpoint()
@@ -1281,6 +1467,11 @@ class Manager:
                        f"exceeding max_retries={self._max_retries}")
                 self._log(logging.ERROR, msg)
                 raise RuntimeError(msg)
+        self._record_timing("should_commit_rpc_s", rpc_s)
+        self._record_timing("bookkeeping_s",
+                            max(0.0, time.perf_counter() - t_begin - rpc_s - join_s))
+        # no RPC here: a dict for the heartbeat thread, the last summary back
+        self._publish_step_telemetry(committed=should_commit)
         return should_commit
 
     # -------------------------------------------------------- introspection
@@ -1383,6 +1574,10 @@ class Manager:
     def _record_timing(self, name: str, value: float) -> None:
         with self._metrics_lock:
             self._timings[name] = value
+        # a phase's histogram fills here, where each value is recorded once
+        if self._metrics_registry is not None and name.endswith("_s"):
+            self._metrics_registry.observe(f"torchft_manager_{name[:-2]}_seconds", value,
+                                           f"Manager {name[:-2]} phase wall-clock (seconds).")
 
     def timings(self) -> Dict[str, float]:
         """Wall-clock seconds of the last quorum cycle on the quorum thread
@@ -1394,6 +1589,7 @@ class Manager:
         ``heal_mb_per_s``) and,
         once an allreduce has streamed, of its stages summed over buckets
         (``allreduce_pack_s``, ``allreduce_wire_s``, ``allreduce_unpack_s``),
+        the wall time some bucket was on the wire (``allreduce_wire_wall_s``),
         its bucket count (``allreduce_buckets``) and ``overlap_efficiency``:
         the share of wire time that ran while another bucket was in some
         stage. Also lifetime counts: compressed-ring re-routes
@@ -1404,9 +1600,218 @@ class Manager:
         standby snapshots (``standby_skipped``). With the redundancy plane
         on: this round's staging hot path (``shard_stage_hot_s``, absent
         on a round that staged nothing), the stager's and the last
-        reconstruct's seconds, and the plane's counters (``_COUNTERS``)."""
+        reconstruct's seconds, and the plane's counters (``_COUNTERS``).
+
+        The health plane (group leader, lighthouse health not ``off``): the
+        lighthouse's latest summary of this replica, ``health_state`` (0 ok,
+        1 warn, 2 ejected, 3 probation, 4 degraded), ``straggler_score`` and
+        the cumulative ``ejections`` / ``readmissions``, 0 until a beat
+        brings one. The commit's ``should_commit_rpc_s`` and
+        ``bookkeeping_s``. The observability planes' losses:
+        ``dropped_events`` (events the drain shed) and ``trace_dropped``
+        (spans the ring overwrote); nonzero means the records are
+        incomplete, and the first time says so in a warning."""
         with self._metrics_lock:
-            return dict(self._timings)
+            out = dict(self._timings)
+        out["dropped_events"] = float(get_event_drain().dropped)
+        out["trace_dropped"] = self._tracer.stats()["dropped"]
+        if out["dropped_events"] + out["trace_dropped"] > 0 and not self._dropped_events_warned:
+            self._dropped_events_warned = True
+            self._log(logging.WARNING,
+                      f"observability queues saturated: {int(out['dropped_events'])} telemetry "
+                      f"event(s) and {int(out['trace_dropped'])} span(s) dropped so far; "
+                      f"timings and trace records are incomplete (raise {TRACE_BUFFER_ENV} or "
+                      "scrape and step less often)")
+        return out
+
+    # -------------------------------------------------------------- tracing
+    @property
+    def tracer(self) -> SpanRecorder:
+        """This replica's span recorder (``tracing.py``)."""
+        return self._tracer
+
+    def dump_trace(self, path: "str | os.PathLike | None" = None) -> Optional[Any]:
+        """Write the span ring as a dump ready to merge and return its path
+        (None with no destination: pass a path or set
+        ``TORCHFT_TRACE_DIR``). Merge one a replica with ``python -m
+        torchft_tpu_torch.trace merge``."""
+        return self._tracer.dump(path)
+
+    def _auto_dump_trace(self, reason: str, fr_path: Optional[Any]) -> None:
+        """The span ring beside a flight-recorder dump (same directory, the
+        reason in its name), or at the default destination when that dump
+        was off. Never raises."""
+        try:
+            path = None
+            if fr_path is not None:
+                path = os.path.join(
+                    os.path.dirname(fr_path),
+                    f"trace_{self._replica_id}_{self._group_rank}_s{self._step}_{reason}.json")
+            out = self._tracer.dump(path)
+            if out is not None:
+                self._log(logging.WARNING, f"span ring dumped to {out} ({reason})")
+        except Exception:  # noqa: BLE001 - a postmortem path never raises
+            logger.exception("trace auto-dump failed")
+
+    @property
+    def metrics_port(self) -> Optional[int]:
+        """The bound port of ``/metrics`` (None when not serving)."""
+        return self._metrics_server.port if self._metrics_server is not None else None
+
+    def _refresh_metrics(self) -> None:
+        """At a scrape: timings() and metrics() into the registry, counters
+        as ``_total`` (absolute, so a scrape never counts twice), the rest
+        as last-value gauges, with the step, the quorum id, the spans
+        recorded, the wire's counters and the clock skew."""
+        reg = self._metrics_registry
+        if reg is None:
+            return
+        for name, value in self.timings().items():
+            if name in _COUNTER_TIMINGS:
+                reg.counter_set(f"torchft_manager_{name}_total", float(value),
+                                f"Cumulative {name} (Manager.timings()).")
+            else:
+                reg.gauge_set(f"torchft_manager_{name}", float(value),
+                              f"Last-value {name} (Manager.timings()).")
+        for name, value in self.metrics().items():
+            reg.counter_set(f"torchft_manager_{name}_total", float(value),
+                            f"Lifetime {name} (Manager.metrics()).")
+        reg.gauge_set("torchft_manager_step", float(self._step), "Current manager step.")
+        reg.gauge_set("torchft_manager_quorum_id", float(self._quorum_id),
+                      "Quorum id of the current process-group generation.")
+        reg.counter_set("torchft_manager_trace_spans_total", self._tracer.stats()["recorded"],
+                        "Spans recorded into the trace ring since construction.")
+        try:
+            wire_fn = getattr(self._pg, "wire_stats", None)
+            wire = wire_fn() if wire_fn is not None else {}
+        except Exception:  # noqa: BLE001 - a scrape shows what it can
+            wire = {}
+        for name, value in wire.items():
+            if name.startswith("bytes_"):
+                reg.counter_set(f"torchft_manager_wire_{name}_total", float(value),
+                                f"Cumulative transport {name} across PG generations.")
+            else:
+                reg.gauge_set(f"torchft_manager_wire_{name}", float(value),
+                              f"Transport {name} (ProcessGroup.wire_stats()).")
+        skew = self._manager.clock_skew() if self._manager is not None else {}
+        if skew:
+            reg.gauge_set("torchft_manager_clock_skew_ms", float(skew.get("skew_ms", 0.0)),
+                          "Estimated clock skew vs the lighthouse "
+                          "(best = minimum-RTT heartbeat sample).")
+            reg.gauge_set("torchft_manager_clock_skew_rtt_ms", float(skew.get("rtt_ms", 0.0)),
+                          "Heartbeat RTT of the best skew sample.")
+
+    def _log_timing_snapshot(self, phase: str) -> None:
+        """A ``torchft_timings`` snapshot of timings() through the async
+        drain (it fires on the commit path)."""
+        try:
+            emit_event_async(TIMING_EVENTS, replica_id=self._replica_id,
+                             group_rank=self._group_rank, step=self._step,
+                             quorum_id=self._quorum_id, phase=phase, **self.timings())
+        except Exception:  # noqa: BLE001 - observability never fails a step
+            logger.exception("failed to log timing snapshot")
+
+    # ---------------------------------------------------------- healthwatch
+    def set_telemetry_transform(
+        self, fn: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]]
+    ) -> None:
+        """A hook applied to each step's telemetry just before it is
+        published (None clears it): tests dilate the reported ``step_s`` to
+        make a straggler without slowing a replica."""
+        self._telemetry_transform = fn
+
+    def health(self) -> Dict[str, Any]:
+        """The lighthouse's latest health summary of this replica, as the
+        last heartbeat brought it (``state``, ``state_code``, ``score``,
+        ``ejections``, ``readmissions``): fresher than ``timings()``, which
+        folds it in at each vote. ``{}`` before the first beat returned and
+        on a rank other than the group's leader."""
+        return self._manager.health() if self._manager is not None else {}
+
+    def _publish_step_telemetry(self, committed: bool = True) -> None:
+        """Group leader: stage this step's telemetry for the heartbeat
+        thread (the lighthouse's ledger ingests it) and fold the summary
+        the last beat brought back into timings() and ``torchft_health``.
+
+        ``step_s`` is the time between consecutive votes, the one boundary
+        every replica crosses once a step; ``wire_s`` the last allreduce's
+        wire seconds, so the ledger scores compute (step less wire: the
+        allreduce is a barrier, so wall time is equal across the quorum).
+        A sample is published only when this vote and the last both
+        committed under the same quorum id: an interval over a failed vote,
+        a heal or a reconfigure (an ejected replica's first interval after
+        readmission spans the whole exclusion) is not training pace. Never
+        raises: telemetry is advisory and this is the commit path."""
+        self._tracer.set_context(step=self._step)
+        if self._manager is None:
+            return
+        try:
+            skew = self._manager.clock_skew()
+            self._tracer.set_skew(skew.get("skew_ms", 0.0), skew.get("rtt_ms", 0.0),
+                                  skew.get("samples", 0))
+        except Exception:  # noqa: BLE001 - advisory, on the commit path
+            pass
+        now = time.perf_counter()
+        last, self._last_commit_t = self._last_commit_t, now
+        prev_committed, self._last_vote_committed = self._last_vote_committed, committed
+        same_quorum = self._quorum_id == self._telemetry_quorum_id
+        self._telemetry_quorum_id = self._quorum_id
+        try:
+            if last is not None and committed and prev_committed and same_quorum:
+                with self._metrics_lock:
+                    t = self._timings
+                    telemetry: Dict[str, Any] = {
+                        "step": self._step,
+                        "step_s": now - last,
+                        # the wire's wall time: the buckets' summed intervals
+                        # overlap (_pipeline_overlap_stats)
+                        "wire_s": t.get("allreduce_wire_wall_s", 0.0),
+                        "heal_attempts": t["heal_attempts"],
+                        "rpc_retries": t["rpc_retries"],
+                        # cumulative link-fault counters, per replica
+                        "collective_reroute": t["collective_reroute"],
+                        "chunk_crc_failures": t["chunk_crc_failures"],
+                    }
+                if self._telemetry_transform is not None:
+                    telemetry = self._telemetry_transform(telemetry)
+                self._manager.publish_telemetry(telemetry)
+            self._observe_health(self._manager.health())
+        except Exception:  # noqa: BLE001 - advisory, on the commit path
+            logger.exception("failed to publish step telemetry")
+
+    def _observe_health(self, summary: Dict[str, Any]) -> None:
+        """A heartbeat's health summary into timings(); on each change of
+        state a ``torchft_health`` event, a flight-recorder breadcrumb and a
+        span instant (``straggler_warn``, ``eject``, ``readmit``,
+        ``recovered``); on an ejection both rings are dumped."""
+        state = summary.get("state")
+        if not state:
+            return
+        score = summary.get("score", 0.0)
+        with self._metrics_lock:
+            self._timings["health_state"] = float(summary.get("state_code", 0))
+            self._timings["straggler_score"] = float(score)
+            self._timings["ejections"] = float(summary.get("ejections", 0))
+            self._timings["readmissions"] = float(summary.get("readmissions", 0))
+        prev, self._last_health_state = self._last_health_state, state
+        if prev == state or prev is None and state == "ok":
+            return
+        kind = _HEALTH_TRANSITIONS.get(state, state)
+        emit_event_async(HEALTH_EVENTS, replica_id=self._replica_id, group_rank=self._group_rank,
+                         step=self._step, quorum_id=self._quorum_id, kind=kind, state=state,
+                         prev_state=prev, score=score, ejections=summary.get("ejections", 0),
+                         readmissions=summary.get("readmissions", 0))
+        self._log(logging.WARNING, f"healthwatch: {kind} (state {prev} -> {state}, score={score})")
+        _fr.recorder.record(kind, state=state, prev_state=prev, score=score, step=self._step,
+                            replica=self._replica_id, group_rank=self._group_rank)
+        self._tracer.instant(kind, cat="health", state=state, prev_state=prev, score=score)
+        if kind == "eject":
+            # out of the quorum: dump while the straggler's evidence is in
+            # the rings
+            fr_path = _fr.recorder.dump(
+                reason="eject", quorum_id=self._quorum_id,
+                tag=f"{self._replica_id}_{self._group_rank}_s{self._step}_eject")
+            self._auto_dump_trace("eject", fr_path)
 
     # ------------------------------------------------------ redundancy plane
     def _on_redundancy_metric(self, name: str, value: float) -> None:
@@ -1418,10 +1823,12 @@ class Manager:
             self._record_timing(name, value)
 
     def _on_redundancy_event(self, kind: str, info: Dict[str, Any]) -> None:
-        """reconstruct_state -> the per-shard fault counters."""
+        """reconstruct_state -> the per-shard fault counters and span
+        instants."""
         if kind in ("shard_corrupt", "shard_fetch_failed"):
             self._bump_counter(kind)
             self._log(logging.WARNING, f"redundancy event {kind}: {info}")
+        self._tracer.instant(kind, cat="redundancy", **info)
 
     def _reconstruct_checkpoint(self, quorum: Any) -> Optional[Dict[str, Any]]:
         """The parallel shard reconstruct of the quorum's step, landed in
@@ -1430,10 +1837,11 @@ class Manager:
         not depend on it). ``reconstruct_state`` raises, before it lands
         anything, when no live owner announced that step."""
         try:
-            step, state, stats = reconstruct_state(
-                self._redundancy_cfg.directory, step=quorum.max_step, timeout=self._timeout,
-                on_event=self._on_redundancy_event, template=self._manager_state_dict(),
-            )
+            with self._tracer.span("reconstruct", cat="redundancy", step=quorum.max_step):
+                step, state, stats = reconstruct_state(
+                    self._redundancy_cfg.directory, step=quorum.max_step, timeout=self._timeout,
+                    on_event=self._on_redundancy_event, template=self._manager_state_dict(),
+                )
         except Exception as e:  # noqa: BLE001 - fall back to the peer pull
             self._log(logging.WARNING,
                       f"shard reconstruct unavailable ({e!r}); falling back to peer heal")
@@ -1455,7 +1863,9 @@ class Manager:
         interval did not skip the round). Never raises."""
         t0 = time.perf_counter()
         try:
-            if self._shard_stager.stage(self._step, self._manager_state_dict()):
+            with self._tracer.span("shard_stage", cat="redundancy", step=self._step):
+                staged = self._shard_stager.stage(self._step, self._manager_state_dict())
+            if staged:
                 self._record_timing("shard_stage_hot_s", time.perf_counter() - t0)
         except Exception:  # noqa: BLE001 - the plane is advisory
             self._bump_counter("shard_stage_failed")
@@ -1518,6 +1928,9 @@ class Manager:
 
     # ------------------------------------------------------------ lifecycle
     def shutdown(self, wait: bool = True) -> None:
+        if self._metrics_server is not None:
+            self._metrics_server.shutdown()
+            self._metrics_server = None
         # the redundancy plane first: its threads hold nothing the rest of
         # the teardown needs
         if self._shard_stager is not None:
@@ -1538,6 +1951,8 @@ class Manager:
         self._staging_executor.shutdown(wait=wait, cancel_futures=not wait)
         self._unpack_executor.shutdown(wait=wait, cancel_futures=not wait)
         self._pg.shutdown()
+        # what the drain still holds is written before the log handlers go
+        get_event_drain().flush(timeout=2.0)
 
 
 def _zeros_like(x: Any) -> Any:
@@ -1572,7 +1987,11 @@ def _pipeline_overlap_stats(marks: List[Dict[str, Tuple[float, float]]]) -> Dict
     "pack", "wire", "unpack" to (start, end); a stage a bucket never reached
     is absent) and ``overlap_efficiency`` = sum_i |wire_i intersected with
     the union of the other buckets' stages| / sum_i |wire_i|: the share of
-    wire time hidden behind other buckets (0 for one bucket)."""
+    wire time hidden behind other buckets (0 for one bucket). A bucket's wire
+    interval runs from its submission, so it holds its wait behind the
+    buckets before it on the PG's one dispatch thread and the wire sums can
+    exceed the call; ``allreduce_wire_wall_s`` is the time some bucket was on
+    the wire (their union), what a replica waited on its peers."""
     sums = {
         stage: sum(e - s for m in marks if stage in m for s, e in [m[stage]])
         for stage in ("pack", "wire", "unpack")
@@ -1583,9 +2002,12 @@ def _pipeline_overlap_stats(marks: List[Dict[str, Tuple[float, float]]]) -> Dict
             continue
         others = [iv for j, mj in enumerate(marks) if j != i for iv in mj.values()]
         hidden += _covered_seconds(*m["wire"], others)
+    wires = [m["wire"] for m in marks if "wire" in m]
+    wall = _covered_seconds(min(a for a, _ in wires), max(b for _, b in wires), wires) if wires else 0.0
     return {
         "allreduce_pack_s": sums["pack"],
         "allreduce_wire_s": sums["wire"],
+        "allreduce_wire_wall_s": wall,
         "allreduce_unpack_s": sums["unpack"],
         "allreduce_buckets": float(len(marks)),
         "overlap_efficiency": hidden / sums["wire"] if sums["wire"] > 0 else 0.0,

@@ -65,8 +65,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import torchft_tpu_torch.flight_recorder as _fr
 from torchft_tpu_torch.coordination import KvClient
 from torchft_tpu_torch.futures import context_timeout
+from torchft_tpu_torch.observability import log_error_event
 from torchft_tpu_torch.ops.quantization import (
     CompressedWire,
     codec,
@@ -1236,6 +1238,11 @@ class ProcessGroupHost(ProcessGroup):
             gen = self._gen
         if gen is not None:
             gen.abort()
+            log_error_event(source="process_group", event="abort", replica_rank=self._rank,
+                            replica_world_size=self._world)
+            # the abort's postmortem: the ring holds the collectives before it
+            _fr.recorder.record("pg_abort", rank=self._rank, world=self._world)
+            _fr.recorder.dump(reason="pg_abort")
 
     def shutdown(self) -> None:
         with self._lock:
@@ -1292,7 +1299,9 @@ class ProcessGroupHost(ProcessGroup):
         gen.claim_mode(mode)
         return gen
 
-    def _submit(self, fn: Callable[[_Comm], Any], mode: str = "collective") -> Work:
+    def _submit(self, fn: Callable[[_Comm], Any], name: str = "op",
+                mode: str = "collective") -> Work:
+        _fr.recorder.record("collective", op=name, rank=self._rank, world=self._world)
         with self._lock:
             gen = self._live_generation(mode)
             fut: Future[Any] = Future()
@@ -1326,7 +1335,7 @@ class ProcessGroupHost(ProcessGroup):
                 for i in range(len(host))
             ]
 
-        return self._submit(_run)
+        return self._submit(_run, "allreduce")
 
     def allgather(self, arrays):
         host = [_to_host(a) for a in arrays]
@@ -1337,7 +1346,7 @@ class ProcessGroupHost(ProcessGroup):
             gathered = comm.exchange({r: host for r in range(comm.world)})
             return [gathered[r] for r in range(comm.world)]
 
-        return self._submit(_run)
+        return self._submit(_run, "allgather")
 
     def alltoall(self, input_chunks):
         host = [_to_host(a) for a in input_chunks]
@@ -1350,13 +1359,14 @@ class ProcessGroupHost(ProcessGroup):
             gathered = comm.exchange({r: host[r] for r in range(comm.world)})
             return [gathered[r] for r in range(comm.world)]
 
-        return self._submit(_run)
+        return self._submit(_run, "alltoall")
 
     # -- point to point -----------------------------------------------------
     streams_raw_frames = True
 
     def send(self, arrays, dst, tag=0):
         host = [_stage_p2p(a) for a in arrays]
+        _fr.recorder.record("collective", op="send", rank=self._rank, world=self._world)
         with self._lock:
             gen = self._live_generation("p2p")
         fut: Future[Any] = Future()
@@ -1421,7 +1431,7 @@ class ProcessGroupHost(ProcessGroup):
                 out.append(target)
             return out
 
-        return self._submit(_run, mode="p2p")
+        return self._submit(_run, "recv", mode="p2p")
 
 
 class _ErrorSwallowingWork(Work):

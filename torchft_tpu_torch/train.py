@@ -40,7 +40,29 @@ crash there makes the survivors discard the step; ``--fail-at N`` is
 ``chunk``, ``times`` times, -1 for every serve), ``flake_rpc`` (the next
 ``times`` calls of RPC ``method``, by any replica, fail once each).
 ``--http-timeout`` sets the HTTP transport's own timeout (its serve
-socket's and its serving window's grace).
+socket's and its serving window's grace). ``slow`` makes a straggler: from
+its step the replica sleeps on the host before each allreduce, for
+``times`` steps (-1: until its Manager sees itself ejected), twice the
+least ``step_s - wire_s`` of its committed steps so far (the compute the
+health plane scores) each time, so its compute share rises
+while its peers wait on the wire (the reference's ``slow_replica``,
+``torchft_tpu/_test/event_injector.py:306``, dilates the report instead).
+
+``--health off|observe|eject`` sets the lighthouse's health mode (the other
+``TORCHFT_HEALTH_*`` knobs from the environment; unset, the mode too).
+Under ``eject`` the lighthouse wants all replicas but one in a quorum, so
+one can be ejected and the rest train on; a readmitted replica heals like
+any replica behind, and a replica past ``--steps`` trains on until a step
+every replica took part in (so the run ends with all of them in). The
+members' first incarnations start together, models built. ``--trace-dir
+DIR``: each Manager dumps its span ring there when its incarnation ends
+(``trace_<replica id>.json``), the trainer
+merges them into ``DIR/merged_trace.json`` (``tracing.merge_traces``; open
+it in Perfetto) and the lighthouse records its history in
+``DIR/lighthouse_history.jsonl``; ``--profile-step N`` also runs replica
+0's step N under ``torch.profiler`` (CPU and, on the card, CUDA) into
+``DIR/profile_step<N>.json``, where the Manager's ``torchft::manager::*``
+ranges lie beside the step's kernels.
 
 ``--redundancy K,M`` turns the redundancy plane on (``redundancy.py``):
 a shard directory runs beside the lighthouse, every replica's Manager
@@ -106,10 +128,12 @@ Runs on ``cuda`` unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -119,7 +143,8 @@ import torch
 
 from torchft_tpu_torch import coordination
 from torchft_tpu_torch.checkpointing import HTTPTransport, PGTransport
-from torchft_tpu_torch.coordination import LighthouseServer
+from torchft_tpu_torch.coordination import LighthouseClient, LighthouseServer
+from torchft_tpu_torch.healthwatch import HealthConfig
 from torchft_tpu_torch.local_sgd import DiLoCo
 from torchft_tpu_torch.manager import _COUNTERS, Manager
 from torchft_tpu_torch.models.llama import CONFIGS, Llama
@@ -128,6 +153,7 @@ from torchft_tpu_torch.models.remat import REMAT_MODES
 from torchft_tpu_torch.ops import attention as attn_ops
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.process_group import ProcessGroupHost
+from torchft_tpu_torch.tracing import merge_traces
 from torchft_tpu_torch.redundancy import (
     DirectoryClient,
     RedundancyConfig,
@@ -154,7 +180,7 @@ class InjectedDeath(InjectedFailure):
 
 
 FAULT_KINDS = ("crash", "kill_heal_chunk", "corrupt_heal_chunk", "flake_rpc",
-               "corrupt_shard", "kill_shard_source", "die")
+               "corrupt_shard", "kill_shard_source", "die", "slow")
 # where in a step a fault fires: before its quorum, or after its backward pass
 FAULT_POINTS = ("start", "backward")
 
@@ -197,6 +223,8 @@ class _FaultScript:
         self._rpc_flakes: Dict[str, int] = {}
         # (verdict, owner prefix, shard or None) -> serves left (-1: every)
         self._shard_faults: Dict[Tuple[str, str, Optional[int]], int] = {}
+        # replica -> the steps its slow fault has left (-1: until ejected)
+        self._slow: Dict[int, int] = {}
         self._before_fault = before_fault
         self.fired: List[Fault] = []
 
@@ -213,7 +241,10 @@ class _FaultScript:
                 raise InjectedDeath(f"replica {replica} died at step {step}")
             if f.kind == "crash":
                 raise InjectedFailure(f"replica {replica} crashed at step {step}")
-            if f.kind in ("corrupt_shard", "kill_shard_source"):
+            if f.kind == "slow":
+                with self._lock:
+                    self._slow[replica] = f.times
+            elif f.kind in ("corrupt_shard", "kill_shard_source"):
                 owner = replica if f.owner < 0 else f.owner
                 verdict = "corrupt" if f.kind == "corrupt_shard" else "die"
                 shard = 0 if f.shard is None and verdict == "corrupt" else f.shard
@@ -229,6 +260,20 @@ class _FaultScript:
                     raise ValueError(f"{f.kind} needs the HTTP transport")
                 mode = "die" if f.kind == "kill_heal_chunk" else "corrupt"
                 transport.inject_chunk_fault(f.chunk, mode, times=f.times)
+
+    def is_slow(self, replica: int, ejected: bool) -> bool:
+        """Whether ``replica`` sleeps before this step's allreduce (a slow
+        fault of ``times`` -1 ends once ``ejected``)."""
+        with self._lock:
+            left = self._slow.get(replica)
+            if left is None:
+                return False
+            if left == 0 or (left < 0 and ejected):
+                del self._slow[replica]
+                return False
+            if left > 0:
+                self._slow[replica] = left - 1
+            return True
 
     def _rpc_hook(self, method: str, addr: str) -> Optional[Exception]:
         with self._lock:
@@ -279,6 +324,8 @@ PIPELINE_TIMINGS = ("allreduce_pack_s", "allreduce_wire_s", "allreduce_unpack_s"
                     "allreduce_buckets", "overlap_efficiency")
 # RPC, allreduce and heal deadline: well above a bench_1b step and heal
 TIMEOUT_S = 120.0
+# the lighthouse's wait for every heartbeating member to join a quorum
+JOIN_TIMEOUT_MS = 30000
 # the model families --model chooses from, each with its configs
 MODELS = {"llama": (Llama, CONFIGS), "moe": (MoE, MOE_CONFIGS)}
 
@@ -319,6 +366,13 @@ class TrainConfig:
     redundancy_retain: int = 2
     # hot spares (threads beside the replicas), promoted when a member dies
     spares: int = 0
+    # the lighthouse's health mode ("off", "observe", "eject"; "": the
+    # environment's TORCHFT_HEALTH_MODE, observe when unset)
+    health: str = ""
+    # span dumps, their merge and the lighthouse's history go here ("": none)
+    trace_dir: str = ""
+    # replica 0 runs this step under torch.profiler, into trace_dir (-1: none)
+    profile_step: int = -1
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -369,11 +423,19 @@ def _train_replica(
     done: Optional[threading.Event] = None,
     live: Optional[Dict[int, Manager]] = None,
     shadowing: Optional[Dict[int, Manager]] = None,
+    metrics_ports: Optional[Dict[int, int]] = None,
+    ejecting: bool = False,
+    start: Optional[threading.Barrier] = None,
 ) -> Dict[str, Any]:
     """One incarnation of a replica (``spare``: of a hot spare, which first
     waits for its promotion and returns ``{"promoted": False}`` if
     ``done`` is set before it). ``live`` maps each running member to its
-    Manager, ``shadowing`` each spare not yet promoted."""
+    Manager, ``shadowing`` each spare not yet promoted, ``metrics_ports``
+    each member to its ``/metrics`` port. ``ejecting``: the health plane
+    may eject a replica, so one that reached ``cfg.steps`` trains on until
+    a step of every replica (``_all_in``). ``start``: the members' first
+    incarnations meet there, models built and Managers up, before their
+    first quorum."""
     model, optim, make_batch = build_trainer(cfg, replica_id, device)
 
     def load_state(sd: Dict[str, Any]) -> None:
@@ -432,6 +494,9 @@ def _train_replica(
 
     storage0 = storage()
     promotion: Optional[Dict[str, Any]] = None
+    # this incarnation's committed steps' step_s - wire_s, slept ones left
+    # out: a slow fault sleeps twice the least (a profiled step runs long)
+    compute_s: List[float] = []
     try:
         if spare:
             # shadowing: the lighthouse does not see this Manager until
@@ -453,31 +518,45 @@ def _train_replica(
                          "promoted_at": time.monotonic()}
         if live is not None:
             live[replica_id] = manager
+        if metrics_ports is not None and manager.metrics_port is not None:
+            metrics_ports[replica_id] = manager.metrics_port
+        if start is not None:
+            start.wait(timeout=TIMEOUT_S)
         if cfg.diloco:
             return _diloco_loop(cfg, replica_id, model, optim, make_batch, manager, pg,
                                 transport, sync, on_step, stop, script)
-        while manager.current_step() < cfg.steps:
+        while manager.current_step() < cfg.steps or (ejecting and not _all_in(manager, cfg)):
             if stop.is_set():
                 raise RuntimeError(f"replica {replica_id}: a peer replica failed")
             step = manager.current_step()
             script.check(replica_id, step, "start", transport)
-            t0 = sync()
-            optimizer.zero_grad()
-            inputs, targets = make_batch(step)
-            loss = model.loss(inputs, targets)
-            loss.backward()
-            t1 = sync()
-            script.check(replica_id, step, "backward", transport)
-            grads = {n: p.grad for n, p in model.named_parameters()}
-            wire0 = pg.wire_stats()
-            avg = manager.allreduce(grads, should_quantize=cfg.quantize).get_future().wait()
-            for n, p in model.named_parameters():
-                p.grad = avg[n]
-            t2 = sync()
-            wire1 = pg.wire_stats()
-            timings = manager.timings()
-            committed = optimizer.step()
-            t3 = sync()
+            profiling = replica_id == 0 and step == cfg.profile_step and cfg.trace_dir
+            with _step_profiler(device) if profiling else contextlib.nullcontext() as prof:
+                t0 = sync()
+                optimizer.zero_grad()
+                inputs, targets = make_batch(step)
+                loss = model.loss(inputs, targets)
+                loss.backward()
+                t1 = sync()
+                script.check(replica_id, step, "backward", transport)
+                slow = script.is_slow(replica_id, manager.health().get("ejections", 0) > 0)
+                if slow:
+                    time.sleep(max(0.0, 2.0 * min(compute_s or [0.0])))
+                t_slow = time.perf_counter()
+                grads = {n: p.grad for n, p in model.named_parameters()}
+                wire0 = pg.wire_stats()
+                avg = manager.allreduce(grads, should_quantize=cfg.quantize).get_future().wait()
+                for n, p in model.named_parameters():
+                    p.grad = avg[n]
+                t2 = sync()
+                wire1 = pg.wire_stats()
+                timings = manager.timings()
+                committed = optimizer.step()
+                t3 = sync()
+            if prof is not None:
+                prof.export_chrome_trace(os.path.join(cfg.trace_dir, f"profile_step{step}.json"))
+            if committed and not slow and not manager.last_quorum_healed():
+                compute_s.append(t3 - t0 - timings.get("allreduce_wire_wall_s", 0.0))
             on_step({
                 "replica": replica_id,
                 # the step the vote decided (a heal moves a replica forward)
@@ -504,6 +583,10 @@ def _train_replica(
                 # (within compute_ms), and when the step ended (monotonic
                 # clock)
                 "stage_hot_ms": timings.get("shard_stage_hot_s", 0.0) * 1e3,
+                # a slow fault's host sleep (within allreduce_ms), and the
+                # health plane's state of this replica after the vote
+                "slow_ms": (t_slow - t1) * 1e3 if slow else 0.0,
+                "health_state": manager.timings()["health_state"],
                 "at": time.monotonic(),
                 **_moe_stats(model),
             })
@@ -527,11 +610,33 @@ def _train_replica(
     finally:
         if live is not None and live.get(replica_id) is manager:
             del live[replica_id]
+        if metrics_ports is not None and manager.metrics_port is not None \
+                and metrics_ports.get(replica_id) == manager.metrics_port:
+            del metrics_ports[replica_id]
         if shadowing is not None and shadowing.get(replica_id) is manager:
             del shadowing[replica_id]
+        if cfg.trace_dir:
+            manager.dump_trace(os.path.join(cfg.trace_dir, f"trace_{manager.tracer.replica_id}.json"))
         manager.shutdown(wait=False)
         if recovery_pg is not None:
             recovery_pg.shutdown()
+
+
+def _all_in(manager: Manager, cfg: TrainConfig) -> bool:
+    """Whether the last step's quorum had every replica taking part. With
+    ejection on, a replica past ``cfg.steps`` trains on until it does: an
+    ejected replica then rejoins and heals before its peers stop, and every
+    member of that quorum sees the same answer, so they stop at one step."""
+    return manager.num_participants() >= cfg.replicas
+
+
+def _step_profiler(device: torch.device) -> "torch.profiler.profile":
+    """A profiler of one step: the host's ranges and operators, and on the
+    card its kernels, in one Kineto trace."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
 
 
 def _resilience(manager: Manager) -> Dict[str, float]:
@@ -648,12 +753,18 @@ def run_replicas(
     cfg: TrainConfig,
     device: "str | torch.device | None" = None,
     on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
+    fleet: Optional[Dict[str, Any]] = None,
 ) -> List[Dict[str, Any]]:
     """Train ``cfg.replicas`` replica groups (and ``cfg.spares`` hot spares)
     as threads against an in-process lighthouse; returns each one's final
     state, metrics and per-step log, the spares after the replicas. A
     crashed replica restarts (with a fresh model and Manager) until it
-    finishes; one that ``die``s does not, and its result says ``died``."""
+    finishes; one that ``die``s does not, and its result says ``died``.
+    ``fleet``, when given, is filled as the run goes: ``lighthouse`` (its
+    address, while it serves), ``metrics_ports`` (replica -> its Manager's
+    ``/metrics`` port, while it runs and serves one), and at the end
+    ``health`` (the lighthouse's ``/health`` payload) and, with a
+    ``trace_dir``, ``trace`` (the merged trace's path)."""
     dev = resolve_device(device)
     n_replicas = cfg.replicas
     n_all = n_replicas + cfg.spares
@@ -661,14 +772,31 @@ def run_replicas(
     if not k and (cfg.spares or any(f.kind == "die" for f in cfg.faults)):
         raise ValueError("hot spares and a `die` fault need the redundancy plane "
                          "(redundancy k >= 1)")
+    health = HealthConfig.from_env()
+    if cfg.health:
+        health = dataclasses.replace(health, mode=cfg.health)
+        health.validate()
+    history = ""
+    if cfg.trace_dir:
+        os.makedirs(cfg.trace_dir, exist_ok=True)
+        history = os.path.join(cfg.trace_dir, "lighthouse_history.jsonl")
     # min_replicas = every member holds the survivors in quorum while a
     # crashed replica restarts, so the rejoin always goes through a heal
-    # (with the plane on: of the generation staged before the crash)
+    # (with the plane on: of the generation staged before the crash); an
+    # ejecting health plane needs one member to spare, and then the join
+    # timeout must outlast a heal source's serving grace (10 s): a quorum
+    # formed without the member still in its grace would leave it behind
+    # to heal in turn, and so on
     lighthouse = LighthouseServer(
-        bind="127.0.0.1:0", min_replicas=n_replicas,
-        join_timeout_ms=1000, quorum_tick_ms=20, heartbeat_timeout_ms=2000,
+        bind="127.0.0.1:0",
+        min_replicas=max(1, n_replicas - 1) if health.mode == "eject" else n_replicas,
+        join_timeout_ms=JOIN_TIMEOUT_MS, quorum_tick_ms=20, heartbeat_timeout_ms=2000,
+        health=health.to_json(), history_path=history,
     )
     addr = f"127.0.0.1:{lighthouse.port}"
+    if fleet is not None:
+        fleet["lighthouse"] = addr
+        fleet["metrics_ports"] = {}
     plane = directory = None
     if k > 0:
         # the shard directory beside the lighthouse, polling its health
@@ -688,6 +816,8 @@ def run_replicas(
     # set once every member's thread has ended: an unpromoted spare stops
     done = threading.Event()
     members_left = [n_replicas]
+    # the members' first incarnations start training together
+    start = threading.Barrier(n_replicas)
 
     def before_fault(replica: int, step: int, kind: str) -> None:
         # a crash waits until every other member announced this step's
@@ -729,7 +859,11 @@ def run_replicas(
                 try:
                     out = _train_replica(cfg, i, addr, dev, record, stop, script, plane=plane,
                                          spare=spare and restarts == 0, done=done, live=live,
-                                         shadowing=shadowing)
+                                         shadowing=shadowing,
+                                         metrics_ports=None if fleet is None
+                                         else fleet["metrics_ports"],
+                                         ejecting=health.mode == "eject",
+                                         start=None if spare or restarts else start)
                     out["restarts"] = restarts
                     # this incarnation's own heals (a restart's rejoin)
                     out["last_incarnation"] = {
@@ -752,6 +886,8 @@ def run_replicas(
                         if not stop.is_set():
                             errors.append(e)
                             stop.set()
+                    # the members still waiting to start fail at once
+                    start.abort()
                     raise
                 # past the handler (the crash's traceback is gone): the crashed
                 # or dead incarnation's model, optimizer state and EF residuals
@@ -777,13 +913,29 @@ def run_replicas(
             futs = [ex.submit(replica, i) for i in range(n_all)]
             for f in futs:
                 f.exception()
+        if fleet is not None:
+            fleet["health"] = LighthouseClient(addr).health()
     finally:
+        if fleet is not None:
+            fleet.pop("lighthouse", None)
         script.close()
         if directory is not None:
             directory.shutdown()
         lighthouse.shutdown()
     if errors:
         raise errors[0]
+    if cfg.trace_dir:
+        # every incarnation's dump of this run, one process row each
+        dumps = []
+        for name in sorted(os.listdir(cfg.trace_dir)):
+            if name.startswith("trace_") and name.endswith(".json"):
+                with open(os.path.join(cfg.trace_dir, name)) as f:
+                    dumps.append(json.load(f))
+        merged = os.path.join(cfg.trace_dir, "merged_trace.json")
+        with open(merged, "w") as f:
+            json.dump(merge_traces(dumps), f)
+        if fleet is not None:
+            fleet["trace"] = merged
     results = [f.result() for f in futs]
     for i, r in enumerate(results):
         r["log"] = logs[i]
@@ -832,6 +984,14 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="generations an owner kept in each shard store")
     p.add_argument("--spares", type=int, default=0,
                    help="hot spares, promoted when a member dies (needs --redundancy)")
+    p.add_argument("--health", default="", choices=["", "off", "observe", "eject"],
+                   help="the lighthouse's health mode (default: $TORCHFT_HEALTH_MODE, else "
+                        "observe); eject drops a straggler from the quorum until readmitted")
+    p.add_argument("--trace-dir", default="",
+                   help="each replica's span dump, their merge (merged_trace.json) and the "
+                        "lighthouse's history go here")
+    p.add_argument("--profile-step", type=int, default=-1,
+                   help="replica 0 runs this step under torch.profiler, into --trace-dir")
     args = p.parse_args(argv)
     try:
         red_k, red_m = (int(x) for x in args.redundancy.split(","))
@@ -850,6 +1010,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         replicas=args.replicas, http_timeout=args.http_timeout,
         redundancy=(red_k, red_m), redundancy_interval=args.redundancy_interval,
         redundancy_retain=args.redundancy_retain, spares=args.spares,
+        health=args.health, trace_dir=args.trace_dir, profile_step=args.profile_step,
     )
     results = run_replicas(
         cfg, args.device, on_step=lambda e: print(json.dumps(e), flush=True)
