@@ -241,6 +241,34 @@
    1%; K1's three kernels, K3-host and K4 launched. Prints the steady step
    split, the ejected quorum's step, the heal on readmission, spans a
    step, microseconds a span, the cost's share and the launches.
+17. The serving plane at bench_1b (full width and depth, B 1, S 2048,
+   AdamW, full remat): two replica threads on the fp8 allreduce (as phase
+   6), the lighthouse co-hosting the snapshot registry, each replica's
+   Manager publishing every committed step through a ``SnapshotPublisher``
+   (the 1,074,874,368 parameters as one f32 flat on the card: the delta
+   against ``R`` coded by K3-host, replayed into ``R`` by K4, its codes and
+   scales pickled on the host, ``R`` staged for full pulls), two
+   ``ServeWorker``s on the card (``max_lag`` 8) answering four closed-loop
+   ``/infer`` threads, a thread sampling each worker's lag in steps, 6
+   steps. The workers' pulls are held from replica 0's commit of step 1
+   until its source died; replica 0 crashes after step 3's backward pass,
+   once its publisher announced step 2 (its source sorts first among equal
+   versions: the registry breaks ties by replica id), restarts, heals over
+   HTTP (the quorum bump lands mid-traffic) and its new publisher
+   bootstraps from the registry. Checks zero failed requests, every
+   worker's final flat bitwise equal to both publishers' ``R`` (and their
+   sha256 digests equal), each publisher's versions strictly increasing
+   with no announce rejected, the healed replica's publisher bootstrapped,
+   the workers failing over at least one pull from the dead source, a
+   delta at least 3x smaller than a full pull, and K3-host and K4 launched
+   by the serving path (its own counts, within the phase's), K1's three
+   kernels in the trainers. Prints the commit path's ``serve_publish_s``,
+   the publisher thread's split (delta + K3-host, K4 replay, codes to the
+   host, pickle, staging ``R``, announce), the skipped versions, a full
+   pull's seconds and MB/s, a delta pull's ms, lag p50 / p99 in steps,
+   ``/infer`` p50 / p99 ms and requests/s (one process: the trainers, the
+   publishers' and workers' HTTP servers and the request threads share
+   its GIL), the steady step split and the device and host peaks.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -1568,16 +1596,19 @@ def bench_1b_buckets(specs: dict) -> list:
     return bucketing.build_plan(leaves, bucketing.DEFAULT_BUCKET_CAP_BYTES).sizes
 
 
-def check_host_rule_kernel(device: torch.device, largest: int) -> dict:
+def check_host_rule_kernel(device: torch.device, largest: int, serving_flat: int) -> dict:
     """The host-rule quantize kernel (quantize_fp8_rowwise_kernel<true>)
     against its plain version, bit for bit (codes and scales, and their
-    dequantized values), on bench_1b's largest gradient bucket and on a
-    ragged tail, each with a zero row, overflow rows, a non-finite row and
-    a subnormal row; timed at the largest bucket."""
+    dequantized values), on a ragged tail, bench_1b's largest gradient
+    bucket and the serving plane's flat (every parameter, one publish's
+    delta), each with a zero row, overflow rows, a non-finite row and a
+    subnormal row; timed at the largest bucket and at the serving flat
+    (under ``serving_flat``)."""
     from torchft_tpu_torch.ops import quantization as q
 
     out = {"mismatch": 0, "err": 0.0}
-    for label, n in (("ragged_tail", ROW * 4096 + 77), ("bench_1b_largest_bucket", largest)):
+    for label, n in (("ragged_tail", ROW * 4096 + 77), ("bench_1b_largest_bucket", largest),
+                     ("serving_flat", serving_flat)):
         x = make_input("specials", n, device)
         qk, sk, nk = q.fused_quantize_fp8_host(x)
         qp, sp, _ = q.quantize_fp8_host_plain(x)
@@ -1589,15 +1620,20 @@ def check_host_rule_kernel(device: torch.device, largest: int) -> dict:
         out["mismatch"] += mismatch
         out["err"] = max(out["err"], err)
         log(f"host-rule quantize check {label:>24} n={n:>10}: mismatches={mismatch}")
-        if label == "bench_1b_largest_bucket":
+        if label != "ragged_tail":
             rows = qk.shape[0]
-            out.update({
+            t = {
                 "n": n,
                 "ms": device_ms(lambda: q.fused_quantize_fp8_host(x), 10),
                 "call_ms": timed_ms(lambda: q.fused_quantize_fp8_host(x), 10),
                 "plain_ms": device_ms(lambda: q.quantize_fp8_host_plain(x), 3),
                 "bytes": 4 * n + rows * ROW + 4 * rows,
-            })
+            }
+            if label == "serving_flat":
+                out["serving_flat"] = {**t, "mismatch": mismatch, "max_abs_err": err,
+                                       "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3}
+            else:
+                out.update(t)
         del x, qk, sk, qp, sp
         torch.cuda.empty_cache()
     if out["mismatch"]:
@@ -2541,10 +2577,15 @@ HW_REPLICAS, HW_STEPS = 3, 11
 # before: step 0's init heal, steps 1 and 2 its compute samples, step 1
 # under the profiler) until it sees itself ejected
 HW_SLOW = (2, 3)
-# the shortened healthwatch knobs of the phase (PROBATION_MS: about two of
-# phase 6's steady steps, set in the phase)
+# the shortened healthwatch knobs of the phase (PROBATION_MS, set in the
+# phase: about two of its own steps, HW_PROBATION_STEPS of phase 6's; an
+# ejection lands just after a quorum, and a probation shorter than the
+# phase's step readmits the straggler before any quorum excludes it)
 HW_KNOBS = {"TORCHFT_HEALTH_MIN_SAMPLES": "3", "TORCHFT_HEALTH_EJECT_STEPS": "2",
             "TORCHFT_HEALTH_PROBE_OK": "2", "TORCHFT_METRICS_PORT": "0"}
+# three replicas' fp8 step ran 2.5-2.75x phase 6's two-replica one (H100
+# 80GB HBM3, 700 W)
+HW_PROBATION_STEPS = 5
 HW_PROFILE_STEP = 1  # replica 0's step under torch.profiler
 # the tracing and telemetry cost's share of the steady step (bench.py:574-620)
 HW_COST_BAR = 0.01
@@ -2647,7 +2688,7 @@ def check_health_tracing_bench_1b(device: torch.device, cfg, steady_step_ms: flo
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
                            "trace_health")
     shutil.rmtree(out_dir, ignore_errors=True)
-    probation_ms = int(2 * steady_step_ms)
+    probation_ms = int(HW_PROBATION_STEPS * steady_step_ms)
     hcfg = dataclasses.replace(
         cfg, replicas=HW_REPLICAS, steps=HW_STEPS, quantize=True, transport="http",
         health="eject", trace_dir=out_dir, profile_step=HW_PROFILE_STEP,
@@ -2822,6 +2863,188 @@ def check_health_tracing_bench_1b(device: torch.device, cfg, steady_step_ms: flo
     return launches
 
 
+# phase 17: the serving plane at bench_1b (docstring, 17)
+SV_STEPS, SV_WORKERS = 6, 2
+# replica 0 crashes after this step's backward pass (its source sorts first
+# among equal versions, so workers held behind it dial it first)
+SV_CRASH = (0, 3)
+# a delta's bytes against a full pull's: at least this many times fewer
+SV_DELTA_SAVING = 3.0
+
+
+def _pct(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q)) if xs else float("nan")
+
+
+def check_serving_bench_1b(device: torch.device, cfg, steady_step_ms: float) -> dict:
+    """Phase 17: bench_1b as two replica threads publishing every commit to
+    two serve workers on the card under closed-loop /infer traffic, through
+    a crash, a heal and a bootstrap (docstring, 17). Its steady step is
+    logged beside ``steady_step_ms``, the same trainers' without the plane
+    (phase 6, this call). Returns the phase's launches and the serving
+    path's own."""
+    from torchft_tpu_torch import serving
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.train import SERVE_REQUESTS, Fault, run_replicas
+
+    scfg = dataclasses.replace(
+        cfg, steps=SV_STEPS, quantize=True, transport="http", serve_workers=SV_WORKERS,
+        serve_compress="fp8",
+        faults=(Fault(SV_CRASH[0], SV_CRASH[1], "crash", at="backward"),))
+    crasher, crash_step = SV_CRASH
+    hold, released = threading.Event(), threading.Event()
+    held_pulls = [0]
+
+    def hook(event: str, info: dict):
+        # the workers' pulls wait while held: they stay behind the version
+        # the dying source announces last
+        if event == "worker_pull" and hold.is_set() and not released.is_set():
+            held_pulls[0] += 1
+            while not released.wait(0.01):
+                pass
+        return None
+
+    def on_step(e: dict) -> None:
+        log(f"serve step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+            f"participants={e['participants']} committed={e['committed']} healed={e['healed']} "
+            f"step_ms={e['step_ms']:.1f} compute_ms={e['compute_ms']:.1f} "
+            f"allreduce_ms={e['allreduce_ms']:.1f} serve_publish_ms={e['serve_publish_ms']:.3f}")
+        if e["replica"] == crasher and e["step"] == crash_step - 2 and e["committed"]:
+            hold.set()
+        if (e["replica"] != crasher and e["step"] == crash_step and not e["committed"]) \
+                or e["step"] > crash_step:
+            released.set()
+
+    q.reset_launches()
+    ta.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    torch.cuda.reset_peak_memory_stats()
+    # two trainers, two publishers and two workers fill an H100 80GB HBM3
+    # (700 W) to 74.1 GiB at the peak: segments that grow, as phase 15's
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    host = HostMemory()
+    fleet: dict = {}
+    t0 = time.perf_counter()
+    serving.set_serve_fault_hook(hook)
+    try:
+        results = run_replicas(scfg, device, on_step=on_step, fleet=fleet)
+    finally:
+        serving.set_serve_fault_hook(None)
+        released.set()
+        host.stop()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    sv = fleet["serving"]
+    entries = [e for r in results for e in r["log"]]
+    losses = [e["loss"] for e in entries]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"serving: non-finite loss: {losses}")
+    if any(r["step"] != scfg.steps for r in results):
+        raise RuntimeError(f"serving: replicas stopped at {[r['step'] for r in results]}")
+    if results[crasher]["restarts"] != 1 or results[crasher]["metrics"]["heals"] < 1:
+        raise RuntimeError(f"serving: replica {crasher} did not crash and heal: "
+                           f"{results[crasher]['metrics']}")
+    p0, p1 = results[0]["params"], results[1]["params"]
+    unequal = [k for k in p0 if not same_bits(p0[k], p1[k])]
+    if unequal:
+        raise RuntimeError(f"serving: replicas differ in {unequal[:5]}")
+    req = sv["requests"]
+    if req["failed"] or req["ok"] == 0:
+        raise RuntimeError(f"serving: {len(req['failed'])} failed requests of "
+                           f"{req['ok'] + len(req['failed'])}: {req['failed'][:3]}")
+    digests = {p["ref_sha256"] for p in sv["publishers"]} | {w["flat_sha256"]
+                                                              for w in sv["workers"]}
+    if not sv["equal"] or len(digests) != 1 or len(sv["publishers"]) != 2:
+        raise RuntimeError(f"serving: workers and publishers not bitwise equal: equal "
+                           f"{sv['equal']}, digests {sorted(digests)}")
+    for p in sv["publishers"]:
+        ring = [tuple(v) for v in p["ring"]]
+        if ring != sorted(set(ring)) or p["counters"]["announce_rejected_total"]:
+            raise RuntimeError(f"serving: publisher {p['replica']}'s versions {ring} not "
+                               f"strictly increasing or rejected: {p['counters']}")
+    healed = next(p for p in sv["publishers"] if p["replica"] == crasher)
+    if healed["counters"]["bootstrap_pulls_total"] < 1:
+        raise RuntimeError(f"serving: the healed replica's publisher did not bootstrap: "
+                           f"{healed['counters']}")
+    failovers = sum(w["counters"]["pull_failovers_total"] for w in sv["workers"])
+    if failovers < 1 or held_pulls[0] < 1:
+        raise RuntimeError(f"serving: no pull failed over from the dead source (failovers "
+                           f"{failovers}, held pulls {held_pulls[0]})")
+    wc = [w["counters"] for w in sv["workers"]]
+    full_b = sum(c["full_bytes_total"] for c in wc) / max(1, sum(c["full_pulls_total"] for c in wc))
+    delta_b = sum(c["delta_bytes_total"] for c in wc) / max(1, sum(c["delta_pulls_total"]
+                                                                   for c in wc))
+    if not sum(c["delta_pulls_total"] for c in wc) or full_b < SV_DELTA_SAVING * delta_b:
+        raise RuntimeError(f"serving: a delta moves {delta_b:.0f} B against a full pull's "
+                           f"{full_b:.0f} B (bar {SV_DELTA_SAVING}x)")
+    serve_k3 = sum(p["counters"]["k3_host_launches"] for p in sv["publishers"])
+    serve_k4 = sum(p["counters"]["k4_launches"] for p in sv["publishers"]) + \
+        sum(c["k4_launches"] for c in wc)
+    if not (1 <= serve_k3 <= launches["quantize_fp8_rowwise_host"]) or \
+            not (1 <= serve_k4 <= launches["dequantize_fp8_rowwise"]):
+        raise RuntimeError(f"serving: the serving path launched K3-host {serve_k3}, K4 "
+                           f"{serve_k4} (phase: {launches})")
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} never launched on the serving phase's trainers")
+
+    steady = [e for e in entries if e["committed"] and e["participants"] == 2
+              and not e["healed"] and e["step"] > 0]
+    med = {k: statistics.median(e[k] for e in steady)
+           for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")} if steady else {}
+    publish_ms = [e["serve_publish_ms"] for e in entries if e["committed"]]
+    splits = [s_ for p in sv["publishers"] for s_ in p["splits"]]
+    split_med = {k: statistics.median(s_[k] for s_ in splits) * 1e3
+                 for k in serving.PUBLISH_SPLITS} if splits else {}
+    full_s = [s_ for w in sv["workers"] for s_ in w["full_pull_s"]]
+    delta_ms = [s_ * 1e3 for w in sv["workers"] for s_ in w["delta_pull_s"]]
+    lags = [x for w in sv["workers"] for x in w["lag_steps"]]
+    lat = req["latency_ms"]
+    skipped = [p["counters"]["skipped_total"] for p in sv["publishers"]]
+    log(f"serving bench_1b ({elapsed:.1f} s, 2 replicas, fp8 allreduce, {SV_WORKERS} workers on "
+        f"the card, {SERVE_REQUESTS} request threads, crash of replica {crasher} after step "
+        f"{crash_step}'s backward): every worker's flat bitwise equal to both publishers' R at "
+        f"{sv['target']} (sha256 {next(iter(digests))[:16]}); "
+        + (f"median of {len(steady)} steady steps: step {med['step_ms']:.1f} ms = "
+           f"quorum+fwd+bwd {med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} "
+           f"ms + commit+optimizer "
+           f"{med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
+           f"{med['tokens_per_s']:.1f} tokens/s per replica; without the plane (phase 6) "
+           f"{steady_step_ms:.1f} ms, {med['step_ms'] / steady_step_ms:.2f}x"
+           if med else "no steady step"))
+    log(f"serving commit path: serve_publish_s median {statistics.median(publish_ms):.3f} ms, "
+        f"max {max(publish_ms):.3f} ms over {len(publish_ms)} commits; publisher thread per "
+        f"version (median of {len(splits)}): "
+        + ", ".join(f"{k[:-2]} {v:.1f} ms" for k, v in split_med.items())
+        + f"; published {[p['counters']['published_total'] for p in sv['publishers']]}, "
+        f"skipped {skipped}, bootstrap pulls "
+        f"{[p['counters']['bootstrap_pulls_total'] for p in sv['publishers']]}")
+    log(f"serving pulls: full pull {statistics.median(full_s):.3f} s median of {len(full_s)} "
+        f"({full_b / 1e6 / statistics.median(full_s):.1f} MB/s, {full_b / 1e6:.1f} MB), delta "
+        f"pull {statistics.median(delta_ms) if delta_ms else float('nan'):.1f} ms median of "
+        f"{len(delta_ms)} ({delta_b / 1e6:.1f} MB, {full_b / max(delta_b, 1):.2f}x fewer "
+        f"bytes); failovers {[c['pull_failovers_total'] for c in wc]} (held pulls "
+        f"{held_pulls[0]}); lag p50 {_pct(lags, 50):.1f} / p99 {_pct(lags, 99):.1f} steps "
+        f"over {len(lags)} samples; /infer p50 {_pct(lat, 50):.2f} / p99 {_pct(lat, 99):.2f} "
+        f"ms, {req['ok'] / max(req['seconds'], 1e-9):.1f} requests/s ({req['ok']} ok, 0 failed, "
+        f"{req['seconds']:.1f} s; one process's GIL)")
+    log(f"serving memory: device peak {peak / 2**30:.2f} GiB, host peak RSS "
+        f"{host.peak_rss / 2**30:.2f} GiB, host MemAvailable min "
+        f"{host.min_available / 2**30:.2f} GiB; launches {launches}; serving path K3-host "
+        f"{serve_k3}, K4 {serve_k4}")
+    del results, p0, p1, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**launches, "serving_quantize_fp8_rowwise_host": serve_k3,
+            "serving_dequantize_fp8_rowwise": serve_k4}
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2872,10 +3095,14 @@ def main() -> int:
     check_allreduce(device)
     specs = bench_1b_grad_specs()
     buckets = bench_1b_buckets(specs)
-    host_rule = check_host_rule_kernel(device, max(buckets))
+    host_rule = check_host_rule_kernel(device, max(buckets), n_params)
     log(f"host-rule quantize at bench_1b's largest bucket (n={host_rule['n']}, buckets {buckets}): "
         f"{host_rule['ms']:.3f} ms device, {host_rule['call_ms']:.3f} ms one call with its host "
         f"time, plain version {host_rule['plain_ms']:.3f} ms")
+    sf = host_rule["serving_flat"]
+    log(f"host-rule quantize at the serving flat (n={sf['n']}, one publish's delta): "
+        f"{sf['ms']:.3f} ms device against a {sf['bound_ms']:.3f} ms bound, {sf['call_ms']:.3f} ms "
+        f"one call with its host time, plain version {sf['plain_ms']:.3f} ms; bitwise equal")
     time_serial_split(device, n_params, REPLICAS)
     time_streamed_split(device, max(buckets))
     check_streamed_on_card(device)
@@ -2917,7 +3144,7 @@ def main() -> int:
         raise RuntimeError("training: no steady step")
     med = {k: statistics.median(e[k] for e in steady)
            for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
-    # phase 16's probation is about two of these steps
+    # phase 16's probation is HW_PROBATION_STEPS of these steps
     ddp_step_ms = med["step_ms"]
     log("steady steps (2 participants, median of "
         f"{len(steady)}): step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
@@ -2985,9 +3212,13 @@ def main() -> int:
     del pg_results, p0, p1
     gc.collect()
     torch.cuda.empty_cache()
-    ddp_launches = check_train_ddp_processes()
+    # the two small examples' processes barely load the card or the host:
+    # they run side by side, each with its own lighthouse
+    with ThreadPoolExecutor(2) as pool:
+        ddp_run = pool.submit(check_train_ddp_processes)
+        diloco_proc_run = pool.submit(check_train_diloco_processes)
+        ddp_launches, diloco_proc_launches = ddp_run.result(), diloco_proc_run.result()
     diloco_launches = check_diloco_bench_1b(device, cfg)
-    diloco_proc_launches = check_train_diloco_processes()
     check_local_sgd_on_card(device)
     hsdp_launches = check_train_llama_hsdp_processes()
     rs_launches = check_reduce_scatter_on_card(device, n_params)
@@ -2997,6 +3228,7 @@ def main() -> int:
     moe_stats, moe_timing = check_bench_moe_attention(device)
     red_launches = check_redundancy_bench_1b(device, cfg, http_heal)
     health_launches = check_health_tracing_bench_1b(device, cfg, ddp_step_ms)
+    serve_launches = check_serving_bench_1b(device, cfg, ddp_step_ms)
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -3037,6 +3269,14 @@ def main() -> int:
             "launches_redundancy": red_launches[kname],
             # phase 16: bench_1b with the health and tracing planes
             "launches_health": health_launches[kname],
+            # phase 17: bench_1b with the serving plane, and of it the
+            # serving path's own (its publishers and workers; 0 for K3)
+            "launches_serving": {"phase": serve_launches[kname],
+                                 "serving_path": serve_launches.get(f"serving_{kname}", 0)},
+            # K3-host checked and timed at the serving plane's flat too
+            **({"serving_flat": {k: v for k, v in host_rule["serving_flat"].items()
+                                 if k != "bytes"}}
+               if kname == "quantize_fp8_rowwise_host" else {}),
             **sass_counts(build_report[instance]),
         })
     for dtype, (suffix, sources) in ATTN_DTYPES.items():
@@ -3063,7 +3303,9 @@ def main() -> int:
                         # phase 15: bench_1b with the redundancy plane
                         "launches_redundancy": red_launches[key],
                         # phase 16: bench_1b with the health and tracing planes
-                        "launches_health": health_launches[key]}
+                        "launches_health": health_launches[key],
+                        # phase 17: bench_1b with the serving plane
+                        "launches_serving": serve_launches[key]}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],

@@ -630,3 +630,47 @@ def test_cuda_reconstruct_lands_in_a_cuda_template_in_place(cuda_device):
     assert float(got["step"]) == 4.0 and got["lr"] == 3e-4
     # the heal allocated no second copy of the state on the card
     assert torch.cuda.memory_allocated() == allocated
+
+
+@pytest.mark.cuda
+def test_cuda_serving_chain_equals_the_cpu_chain_and_is_not_torn(cuda_device):
+    """The serving plane on the card: a publisher over CUDA parameters
+    (``publish_async``: the copy on the training stream queued behind a
+    long spin, the parameters written in place right after, as the next
+    optimizer step does) and a worker on the card land, version after
+    version, on the ``R`` a CPU publisher computes from the published
+    values, bit for bit (K3-host and K4 against the host codec); the
+    publisher coded each version with one K3-host launch and replayed it
+    with K4, and the worker decoded each delta with K4."""
+    from torchft_tpu_torch import serving
+
+    reg = serving.SnapshotRegistry()
+    cfg = serving.ServeConfig(registry=reg.url, compress="fp8", poll_s=0.01, timeout_s=30.0)
+    pub = serving.SnapshotPublisher("card", config=cfg, registry_url=reg.url)
+    cpu_pub = serving.SnapshotPublisher("host", config=serving.ServeConfig(
+        compress="fp8", timeout_s=30.0), registry_url="")
+    worker = serving.ServeWorker(reg.url, config=cfg, name="w", start=False, device=cuda_device)
+    try:
+        gen = torch.Generator().manual_seed(17)
+        w = torch.randn(3 * 2**20 + 77, generator=gen).to(cuda_device)
+        b = torch.randn(1000, generator=gen).to(cuda_device, torch.bfloat16)
+        for step in range(4):
+            torch.cuda._sleep(50_000_000)
+            pub.publish_async(1, step, {"w": w, "b": b})
+            sent = {"w": w.clone().cpu(), "b": b.clone().cpu()}
+            w.mul_(0.9).add_(0.01)
+            b.add_(0.5)
+            assert cpu_pub.publish(1, step, sent) == (1, step)
+            assert pub.flush(30.0)
+            assert worker.pull_once() and worker.version == (1, step)
+            want = cpu_pub.ref_flat()
+            assert torch.equal(pub.ref_flat().cpu(), want)
+            assert torch.equal(worker.params_flat().cpu(), want)
+        assert pub.counters["published_total"] == 4 and pub.counters["skipped_total"] == 0
+        assert pub.counters["k3_host_launches"] == 4 and pub.counters["k4_launches"] >= 4
+        assert worker.counters["delta_pulls_total"] == 3 and worker.counters["k4_launches"] >= 3
+    finally:
+        worker.shutdown()
+        pub.shutdown()
+        cpu_pub.shutdown()
+        reg.shutdown()

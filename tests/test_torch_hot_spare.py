@@ -261,3 +261,81 @@ def test_crash_reconstruct_and_spare_promotion_in_both_packages(monkeypatch):
     assert spare["redundancy"]["spare_promote_step"] == DEATH[1]
     assert spare["timings"]["heal_attempts"] == 0
     assert spare["redundancy"]["reconstruct_failures"] == 0
+
+
+# -- the serve shadow ------------------------------------------------------------
+
+def _spare_serve_versions(redundancy_mod, serving_mod, device_kw):
+    """A hot spare shadowing a registry while one publisher publishes four
+    versions (a quorum bump before the last): the spare's
+    ``status()["serve_version"]`` after each, and the shadow's flat."""
+    directory = redundancy_mod.ShardDirectory(poll_s=0.05)
+    reg = serving_mod.SnapshotRegistry()
+    cfg = serving_mod.ServeConfig(registry=reg.url, compress="fp8", poll_s=0.01, timeout_s=5.0)
+    pub = serving_mod.SnapshotPublisher("serve_r0", config=cfg, registry_url=reg.url)
+    spare = redundancy_mod.HotSpare(
+        redundancy_mod.RedundancyConfig(k=1, m=1, directory=directory.url, timeout_s=5.0),
+        spare_id="spare_0", poll_s=0.05, serve_registry=reg.url)
+    seen = [spare.status()["serve_version"]]
+    try:
+        w = np.random.RandomState(21).randn(3000).astype(np.float32)
+        for version in ((1, 0), (1, 1), (1, 2), (2, 3)):
+            w = w * np.float32(0.97) + np.float32(0.05)
+            assert pub.publish(*version, {"w": w}) == version
+            deadline = time.monotonic() + 10.0
+            while spare.status()["serve_version"] != list(version) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            seen.append(spare.status()["serve_version"])
+        flat = spare._serve_worker.params_flat()
+        return seen, np.asarray(flat.numpy() if isinstance(flat, torch.Tensor) else flat)
+    finally:
+        spare.shutdown()
+        pub.shutdown()
+        reg.shutdown()
+        directory.shutdown()
+
+
+def test_hot_spare_serve_shadow_follows_the_chain_as_the_reference():
+    """``HotSpare(serve_registry=URL)`` shadows the serving plane's delta
+    chain (the reference raised ``NotImplementedError`` in the port before):
+    ``status()["serve_version"]`` follows every published version, as the
+    reference's spare does on the same registry script, and the shadow's
+    flat (on the host) equals the reference shadow's bit for bit."""
+    from torchft_tpu import serving as ref_serving
+    from torchft_tpu_torch import redundancy as port_redundancy
+    from torchft_tpu_torch import serving as port_serving
+
+    got, got_flat = _spare_serve_versions(port_redundancy, port_serving, {})
+    want, want_flat = _spare_serve_versions(ref_redundancy, ref_serving, {})
+    assert got == want == [None, [1, 0], [1, 1], [1, 2], [2, 3]]
+    np.testing.assert_array_equal(got_flat, want_flat)
+
+
+def test_manager_spare_shadows_the_registry_it_is_given(monkeypatch):
+    """``Manager(spare=True)`` hands ``TORCHFT_SERVE_REGISTRY`` to its hot
+    spare (reference ``manager.py:655-660``); the spare's shutdown joins
+    its shadow worker."""
+    from torchft_tpu_torch import serving as port_serving
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.process_group import ProcessGroupDummy
+    from torchft_tpu_torch.redundancy import ShardDirectory
+
+    directory = ShardDirectory(poll_s=0.05)
+    reg = port_serving.SnapshotRegistry()
+    monkeypatch.setenv("TORCHFT_SERVE_REGISTRY", reg.url)
+    monkeypatch.setenv("TORCHFT_REDUNDANCY_DIRECTORY", directory.url)
+    monkeypatch.setenv("TORCHFT_REDUNDANCY_K", "1")
+    mgr = Manager(pg=ProcessGroupDummy(), load_state_dict=lambda sd: None,
+                  state_dict=lambda: {"w": torch.zeros(2)}, min_replica_size=1,
+                  replica_id="spare_mgr", lighthouse_addr="127.0.0.1:1", timeout=5.0,
+                  spare=True)
+    try:
+        shadow = mgr._hot_spare._serve_worker
+        assert shadow is not None and shadow.device.type == "cpu"
+        assert mgr._hot_spare.status()["serve_version"] is None
+    finally:
+        mgr.shutdown()
+        reg.shutdown()
+        directory.shutdown()
+    assert not shadow._pull_thread.is_alive()

@@ -34,7 +34,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     for name in ("manager", "ops.quantization", "local_sgd", "knobs", "examples.train_diloco",
                  "parallel.mesh", "parallel.ring_attention", "parallel.ulysses",
                  "examples.train_llama_hsdp", "models.remat", "models.moe", "tracing", "trace",
-                 "flight_recorder", "observability", "healthwatch"):
+                 "flight_recorder", "observability", "healthwatch", "serving",
+                 "parameter_server"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -125,3 +126,13 @@ def test_observability_and_health_plane_import_no_jax_even_lazily(module):
     roots = _import_roots(os.path.join("torchft_tpu_torch", *module.split(".")) + ".py")
     assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
     assert f"torchft_tpu_torch.{module}" in _port_modules()
+
+
+@pytest.mark.parametrize("path", ["torchft_tpu_torch/serving.py",
+                                  "torchft_tpu_torch/parameter_server.py"])
+def test_serving_plane_imports_no_jax_even_lazily(path):
+    """The serving plane and the parameter server: every import, at top
+    level or inside a function (the registry's health poll, the
+    transports), stays in the port."""
+    roots = _import_roots(path)
+    assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}

@@ -125,7 +125,9 @@ def _parsed(module, argv):
                                   ["--bind", "127.0.0.1:0", "--join_timeout_ms", "9",
                                    "--heartbeat-timeout-ms", "11"],
                                   ["--redundancy-directory"], ["--redundancy_directory"],
-                                  ["--history", "history.jsonl"]])
+                                  ["--history", "history.jsonl"], ["--serve-registry"],
+                                  ["--serve_registry", "--serve_drain_on", "eject"],
+                                  ["--serve-registry", "--serve-drain-on", "warn"]])
 def test_cli_options_are_the_references(argv):
     """Defaults and spellings: the port's CLI hands its server what the
     reference's hands its own, for every option the port takes."""
@@ -136,7 +138,8 @@ def test_cli_options_are_the_references(argv):
     ref = _parsed(jax_lighthouse, argv)
     assert port == {k: ref[k] for k in port}
     assert sorted(port) == ["bind", "heartbeat_timeout_ms", "history_path", "join_timeout_ms",
-                            "min_replicas", "quorum_tick_ms", "redundancy_directory"]
+                            "min_replicas", "quorum_tick_ms", "redundancy_directory",
+                            "serve_drain_on", "serve_registry"]
 
 
 def test_cli_exits_nonzero_on_an_unknown_flag():
@@ -168,6 +171,59 @@ def test_cli_co_hosts_the_shard_directory():
     finally:
         rc = _stop(proc, signal.SIGTERM, lines)
     assert rc == 0, "\n".join(lines)
+
+
+def test_cli_co_hosts_the_snapshot_registry(monkeypatch):
+    """``--serve-registry --serve-drain-on eject``: the CLI logs the
+    registry's URL, which answers its status with that drain policy, and
+    stops cleanly; a bad ``--serve-drain-on`` is refused."""
+    import json
+    import time
+    import urllib.request
+
+    proc, _addr, lines = _start(["--bind", "127.0.0.1:0", "--serve-registry",
+                                 "--serve-drain-on", "eject"])
+    try:
+        deadline = time.monotonic() + 30
+        url = None
+        while url is None and time.monotonic() < deadline:
+            url = next((ln.split("snapshot registry serving at ", 1)[1].split()[0]
+                        for ln in list(lines) if "snapshot registry serving at " in ln), None)
+            time.sleep(0.02)
+        assert url is not None, "\n".join(lines)
+        with urllib.request.urlopen(f"{url}/serve/status", timeout=10) as r:
+            status = json.loads(r.read().decode())
+        assert status["drain_on"] == "eject" and status["sources"] == {}
+    finally:
+        rc = _stop(proc, signal.SIGTERM, lines)
+    assert rc == 0, "\n".join(lines)
+    out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.lighthouse",
+                          "--serve-registry", "--serve-drain-on", "never"],
+                         cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert out.returncode != 0 and "invalid choice" in out.stderr
+
+
+def test_lighthouse_server_drains_from_its_own_health(monkeypatch):
+    """``LighthouseServer(serve_registry=True)``: the co-hosted registry
+    reads ``TORCHFT_SERVE_DRAIN_ON`` when not told, polls this lighthouse's
+    ``/health`` and is shut down with it."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    monkeypatch.setenv("TORCHFT_SERVE_DRAIN_ON", "eject")
+    lh = LighthouseServer(bind="127.0.0.1:0", serve_registry=True)
+    try:
+        reg = lh.serve_registry
+        assert lh.serve_registry_url() == reg.url
+        assert reg.status()["drain_on"] == "eject"
+        assert reg._lighthouse_addr == lh.address() and reg._poll_thread.is_alive()
+    finally:
+        lh.shutdown()
+    assert lh.serve_registry is None and not reg._poll_thread.is_alive()
+    plain = LighthouseServer(bind="127.0.0.1:0")
+    try:
+        assert plain.serve_registry_url() is None
+    finally:
+        plain.shutdown()
 
 
 def test_cli_records_its_history(tmp_path):

@@ -711,9 +711,19 @@ class TestStagerAndSpare:
             peer.shutdown()
 
     def test_serve_registry_shadow_is_not_ported(self, directory):
-        with pytest.raises(NotImplementedError, match="serving"):
-            port.HotSpare(port.RedundancyConfig(k=2, m=1, directory=directory.url), "sp",
-                          serve_registry="http://registry")
+        """The serve shadow, which raised ``NotImplementedError`` until the
+        serving plane was ported, now attaches: a worker on the host that
+        has applied nothing while its registry is unreachable, joined by
+        the spare's shutdown."""
+        spare = port.HotSpare(port.RedundancyConfig(k=2, m=1, directory=directory.url), "sp",
+                              serve_registry="http://127.0.0.1:9")
+        shadow = spare._serve_worker
+        try:
+            assert shadow is not None and shadow.device.type == "cpu"
+            assert spare.status()["serve_version"] is None
+        finally:
+            spare.shutdown()
+        assert not shadow._pull_thread.is_alive()
 
     def test_hot_spare_cli_prints_the_promotion(self, directory, capsys):
         result = {}

@@ -379,6 +379,53 @@ def test_trainer_heals_over_pg_as_over_http_and_frees_the_crashed_replica(monkey
         train.run_replicas(train.TrainConfig(config="debug", transport="ftp"), "cpu")
 
 
+def test_trainer_restarts_only_once_a_late_thread_released_the_crashed_replica(monkeypatch):
+    """The race behind the test above failing under a loaded host: the
+    crashed incarnation's quorum thread still runs when the replica
+    restarts (here made to return 1 s late), holding its Manager and, through
+    the state-dict closure, its model. The trainer waits for their release
+    before it builds the next model, so the model is collected first."""
+    import time
+    import weakref
+
+    from torchft_tpu_torch import train
+    from torchft_tpu_torch.manager import Manager
+
+    orig = Manager._async_quorum
+
+    def late(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        if self._replica_id.startswith("replica_1") and self._step == 2:
+            time.sleep(1.0)
+        return out
+
+    built, collected = [], []
+    build = train.build_trainer
+
+    def recording(cfg, replica_id, device):
+        if replica_id == 1 and built:
+            collected.append(all(ref() is None for ref in built))
+        model, optim, make_batch = build(cfg, replica_id, device)
+        if replica_id == 1:
+            built.append(weakref.ref(model))
+        return model, optim, make_batch
+
+    monkeypatch.setattr(Manager, "_async_quorum", late)
+    monkeypatch.setattr(train, "build_trainer", recording)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = train.TrainConfig(config="debug", steps=4, seq_len=16, quantize=True,
+                                faults=(train.Fault(1, 2, "crash", at="backward"),))
+        results = train.run_replicas(cfg, "cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert results[1]["restarts"] == 1
+    assert collected == [True]
+    for k, v in results[0]["params"].items():
+        assert torch.equal(v, results[1]["params"][k])
+
+
 # -- (e) the Llama trainer's fault script ------------------------------------------
 
 def test_trainer_fault_script_heals_through_failover_and_crc(monkeypatch):

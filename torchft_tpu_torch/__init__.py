@@ -31,6 +31,11 @@ it. What runs today (see ROADMAP.md for what is still to port):
 - ``parallel``: the parallelism inside a replica group (the HSDP mesh and
   its sharding by FSDP2 and tensor parallelism, ring and Ulysses
   attention over the sequence);
+- ``serving``: the serving plane (a snapshot registry beside the
+  lighthouse, publishers of versioned fp8 deltas on the commit path, coded
+  on the card, and health-gated inference workers), and
+  ``parameter_server``: a prototype parameter server on per-client
+  sessions of the host process group;
 - ``train``: the fault-tolerant trainer of Llama that ``chip_smoke.py``
   drives, per-step DDP or semi-synchronous DiLoCo (``--diloco``), and
   ``examples.train_ddp`` / ``examples.train_diloco`` /

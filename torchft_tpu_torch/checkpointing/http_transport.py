@@ -302,15 +302,16 @@ class HTTPTransport(CheckpointTransport):
 
     def send_checkpoint(
         self, dst_ranks: List[int], step: int, state_dict: Any,
-        timeout: "float | timedelta",
+        timeout: "float | timedelta", snapshot: bool = True,
     ) -> None:
         """Stage a host copy of the state and open the serving window
         (pull-based: "send" makes it available until disallow_checkpoint).
         ``dst_ranks`` empty stages a standby snapshot nobody is expected
-        to fetch."""
+        to fetch. ``snapshot=False`` stages contiguous CPU tensors without
+        a copy: the caller hands them over and never writes them again."""
         if self._server is None:
             raise RuntimeError("client_only transport cannot stage checkpoints")
-        spec, payloads = flatten_state(state_dict)
+        spec, payloads = flatten_state(state_dict, snapshot=snapshot)
         nbytes = [m.nbytes for m in spec.leaves]
         total = sum(nbytes)
         if self._num_chunks > 0:

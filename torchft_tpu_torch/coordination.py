@@ -323,7 +323,13 @@ class LighthouseServer(_Server):
     ``ShardDirectory`` (reference ``coordination.py:348``, ``:428-440``):
     it tracks where each replica's erasure-coded shard generations live,
     polls this lighthouse's health ledger for deaths and promotes hot
-    spares; ``redundancy_directory_url()`` is its URL (None without it)."""
+    spares; ``redundancy_directory_url()`` is its URL (None without it).
+    ``serve_registry=True`` co-hosts the serving plane's
+    ``SnapshotRegistry`` (reference ``coordination.py:346-347``,
+    ``:413-425``): it polls this lighthouse's ``/health`` to drain
+    unhealthy sources at ``serve_drain_on`` ("warn" or "eject"; None reads
+    ``TORCHFT_SERVE_DRAIN_ON``, "warn" when unset); ``serve_registry_url()``
+    is its URL (None without it)."""
 
     _prefix = "lighthouse"
 
@@ -337,6 +343,8 @@ class LighthouseServer(_Server):
         redundancy_directory: bool = False,
         health: Optional[dict] = None,
         history_path: str = "",
+        serve_registry: bool = False,
+        serve_drain_on: Optional[str] = None,
     ) -> None:
         if health is None:
             health = HealthConfig.from_env().to_json()
@@ -353,6 +361,18 @@ class LighthouseServer(_Server):
             "tft_lighthouse_new_v2", json.dumps(opts).encode(),
             "lighthouse start failed",
         ))
+        self.serve_registry = None
+        if serve_registry:
+            # lazy: serving.py imports LighthouseClient back from here for
+            # the registry's health poll
+            from torchft_tpu_torch import knobs
+            from torchft_tpu_torch.serving import SERVE_DRAIN_ON_ENV, SnapshotRegistry
+
+            drain_on = serve_drain_on
+            if drain_on is None:
+                drain_on = (knobs.env_raw(SERVE_DRAIN_ON_ENV) or "").strip() or "warn"
+            self.serve_registry = SnapshotRegistry(lighthouse_addr=self.address(),
+                                                   drain_on=drain_on)
         self.redundancy_directory = None
         if redundancy_directory:
             # lazy: redundancy.py imports LighthouseClient back from here
@@ -363,6 +383,9 @@ class LighthouseServer(_Server):
 
     def address(self) -> str:
         return _take_str(self._lib, self._lib.tft_lighthouse_address(self._handle))
+
+    def serve_registry_url(self) -> Optional[str]:
+        return self.serve_registry.url if self.serve_registry is not None else None
 
     def redundancy_directory_url(self) -> Optional[str]:
         return self.redundancy_directory.url if self.redundancy_directory is not None else None
@@ -379,6 +402,9 @@ class LighthouseServer(_Server):
         return json.loads(out_s or "{}")
 
     def shutdown(self) -> None:
+        if self.serve_registry is not None:
+            self.serve_registry.shutdown()
+            self.serve_registry = None
         if self.redundancy_directory is not None:
             self.redundancy_directory.shutdown()
         super().shutdown()

@@ -9,8 +9,8 @@ value.
 being read as unset. The registry holds the names the observability and
 health planes read: the healthwatch policy (``TORCHFT_HEALTH_*``), the span
 recorder (``TORCHFT_TRACE*``), the flight recorder's capacity and dump
-path, the Manager's ``/metrics`` port and the optional OpenTelemetry
-mirror. The reference's full registry (types, defaults, doc anchors,
+path, the Manager's ``/metrics`` port, the optional OpenTelemetry
+mirror, and the serving plane's ``TORCHFT_SERVE_*`` contract. The reference's full registry (types, defaults, doc anchors,
 doctor checks) and its policy overrides are not ported."""
 
 from __future__ import annotations
@@ -43,6 +43,14 @@ REGISTRY: FrozenSet[str] = frozenset({
     "TORCHFT_METRICS_PORT",
     "TORCHFT_USE_OTEL",
     "TORCHFT_OTEL_RESOURCE_ATTRIBUTES_JSON",
+    # the serving plane (serving.py)
+    "TORCHFT_SERVE_REGISTRY",
+    "TORCHFT_SERVE_MAX_LAG",
+    "TORCHFT_SERVE_COMPRESS",
+    "TORCHFT_SERVE_POLL_S",
+    "TORCHFT_SERVE_DRAIN_ON",
+    "TORCHFT_SERVE_PORT",
+    "TORCHFT_SERVE_TIMEOUT_S",
 })
 
 

@@ -17,9 +17,14 @@ health events and telemetry snapshots; fold it with ``python -m
 torchft_tpu_torch.trace history PATH``. The health ledger takes
 ``TORCHFT_HEALTH_*`` from the environment (``healthwatch.HealthConfig``,
 read by ``LighthouseServer``:
-``TORCHFT_HEALTH_MODE=eject`` ejects stragglers; the default observes). The
-reference's ``--serve-registry``, ``--serve-drain-on`` and ``--policy``
-come with their planes.
+``TORCHFT_HEALTH_MODE=eject`` ejects stragglers; the default observes).
+``--serve-registry`` (reference ``:51-60``) co-hosts the serving plane's
+snapshot registry, which drains a source at ``--serve-drain-on`` (``warn``
+or ``eject``; default ``$TORCHFT_SERVE_DRAIN_ON``, else ``warn``) of this
+lighthouse's health ledger, and logs ``snapshot registry serving at <url>
+(epoch <epoch>)``; point publishers and workers at it with
+``TORCHFT_SERVE_REGISTRY=<url>``. The reference's ``--policy`` comes with
+its plane.
 """
 
 from __future__ import annotations
@@ -44,6 +49,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--quorum-tick-ms", "--quorum_tick_ms", type=int, default=100)
     parser.add_argument("--heartbeat-timeout-ms", "--heartbeat_timeout_ms", type=int,
                         default=5000)
+    parser.add_argument("--serve-registry", "--serve_registry", action="store_true",
+                        help="co-host a serving-plane snapshot registry that health-gates "
+                             "inference routing off this lighthouse's /health ledger; point "
+                             "publishers and workers at it with TORCHFT_SERVE_REGISTRY")
+    parser.add_argument("--serve-drain-on", "--serve_drain_on", default=None,
+                        choices=("warn", "eject"),
+                        help="health state at which the registry drains a serving source "
+                             "(default: $TORCHFT_SERVE_DRAIN_ON or warn)")
     parser.add_argument("--redundancy-directory", "--redundancy_directory", action="store_true",
                         help="co-host a redundancy-plane shard directory: it tracks "
                              "erasure-coded shard placements, detects owner deaths and "
@@ -67,9 +80,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         heartbeat_timeout_ms=args.heartbeat_timeout_ms,
         redundancy_directory=args.redundancy_directory,
         history_path=args.history,
+        serve_registry=args.serve_registry,
+        serve_drain_on=args.serve_drain_on,
     )
     try:
         logging.info("lighthouse listening at %s", server.address())
+        if server.serve_registry is not None:
+            logging.info("snapshot registry serving at %s (epoch %s)",
+                         server.serve_registry.url, server.serve_registry.epoch)
         if server.redundancy_directory is not None:
             logging.info("shard directory serving at %s (epoch %s)",
                          server.redundancy_directory.url, server.redundancy_directory.epoch)

@@ -207,7 +207,9 @@ _COUNTERS = ("heal_attempts", "heal_failovers", "rpc_retries", "chunk_crc_failur
              # the redundancy plane: staging and reconstruct
              "shards_staged", "shard_stage_skipped", "shard_stage_dropped",
              "shard_stage_failed", "shard_put_failed", "shard_announce_rejected",
-             "reconstructs", "reconstruct_failures", "shard_corrupt", "shard_fetch_failed")
+             "reconstructs", "reconstruct_failures", "shard_corrupt", "shard_fetch_failed",
+             # the serving plane's publishes (attach_serve_publisher)
+             "serve_published_total", "serve_publish_errors_total")
 # timings() keys /metrics renders as counters (``_total``): the bumped ones,
 # the health plane's cumulative ejections and readmissions (the lighthouse
 # counts them) and the observability planes' losses; every other number is
@@ -467,6 +469,10 @@ class Manager:
         self._last_health_state: Optional[str] = None
         self._healing = False
         self._last_quorum_healed = False
+        # the serving plane (attach_serve_publisher): committed snapshots go
+        # to this publisher, group leader only
+        self._serve_publisher: Optional[Any] = None
+        self._serve_params_fn: Optional[Callable[[], Any]] = None
         # True while this replica holds a standby failover snapshot open for
         # a heal under way elsewhere: should_commit keeps the window open
         self._standby_source = False
@@ -522,8 +528,12 @@ class Manager:
         try:
             if spare:
                 self._redundancy_cfg = red_cfg
-                self._hot_spare = HotSpare(red_cfg, spare_id=self._replica_id,
-                                           on_metric=self._on_redundancy_metric)
+                self._hot_spare = HotSpare(
+                    red_cfg, spare_id=self._replica_id,
+                    # the serving plane's delta chain too, when a registry is
+                    # named (reference :655-660)
+                    serve_registry=knobs.env_raw("TORCHFT_SERVE_REGISTRY", "") or None,
+                    on_metric=self._on_redundancy_metric)
             elif red_cfg.enabled:
                 self._redundancy_cfg = red_cfg
                 if group_rank == 0:
@@ -1450,6 +1460,10 @@ class Manager:
         if not self._standby_source:
             self._checkpoint_transport.disallow_checkpoint()
         if should_commit:
+            if self._serve_publisher is not None:
+                # before the step advances: the version is stamped with the
+                # step that voted (reference :3289-3292)
+                self._serve_publish_committed()
             if self._shard_stager is not None:
                 # staged at the next round's start, labelled with the step
                 # a healer joining it needs, once the caller applied this
@@ -1494,6 +1508,35 @@ class Manager:
         before the Manager). Sender and receiver build this tree from their
         registered state fns, so its leaves align by index."""
         return self._manager_state_dict()
+
+    # ------------------------------------------------------ serving plane
+    def attach_serve_publisher(self, publisher: Any,
+                               params_fn: Optional[Callable[[], Any]] = None) -> None:
+        """Attach a serving-plane ``SnapshotPublisher``: every committed
+        step is published as a snapshot stamped ``(quorum_id, step)``.
+        ``params_fn`` selects what to publish (default: the registered user
+        state dict). Group leader only: other ranks ignore the attach, so a
+        replica announces once. Advisory: a failed publish is logged and
+        counted (``serve_publish_errors_total``), never a failed commit."""
+        if self._group_rank != 0:
+            return
+        self._serve_publisher = publisher
+        self._serve_params_fn = params_fn if params_fn is not None else self.user_state_dict
+
+    def _serve_publish_committed(self) -> None:
+        """Commit-path hook: hand the just-committed parameters to the
+        publisher, whose ``publish_async`` copies them (on the card: on the
+        training stream, before the optimizer's next write) and returns;
+        encoding and announcing run on its thread. Never raises."""
+        t0 = time.perf_counter()
+        try:
+            self._serve_publisher.publish_async(self._quorum_id, self._step,
+                                                self._serve_params_fn())
+            self._bump_counter("serve_published_total")
+        except Exception:  # noqa: BLE001 - the advisory plane
+            self._bump_counter("serve_publish_errors_total")
+            logger.exception("serve snapshot publish failed")
+        self._record_timing("serve_publish_s", time.perf_counter() - t0)
 
     def user_state_dict(self) -> Dict[str, Any]:
         with self._state_dict_lock.r_lock():
@@ -1601,6 +1644,9 @@ class Manager:
         on: this round's staging hot path (``shard_stage_hot_s``, absent
         on a round that staged nothing), the stager's and the last
         reconstruct's seconds, and the plane's counters (``_COUNTERS``).
+        With a serve publisher attached: the commit path's hand-off of the
+        last committed step (``serve_publish_s``) and the counts
+        ``serve_published_total`` / ``serve_publish_errors_total``.
 
         The health plane (group leader, lighthouse health not ``off``): the
         lighthouse's latest summary of this replica, ``health_state`` (0 ok,
@@ -1668,7 +1714,8 @@ class Manager:
             return
         for name, value in self.timings().items():
             if name in _COUNTER_TIMINGS:
-                reg.counter_set(f"torchft_manager_{name}_total", float(value),
+                total = name if name.endswith("_total") else f"{name}_total"
+                reg.counter_set(f"torchft_manager_{total}", float(value),
                                 f"Cumulative {name} (Manager.timings()).")
             else:
                 reg.gauge_set(f"torchft_manager_{name}", float(value),

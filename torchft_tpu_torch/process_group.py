@@ -234,6 +234,10 @@ class ProcessGroup(ABC):
         """Future resolves to a list (one per rank) of lists of arrays."""
 
     @abstractmethod
+    def broadcast(self, arrays: Sequence[Any], root: int = 0) -> Work:
+        """Future resolves to root's arrays on every rank."""
+
+    @abstractmethod
     def alltoall(self, input_chunks: Sequence[Any]) -> Work:
         """Future resolves to [chunk from rank 0, chunk from rank 1, ...]."""
 
@@ -288,6 +292,9 @@ class ProcessGroupDummy(ProcessGroup):
 
     def allgather(self, arrays):
         return DummyWork([list(arrays)])
+
+    def broadcast(self, arrays, root=0):
+        return DummyWork(list(arrays))
 
     def alltoall(self, input_chunks):
         return DummyWork(list(input_chunks))
@@ -1348,6 +1355,31 @@ class ProcessGroupHost(ProcessGroup):
 
         return self._submit(_run, "allgather")
 
+    def broadcast(self, arrays, root=0):
+        host = [_to_host(a) for a in arrays]
+
+        def _run(comm: _Comm):
+            if comm.world == 1:
+                return [_copy_payload(h) for h in host]
+            if comm.rank == root:
+                for peer in range(comm.world):
+                    if peer != comm.rank:
+                        comm.send_to(peer, host)
+                # each peer acks: a small payload to a dead peer can land in
+                # the kernel's buffer and "succeed", so without the ack the
+                # root would not see the failure (the reference's contract)
+                for peer in range(comm.world):
+                    if peer != comm.rank:
+                        ack = comm.recv_from(peer)
+                        if ack != ("bcast_ack", peer):
+                            raise RuntimeError(f"bad broadcast ack: {ack!r}")
+                return host
+            out = comm.recv_from(root)
+            comm.send_to(root, ("bcast_ack", comm.rank))
+            return out
+
+        return self._submit(_run, "broadcast")
+
     def alltoall(self, input_chunks):
         host = [_to_host(a) for a in input_chunks]
 
@@ -1553,6 +1585,10 @@ class ErrorSwallowingProcessGroupWrapper(ProcessGroup):
         return self._guard(lambda: self._pg.allgather(arrays),
                            lambda: [[_to_host(a) for a in arrays] for _ in range(self._pg.size())])
 
+    def broadcast(self, arrays, root=0):
+        return self._guard(lambda: self._pg.broadcast(arrays, root),
+                           lambda: [_to_host(a) for a in arrays])
+
     def alltoall(self, input_chunks):
         return self._guard(lambda: self._pg.alltoall(input_chunks),
                            lambda: [_to_host(a) for a in input_chunks])
@@ -1598,6 +1634,9 @@ class ManagedProcessGroup(ProcessGroup):
         return self._manager._pg.errored()
 
     def allgather(self, arrays):
+        raise NotImplementedError("managed PG only routes allreduce")
+
+    def broadcast(self, arrays, root=0):
         raise NotImplementedError("managed PG only routes allreduce")
 
     def alltoall(self, input_chunks):
@@ -1710,6 +1749,9 @@ class FakeProcessGroupWrapper(ProcessGroup):
 
     def allgather(self, arrays):
         return self._maybe_fail(self._pg.allgather(arrays))
+
+    def broadcast(self, arrays, root=0):
+        return self._maybe_fail(self._pg.broadcast(arrays, root))
 
     def alltoall(self, input_chunks):
         return self._maybe_fail(self._pg.alltoall(input_chunks))

@@ -52,9 +52,10 @@ host-to-device copy each, no second copy of the state on the device);
 snapshots the next. Every thread the plane starts (store and directory
 servers, the directory's tick, the stager's worker, the spare's shadow
 loop) is joined by its ``shutdown``, and a stopped store or stager drops
-the shards and blobs it held. ``HotSpare``'s shadow of the serving
-plane's delta chain (``serve_registry``) waits for the serving slice
-(ROADMAP.md) and raises ``NotImplementedError``.
+the shards and blobs it held. ``HotSpare(serve_registry=URL)`` also
+shadows the serving plane's delta chain with a ``ServeWorker`` whose flat
+stays on the host (``status()["serve_version"]``), joined by its
+``shutdown``.
 """
 
 from __future__ import annotations
@@ -1471,11 +1472,6 @@ class HotSpare:
     ) -> None:
         if not cfg.directory:
             raise ValueError("HotSpare requires a directory URL")
-        if serve_registry:
-            raise NotImplementedError(
-                "HotSpare's shadow of the serving plane's delta chain (serve_registry) "
-                "comes with the serving slice (ROADMAP.md queue 1, item 8)"
-            )
         self.cfg = cfg
         self.spare_id = spare_id
         self.pod = cfg.pod or pod_identity()
@@ -1488,6 +1484,20 @@ class HotSpare:
         self._promotion: Optional[Dict[str, Any]] = None
         self._promoted = threading.Event()
         self._stop = threading.Event()
+        self._serve_worker = None
+        if serve_registry:
+            # shadow the serving plane too (reference :1589-1605): the delta
+            # chain advances the spare's flat between shard generations,
+            # bitwise by the plane's error-feedback replay, a freshness
+            # cross-check for a promotion. The flat stays on the host, where
+            # the spare's prefetched state lives
+            try:
+                from torchft_tpu_torch.serving import ServeWorker
+
+                self._serve_worker = ServeWorker(serve_registry, name=f"spare-{spare_id}",
+                                                 device="cpu")
+            except Exception:  # noqa: BLE001 - the spare works without it
+                logger.exception("hot spare %s could not attach serve worker", spare_id)
         self._client.register(self.spare_id, self.pod, store_url="", spare=True)
         self._thread = threading.Thread(
             target=self._shadow_loop, daemon=True, name=f"torchft_hot_spare_{spare_id}"
@@ -1530,13 +1540,19 @@ class HotSpare:
     # -- public api --------------------------------------------------------
     def status(self) -> Dict[str, Any]:
         with self._lock:
+            serve_version = None
+            if self._serve_worker is not None:
+                try:
+                    serve_version = self._serve_worker.status().get("version")
+                except Exception:  # noqa: BLE001
+                    serve_version = None
             return {
                 "spare_id": self.spare_id,
                 "pod": self.pod,
                 "prefetched_step": self._state_step,
                 "promoted": self._promoted.is_set(),
                 "promotion": dict(self._promotion or {}) or None,
-                "serve_version": None,
+                "serve_version": serve_version,
             }
 
     def prefetched_step(self) -> int:
@@ -1563,9 +1579,14 @@ class HotSpare:
 
     def shutdown(self) -> None:
         """Stop the shadow loop and join it (a prefetch in flight ends
-        within ``timeout_s``)."""
+        within ``timeout_s``) and the serve shadow's worker."""
         self._stop.set()
         self._thread.join()
+        if self._serve_worker is not None:
+            try:
+                self._serve_worker.shutdown()
+            except Exception:  # noqa: BLE001
+                pass
 
 
 # ---------------------------------------------------------------- CLI
@@ -1586,7 +1607,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--spare-id", default=f"spare_{os.getpid()}",
                         help="the replica id the spare registers under")
     parser.add_argument("--serve-registry", default=None,
-                        help="the serving plane's registry to shadow (not ported yet)")
+                        help="the serving plane's registry whose delta chain the spare "
+                             "shadows between shard generations")
     parser.add_argument("--status-interval", type=float, default=2.0,
                         help="seconds between status lines")
     args = parser.parse_args(argv)

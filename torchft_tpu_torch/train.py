@@ -117,6 +117,23 @@ outer lr 0.7). A heal carries the fragments' globals and momentum too.
     python -m torchft_tpu_torch.train --config bench_1b --replicas 3 --redundancy 2,1 \\
         --redundancy-retain 1 --spares 1 --fail-at 3
 
+``--serve-workers N`` turns the serving plane on (``serving.py``): the
+lighthouse co-hosts the snapshot registry, each replica's Manager attaches
+a ``SnapshotPublisher`` over the model's parameters (by the names
+``convert.py`` uses) that publishes every committed step as a versioned
+delta coded in ``--serve-compress`` (fp8 by default: K3-host and K4 on the
+card), and N ``ServeWorker``s on the run's device answer a closed-loop
+``/infer`` load of ``SERVE_REQUESTS`` threads while a thread
+samples each worker's lag in steps. A crashed incarnation's publisher
+dies with it (its endpoints vanish, the registry keeps its entry); the
+restarted one bootstraps from the registry. After the last step every
+publisher is flushed, every worker waits for the newest version, and
+``run_replicas(..., fleet={})`` leaves in ``fleet["serving"]`` whether
+every worker's flat equals every publisher's ``R`` bit for bit, their
+sha256 digests, the publishers' and workers' counters, the publishers'
+per-version splits, the requests' latencies and failures and the lag
+samples; ``main`` prints it as a last ``{"serving": ...}`` line.
+
 A replica's result sums its resilience counters (the Manager's lifetime
 counters: ``rpc_retries``, heals, ...) over all its incarnations, so what a crashed
 incarnation counted (an RPC flake fired on any replica's next call) is not
@@ -132,10 +149,13 @@ import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import threading
 import time
+import urllib.request
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -160,16 +180,21 @@ from torchft_tpu_torch.redundancy import (
     ShardDirectory,
     set_redundancy_fault_hook,
 )
+from torchft_tpu_torch.serving import ServeConfig, ServeWorker, SnapshotPublisher, flat_sha256
 from torchft_tpu_torch.utils import resolve_device, tensors_sha256
 
 __all__ = ["TrainConfig", "Fault", "InjectedFailure", "build_trainer", "run_replicas", "main"]
 
+logger = logging.getLogger(__name__)
+
 
 class InjectedFailure(Exception):
     """A scripted replica crash. ``counters`` carries the crashed
-    incarnation's resilience counters to the replica's result."""
+    incarnation's resilience counters to the replica's result, ``released``
+    weak references to its model and Manager (``_await_release``)."""
 
     counters: Dict[str, float] = {}
+    released: Tuple[Any, ...] = ()
 
 
 class InjectedDeath(InjectedFailure):
@@ -328,6 +353,12 @@ TIMEOUT_S = 120.0
 JOIN_TIMEOUT_MS = 30000
 # the model families --model chooses from, each with its configs
 MODELS = {"llama": (Llama, CONFIGS), "moe": (MoE, MOE_CONFIGS)}
+# the serving plane's closed-loop /infer load: its threads and each one's
+# pause between an answer and its next request; the plane's pull and RPC
+# deadline (a bench_1b full pull moves 4.3 GB)
+SERVE_REQUESTS = 4
+SERVE_THINK_S = 0.025
+SERVE_TIMEOUT_S = 60.0
 
 
 @dataclasses.dataclass
@@ -373,6 +404,9 @@ class TrainConfig:
     trace_dir: str = ""
     # replica 0 runs this step under torch.profiler, into trace_dir (-1: none)
     profile_step: int = -1
+    # the serving plane: inference workers (0: off) and the deltas' codec
+    serve_workers: int = 0
+    serve_compress: str = "fp8"
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -426,6 +460,7 @@ def _train_replica(
     metrics_ports: Optional[Dict[int, int]] = None,
     ejecting: bool = False,
     start: Optional[threading.Barrier] = None,
+    serve_cfg: Optional[ServeConfig] = None,
 ) -> Dict[str, Any]:
     """One incarnation of a replica (``spare``: of a hot spare, which first
     waits for its promotion and returns ``{"promoted": False}`` if
@@ -435,7 +470,11 @@ def _train_replica(
     may eject a replica, so one that reached ``cfg.steps`` trains on until
     a step of every replica (``_all_in``). ``start``: the members' first
     incarnations meet there, models built and Managers up, before their
-    first quorum."""
+    first quorum. ``serve_cfg``: the serving plane's config; the
+    incarnation's Manager publishes each committed step through a
+    ``SnapshotPublisher``, which a finished incarnation returns under
+    ``"serve_publisher"`` (alive: the run ends it) and a crashed one kills
+    at once."""
     model, optim, make_batch = build_trainer(cfg, replica_id, device)
 
     def load_state(sd: Dict[str, Any]) -> None:
@@ -478,11 +517,12 @@ def _train_replica(
     tokens_per_step = cfg.batch_size * cfg.seq_len
 
     def sync() -> float:
-        # waits for the whole card: both replica threads launch on the
+        # waits for the training stream: both replica threads launch on the
         # default stream, so a replica's phase times also hold the other
-        # replica's work queued in the same window
+        # replica's work queued in the same window; the serving plane's
+        # copies and kernels on its own streams do not hold the step
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         return time.perf_counter()
 
     optimizer = OptimizerWrapper(manager, optim)
@@ -494,6 +534,7 @@ def _train_replica(
 
     storage0 = storage()
     promotion: Optional[Dict[str, Any]] = None
+    publisher: Optional[SnapshotPublisher] = None
     # this incarnation's committed steps' step_s - wire_s, slept ones left
     # out: a slow fault sleeps twice the least (a profiled step runs long)
     compute_s: List[float] = []
@@ -516,6 +557,11 @@ def _train_replica(
                 del shadowing[replica_id]
             promotion = {**promotion, "promote_s": time.perf_counter() - t_p,
                          "promoted_at": time.monotonic()}
+        if serve_cfg is not None:
+            publisher = SnapshotPublisher(manager._replica_id, config=serve_cfg)
+            # the Llama's parameters by the names convert.py uses
+            manager.attach_serve_publisher(publisher,
+                                           params_fn=lambda: dict(model.named_parameters()))
         if live is not None:
             live[replica_id] = manager
         if metrics_ports is not None and manager.metrics_port is not None:
@@ -523,8 +569,11 @@ def _train_replica(
         if start is not None:
             start.wait(timeout=TIMEOUT_S)
         if cfg.diloco:
-            return _diloco_loop(cfg, replica_id, model, optim, make_batch, manager, pg,
-                                transport, sync, on_step, stop, script)
+            out = _diloco_loop(cfg, replica_id, model, optim, make_batch, manager, pg,
+                               transport, sync, on_step, stop, script)
+            if publisher is not None:
+                out["serve_publisher"], publisher = publisher, None
+            return out
         while manager.current_step() < cfg.steps or (ejecting and not _all_in(manager, cfg)):
             if stop.is_set():
                 raise RuntimeError(f"replica {replica_id}: a peer replica failed")
@@ -587,6 +636,8 @@ def _train_replica(
                 # health plane's state of this replica after the vote
                 "slow_ms": (t_slow - t1) * 1e3 if slow else 0.0,
                 "health_state": manager.timings()["health_state"],
+                # the commit path's hand-off to the serve publisher
+                "serve_publish_ms": manager.timings().get("serve_publish_s", 0.0) * 1e3,
                 "at": time.monotonic(),
                 **_moe_stats(model),
             })
@@ -601,13 +652,22 @@ def _train_replica(
         }
         if promotion is not None:
             out["promotion"] = promotion
+        if publisher is not None:
+            out["serve_publisher"], publisher = publisher, None
         return out
     except InjectedFailure as e:
+        if publisher is not None:
+            # the source dies with its replica: endpoints gone, its registry
+            # entry left for the workers to fail over from
+            publisher.kill()
         e.counters = _resilience(manager)
+        e.released = (weakref.ref(model), weakref.ref(manager))
         if isinstance(e, InjectedDeath):
             e.replica_id = manager._replica_id
         raise
     finally:
+        if publisher is not None:
+            publisher.shutdown()
         if live is not None and live.get(replica_id) is manager:
             del live[replica_id]
         if metrics_ports is not None and manager.metrics_port is not None \
@@ -620,6 +680,23 @@ def _train_replica(
         manager.shutdown(wait=False)
         if recovery_pg is not None:
             recovery_pg.shutdown()
+
+
+def _await_release(refs: Tuple[Any, ...], timeout: float) -> bool:
+    """Collect until every weak reference in ``refs`` is dead (True), or
+    ``timeout`` passed (False). A crashed incarnation's Manager shuts down
+    without waiting for its threads, and one still in flight (a quorum
+    thread retrying its RPC against the stopped server, longer on a loaded
+    host) holds the Manager, and through its state-dict closures the model,
+    past a single collection."""
+    deadline = time.monotonic() + timeout
+    while True:
+        gc.collect()
+        if all(r() is None for r in refs):
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.02)
 
 
 def _all_in(manager: Manager, cfg: TrainConfig) -> bool:
@@ -763,8 +840,9 @@ def run_replicas(
     ``fleet``, when given, is filled as the run goes: ``lighthouse`` (its
     address, while it serves), ``metrics_ports`` (replica -> its Manager's
     ``/metrics`` port, while it runs and serves one), and at the end
-    ``health`` (the lighthouse's ``/health`` payload) and, with a
-    ``trace_dir``, ``trace`` (the merged trace's path)."""
+    ``health`` (the lighthouse's ``/health`` payload), with a
+    ``trace_dir``, ``trace`` (the merged trace's path), and with serve
+    workers ``serving`` (``_finish_serving``)."""
     dev = resolve_device(device)
     n_replicas = cfg.replicas
     n_all = n_replicas + cfg.spares
@@ -787,16 +865,26 @@ def run_replicas(
     # timeout must outlast a heal source's serving grace (10 s): a quorum
     # formed without the member still in its grace would leave it behind
     # to heal in turn, and so on
+    serving = cfg.serve_workers > 0
     lighthouse = LighthouseServer(
         bind="127.0.0.1:0",
         min_replicas=max(1, n_replicas - 1) if health.mode == "eject" else n_replicas,
         join_timeout_ms=JOIN_TIMEOUT_MS, quorum_tick_ms=20, heartbeat_timeout_ms=2000,
-        health=health.to_json(), history_path=history,
+        health=health.to_json(), history_path=history, serve_registry=serving,
     )
     addr = f"127.0.0.1:{lighthouse.port}"
     if fleet is not None:
         fleet["lighthouse"] = addr
         fleet["metrics_ports"] = {}
+    serve_cfg: Optional[ServeConfig] = None
+    workers: List[ServeWorker] = []
+    traffic: Optional[_ServeTraffic] = None
+    if serving:
+        serve_cfg = ServeConfig.from_env(registry=lighthouse.serve_registry_url(),
+                                         compress=cfg.serve_compress, timeout_s=SERVE_TIMEOUT_S)
+        workers = [ServeWorker(serve_cfg.registry, config=serve_cfg, name=f"worker_{i}",
+                               device=dev) for i in range(cfg.serve_workers)]
+        traffic = _ServeTraffic(workers, lighthouse.serve_registry, SERVE_REQUESTS, SERVE_THINK_S)
     plane = directory = None
     if k > 0:
         # the shard directory beside the lighthouse, polling its health
@@ -825,7 +913,14 @@ def run_replicas(
         # module docstring), and one staged after the crash would place no
         # shard on the crashed replica's store (a member whose interval
         # skips this step holds the wait to its bound). A death waits
-        # until another member announced it and every spare holds it
+        # until another member announced it and every spare holds it. With
+        # serving on, a crash or death first lets the replica's publisher
+        # announce its last commit: the dead source then holds the newest
+        # version, as one that dies between an announce and its next commit
+        mgr = live.get(replica)
+        pub = getattr(mgr, "_serve_publisher", None)
+        if pub is not None:
+            pub.flush(timeout=TIMEOUT_S)
         if plane is None:
             return
         deadline = time.monotonic() + TIMEOUT_S
@@ -863,7 +958,8 @@ def run_replicas(
                                          metrics_ports=None if fleet is None
                                          else fleet["metrics_ports"],
                                          ejecting=health.mode == "eject",
-                                         start=None if spare or restarts else start)
+                                         start=None if spare or restarts else start,
+                                         serve_cfg=serve_cfg)
                     out["restarts"] = restarts
                     # this incarnation's own heals (a restart's rejoin)
                     out["last_incarnation"] = {
@@ -877,10 +973,12 @@ def run_replicas(
                         carried[k_] = carried.get(k_, 0) + n
                     died = {"died": True, "died_at": time.monotonic(), "replica_id": e.replica_id,
                             "restarts": restarts, "counters": carried}
+                    released = e.released
                 except InjectedFailure as e:
                     restarts += 1
                     for k_, n in e.counters.items():
                         carried[k_] = carried.get(k_, 0) + n
+                    released = e.released
                 except BaseException as e:
                     with log_lock:
                         if not stop.is_set():
@@ -895,7 +993,10 @@ def run_replicas(
                 # holds its Manager); free them before the restart, or the
                 # spare promoted in a dead one's place, allocates its own, or
                 # the card holds both
-                gc.collect()
+                if not _await_release(released, JOIN_TIMEOUT_MS / 1000):
+                    logger.warning("replica %d: the crashed incarnation's model is still "
+                                   "referenced %.0f s after its shutdown; restarting beside it",
+                                   i, JOIN_TIMEOUT_MS / 1000)
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
             # the death notice, once the dead replica's memory is freed
@@ -908,6 +1009,7 @@ def run_replicas(
                     if members_left[0] == 0:
                         done.set()
 
+    futs: List[Any] = []
     try:
         with ThreadPoolExecutor(max_workers=n_all) as ex:
             futs = [ex.submit(replica, i) for i in range(n_all)]
@@ -915,9 +1017,24 @@ def run_replicas(
                 f.exception()
         if fleet is not None:
             fleet["health"] = LighthouseClient(addr).health()
+        if serving and not errors:
+            summary = _finish_serving(
+                [(i, f.result()["serve_publisher"]) for i, f in enumerate(futs)
+                 if "serve_publisher" in f.result()], workers, traffic, serve_cfg)
+            if fleet is not None:
+                fleet["serving"] = summary
     finally:
         if fleet is not None:
             fleet.pop("lighthouse", None)
+        if traffic is not None:
+            traffic.stop()
+        for w in workers:
+            w.shutdown()
+        for f in futs:
+            pub = f.result().pop("serve_publisher", None) if f.done() and not f.exception() \
+                else None
+            if pub is not None:
+                pub.shutdown()
         script.close()
         if directory is not None:
             directory.shutdown()
@@ -943,6 +1060,132 @@ def run_replicas(
             r["redundancy"] = {key: r["timings"][key] for key in REDUNDANCY_KEYS
                                if key in r["timings"]}
     return results
+
+
+class _ServeTraffic:
+    """The serving plane's closed-loop ``/infer`` load: ``n_threads``
+    request threads, each sending its next request to the next worker
+    ``think_s`` after the last one was answered (over HTTP: every request
+    runs Python on both ends, under the GIL the trainers dispatch their
+    kernels under, so requests with no pause starve them), once every
+    worker has applied a version (requests before the first snapshot lands
+    are not the plane's), and a thread sampling each worker's lag in steps
+    (the registry's newest version's step minus the worker's) every 50 ms.
+    A request fails when it raises or answers no result."""
+
+    def __init__(self, workers: List[ServeWorker], registry: Any, n_threads: int,
+                 think_s: float, timeout_s: float = 30.0) -> None:
+        self._workers = workers
+        self._think_s = think_s
+        self._registry = registry
+        self._timeout_s = timeout_s
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self.latencies_ms: List[float] = []
+        self.failures: List[str] = []
+        self.lag_steps: Dict[str, List[int]] = {w.name: [] for w in workers}
+        self.started_at: Optional[float] = None
+        self.stopped_at: Optional[float] = None
+        self._threads = [threading.Thread(target=self._requests, args=(t, n_threads), daemon=True,
+                                          name=f"serve_traffic_{t}") for t in range(n_threads)]
+        self._threads.append(threading.Thread(target=self._sample_lag, daemon=True,
+                                              name="serve_lag"))
+        for th in self._threads:
+            th.start()
+
+    def _requests(self, tid: int, n_threads: int) -> None:
+        while not self._stop.is_set() and any(w.version is None for w in self._workers):
+            time.sleep(0.02)
+        with self._lock:
+            if self.started_at is None:
+                self.started_at = time.perf_counter()
+        i = 0
+        while not self._stop.is_set():
+            w = self._workers[(tid + i) % len(self._workers)]
+            seed = tid * 1_000_003 + i
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(f"{w.url}/infer?seed={seed}",
+                                            timeout=self._timeout_s) as r:
+                    body = json.loads(r.read().decode())
+                err = None if r.status == 200 and body.get("result") is not None \
+                    else f"bad body: {body}"
+            except Exception as e:  # noqa: BLE001 - a failure is what is counted
+                err = repr(e)
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            with self._lock:
+                if err is None:
+                    self.latencies_ms.append(dt_ms)
+                else:
+                    self.failures.append(err)
+            i += n_threads
+            self._stop.wait(self._think_s)
+
+    def _sample_lag(self) -> None:
+        while not self._stop.wait(0.05):
+            latest = self._registry.sources().get("latest")
+            if latest is None:
+                continue
+            for w in self._workers:
+                v = w.version
+                if v is not None:
+                    with self._lock:
+                        self.lag_steps[w.name].append(max(0, int(latest[1]) - v[1]))
+
+    def stop(self) -> None:
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=self._timeout_s + 1.0)
+        if self.stopped_at is None:
+            self.stopped_at = time.perf_counter()
+
+
+def _finish_serving(publishers: List[Tuple[int, SnapshotPublisher]], workers: List[ServeWorker],
+                    traffic: _ServeTraffic, serve_cfg: ServeConfig) -> Dict[str, Any]:
+    """After the last step: flush every finished incarnation's publisher,
+    wait until every worker applied the newest version, stop the traffic,
+    compare every worker's flat with every publisher's ``R`` (on their
+    device, one copy at a time), then digest all of them at once."""
+    deadline = 4 * serve_cfg.timeout_s
+    for _, pub in publishers:
+        if not pub.flush(timeout=deadline):
+            raise RuntimeError(f"serve publisher {pub.replica_id} did not drain its queue")
+    versions = [pub.version for _, pub in publishers if pub.version is not None]
+    if not versions:
+        raise RuntimeError("no serve publisher published a version")
+    target = max(versions)
+    for w in workers:
+        if not w.wait_version(target, timeout=deadline):
+            raise RuntimeError(f"serve worker {w.name} stuck at {w.version}, newest {target}")
+    traffic.stop()
+    flats = {**{f"publisher_{i}": pub.ref_flat for i, pub in publishers},
+             **{w.name: w.params_flat for w in workers}}
+    base = publishers[0][1].ref_flat()
+    equal = True
+    for fn in flats.values():
+        flat = fn()
+        equal = equal and flat is not None and torch.equal(flat, base)
+        del flat
+    del base
+    with ThreadPoolExecutor(len(flats)) as ex:
+        digests = dict(zip(flats, ex.map(lambda fn: flat_sha256(fn()), flats.values())))
+    seconds = (traffic.stopped_at or 0.0) - (traffic.started_at or 0.0)
+    return {
+        "equal": equal,
+        "target": list(target),
+        "publishers": [{"replica": i, "replica_id": pub.replica_id,
+                        "version": list(pub.version) if pub.version else None,
+                        "counters": dict(pub.counters), "splits": list(pub.splits),
+                        # the retained versions, oldest first
+                        "ring": pub.manifest()["deltas"],
+                        "ref_sha256": digests[f"publisher_{i}"]} for i, pub in publishers],
+        "workers": [{"name": w.name, "version": list(w.version) if w.version else None,
+                     "counters": dict(w.counters), "full_pull_s": list(w.full_pull_s),
+                     "delta_pull_s": list(w.delta_pull_s), "flat_sha256": digests[w.name],
+                     "lag_steps": list(traffic.lag_steps[w.name])} for w in workers],
+        "requests": {"ok": len(traffic.latencies_ms), "failed": list(traffic.failures),
+                     "latency_ms": list(traffic.latencies_ms), "seconds": max(seconds, 0.0)},
+    }
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -992,6 +1235,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                         "lighthouse's history go here")
     p.add_argument("--profile-step", type=int, default=-1,
                    help="replica 0 runs this step under torch.profiler, into --trace-dir")
+    p.add_argument("--serve-workers", type=int, default=0,
+                   help="the serving plane: inference workers on the run's device answering a "
+                        "closed-loop /infer load from the replicas' published snapshots "
+                        "(0: off)")
+    p.add_argument("--serve-compress", default="fp8", choices=["off", "fp8", "int8"],
+                   help="the codec of the published deltas")
     args = p.parse_args(argv)
     try:
         red_k, red_m = (int(x) for x in args.redundancy.split(","))
@@ -1011,9 +1260,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         redundancy=(red_k, red_m), redundancy_interval=args.redundancy_interval,
         redundancy_retain=args.redundancy_retain, spares=args.spares,
         health=args.health, trace_dir=args.trace_dir, profile_step=args.profile_step,
+        serve_workers=args.serve_workers, serve_compress=args.serve_compress,
     )
+    # the serving plane's summary comes back in the fleet dict
+    fleet: Dict[str, Any] = {}
     results = run_replicas(
-        cfg, args.device, on_step=lambda e: print(json.dumps(e), flush=True)
+        cfg, args.device, on_step=lambda e: print(json.dumps(e), flush=True),
+        **({"fleet": fleet} if cfg.serve_workers else {}),
     )
     digests = []
     for i, r in enumerate(results):
@@ -1034,6 +1287,19 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(json.dumps(line), flush=True)
     if len(set(digests)) > 1:
         raise SystemExit(f"replicas' fragment state differs: {digests}")
+    if "serving" in fleet:
+        sv = fleet["serving"]
+        lat = sorted(sv["requests"]["latency_ms"])
+        print(json.dumps({"serving": {
+            "equal": sv["equal"], "target": sv["target"],
+            "publishers": [{k: p[k] for k in ("replica", "version", "counters", "ref_sha256")}
+                           for p in sv["publishers"]],
+            "workers": [{k: w[k] for k in ("name", "version", "counters", "flat_sha256")}
+                        for w in sv["workers"]],
+            "requests_ok": sv["requests"]["ok"], "requests_failed": len(sv["requests"]["failed"]),
+            "infer_p50_ms": lat[len(lat) // 2] if lat else None}}), flush=True)
+        if not sv["equal"] or sv["requests"]["failed"]:
+            raise SystemExit("serving: workers and publishers differ or requests failed")
 
 
 if __name__ == "__main__":
