@@ -98,7 +98,8 @@
    dequantize launched in each child (their ``done:`` lines carry the
    counts); prints each replica's step times and heal seconds. A failed
    check raises with the end of the processes' transcript.
-9. Trains bench_1b semi-synchronously (``--diloco``): full width and depth,
+9. Trains bench_1b semi-synchronously (``--diloco``): full width, half
+   depth (``CUT_LAYERS``: 10 of its 20 layers),
    batch 1, seq 2048, two replica threads, inner AdamW steps, one of two
    fragments synced every 10 inner steps (sync every 20, delay 1) with its
    fp8 pseudogradient through the streamed allreduce, the outer Nesterov
@@ -120,20 +121,37 @@
    Every process phase leaves its transcript in ``chiprun_out/``.
 11. LocalSGD on the card: two replica threads average trees of CUDA
    tensors, bitwise equal to the same call on CPU tensors.
-12. Runs the ``train_llama_hsdp`` counterpart's demo on the card at
-   bench_1b width and depth: ``python -m
-   torchft_tpu_torch.examples.train_llama_hsdp --demo --config bench_1b
-   --batch-size 1 --seq-len 2048 --attention ulysses --transport pg
-   --steps 4 --kill-at-step 2``, two replica groups of one rank each (a
-   world-1 NCCL in-group process group per process, FSDP2 over it), the
-   unquantized bf16 gradient allreduce, every rank of group 1 SIGKILLed
-   after its step-2 line, restarted and healed over PG into its live local
-   shards. Checks the exit code (the demo's own gates: the heal and equal
-   group digests), the storage kept by the healed tensors, splash
-   attention and K1's forward, dq and dK/dV launched in each process;
-   prints the median steady step, tokens/s per replica, the heal's
-   seconds, chunks and MiB/s and each process's peak device memory; the
-   transcript stays in ``chiprun_out/train_llama_hsdp.log``.
+12. A whole-job outage of the ``train_llama_hsdp`` counterpart on the card
+   at bench_1b width and depth, run as an operator would (``python -m
+   torchft_tpu_torch.examples.train_llama_hsdp --outage-demo --config
+   bench_1b --batch-size 1 --seq-len 2048 --attention ulysses --transport
+   pg --steps 7 --kill-at-step 2 --ckpt-dir chiprun_out/ckpt_hsdp
+   --ckpt-every 3``; 7 steps, so that step 6's save waits for step 3's
+   to land and the outage always finds both groups training): the lighthouse CLI as the root, the pod aggregator's
+   CLI in front of it (every worker has ``TORCHFT_LIGHTHOUSE_AGGREGATOR``),
+   and ``python -m torchft_tpu_torch.launcher --replica-groups 2
+   --max-restarts 2`` over two groups of one rank each (a world-1 NCCL
+   in-group process group per process, FSDP2 over it; the unquantized bf16
+   gradient allreduce), each saving a durable checkpoint of its whole state
+   (parameters and AdamW's moments, ~12.9 GB) on DCP at step 3. The
+   punisher kills group 1's leader after its step-2 line (the launcher
+   restarts it; it heals over PG into its live local shards), then every
+   group once both landed step 3, between two quorum rounds (the launcher
+   restarts both; each restores step 3 in place); after the first commit
+   that follows, the aggregator gets SIGTERM and the Managers fail over to
+   the root. Checks the launcher's exit 0 with restarts [1, 2], the heal
+   with its storage kept, each restored digest equal to the one its save
+   landed with, equal final digests, splash attention and K1's forward, dq
+   and dK/dV launched in every incarnation, ``via_aggregator`` 1 before the
+   aggregator's death and ``aggregator_failovers`` at least 1 after it,
+   with no failed commit, and the aggregator's exit 0; it fails first
+   when the filesystem holds less than twice the two groups' checkpoints,
+   and removes them at the end. Prints the free space, each save's issue
+   and issue-to-landed seconds and GB/s, each restore's seconds and GB/s,
+   every incarnation's step times (the saving step marked), the time from
+   the outage to the first commit after it, the PG heal's numbers and each
+   final process's peak device memory; the transcript stays in
+   ``chiprun_out/train_llama_hsdp.log``.
 13. The rest of the Manager and the collectives. (a)
    ``reduce_scatter_quantized`` over two ``ProcessGroupHost`` ranks
    (threads, loopback): on CUDA tensors (one K3 ``<false>`` launch over
@@ -144,7 +162,8 @@
    gradient count in 3 turns, each also split into its stages (K3, the
    slicing onto the host wire, the alltoall, the landing and K4, the sum);
    K3's and K4's launches are read from those turns. (b) bench_1b at full
-   width as three replica groups (threads on one card), the unquantized
+   width, half depth (10 layers), as three replica groups (threads on one
+   card), the unquantized
    bf16 allreduce, 3 steps healed over HTTP wire v3 in place, with the
    reference's resilient-heal fault script (each fault fires at the start
    of its step, as the reference's ``EventInjector``): replica 2 crashes
@@ -168,9 +187,9 @@
    and attn and 40 under full (dq and dK/dV 20), the loss bitwise equal
    across modes and every gradient bitwise equal to none's (or, if two
    runs of none differ, within their spread). (b) The MoE at bench_moe
-   width and depth (1.80 G parameters, head dim 64) as the trainer's
-   ``--model moe --config bench_moe --batch-size 1 --seq-len 2048
-   --no-quantize --steps 3 --fail-at 1`` runs it: two replica threads,
+   width, half depth (12 of its 24 layers; head dim 64) as the trainer's
+   ``--model moe --config bench_moe --layers 12 --batch-size 1 --seq-len
+   2048 --no-quantize --steps 3 --fail-at 1`` runs it: two replica threads,
    full remat, the unquantized bf16 allreduce, replica 1 crashing after
    step 1's backward pass and healing over HTTP in place. Checks finite
    losses, the discarded step, the heal, bitwise-equal replicas with their
@@ -180,7 +199,7 @@
    seconds, chunks and MiB/s and the peak memory. (c) K1's bf16 kernels at
    bench_moe's attention shape (B 1, S 2048, Hq 16, Hkv 8, hd 64) against
    their plain versions, timed beside their bound and SDPA.
-15. The redundancy plane at bench_1b (full width and depth, B 1, S 2048,
+15. The redundancy plane at bench_1b (full width, half depth: 10 layers, B 1, S 2048,
    AdamW, full remat): three replica threads and one hot spare, the fp8
    allreduce at the Manager's defaults, HTTP heals, the shard directory
    beside the lighthouse, ``--redundancy 2,1`` with retain 1 and
@@ -211,7 +230,7 @@
    Each Manager dumps its span ring into ``chiprun_out/trace_redundancy/``
    (merged there into ``merged_trace.json``), and the phase prints each
    incarnation's ``reconstruct`` and ``shard_stage`` spans.
-16. The health and tracing planes at bench_1b (full width and depth, B 1, S
+16. The health and tracing planes at bench_1b (full width, half depth: 10 layers, B 1, S
    2048, AdamW, full remat): three replica threads, the fp8 allreduce at
    the Manager's defaults, HTTP heals, tracing on (the default) with every
    span ring dumped and merged into ``chiprun_out/trace_health/``, the
@@ -241,11 +260,11 @@
    1%; K1's three kernels, K3-host and K4 launched. Prints the steady step
    split, the ejected quorum's step, the heal on readmission, spans a
    step, microseconds a span, the cost's share and the launches.
-17. The serving plane at bench_1b (full width and depth, B 1, S 2048,
+17. The serving plane at bench_1b (full width, half depth: 10 layers, B 1, S 2048,
    AdamW, full remat): two replica threads on the fp8 allreduce (as phase
    6), the lighthouse co-hosting the snapshot registry, each replica's
    Manager publishing every committed step through a ``SnapshotPublisher``
-   (the 1,074,874,368 parameters as one f32 flat on the card: the delta
+   (the 10-layer model's parameters as one f32 flat on the card: the delta
    against ``R`` coded by K3-host, replayed into ``R`` by K4, its codes and
    scales pickled on the host, ``R`` staged for full pulls), two
    ``ServeWorker``s on the card (``max_lag`` 8) answering four closed-loop
@@ -299,11 +318,25 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet peak
+# phases 9, 13 (b), 14 (b), 15, 16 and 17 run their model at half its
+# depth, full width (cut for time when phase 12 grew the whole-job outage):
+# bench_1b 10 of its 20 layers, bench_moe 12 of its 24
+CUT_LAYERS = {"bench_1b": 10, "bench_moe": 12}
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 and fp16 tensor-core peak
 # f32 products on the tensor cores by split operands: three TF32 products
 # (H100 SXM dense TF32 peak 495 TFLOP/s) per f32 one
 TF32X3_FLOPS_PER_S = 495e12 / 3
 ROW = 512
+
+
+_LAST_MARK = [time.perf_counter()]
+
+
+def mark(phase: str) -> None:
+    """Log the seconds since the previous mark: one line a phase."""
+    now = time.perf_counter()
+    log(f"phase time {phase}: {now - _LAST_MARK[0]:.1f} s")
+    _LAST_MARK[0] = now
 
 
 def log(msg: str) -> None:
@@ -881,7 +914,7 @@ def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
     # 30 inner steps (40 before phase 16 needed the time): three syncs, the
     # second cycle's 20-29 measured
     dcfg = dataclasses.replace(cfg, steps=30, faults=(Fault(1, crash_at, "crash", at="backward"),),
-                               transport="pg", diloco=True,
+                               transport="pg", diloco=True, layers=CUT_LAYERS["bench_1b"],
                                sync_every=20, num_fragments=2, fragment_sync_delay=1)
     q.reset_launches()
     ta.reset_launches()
@@ -939,7 +972,8 @@ def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
                 f"allreduce_ms={e['sync_allreduce_ms']:.1f} wait_ms={e['sync_wait_ms']:.1f}")
     heal = heal_numbers(results)
     tokens = dcfg.batch_size * dcfg.seq_len
-    log(f"bench_1b DiLoCo ({elapsed:.1f} s, {dcfg.steps} inner steps, crash after inner "
+    log(f"bench_1b DiLoCo ({elapsed:.1f} s, {dcfg.layers} layers, {dcfg.steps} inner steps, "
+        f"crash after inner "
         f"{crash_at}, heal over pg): fragment globals and momentum bitwise equal over "
         f"{n_tensors} tensors; replica 0 inner steps 20-{dcfg.steps - 1}: median step without a "
         f"sync "
@@ -1054,21 +1088,48 @@ def check_local_sgd_on_card(device: torch.device) -> None:
     log("LocalSGD of CUDA trees over two replica threads: bitwise equal to the CPU call")
 
 
-def check_train_llama_hsdp_processes() -> dict:
-    """The train_llama_hsdp counterpart's demo as processes on the card at
-    bench_1b (docstring, 12); returns each group rank process's launches."""
-    steps, kill_at, B, S = 4, 2, 1, 2048
-    argv = [sys.executable, "-m", "torchft_tpu_torch.examples.train_llama_hsdp", "--demo",
-            "--config", "bench_1b", "--batch-size", str(B), "--seq-len", str(S),
-            "--attention", "ulysses", "--transport", "pg", "--steps", str(steps),
-            "--kill-at-step", str(kill_at), "--device", "cuda", "--timeout", "120"]
+# phase 12: a whole-job outage of train_llama_hsdp under the launcher
+# (docstring, 12). A save of bench_1b's 6.45 GB took 14.9-19.5 s to land
+# (H100 80GB HBM3, 700 W), longer than two steps: 7 steps, so that step 6's
+# save waits for step 3's and the outage always finds both groups training
+HSDP_STEPS, HSDP_KILL_AT, HSDP_CKPT_EVERY = 7, 2, 3
+
+
+def check_train_llama_hsdp_processes(n_params: int) -> dict:
+    """The train_llama_hsdp counterpart at bench_1b under the launcher, the
+    aggregator and the punisher, through a kill of group 1 and a whole-job
+    outage (docstring, 12); returns K1's launches: the first incarnations'
+    (``hsdp``) and the restarted ones' (``hsdp_restart``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "chiprun_out")
+    ckpt = os.path.join(out_dir, "ckpt_hsdp")
+    os.makedirs(out_dir, exist_ok=True)
+    from torchft_tpu_torch.models.llama import CONFIGS
+
+    # a durable step of both groups: the parameters and AdamW's two moments,
+    # in the model's dtype; each group keeps up to two (steps 3 and 6)
+    itemsize = torch.empty((), dtype=CONFIGS["bench_1b"].dtype).element_size()
+    need = 2 * 2 * n_params * 3 * itemsize
+    free = shutil.disk_usage(out_dir).free
+    log(f"train_llama_hsdp: {free / 1e9:.1f} GB free on the checkpoints' filesystem before the "
+        f"phase; the two groups' durable steps take up to {need / 1e9:.1f} GB")
+    if free < 2 * need:
+        raise RuntimeError(f"train_llama_hsdp: {free / 1e9:.1f} GB free under {out_dir}, less "
+                           f"than twice the {need / 1e9:.1f} GB the durable checkpoints take")
+    argv = [sys.executable, "-m", "torchft_tpu_torch.examples.train_llama_hsdp", "--outage-demo",
+            "--config", "bench_1b", "--batch-size", "1", "--seq-len", "2048",
+            "--attention", "ulysses", "--transport", "pg", "--steps", str(HSDP_STEPS),
+            "--kill-at-step", str(HSDP_KILL_AT), "--ckpt-dir", ckpt,
+            "--ckpt-every", str(HSDP_CKPT_EVERY), "--device", "cuda", "--timeout", "120"]
     t0 = time.perf_counter()
     try:
-        out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
-                             capture_output=True, text=True, timeout=900)
-    except subprocess.TimeoutExpired as e:
-        save_transcript("train_llama_hsdp.log", (e.stdout or b"").decode().splitlines())
-        raise RuntimeError("train_llama_hsdp demo: no end within 900 s") from e
+        try:
+            out = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=900)
+        except subprocess.TimeoutExpired as e:
+            save_transcript("train_llama_hsdp.log", (e.stdout or b"").decode().splitlines())
+            raise RuntimeError("train_llama_hsdp outage demo: no end within 900 s") from e
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     lines = (out.stdout + out.stderr).splitlines()
     save_transcript("train_llama_hsdp.log", lines)
     elapsed = time.perf_counter() - t0
@@ -1076,60 +1137,67 @@ def check_train_llama_hsdp_processes() -> dict:
     def fail(msg: str) -> RuntimeError:
         return RuntimeError(msg + "\n--- transcript ---\n" + "\n".join(lines[-80:]))
 
-    if out.returncode != 0:
-        raise fail(f"train_llama_hsdp demo exited {out.returncode}")
-    restart = next(i for i, line in enumerate(lines) if "--- restarting replica 1 ---" in line)
-    # the restarted incarnation's lines, and group 0's
-    done = {}
-    for i, line in enumerate(lines):
-        if "] done: " in line:
-            rid = int(line.split("[replica ", 1)[1].split()[0])
-            if rid == 0 or i > restart:
-                done[rid] = json.loads(line.split("] done: ", 1)[1])
-    if sorted(done) != [0, 1]:
-        raise fail(f"train_llama_hsdp demo: done lines of groups {sorted(done)}")
-    if done[1]["metrics"]["heals"] < 1 or not done[1]["storage_kept"]:
-        raise fail(f"train_llama_hsdp demo: group 1 did not heal in place: {done[1]}")
-    if done[0]["group_sha256"] != done[1]["group_sha256"]:
-        raise fail("train_llama_hsdp demo: the groups' digests differ")
-    for rid, d in done.items():
-        if d["attention"] != "splash":
-            raise fail(f"train_llama_hsdp group {rid}: attention dispatched to {d['attention']}")
-        for kernel in ("splash_fwd", "splash_dq", "splash_dkv"):
-            if d["launches"][kernel] == 0:
-                raise fail(f"{kernel} never launched in train_llama_hsdp group {rid}")
-    # steady: both groups in, no heal received, past each incarnation's first step
-    steady = []
-    for line in lines:
-        if "] step=" in line and "participants=2" in line and "healed=False" in line:
-            step = int(line.split("] step=", 1)[1].split()[0])
-            if step > 1:
-                steady.append({k: float(re.search(rf"{k}=([0-9.]+)", line).group(1))
-                               for k in ("step_ms", "compute_ms", "allreduce_ms")})
-    if not steady:
-        raise fail("train_llama_hsdp demo: no steady step")
-    med = {k: statistics.median(e[k] for e in steady) for k in steady[0]}
-    each = ", ".join(f"{e['step_ms']:.1f}" for e in steady)
-    t = {"send": done[0]["timings"], "recv": done[1]["timings"]}
-    log(f"train_llama_hsdp bench_1b ({elapsed:.1f} s, 2 groups x 1 rank, ulysses -> splash, "
-        f"{steps} steps, every rank of group 1 killed after step {kill_at}, PG heal in place): "
-        f"median over {len(steady)} steady steps: step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
-        f"{med['compute_ms']:.1f} + allreduce {med['allreduce_ms']:.1f} + commit+optimizer "
-        f"{med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms "
-        f"({B * S / med['step_ms'] * 1e3:.1f} tokens/s per replica; each step_ms: "
-        f"{each}); heal_send_s "
-        f"{t['send'].get('heal_send_s', float('nan')):.3f} heal_recv_s "
-        f"{t['recv'].get('heal_recv_s', float('nan')):.3f} heal_chunks "
-        f"{t['recv'].get('heal_chunks', 0):.0f} heal_mb_per_s "
-        f"{t['recv'].get('heal_mb_per_s', float('nan')):.1f}; group digests equal "
-        f"{done[0]['group_sha256'][:16]}")
-    for rid, d in done.items():
-        pipeline = {k: round(v, 4) for k, v in d["timings"].items() if k.startswith("allreduce")}
-        log(f"train_llama_hsdp group {rid} rank 0: steps {d['step']}, step_ms median "
-            f"{d['step_ms_median']:.1f}, peak device memory {d['peak_memory_bytes'] / 2**30:.2f} "
-            f"GiB, last allreduce's stages {pipeline}, metrics {d['metrics']}, launches "
-            f"{d['launches']}")
-    return {rid: d["launches"] for rid, d in done.items()}
+    line = next((ln for ln in lines if ln.startswith("outage demo summary: ")), None)
+    if line is None:
+        raise fail(f"train_llama_hsdp outage demo exited {out.returncode} with no summary")
+    summary = json.loads(line.split(": ", 1)[1])
+    # the demo's gates: launcher rc 0 with restarts [1, 2], the PG heal in
+    # place, the landed digests restored, equal final digests, K1 in every
+    # incarnation, the aggregator's failover with no failed commit
+    if out.returncode != 0 or summary["failures"]:
+        raise fail(f"train_llama_hsdp outage demo exited {out.returncode}: "
+                   f"{summary['failures']}")
+    restored = {k: r["step"] for k, r in summary["restored"].items()}
+    if set(restored.values()) != {str(HSDP_CKPT_EVERY)}:
+        raise fail(f"train_llama_hsdp: restored steps {restored}, not {HSDP_CKPT_EVERY}")
+    steps = summary["step_lines"]
+    healed = [e for e in steps["group 1 incarnation 1"] if e["healed"] == "True"]
+    sent = [e for e in steps["group 0 incarnation 0"] if "heal_send_s" in e]
+    # past each incarnation's first step, both groups in, no heal, no save
+    steady = [float(e["step_ms"]) for es in steps.values() for e in es[1:]
+              if e["participants"] == "2" and e["healed"] == "False" and "save_issue_s" not in e]
+    saving = [(k, e["step"], float(e["step_ms"]), float(e["save_issue_s"]))
+              for k, es in steps.items() for e in es if "save_issue_s" in e]
+    for key, rec in sorted(summary["landed"].items()):
+        b, land = int(rec["bytes"]), float(rec["land_s"])
+        log(f"train_llama_hsdp durable save group/rank {key} step {rec['step']}: "
+            f"{b / 1e9:.3f} GB, issued in {float(rec['issue_s']):.3f} s (the training thread's "
+            f"copy to host memory), landed {land:.3f} s after the call ({b / land / 1e9:.3f} GB/s; "
+            f"DCP's write {float(rec['write_s']):.3f} s beside the digest "
+            f"{float(rec['digest_s']):.3f} s)")
+    for key, rec in sorted(summary["restored"].items()):
+        b, sec = int(rec["bytes"]), float(rec["restore_s"])
+        log(f"train_llama_hsdp durable restore group/rank {key}: step {rec['step']}, "
+            f"{b / 1e9:.3f} GB in {sec:.3f} s ({b / sec / 1e9:.3f} GB/s, read, digest and copy "
+            f"into the live tensors on the card)")
+    for key, es in sorted(steps.items()):
+        each = ", ".join(f"{e['step']}:{float(e['step_ms']):.1f}"
+                         + ("(save)" if "save_issue_s" in e else "")
+                         + ("(healed)" if e["healed"] == "True" else "") for e in es)
+        log(f"train_llama_hsdp {key} step ms: {each}")
+    med = statistics.median(steady) if steady else float("nan")
+    log(f"train_llama_hsdp bench_1b ({elapsed:.1f} s, 2 groups x 1 rank under the launcher, "
+        f"ulysses -> splash, {HSDP_STEPS} steps, group 1 killed after step {HSDP_KILL_AT} and "
+        f"healed over PG in place, a whole-job outage after step {HSDP_CKPT_EVERY} landed): "
+        f"saving steps {[(k, st, round(ms, 1), round(iss, 3)) for k, st, ms, iss in saving]} "
+        f"(group, step, step ms, save issue s) beside the restarted incarnations' other steady "
+        f"steps, median {med:.1f} ms ({len(steady)}); outage to the first commit after it "
+        f"{summary['outage_to_first_commit_s']:.3f} s; heal over PG: heal_send_s "
+        f"{[e['heal_send_s'] for e in sent]}, heal_recv_s {healed[0].get('heal_recv_s')}, "
+        f"heal_chunks {healed[0].get('heal_chunks')}, heal_mb_per_s "
+        f"{healed[0].get('heal_mb_per_s')}; restarts {summary['restarts']}; aggregator exit "
+        f"{summary['aggregator_rc']}; final digests {summary['group_sha256']}")
+    for key, d in sorted(summary["done"].items()):
+        log(f"train_llama_hsdp final group/rank {key}: step {d['step']}, restored in "
+            f"{d['restore_s']:.3f} s, peak device memory {d['peak_memory_bytes'] / 2**30:.2f} GiB, "
+            f"via_aggregator {d['timings'].get('via_aggregator')}, aggregator_failovers "
+            f"{d['timings'].get('aggregator_failovers')}, metrics {d['metrics']}")
+    keys = ("splash_fwd", "splash_dq", "splash_dkv")
+    first, restart = {}, {}
+    for name, counts in summary["launches"].items():
+        target = first if name.endswith("incarnation 0") else restart
+        target[name.replace(" rank 0", "")] = dict(zip(keys, counts))
+    return {"hsdp": first, "hsdp_restart": restart}
 
 
 def two_ranks(store, prefix: str, fn) -> list:
@@ -1300,6 +1368,7 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
         # step 1 is the steady one, step 2 takes the crash, the heal's two
         # faults and the flake
         cfg, replicas=3, steps=3, quantize=False, transport="http",
+        layers=CUT_LAYERS["bench_1b"],
         # the serve side's lock wait must outlast staging 6.45 GB (up to
         # 9.9 s on the H100): a 3 s one answered a healer's metadata request
         # 503 mid-staging, failing the init heal. The serving window's grace
@@ -1366,7 +1435,8 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
     med = {k: statistics.median(e[k] for e in steady)
            for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
     t0_, t1_ = results[0]["timings"], results[1]["timings"]
-    log(f"resilient heal bench_1b ({elapsed:.1f} s, 3 replicas, {rcfg.steps} steps, bf16 "
+    log(f"resilient heal bench_1b ({elapsed:.1f} s, {rcfg.layers} layers, 3 replicas, "
+        f"{rcfg.steps} steps, bf16 "
         f"allreduce, HTTP v3 in place): replicas bitwise equal over {len(p0)} tensors; median of "
         f"{len(steady)} steady steps: step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
         f"{med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} ms + commit+optimizer "
@@ -1488,8 +1558,9 @@ def check_moe_bench_moe(device: torch.device) -> dict:
     # backward pass, its heal on the redo, step 2 the steady one
     mcfg = TrainConfig(model="moe", config="bench_moe", steps=3, batch_size=1, seq_len=2048,
                        quantize=False, transport="http", remat="full",
+                       layers=CUT_LAYERS["bench_moe"],
                        faults=(Fault(1, 1, "crash", at="backward"),))
-    model_cfg = MOE_CONFIGS[mcfg.config]
+    model_cfg = dataclasses.replace(MOE_CONFIGS[mcfg.config], n_layers=mcfg.layers)
     if model_cfg.head_dim != 64:
         raise RuntimeError(f"bench_moe's head dim is {model_cfg.head_dim}, not 64")
     q.reset_launches()
@@ -1543,7 +1614,8 @@ def check_moe_bench_moe(device: torch.device) -> dict:
                      "dropped")}
     h = heal_numbers(results)
     n_params = model_cfg.num_params()
-    log(f"bench_moe ({elapsed:.1f} s, {n_params:,} params, 2 replicas, {mcfg.steps} steps, bf16 "
+    log(f"bench_moe ({elapsed:.1f} s, {mcfg.layers} layers, {n_params:,} params, 2 replicas, "
+        f"{mcfg.steps} steps, bf16 "
         f"allreduce, HTTP heal in place): replicas bitwise equal over {len(p0)} tensors; median "
         f"of {len(steady)} steady steps: step {med['step_ms']:.1f} ms = quorum+fwd+bwd "
         f"{med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} ms + "
@@ -2399,7 +2471,8 @@ def check_redundancy_bench_1b(device: torch.device, cfg, http_heal: dict) -> dic
     shutil.rmtree(trace_dir, ignore_errors=True)
     rcfg = dataclasses.replace(
         cfg, replicas=RED_MEMBERS, steps=RED_STEPS, quantize=True, transport="http",
-        redundancy=(2, 1), redundancy_retain=1, redundancy_interval=RED_INTERVAL, spares=1,
+        layers=CUT_LAYERS["bench_1b"], redundancy=(2, 1), redundancy_retain=1,
+        redundancy_interval=RED_INTERVAL, spares=1,
         trace_dir=trace_dir,
         faults=(Fault(RED_CRASH[0], RED_CRASH[1], "crash"),
                 Fault(RED_DEATH[0], RED_DEATH[1], "die")))
@@ -2506,7 +2579,8 @@ def check_redundancy_bench_1b(device: torch.device, cfg, http_heal: dict) -> dic
            for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
     staged = [e["stage_hot_ms"] for e in steady if e["stage_hot_ms"] > 0]
     unstaged = [e["step_ms"] for e in steady if e["stage_hot_ms"] == 0]
-    log(f"redundancy bench_1b ({elapsed:.1f} s, {RED_MEMBERS} replicas + 1 spare, {RED_STEPS} "
+    log(f"redundancy bench_1b ({elapsed:.1f} s, {rcfg.layers} layers, {RED_MEMBERS} replicas "
+        f"+ 1 spare, {RED_STEPS} "
         f"steps, fp8 allreduce, k 2 m 1 retain 1 interval {RED_INTERVAL}): members and the promoted spare "
         f"bitwise equal over {len(p0)} tensors; median of {len(steady)} steady steps: step "
         f"{med['step_ms']:.1f} ms = quorum+fwd+bwd {med['compute_ms']:.1f} ms (the staging's hot "
@@ -2524,8 +2598,9 @@ def check_redundancy_bench_1b(device: torch.device, cfg, http_heal: dict) -> dic
     log(f"redundancy heal: replica {RED_CRASH[0]} reconstruct_s {red['reconstruct_s']:.3f} "
         f"({red['reconstruct_mb_per_s']:.1f} MB/s), shards ok {red['reconstruct_shards_ok']:.0f}, "
         f"failed {rejoined['timings']['shard_fetch_failed']:.0f}, corrupt "
-        f"{rejoined['timings']['shard_corrupt']:.0f}; phase 1's HTTP peer pull of the same "
-        f"state in this call: heal_recv_s {http_heal['heal_recv_s']:.3f} "
+        f"{rejoined['timings']['shard_corrupt']:.0f}; phase 6's HTTP peer pull of the "
+        f"full-depth state (twice the bytes) in this call: heal_recv_s "
+        f"{http_heal['heal_recv_s']:.3f} "
         f"({http_heal['heal_mb_per_s']:.1f} MiB/s), the source staging in "
         f"{http_heal['heal_send_s']:.3f} s")
     log(f"redundancy spare: promoted in place of {died['replica_id']} at prefetched step "
@@ -2691,7 +2766,8 @@ def check_health_tracing_bench_1b(device: torch.device, cfg, steady_step_ms: flo
     probation_ms = int(HW_PROBATION_STEPS * steady_step_ms)
     hcfg = dataclasses.replace(
         cfg, replicas=HW_REPLICAS, steps=HW_STEPS, quantize=True, transport="http",
-        health="eject", trace_dir=out_dir, profile_step=HW_PROFILE_STEP,
+        layers=CUT_LAYERS["bench_1b"], health="eject", trace_dir=out_dir,
+        profile_step=HW_PROFILE_STEP,
         faults=(Fault(HW_SLOW[0], HW_SLOW[1], "slow", at="backward", times=-1),))
     q.reset_launches()
     ta.reset_launches()
@@ -2830,7 +2906,8 @@ def check_health_tracing_bench_1b(device: torch.device, cfg, steady_step_ms: flo
         raise RuntimeError(f"health: tracing and telemetry cost {share:.4%} of the step")
     out_ms = statistics.median(e["step_ms"] for o in out for e in o)
     h = slow["timings"]
-    log(f"health bench_1b ({elapsed:.1f} s, {HW_REPLICAS} replicas, fp8 allreduce, health eject: "
+    log(f"health bench_1b ({elapsed:.1f} s, {hcfg.layers} layers, {HW_REPLICAS} replicas, fp8 "
+        f"allreduce, health eject: "
         f"min_samples {health_cfg.min_samples}, eject_steps {health_cfg.eject_steps}, probation "
         f"{health_cfg.probation_ms} ms, probe_ok {health_cfg.probe_ok}): replicas bitwise equal "
         f"over {len(p0)} tensors at step {results[0]['step']}; median of {len(steady)} steady "
@@ -2890,7 +2967,7 @@ def check_serving_bench_1b(device: torch.device, cfg, steady_step_ms: float) -> 
 
     scfg = dataclasses.replace(
         cfg, steps=SV_STEPS, quantize=True, transport="http", serve_workers=SV_WORKERS,
-        serve_compress="fp8",
+        serve_compress="fp8", layers=CUT_LAYERS["bench_1b"],
         faults=(Fault(SV_CRASH[0], SV_CRASH[1], "crash", at="backward"),))
     crasher, crash_step = SV_CRASH
     hold, released = threading.Event(), threading.Event()
@@ -3007,7 +3084,8 @@ def check_serving_bench_1b(device: torch.device, cfg, steady_step_ms: float) -> 
     lags = [x for w in sv["workers"] for x in w["lag_steps"]]
     lat = req["latency_ms"]
     skipped = [p["counters"]["skipped_total"] for p in sv["publishers"]]
-    log(f"serving bench_1b ({elapsed:.1f} s, 2 replicas, fp8 allreduce, {SV_WORKERS} workers on "
+    log(f"serving bench_1b ({elapsed:.1f} s, {scfg.layers} layers, 2 replicas, fp8 allreduce, "
+        f"{SV_WORKERS} workers on "
         f"the card, {SERVE_REQUESTS} request threads, crash of replica {crasher} after step "
         f"{crash_step}'s backward): every worker's flat bitwise equal to both publishers' R at "
         f"{sv['target']} (sha256 {next(iter(digests))[:16]}); "
@@ -3015,8 +3093,8 @@ def check_serving_bench_1b(device: torch.device, cfg, steady_step_ms: float) -> 
            f"quorum+fwd+bwd {med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} "
            f"ms + commit+optimizer "
            f"{med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms; "
-           f"{med['tokens_per_s']:.1f} tokens/s per replica; without the plane (phase 6) "
-           f"{steady_step_ms:.1f} ms, {med['step_ms'] / steady_step_ms:.2f}x"
+           f"{med['tokens_per_s']:.1f} tokens/s per replica; without the plane (phase 6, "
+           f"full depth) {steady_step_ms:.1f} ms, {med['step_ms'] / steady_step_ms:.2f}x"
            if med else "no steady step"))
     log(f"serving commit path: serve_publish_s median {statistics.median(publish_ms):.3f} ms, "
         f"max {max(publish_ms):.3f} ms over {len(publish_ms)} commits; publisher thread per "
@@ -3075,6 +3153,7 @@ def main() -> int:
         list(pool.map(build, sources))
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {len(sources)} sources "
         "in parallel)")
+    mark("1 kernel build")
     build_report = kernel_build_report(sources)
     check_hopper_kernels(build_report)
     routed = {key: source for key, (source, _) in ta.ROUTES.items()}
@@ -3115,6 +3194,7 @@ def main() -> int:
     for dtype, impl, want, tol in MODEL_PATHS:
         path_launches.update(check_model_path(device, dtype, impl, want, tol))
     time_model_fwd_bwd(device)
+    mark("1-5 kernels, allreduces, attention, model paths")
 
     q.reset_launches()
     ta.reset_launches()
@@ -3180,6 +3260,7 @@ def main() -> int:
     del results, p0, p1
     gc.collect()
     torch.cuda.empty_cache()
+    mark("6 DDP with an HTTP heal")
 
     check_pg_transport_on_card(device)
     pg_crash = 2
@@ -3212,23 +3293,36 @@ def main() -> int:
     del pg_results, p0, p1
     gc.collect()
     torch.cuda.empty_cache()
+    mark("7 PG heal")
     # the two small examples' processes barely load the card or the host:
     # they run side by side, each with its own lighthouse
     with ThreadPoolExecutor(2) as pool:
         ddp_run = pool.submit(check_train_ddp_processes)
         diloco_proc_run = pool.submit(check_train_diloco_processes)
         ddp_launches, diloco_proc_launches = ddp_run.result(), diloco_proc_run.result()
+    mark("8 and 10 example processes")
     diloco_launches = check_diloco_bench_1b(device, cfg)
+    mark("9 DiLoCo")
     check_local_sgd_on_card(device)
-    hsdp_launches = check_train_llama_hsdp_processes()
+    mark("11 LocalSGD")
+    hsdp_launches = check_train_llama_hsdp_processes(n_params)
+    mark("12 train_llama_hsdp's whole-job outage")
     rs_launches = check_reduce_scatter_on_card(device, n_params)
+    mark("13 (a) reduce-scatter")
     check_resilient_heal_bench_1b(device, cfg)
+    mark("13 (b) resilient heal")
     remat = check_remat_bench_1b(device)
+    mark("14 (a) remat")
     moe_launches = check_moe_bench_moe(device)
+    mark("14 (b) bench_moe")
     moe_stats, moe_timing = check_bench_moe_attention(device)
+    mark("14 (c) K1 at hd 64")
     red_launches = check_redundancy_bench_1b(device, cfg, http_heal)
+    mark("15 redundancy")
     health_launches = check_health_tracing_bench_1b(device, cfg, ddp_step_ms)
+    mark("16 health and tracing")
     serve_launches = check_serving_bench_1b(device, cfg, ddp_step_ms)
+    mark("17 serving")
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -3295,8 +3389,12 @@ def main() -> int:
                     # bench_1b under DiLoCo and the HSDP counterpart run K1
                     # in bf16 only
                     **({"launches_diloco": {"bench_1b": diloco_launches[key]},
-                        "launches_hsdp": {f"group {rid}": d[key]
-                                          for rid, d in hsdp_launches.items()},
+                        # train_llama_hsdp under the launcher (phase 12):
+                        # each group's first incarnation, then each restarted
+                        # one (group 1 after its kill, both after the outage)
+                        "launches_hsdp": {g: d[key] for g, d in hsdp_launches["hsdp"].items()},
+                        "launches_hsdp_restart": {g: d[key] for g, d in
+                                                  hsdp_launches["hsdp_restart"].items()},
                         # one bench_1b step under each remat mode (phase 14)
                         "launches_remat": {mode: r["launches"][kernel]
                                            for mode, r in remat.items()},

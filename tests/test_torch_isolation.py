@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "parallel.mesh", "parallel.ring_attention", "parallel.ulysses",
                  "examples.train_llama_hsdp", "models.remat", "models.moe", "tracing", "trace",
                  "flight_recorder", "observability", "healthwatch", "serving",
-                 "parameter_server"):
+                 "parameter_server", "checkpointing.durable", "launcher", "aggregator",
+                 "examples.punisher"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -136,3 +137,16 @@ def test_serving_plane_imports_no_jax_even_lazily(path):
     transports), stays in the port."""
     roots = _import_roots(path)
     assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
+
+
+@pytest.mark.parametrize("path", ["torchft_tpu_torch/checkpointing/durable.py",
+                                  "torchft_tpu_torch/launcher.py",
+                                  "torchft_tpu_torch/aggregator.py",
+                                  "torchft_tpu_torch/examples/punisher.py",
+                                  "torchft_tpu_torch/examples/train_llama_hsdp.py"])
+def test_durable_checkpoints_and_control_plane_import_no_jax_even_lazily(path):
+    """Durable checkpoints (DCP, never orbax), the launcher, the pod
+    aggregator's CLI, the punisher and the trainer's outage demo: every
+    import, at top level or inside a function, stays in the port."""
+    roots = _import_roots(path)
+    assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "orbax", "torchft_tpu"}

@@ -502,3 +502,28 @@ def test_fault_rejects_unknown_kinds_and_points(bad):
 
     with pytest.raises(ValueError, match="unknown fault"):
         Fault(0, 1, **bad)
+
+
+def test_trainer_cuts_the_depth_at_full_width():
+    """``TrainConfig(layers=N)`` (``--layers N``) trains the config cut to N
+    layers at its own width: the cut ``chip_smoke.py`` makes to the depth of
+    earlier phases. Two replicas train it to the end, equal."""
+    from torchft_tpu_torch import train
+    from torchft_tpu_torch.models.llama import CONFIGS
+
+    cfg = train.TrainConfig(config="debug", layers=1, steps=2, seq_len=16, quantize=False)
+    cut, _, _ = train.build_trainer(cfg, 0, torch.device("cpu"))
+    full, _, _ = train.build_trainer(train.TrainConfig(config="debug"), 0, torch.device("cpu"))
+    assert len(cut.layers) == 1 and len(full.layers) == CONFIGS["debug"].n_layers
+    shapes = dict((n, p.shape) for n, p in full.named_parameters())
+    assert all(shapes[n] == p.shape for n, p in cut.named_parameters())
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        results = train.run_replicas(cfg, "cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert [r["step"] for r in results] == [2, 2]
+    assert not any(k.startswith("layers.1.") for k in results[0]["params"])
+    for k, v in results[0]["params"].items():
+        assert torch.equal(v, results[1]["params"][k]), k

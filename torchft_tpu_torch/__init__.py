@@ -20,6 +20,11 @@ it. What runs today (see ROADMAP.md for what is still to port):
   ring, the compressed self-healing ring and point-to-point sends;
   ``bucketing`` its buckets;
 - ``ddp``, ``data`` and ``lighthouse`` (the lighthouse CLI);
+- ``checkpointing.DurableCheckpointer`` (exported here): durable (tier-2)
+  checkpoints on ``torch.distributed.checkpoint``, for a whole-job outage;
+- ``launcher`` (the supervising launcher of replica groups),
+  ``aggregator`` (the pod aggregator's CLI: the two-level control plane)
+  and ``examples.punisher`` (kills replicas through the lighthouse);
 - ``collectives.allreduce_quantized`` (the serial path) and the bucket
   codec, with the hand-written CUDA fp8 rowwise kernels in
   ``ops/csrc/fp8_rowwise.cu``;
@@ -45,10 +50,32 @@ it. What runs today (see ROADMAP.md for what is still to port):
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD
-from torchft_tpu_torch.models.moe import MOE_CONFIGS, MoE, MoEConfig
-from torchft_tpu_torch.models.remat import ATTN_OUT_NAME, REMAT_MODES, remat_wrap
-
-__all__ = ["DiLoCo", "LocalSGD", "MoE", "MoEConfig", "MOE_CONFIGS", "remat_wrap", "ATTN_OUT_NAME",
-           "REMAT_MODES"]
 __version__ = "0.1.0"
+
+# lazy exports, as the reference's package: `import torchft_tpu_torch` (and
+# with it every CLI of the package) loads no torch until a name is touched
+_EXPORTS = {
+    "DiLoCo": "torchft_tpu_torch.local_sgd",
+    "DurableCheckpointer": "torchft_tpu_torch.checkpointing.durable",
+    "LocalSGD": "torchft_tpu_torch.local_sgd",
+    "MoE": "torchft_tpu_torch.models.moe",
+    "MoEConfig": "torchft_tpu_torch.models.moe",
+    "MOE_CONFIGS": "torchft_tpu_torch.models.moe",
+    "remat_wrap": "torchft_tpu_torch.models.remat",
+    "ATTN_OUT_NAME": "torchft_tpu_torch.models.remat",
+    "REMAT_MODES": "torchft_tpu_torch.models.remat",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module 'torchft_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(__all__)

@@ -1,7 +1,8 @@
 """ctypes binding to the repo's native C++ control plane.
 
 Counterpart of ``torchft_tpu/coordination.py``: ``LighthouseServer`` /
-``LighthouseClient``, ``ManagerServer`` / ``ManagerClient``, the rendezvous
+``LighthouseClient``, ``AggregatorServer`` (the pod tier of the two-level
+control plane), ``ManagerServer`` / ``ManagerClient``, the rendezvous
 ``KvStoreServer`` / ``KvClient`` and the ``QuorumResult`` type. The native
 side speaks length-framed JSON over TCP; ctypes releases the GIL around
 every blocking call.
@@ -44,6 +45,7 @@ from torchft_tpu_torch.healthwatch import HealthConfig
 from torchft_tpu_torch.retry import RetryBudgetExhausted, RetryPolicy, retry_call
 
 __all__ = [
+    "AggregatorServer",
     "FallbackPeer",
     "QuorumResult",
     "LighthouseServer",
@@ -160,7 +162,14 @@ def _load() -> ctypes.CDLL:
         "tft_lighthouse_shutdown": ([vp], None),
         "tft_lighthouse_free": ([vp], None),
         "tft_lighthouse_retune_health": ([vp, cp, _P(cp), _P(cp)], ctypes.c_int),
+        "tft_aggregator_new": ([cp, _P(vp), _P(cp)], ctypes.c_int),
+        "tft_aggregator_address": ([vp], vp),
+        "tft_aggregator_port": ([vp], ctypes.c_int),
+        "tft_aggregator_status": ([vp], vp),
+        "tft_aggregator_shutdown": ([vp], None),
+        "tft_aggregator_free": ([vp], None),
         "tft_manager_new": ([cp, _P(vp), _P(cp)], ctypes.c_int),
+        "tft_manager_control_status": ([vp], vp),
         "tft_manager_publish_telemetry": ([vp, cp, _P(cp)], ctypes.c_int),
         "tft_manager_health": ([vp], vp),
         "tft_manager_clock_skew": ([vp], vp),
@@ -410,9 +419,59 @@ class LighthouseServer(_Server):
         super().shutdown()
 
 
+class AggregatorServer(_Server):
+    """Pod-level lighthouse aggregator (native C++, ``native/aggregator.cc``;
+    reference ``coordination.py:568-630``).
+
+    Downstream it speaks the lighthouse's protocol (``heartbeat``,
+    ``quorum``, ``GET /status``), so a Manager points at it through
+    ``TORCHFT_LIGHTHOUSE_AGGREGATOR`` with nothing else changed; upstream it
+    batches the pod into one delta-encoded ``agg_tick`` RPC a tick to the
+    root lighthouse and fans the quorum results back out."""
+
+    _prefix = "aggregator"
+
+    def __init__(
+        self,
+        root_addr: str,
+        bind: str = "0.0.0.0:0",
+        agg_id: str = "",
+        tick_ms: int = 100,
+        heartbeat_timeout_ms: int = 5000,
+        connect_timeout: "float | timedelta" = 10.0,
+    ) -> None:
+        opts = {
+            "bind": bind,
+            "root_addr": root_addr,
+            "agg_id": agg_id,
+            "tick_ms": tick_ms,
+            "heartbeat_timeout_ms": heartbeat_timeout_ms,
+            "connect_timeout_ms": _ms(connect_timeout),
+        }
+        super().__init__(*_new_handle(
+            "tft_aggregator_new", json.dumps(opts).encode(), "aggregator start failed"
+        ))
+
+    def address(self) -> str:
+        return _take_str(self._lib, self._lib.tft_aggregator_address(self._handle))
+
+    def status(self) -> dict:
+        """The pod and its upstream: ``pod_size`` / ``pod_live``,
+        ``joiners_pending``, ``ticks_ok`` / ``ticks_failed``,
+        ``upstream_bytes``, ``last_tick_ok``, ``last_error``."""
+        return json.loads(
+            _take_str(self._lib, self._lib.tft_aggregator_status(self._handle)) or "{}")
+
+
 class ManagerServer(_Server):
     """Per-replica-group manager server (native C++): forwards quorum
-    requests to the lighthouse, heartbeats, and gathers commit votes."""
+    requests to the lighthouse, heartbeats, and gathers commit votes.
+
+    ``aggregator_addr`` points the heartbeat and quorum RPCs at a pod
+    aggregator (``AggregatorServer``); empty: straight to the lighthouse.
+    The server fails over to the lighthouse on its own when the aggregator
+    dies, and re-points when the root names a replacement
+    (``control_status()``)."""
 
     _prefix = "manager"
 
@@ -427,6 +486,7 @@ class ManagerServer(_Server):
         heartbeat_interval: "float | timedelta" = 0.1,
         connect_timeout: "float | timedelta" = 10.0,
         quorum_retries: int = 0,
+        aggregator_addr: str = "",
     ) -> None:
         opts = {
             "replica_id": replica_id,
@@ -438,7 +498,7 @@ class ManagerServer(_Server):
             "heartbeat_interval_ms": _ms(heartbeat_interval),
             "connect_timeout_ms": _ms(connect_timeout),
             "quorum_retries": quorum_retries,
-            "aggregator_addr": "",
+            "aggregator_addr": aggregator_addr,
         }
         super().__init__(*_new_handle(
             "tft_manager_new", json.dumps(opts).encode(), "manager start failed"
@@ -468,6 +528,13 @@ class ManagerServer(_Server):
         before the first beat returned)."""
         return json.loads(
             _take_str(self._lib, self._lib.tft_manager_clock_skew(self._handle)) or "{}")
+
+    def control_status(self) -> dict:
+        """The two-level control plane as this server sees it:
+        ``aggregator_addr``, ``via_aggregator``, ``direct_mode`` and
+        ``failovers``: which upstream the heartbeat and quorum RPCs use now."""
+        return json.loads(
+            _take_str(self._lib, self._lib.tft_manager_control_status(self._handle)) or "{}")
 
 
 class KvStoreServer(_Server):

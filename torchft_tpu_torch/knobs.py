@@ -10,7 +10,8 @@ being read as unset. The registry holds the names the observability and
 health planes read: the healthwatch policy (``TORCHFT_HEALTH_*``), the span
 recorder (``TORCHFT_TRACE*``), the flight recorder's capacity and dump
 path, the Manager's ``/metrics`` port, the optional OpenTelemetry
-mirror, and the serving plane's ``TORCHFT_SERVE_*`` contract. The reference's full registry (types, defaults, doc anchors,
+mirror, the serving plane's ``TORCHFT_SERVE_*`` contract and the pod
+aggregator the Manager reports to (``TORCHFT_LIGHTHOUSE_AGGREGATOR``). The reference's full registry (types, defaults, doc anchors,
 doctor checks) and its policy overrides are not ported."""
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ REGISTRY: FrozenSet[str] = frozenset({
     "TORCHFT_SERVE_DRAIN_ON",
     "TORCHFT_SERVE_PORT",
     "TORCHFT_SERVE_TIMEOUT_S",
+    # the two-level control plane's pod aggregator (manager.py)
+    "TORCHFT_LIGHTHOUSE_AGGREGATOR",
 })
 
 

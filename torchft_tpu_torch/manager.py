@@ -195,6 +195,10 @@ logger = logging.getLogger(__name__)
 __all__ = ["Manager", "ExceptionWithTraceback", "WorldSizeMode"]
 
 LIGHTHOUSE_ENV = "TORCHFT_LIGHTHOUSE"
+# the pod aggregator of the two-level control plane (reference :92-95): the
+# group leader's manager server sends its heartbeats and quorum RPCs there
+# and fails over to the lighthouse on its own when it dies
+AGGREGATOR_ENV = "TORCHFT_LIGHTHOUSE_AGGREGATOR"
 TIMEOUT_SEC_ENV = "TORCHFT_TIMEOUT_SEC"
 QUORUM_TIMEOUT_SEC_ENV = "TORCHFT_QUORUM_TIMEOUT_SEC"
 CONNECT_TIMEOUT_SEC_ENV = "TORCHFT_CONNECT_TIMEOUT_SEC"
@@ -566,6 +570,7 @@ class Manager:
             heartbeat_interval=self._heartbeat_interval,
             connect_timeout=self._connect_timeout,
             quorum_retries=quorum_retries,
+            aggregator_addr=knobs.env_raw(AGGREGATOR_ENV, "") or "",
         )
         manager_addr = self._manager.address()
         KvClient(store_addr, connect_timeout=self._connect_timeout).set(
@@ -1653,12 +1658,22 @@ class Manager:
         1 warn, 2 ejected, 3 probation, 4 degraded), ``straggler_score`` and
         the cumulative ``ejections`` / ``readmissions``, 0 until a beat
         brings one. The commit's ``should_commit_rpc_s`` and
-        ``bookkeeping_s``. The observability planes' losses:
+        ``bookkeeping_s``. With a pod aggregator configured
+        (``TORCHFT_LIGHTHOUSE_AGGREGATOR``, group leader): ``via_aggregator``
+        (1 while the control RPCs go through it, 0 after a failover to the
+        lighthouse) and the manager server's cumulative
+        ``aggregator_failovers``. The observability planes' losses:
         ``dropped_events`` (events the drain shed) and ``trace_dropped``
         (spans the ring overwrote); nonzero means the records are
         incomplete, and the first time says so in a warning."""
         with self._metrics_lock:
             out = dict(self._timings)
+        server = getattr(self, "_manager", None)  # None on a shell built by __new__
+        if server is not None:
+            cs = server.control_status()
+            if cs.get("aggregator_addr"):
+                out["via_aggregator"] = 1.0 if cs.get("via_aggregator") else 0.0
+                out["aggregator_failovers"] = float(cs.get("failovers", 0))
         out["dropped_events"] = float(get_event_drain().dropped)
         out["trace_dropped"] = self._tracer.stats()["dropped"]
         if out["dropped_events"] + out["trace_dropped"] > 0 and not self._dropped_events_warned:

@@ -407,6 +407,9 @@ class TrainConfig:
     # the serving plane: inference workers (0: off) and the deltas' codec
     serve_workers: int = 0
     serve_compress: str = "fp8"
+    # the model's depth: 0 keeps the config's layers, N cuts it to N layers
+    # at the config's full width
+    layers: int = 0
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -418,6 +421,8 @@ def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
     have seen."""
     model_cls, configs = MODELS[cfg.model]
     model_cfg = configs[cfg.config]
+    if cfg.layers:
+        model_cfg = dataclasses.replace(model_cfg, n_layers=cfg.layers)
     # the reference's dispatch (TORCHFT_TPU_ATTENTION, else splash for GQA on
     # the card)
     model = model_cls(model_cfg, device=device, remat=cfg.remat)
@@ -1197,6 +1202,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                         % (", ".join(sorted(CONFIGS)), ", ".join(sorted(MOE_CONFIGS))))
     p.add_argument("--remat", default="full", choices=REMAT_MODES,
                    help="each layer's rematerialization mode")
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the model to this many layers at its full width (0: the config's)")
     p.add_argument("--steps", type=int, default=6)
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--seq-len", type=int, default=2048)
@@ -1250,7 +1257,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         p.error(f"--config {args.config!r} is not a {args.model} config: "
                 f"{sorted(MODELS[args.model][1])}")
     cfg = TrainConfig(
-        config=args.config, model=args.model, remat=args.remat, steps=args.steps, batch_size=args.batch_size,
+        config=args.config, model=args.model, remat=args.remat, layers=args.layers,
+        steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, quantize=args.quantize,
         faults=() if args.fail_at is None else (Fault(1, args.fail_at, "crash", at="backward"),),
         transport=args.transport, diloco=args.diloco,
