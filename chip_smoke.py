@@ -98,8 +98,8 @@
    dequantize launched in each child (their ``done:`` lines carry the
    counts); prints each replica's step times and heal seconds. A failed
    check raises with the end of the processes' transcript.
-9. Trains bench_1b semi-synchronously (``--diloco``): full width, half
-   depth (``CUT_LAYERS``: 10 of its 20 layers),
+9. Trains bench_1b semi-synchronously (``--diloco``): full width, a
+   quarter of its depth (``QUARTER_LAYERS``: 5 of its 20 layers),
    batch 1, seq 2048, two replica threads, inner AdamW steps, one of two
    fragments synced every 10 inner steps (sync every 20, delay 1) with its
    fp8 pseudogradient through the streamed allreduce, the outer Nesterov
@@ -122,18 +122,21 @@
 11. LocalSGD on the card: two replica threads average trees of CUDA
    tensors, bitwise equal to the same call on CPU tensors.
 12. A whole-job outage of the ``train_llama_hsdp`` counterpart on the card
-   at bench_1b width and depth, run as an operator would (``python -m
+   at bench_1b width and half depth (``CUT_LAYERS``: 10 of its 20 layers,
+   cut for time: the saves, the restores and the heal move half the
+   bytes), run as an operator would (``python -m
    torchft_tpu_torch.examples.train_llama_hsdp --outage-demo --config
-   bench_1b --batch-size 1 --seq-len 2048 --attention ulysses --transport
-   pg --steps 7 --kill-at-step 2 --ckpt-dir chiprun_out/ckpt_hsdp
-   --ckpt-every 3``; 7 steps, so that step 6's save waits for step 3's
+   bench_1b --layers 10 --batch-size 1 --seq-len 2048 --attention ulysses
+   --transport pg --steps 7 --kill-at-step 2 --ckpt-dir
+   chiprun_out/ckpt_hsdp --ckpt-every 3``; 7 steps, so that step 6's save waits for step 3's
    to land and the outage always finds both groups training): the lighthouse CLI as the root, the pod aggregator's
    CLI in front of it (every worker has ``TORCHFT_LIGHTHOUSE_AGGREGATOR``),
    and ``python -m torchft_tpu_torch.launcher --replica-groups 2
    --max-restarts 2`` over two groups of one rank each (a world-1 NCCL
    in-group process group per process, FSDP2 over it; the unquantized bf16
    gradient allreduce), each saving a durable checkpoint of its whole state
-   (parameters and AdamW's moments, ~12.9 GB) on DCP at step 3. The
+   (parameters and AdamW's moments, 3.62 GB a group at 10 layers) on DCP
+   at step 3. The
    punisher kills group 1's leader after its step-2 line (the launcher
    restarts it; it heals over PG into its live local shards), then every
    group once both landed step 3, between two quorum rounds (the launcher
@@ -162,8 +165,8 @@
    gradient count in 3 turns, each also split into its stages (K3, the
    slicing onto the host wire, the alltoall, the landing and K4, the sum);
    K3's and K4's launches are read from those turns. (b) bench_1b at full
-   width, half depth (10 layers), as three replica groups (threads on one
-   card), the unquantized
+   width, a quarter of its depth (5 layers), as three replica groups
+   (threads on one card), the unquantized
    bf16 allreduce, 3 steps healed over HTTP wire v3 in place, with the
    reference's resilient-heal fault script (each fault fires at the start
    of its step, as the reference's ``EventInjector``): replica 2 crashes
@@ -199,7 +202,7 @@
    seconds, chunks and MiB/s and the peak memory. (c) K1's bf16 kernels at
    bench_moe's attention shape (B 1, S 2048, Hq 16, Hkv 8, hd 64) against
    their plain versions, timed beside their bound and SDPA.
-15. The redundancy plane at bench_1b (full width, half depth: 10 layers, B 1, S 2048,
+15. The redundancy plane at bench_1b (full width, a quarter of its depth: 5 layers, B 1, S 2048,
    AdamW, full remat): three replica threads and one hot spare, the fp8
    allreduce at the Manager's defaults, HTTP heals, the shard directory
    beside the lighthouse, ``--redundancy 2,1`` with retain 1 and
@@ -288,6 +291,31 @@
    ``/infer`` p50 / p99 ms and requests/s (one process: the trainers, the
    publishers' and workers' HTTP servers and the request threads share
    its GIL), the steady step split and the device and host peaks.
+18. Heals bench_1b (full width and depth, B 1, S 2048, AdamW, full remat)
+   over a Baby recovery PG: the trainer's ``transport="pg-baby"``,
+   ``PGTransport`` over a ``ProcessGroupBabyHost`` whose ``ProcessGroupHost``
+   runs in a child made by the ``spawn`` context (anew at every quorum
+   change), its op timeout ``RECOVERY_TIMEOUT_S`` (30 s). Two replica
+   threads, the fp8 allreduce as phase 6, 7 steps; replica 1 crashes after
+   step 2's backward pass and heals 6.45 GB through the children's pipes,
+   then after step 4's, and that heal's source (replica 0) has its Baby
+   child SIGKILLed once 60 leaf messages are submitted
+   (``kill_recovery_child``). Checks: exactly one child killed; the
+   healer's Baby showing ``errored()`` within the recovery timeout; the
+   step the kill struck discarded; one failed heal attempt, then a heal on
+   fresh children; every replica at step 7, bitwise equal, finite losses;
+   no child alive at the end; every step run in this process on its one
+   CUDA context (``cuCtxGetCurrent`` from the replica threads); K1's three
+   kernels, K3-host and K4 launched. Prints ``heal_send_s``,
+   ``heal_recv_s`` and MB/s beside phase 7's heal over the plain PG, the
+   time from the kill to each Baby's ``errored()``, the peak device
+   memory, and the pids ``nvidia-smi`` saw on the card during the phase.
+   It runs right after phase 7.
+19. Runs ``python -m torchft_tpu_torch.doctor`` on the card with a 300 s
+   timeout, beside phases 8 and 10 (all three are processes that barely
+   load the card), and prints its lines. Checks its exit 0, its 17 checks all
+   ``ok`` (no ``warn``, no ``FAIL``) and the accelerator check naming the
+   H100.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -318,10 +346,13 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet peak
-# phases 9, 13 (b), 14 (b), 15, 16 and 17 run their model at half its
-# depth, full width (cut for time when phase 12 grew the whole-job outage):
-# bench_1b 10 of its 20 layers, bench_moe 12 of its 24
+# phases 12, 14 (b), 16 and 17 run their model at half its depth, full
+# width (cut for time when phase 12 grew the whole-job outage, and phase
+# 12 itself when phase 18 came): bench_1b 10 of its 20 layers, bench_moe
+# 12 of its 24; phases 9, 13 (b) and 15, whose cost is the host's (heals,
+# staging, the bf16 wire), at a quarter: bench_1b 5 layers
 CUT_LAYERS = {"bench_1b": 10, "bench_moe": 12}
+QUARTER_LAYERS = 5
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 and fp16 tensor-core peak
 # f32 products on the tensor cores by split operands: three TF32 products
 # (H100 SXM dense TF32 peak 495 TFLOP/s) per f32 one
@@ -835,6 +866,160 @@ def check_pg_transport_on_card(device: torch.device) -> None:
         "(data_ptr kept), bitwise")
 
 
+# phase 18: replica 1 crashes after these steps' backward passes; the
+# second crash's heal loses its source's Baby child once BABY_KILL_LEAVES
+# leaf messages are submitted (of ~550: the leaves are in flight)
+BABY_CRASHES = (2, 4)
+BABY_STEPS = 7
+BABY_KILL_LEAVES = 60
+
+
+def _cuda_context() -> int:
+    """The calling thread's current CUDA context (the driver's handle)."""
+    ctx = ctypes.c_void_p()
+    if ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(ctx)) != 0:
+        raise RuntimeError("cuCtxGetCurrent failed")
+    return ctx.value or 0
+
+
+def _card_pids() -> list:
+    """The processes nvidia-smi sees on the card (its own pid namespace)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30)
+    return sorted(int(x) for x in out.stdout.split() if x.strip().isdigit())
+
+
+def check_baby_heal_bench_1b(device: torch.device, cfg, pg_heal: dict, pg_peak: int) -> dict:
+    """bench_1b healed over a Baby recovery PG, its source's child killed
+    in a second heal (docstring, 18); returns the phase's launches."""
+    import multiprocessing
+
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.train import RECOVERY_TIMEOUT_S, Fault, run_replicas
+
+    first, second = BABY_CRASHES
+    baby_cfg = dataclasses.replace(cfg, steps=BABY_STEPS, transport="pg-baby", faults=(
+        Fault(1, first, "crash", at="backward"),
+        Fault(1, second, "crash", at="backward"),
+        Fault(0, second, "kill_recovery_child", chunk=BABY_KILL_LEAVES)))
+    contexts = set()
+    seen_pids: set = set()
+    stop = threading.Event()
+
+    def sample_card() -> None:
+        while not stop.wait(2.0):
+            try:
+                seen_pids.update(_card_pids())
+            except (OSError, subprocess.SubprocessError):
+                pass
+
+    def on_step(e: dict) -> None:
+        # from the replica threads: the process and context they train in
+        contexts.add((os.getpid(), _cuda_context()))
+        log(f"baby step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+            f"participants={e['participants']} committed={e['committed']} "
+            f"healed={e['healed']} step_ms={e['step_ms']:.1f} at={e['at']:.3f}")
+
+    sampler = threading.Thread(target=sample_card, daemon=True)
+    sampler.start()
+    q.reset_launches()
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    fleet: dict = {}
+    t0 = time.perf_counter()
+    try:
+        results = run_replicas(baby_cfg, device, on_step=on_step, fleet=fleet)
+    finally:
+        stop.set()
+        sampler.join()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    left = multiprocessing.active_children()
+    kills = fleet["recovery_child_kills"]
+    log(f"baby heal bench_1b ({elapsed:.1f} s, {BABY_STEPS} steps, crashes after steps "
+        f"{BABY_CRASHES}, the second heal's source child killed after {BABY_KILL_LEAVES} leaf "
+        f"messages): kills {kills}; children alive at the end {left}; contexts "
+        f"{sorted(contexts)} (main pid {os.getpid()}, main context {_cuda_context()}); "
+        f"nvidia-smi's compute pids during the phase {sorted(seen_pids)}; launches {launches}")
+    if len(kills) != 1:
+        raise RuntimeError(f"baby heal: {len(kills)} children killed, not one: {kills}")
+    kill = kills[0]
+    errored = kill["errored_after_s"]
+    if 1 not in errored or errored[1] >= RECOVERY_TIMEOUT_S:
+        raise RuntimeError(f"baby heal: the healer's Baby showed no errored() within "
+                           f"{RECOVERY_TIMEOUT_S} s of the kill: {errored}")
+    if left:
+        raise RuntimeError(f"baby heal: children left alive: {left}")
+    if contexts != {(os.getpid(), _cuda_context())}:
+        raise RuntimeError(f"baby heal: the trainers ran in {contexts}, not in this process's "
+                           "one CUDA context")
+    r0, r1 = results
+    if any(r["step"] != BABY_STEPS for r in results):
+        raise RuntimeError(f"baby heal: replicas stopped at {[r['step'] for r in results]}")
+    # the aborted heal: replica 0's first step to end after the kill was
+    # discarded, and replica 1 made exactly one heal attempt that failed
+    after = [e for e in r0["log"] if e["at"] > kill["t_kill"]]
+    if not after or after[0]["committed"]:
+        raise RuntimeError(f"baby heal: the step the kill struck was not discarded: {after[:1]}")
+    attempts, heals = r1["timings"].get("heal_attempts", 0), r1["metrics"]["heals"]
+    if r1["restarts"] != 2 or heals < 3 or attempts != heals + 1:
+        raise RuntimeError(f"baby heal: replica 1 restarts {r1['restarts']}, heals {heals}, "
+                           f"attempts {attempts}: not one failed heal then a heal on fresh "
+                           "children")
+    p0, p1 = r0["params"], r1["params"]
+    unequal = [k for k in p0 if not torch.equal(p0[k].view(torch.int16), p1[k].view(torch.int16))]
+    if unequal:
+        raise RuntimeError(f"baby heal: replicas differ in {unequal[:5]}")
+    losses = [e["loss"] for r in results for e in r["log"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"baby heal: non-finite loss: {losses}")
+    for kernel in ("quantize_fp8_rowwise_host", "dequantize_fp8_rowwise",
+                   "splash_fwd", "splash_dq", "splash_dkv"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"baby heal: {kernel} never launched")
+    baby = heal_numbers(results)
+    # what a heal moves: the parameters and AdamW's two moments, one dtype
+    state_mb = 3 * sum(t.numel() * t.element_size() for t in p0.values()) / 1e6
+    for label, h, pk in (("pg", pg_heal, pg_peak), ("pg-baby", baby, peak)):
+        log(f"bench_1b heal {label}: heal_send_s {h['heal_send_s']:.3f} heal_recv_s "
+            f"{h['heal_recv_s']:.3f}, {state_mb / h['heal_recv_s']:.1f} MB/s ({state_mb:.1f} MB "
+            f"over heal_recv_s; the ranged wire's own heal_mb_per_s {h['heal_mb_per_s']:.1f}); "
+            f"peak device memory {pk / 2**30:.2f} GiB")
+    log(f"baby heal: kill to errored() {', '.join(f'replica {j} {s * 1e3:.1f} ms' for j, s in sorted(errored.items()))} "
+        f"(recovery timeout {RECOVERY_TIMEOUT_S:.0f} s); replicas bitwise equal over {len(p0)} "
+        f"tensors; replica 1 heals {heals} of {attempts:.0f} attempts; storage kept "
+        f"{[r['storage_kept'] for r in results]}")
+    return launches
+
+
+def check_doctor_on_card() -> list:
+    """``python -m torchft_tpu_torch.doctor`` on the card (docstring, 19);
+    returns its lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.doctor"], cwd=root,
+                             capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError("doctor: no end within 300 s") from e
+    lines = [ln for ln in out.stdout.splitlines() if re.match(r"^(ok  |warn|FAIL) ", ln)]
+    for ln in lines:
+        log(f"doctor: {ln}")
+    log(f"doctor: exit {out.returncode} in {time.perf_counter() - t0:.1f} s")
+    if out.returncode != 0:
+        raise RuntimeError(f"doctor exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+                           f"{out.stderr[-3000:]}")
+    status = {ln.split()[1]: ln[:4].strip() for ln in lines}
+    if len(lines) != 17 or set(status.values()) != {"ok"}:
+        raise RuntimeError(f"doctor: {len(lines)} checks, not 17 all ok: {status}")
+    accel = next(ln for ln in lines if ln.split()[1] == "accelerator")
+    if "H100" not in accel:
+        raise RuntimeError(f"doctor: the accelerator check does not name the H100: {accel!r}")
+    return lines
+
+
 def check_train_ddp_processes() -> dict:
     """The train_ddp example as processes on the card (docstring, 8)."""
     from torchft_tpu_torch.examples.train_ddp import Fleet
@@ -914,7 +1099,7 @@ def check_diloco_bench_1b(device: torch.device, cfg) -> dict:
     # 30 inner steps (40 before phase 16 needed the time): three syncs, the
     # second cycle's 20-29 measured
     dcfg = dataclasses.replace(cfg, steps=30, faults=(Fault(1, crash_at, "crash", at="backward"),),
-                               transport="pg", diloco=True, layers=CUT_LAYERS["bench_1b"],
+                               transport="pg", diloco=True, layers=QUARTER_LAYERS,
                                sync_every=20, num_fragments=2, fragment_sync_delay=1)
     q.reset_launches()
     ta.reset_launches()
@@ -1096,9 +1281,10 @@ HSDP_STEPS, HSDP_KILL_AT, HSDP_CKPT_EVERY = 7, 2, 3
 
 
 def check_train_llama_hsdp_processes(n_params: int) -> dict:
-    """The train_llama_hsdp counterpart at bench_1b under the launcher, the
-    aggregator and the punisher, through a kill of group 1 and a whole-job
-    outage (docstring, 12); returns K1's launches: the first incarnations'
+    """The train_llama_hsdp counterpart at bench_1b width and half depth
+    (``n_params`` the cut model's) under the launcher, the aggregator and
+    the punisher, through a kill of group 1 and a whole-job outage
+    (docstring, 12); returns K1's launches: the first incarnations'
     (``hsdp``) and the restarted ones' (``hsdp_restart``)."""
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "chiprun_out")
@@ -1117,7 +1303,8 @@ def check_train_llama_hsdp_processes(n_params: int) -> dict:
         raise RuntimeError(f"train_llama_hsdp: {free / 1e9:.1f} GB free under {out_dir}, less "
                            f"than twice the {need / 1e9:.1f} GB the durable checkpoints take")
     argv = [sys.executable, "-m", "torchft_tpu_torch.examples.train_llama_hsdp", "--outage-demo",
-            "--config", "bench_1b", "--batch-size", "1", "--seq-len", "2048",
+            "--config", "bench_1b", "--layers", str(CUT_LAYERS["bench_1b"]),
+            "--batch-size", "1", "--seq-len", "2048",
             "--attention", "ulysses", "--transport", "pg", "--steps", str(HSDP_STEPS),
             "--kill-at-step", str(HSDP_KILL_AT), "--ckpt-dir", ckpt,
             "--ckpt-every", str(HSDP_CKPT_EVERY), "--device", "cuda", "--timeout", "120"]
@@ -1368,7 +1555,7 @@ def check_resilient_heal_bench_1b(device: torch.device, cfg) -> dict:
         # step 1 is the steady one, step 2 takes the crash, the heal's two
         # faults and the flake
         cfg, replicas=3, steps=3, quantize=False, transport="http",
-        layers=CUT_LAYERS["bench_1b"],
+        layers=QUARTER_LAYERS,
         # the serve side's lock wait must outlast staging 6.45 GB (up to
         # 9.9 s on the H100): a 3 s one answered a healer's metadata request
         # 503 mid-staging, failing the init heal. The serving window's grace
@@ -2471,7 +2658,7 @@ def check_redundancy_bench_1b(device: torch.device, cfg, http_heal: dict) -> dic
     shutil.rmtree(trace_dir, ignore_errors=True)
     rcfg = dataclasses.replace(
         cfg, replicas=RED_MEMBERS, steps=RED_STEPS, quantize=True, transport="http",
-        layers=CUT_LAYERS["bench_1b"], redundancy=(2, 1), redundancy_retain=1,
+        layers=QUARTER_LAYERS, redundancy=(2, 1), redundancy_retain=1,
         redundancy_interval=RED_INTERVAL, spares=1,
         trace_dir=trace_dir,
         faults=(Fault(RED_CRASH[0], RED_CRASH[1], "crash"),
@@ -3294,18 +3481,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("7 PG heal")
+    baby_launches = check_baby_heal_bench_1b(device, cfg, pg_heal, pg_peak)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("18 Baby recovery PG heal")
     # the two small examples' processes barely load the card or the host:
-    # they run side by side, each with its own lighthouse
-    with ThreadPoolExecutor(2) as pool:
+    # they run side by side, each with its own lighthouse, and beside them
+    # the doctor (phase 19), whose checks are loopback probes and subprocesses
+    with ThreadPoolExecutor(3) as pool:
         ddp_run = pool.submit(check_train_ddp_processes)
         diloco_proc_run = pool.submit(check_train_diloco_processes)
+        doctor_run = pool.submit(check_doctor_on_card)
         ddp_launches, diloco_proc_launches = ddp_run.result(), diloco_proc_run.result()
-    mark("8 and 10 example processes")
+        doctor_run.result()
+    mark("8 and 10 example processes, 19 the doctor beside them")
     diloco_launches = check_diloco_bench_1b(device, cfg)
     mark("9 DiLoCo")
     check_local_sgd_on_card(device)
     mark("11 LocalSGD")
-    hsdp_launches = check_train_llama_hsdp_processes(n_params)
+    hsdp_launches = check_train_llama_hsdp_processes(dataclasses.replace(
+        CONFIGS["bench_1b"], n_layers=CUT_LAYERS["bench_1b"]).num_params())
     mark("12 train_llama_hsdp's whole-job outage")
     rs_launches = check_reduce_scatter_on_card(device, n_params)
     mark("13 (a) reduce-scatter")
@@ -3367,6 +3562,8 @@ def main() -> int:
             # serving path's own (its publishers and workers; 0 for K3)
             "launches_serving": {"phase": serve_launches[kname],
                                  "serving_path": serve_launches.get(f"serving_{kname}", 0)},
+            # phase 18: bench_1b healed over a Baby recovery PG
+            "launches_baby": baby_launches[kname],
             # K3-host checked and timed at the serving plane's flat too
             **({"serving_flat": {k: v for k, v in host_rule["serving_flat"].items()
                                  if k != "bytes"}}
@@ -3403,7 +3600,9 @@ def main() -> int:
                         # phase 16: bench_1b with the health and tracing planes
                         "launches_health": health_launches[key],
                         # phase 17: bench_1b with the serving plane
-                        "launches_serving": serve_launches[key]}
+                        "launches_serving": serve_launches[key],
+                        # phase 18: bench_1b healed over a Baby recovery PG
+                        "launches_baby": baby_launches[key]}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],

@@ -674,3 +674,68 @@ def test_cuda_serving_chain_equals_the_cpu_chain_and_is_not_torn(cuda_device):
         pub.shutdown()
         cpu_pub.shutdown()
         reg.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_host_rule_codes_a_row_without_a_finite_reciprocal_as_zero(cuda_device):
+    """A row whose scale (amax / 448) has no finite reciprocal, as error
+    feedback leaves a fading row: the host-rule kernel, its plain version
+    and the port's numpy codec all code it as a zero row (scale 1, codes
+    +-0); the rows beside it keep the reference's rule."""
+    x = torch.randn(3 * 512, generator=torch.Generator().manual_seed(5))
+    x[512:1024] *= 1e-38
+    qk, sk, nk = tq.fused_quantize_fp8_host(x.to(cuda_device))
+    qp, sp, _ = tq.quantize_fp8_host_plain(x)
+    qh, sh, _ = tq.quantize_fp8_rowwise(x.numpy())
+    assert torch.equal(qk.view(torch.uint8).cpu(), qp.view(torch.uint8))
+    assert torch.equal(sk.cpu(), sp)
+    assert (qk.view(torch.uint8).cpu().numpy() == qh).all()
+    assert sk[1].item() == 1.0 and not (qk[1].view(torch.uint8) & 0x7F).any()
+    assert torch.isfinite(tq.fused_dequantize_fp8(qk, sk, nk)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_baby_heal_lands_in_cuda_templates_in_place(cuda_device):
+    """A heal of CUDA state over PGTransport on two spawned Baby process
+    groups: the leaves cross the children's pipes as host arrays and land
+    in the receiver's CUDA tensors, bit for bit, storage kept; the parent
+    alone holds the card, and every child is reaped."""
+    import multiprocessing as mp
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchft_tpu_torch.checkpointing import PGTransport
+    from torchft_tpu_torch.coordination import KvStoreServer
+    from torchft_tpu_torch.process_group import ProcessGroupBabyHost
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    state = {"user": {"w": torch.randn(1024, 1024, device=cuda_device, generator=g),
+                      "b": torch.randn(4096, device=cuda_device, generator=g).bfloat16(),
+                      "n": torch.arange(7)},
+             "torchft": {"step": 5, "batches_committed": 10}}
+    template = {"user": {k: torch.zeros_like(v) for k, v in state["user"].items()},
+                "torchft": {"step": 0, "batches_committed": 0}}
+    ptrs = {k: v.data_ptr() for k, v in template["user"].items()}
+    store = KvStoreServer("127.0.0.1:0")
+    ctx = mp.get_context("spawn")
+    pgs = [ProcessGroupBabyHost(timeout=60.0, ctx=ctx) for _ in range(2)]
+    try:
+        addr = f"127.0.0.1:{store.port}/cuda_baby"
+        with ThreadPoolExecutor(2) as ex:
+            list(ex.map(lambda r: pgs[r].configure(addr, r, 2, 1), range(2)))
+            sender = PGTransport(pgs[0], timeout=60.0)
+            receiver = PGTransport(pgs[1], timeout=60.0, state_dict_template=lambda: template)
+            fs = ex.submit(sender.send_checkpoint, [1], 5, state, 60.0)
+            fr = ex.submit(receiver.recv_checkpoint, 0, "<pg_transport>", 5, 60.0)
+            fs.result(timeout=120)
+            out = fr.result(timeout=120)
+    finally:
+        for pg in pgs:
+            pg.shutdown()
+        store.shutdown()
+    for k, v in state["user"].items():
+        assert out["user"][k].device == v.device and out["user"][k].dtype == v.dtype
+        assert torch.equal(out["user"][k], v), k
+    assert {k: v.data_ptr() for k, v in template["user"].items() if v.is_cuda} == \
+        {k: p for k, p in ptrs.items() if template["user"][k].is_cuda}
+    assert out["torchft"] == state["torchft"]
+    assert mp.active_children() == []

@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "examples.train_llama_hsdp", "models.remat", "models.moe", "tracing", "trace",
                  "flight_recorder", "observability", "healthwatch", "serving",
                  "parameter_server", "checkpointing.durable", "launcher", "aggregator",
-                 "examples.punisher"):
+                 "examples.punisher", "multiprocessing", "multiprocessing_dummy_context",
+                 "doctor"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -150,3 +151,63 @@ def test_durable_checkpoints_and_control_plane_import_no_jax_even_lazily(path):
     import, at top level or inside a function, stays in the port."""
     roots = _import_roots(path)
     assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "orbax", "torchft_tpu"}
+
+
+_PROBE_PG = """
+import sys
+
+import torch
+
+from torchft_tpu_torch.process_group import ProcessGroupHost
+
+
+class ProbePG(ProcessGroupHost):
+    def configure(self, *args, **kwargs):
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"))
+        if bad:
+            raise RuntimeError(f"the Baby child imported {bad[:5]}")
+        if torch.cuda.is_initialized():
+            raise RuntimeError("the Baby child initialized CUDA")
+        super().configure(*args, **kwargs)
+"""
+
+_SPAWN_BABY = """
+import multiprocessing as mp
+
+import numpy as np
+
+from probe_pg import ProbePG
+from torchft_tpu_torch.coordination import KvStoreServer
+from torchft_tpu_torch.process_group import ProcessGroupBabyHost
+
+
+class ProbeBaby(ProcessGroupBabyHost):
+    PG_CLASS = ProbePG
+
+
+if __name__ == "__main__":
+    store = KvStoreServer("127.0.0.1:0")
+    pg = ProbeBaby(timeout=30.0)
+    pg.configure(f"127.0.0.1:{store.port}/iso", 0, 1, 1)
+    out = pg.allreduce([np.arange(4, dtype=np.float32)]).get_future().wait(30)
+    assert np.array_equal(out[0], np.arange(4, dtype=np.float32))
+    pg.shutdown()
+    store.shutdown()
+    assert mp.active_children() == []
+    print("ok")
+"""
+
+
+def test_spawned_baby_child_imports_no_jax_and_no_cuda(tmp_path):
+    """A spawned Baby child unpickles its worker and its process group
+    from the port alone: its configure checks that neither JAX nor the
+    JAX package was imported and that CUDA was never initialized."""
+    (tmp_path / "probe_pg.py").write_text(_PROBE_PG)
+    (tmp_path / "spawn_baby.py").write_text(_SPAWN_BABY)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), REPO])
+    out = subprocess.run([sys.executable, str(tmp_path / "spawn_baby.py")], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"

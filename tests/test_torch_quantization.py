@@ -130,8 +130,31 @@ def test_subnormal_rows_follow_ieee():
     assert ulps.max() <= 1
 
 
+def _tiny_rows(ref_scales: np.ndarray) -> np.ndarray:
+    """Rows whose reference scale has no finite reciprocal: the reference's
+    host rule codes them all NaN (x * inf), the port's as zero rows."""
+    with np.errstate(divide="ignore", over="ignore"):
+        return np.isinf(np.float32(1.0) / np.asarray(ref_scales).reshape(-1))
+
+
+def _assert_host_rule(qb, sb, qa, sa):
+    """The port's host-rule codes and scales equal the reference's bit for
+    bit on every row but those without a finite reciprocal, which are zero
+    rows (scale 1, codes +-0) where the reference's are all NaN."""
+    qa, qb = np.asarray(qa).reshape(sa.size, -1), np.asarray(qb).reshape(sa.size, -1)
+    sb = np.asarray(sb).reshape(-1)
+    tiny = _tiny_rows(sa)
+    np.testing.assert_array_equal(qb[~tiny], qa[~tiny])
+    np.testing.assert_array_equal(sb[~tiny].view(np.uint32), sa[~tiny].view(np.uint32))
+    assert (sb[tiny] == 1.0).all() and not (qb[tiny] & 0x7F).any()
+    assert ((qa[tiny] & 0x7F) == 0x7F).all()  # the reference's NaN codes
+    return tiny
+
+
 @pytest.mark.parametrize("case", CASES + ["subnormal"])
 def test_host_codec_matches_reference_bitwise(case):
+    """Bit for bit, but a row whose scale has no finite reciprocal (the
+    subnormal case's every row), which the port codes as a zero row."""
     if case == "subnormal":
         x = np.full(700, 2e-40, np.float32)
     else:
@@ -139,11 +162,13 @@ def test_host_codec_matches_reference_bitwise(case):
     qa, sa, na = jq.quantize_fp8_rowwise(x)
     qb, sb, nb = tq.quantize_fp8_rowwise(x)
     assert na == nb
-    np.testing.assert_array_equal(qb, qa)
-    np.testing.assert_array_equal(sb.view(np.uint32), sa.view(np.uint32))
-    _same_bits_or_nan(
-        tq.dequantize_fp8_rowwise(qb, sb, nb), jq.dequantize_fp8_rowwise(qa, sa, na)
-    )
+    tiny = _assert_host_rule(qb, sb, qa, sa)
+    assert tiny.all() if case == "subnormal" else not tiny.any()
+    db = tq.dequantize_fp8_rowwise(qb, sb, nb)
+    if tiny.any():
+        np.testing.assert_array_equal(np.abs(db), 0.0)
+    else:
+        _same_bits_or_nan(db, jq.dequantize_fp8_rowwise(qa, sa, na))
 
 
 @pytest.mark.parametrize("case", CASES + ["subnormal", "overflow_row"])
@@ -163,9 +188,34 @@ def test_host_rule_plain_version_matches_the_reference_host_codec(case):
     tq.reset_launches()
     qb, sb, nb = tq.fused_quantize_fp8_host(torch.from_numpy(x))
     assert nb == na and qb.shape == (sa.size, 512) and sb.shape == (sa.size, 1)
-    np.testing.assert_array_equal(qb.view(torch.uint8).numpy(), qa)
-    np.testing.assert_array_equal(sb.numpy().reshape(-1).view(np.uint32), sa.view(np.uint32))
+    tiny = _assert_host_rule(qb.view(torch.uint8).numpy(), sb.numpy(), qa, sa)
+    assert tiny.all() if case == "subnormal" else not tiny.any()
     assert sum(tq.LAUNCHES.values()) == 0
+
+
+def test_error_feedback_keeps_a_fading_fp8_row_finite():
+    """A row that stops receiving gradient: its error-feedback residual
+    shrinks by the code's rounding every step until its scale has no
+    finite reciprocal. The reference's host codec then codes it all NaN;
+    the port's codes a zero row and the residual stays finite and in
+    place."""
+    rng = np.random.default_rng(0)
+    first = (rng.standard_normal(512) * 1e-3).astype(np.float32)
+    outs = {}
+    for name, mod in (("port", tq), ("ref", jq)):
+        res, step_bad = np.zeros(512, np.float32), None
+        with np.errstate(all="ignore"):
+            for step in range(60):
+                v = (first if step == 0 else np.zeros(512, np.float32)) + res
+                d = mod.dequantize_fp8_rowwise(*mod.quantize_fp8_rowwise(v))
+                if not np.isfinite(d).all():
+                    step_bad = step
+                    break
+                res = v - d
+        outs[name] = (step_bad, res)
+    assert outs["ref"][0] is not None  # the reference's codec breaks down
+    assert outs["port"][0] is None
+    assert np.isfinite(outs["port"][1]).all() and 0 < np.abs(outs["port"][1]).max() < 1e-35
 
 
 def _world_run(world: int, fn):

@@ -18,7 +18,11 @@ it. What runs today (see ROADMAP.md for what is still to port):
   on the synchronous quorum;
 - ``process_group.ProcessGroupHost``: the host wire, with the raw-frame
   ring, the compressed self-healing ring and point-to-point sends;
-  ``bucketing`` its buckets;
+  ``bucketing`` its buckets; ``ProcessGroupBabyHost`` runs it in a child
+  process (``multiprocessing``, ``multiprocessing_dummy_context``);
+- ``knobs``: the registry of every ``TORCHFT_*`` variable the port reads,
+  with process-local overrides; ``doctor`` (``python -m
+  torchft_tpu_torch.doctor``): the host's diagnostic;
 - ``ddp``, ``data`` and ``lighthouse`` (the lighthouse CLI);
 - ``checkpointing.DurableCheckpointer`` (exported here): durable (tier-2)
   checkpoints on ``torch.distributed.checkpoint``, for a whole-job outage;

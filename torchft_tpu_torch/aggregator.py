@@ -15,7 +15,7 @@ upstream ticks). It logs ``aggregator listening at host:port (root ...)``
 and exits 0 on SIGINT or SIGTERM.
 
 ``check_aggregator()`` is the reference doctor's aggregator check
-(``torchft_tpu/doctor.py:461``): the environment's wiring, then a beat
+(``torchft_tpu/doctor.py:461``), which the port's doctor runs: the environment's wiring, then a beat
 through an aggregator on loopback that must reach a root lighthouse as a
 batched ``agg_tick``.
 """
@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 import signal
 import threading
 import time
 from typing import List, Optional, Tuple
 
+from torchft_tpu_torch import knobs
 from torchft_tpu_torch.coordination import AggregatorServer, LighthouseClient, LighthouseServer
 
 __all__ = ["AGGREGATOR_ENV", "check_aggregator", "main"]
@@ -46,16 +46,17 @@ def check_aggregator() -> Tuple[bool, str]:
     to the root), and a beat sent to an aggregator reaches a root lighthouse
     through ``agg_tick``, not as a direct heartbeat."""
     env_note = "flat fleet (no aggregator env)"
-    agg_env = os.environ.get(AGGREGATOR_ENV, "")
+    agg_env = knobs.env_raw(AGGREGATOR_ENV, "")
     if agg_env:
         host, sep, port = agg_env.replace("http://", "").rpartition(":")
         if not sep or not host or not port.isdigit():
             return False, (f"{AGGREGATOR_ENV}={agg_env!r} is not host:port — managers will "
                            "fail to start")
-        if not os.environ.get(LIGHTHOUSE_ENV, ""):
+        lighthouse = knobs.env_raw(LIGHTHOUSE_ENV, "")
+        if not lighthouse:
             return False, (f"{AGGREGATOR_ENV} is set but {LIGHTHOUSE_ENV} is not: the pod cannot "
                            "fail over to the root if its aggregator dies — set both")
-        env_note = f"two-level ({agg_env} -> {os.environ[LIGHTHOUSE_ENV]})"
+        env_note = f"two-level ({agg_env} -> {lighthouse})"
     try:
         root = LighthouseServer(bind="127.0.0.1:0", min_replicas=1, join_timeout_ms=500,
                                 quorum_tick_ms=20, heartbeat_timeout_ms=2000)

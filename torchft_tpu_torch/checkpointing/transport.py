@@ -16,7 +16,6 @@ both transports share:
 
 from __future__ import annotations
 
-import os
 import queue
 import threading
 import time
@@ -24,6 +23,8 @@ from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any, Callable, Iterable, List, Optional, Tuple, TypeVar
+
+from torchft_tpu_torch import knobs
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -46,7 +47,7 @@ def stream_chunk_bytes() -> int:
     or the default when unset, unparsable or below 1 (a zero chunk would
     never make progress)."""
     try:
-        val = int(os.environ.get(STREAM_CHUNK_BYTES_ENV, ""))
+        val = int(knobs.env_raw(STREAM_CHUNK_BYTES_ENV, ""))
     except ValueError:
         return DEFAULT_STREAM_CHUNK_BYTES
     return val if val >= 1 else DEFAULT_STREAM_CHUNK_BYTES

@@ -37,16 +37,19 @@ import hashlib
 import json
 import os
 import subprocess
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from datetime import timedelta
 from typing import Callable, Dict, List, Optional, Tuple
 
+from torchft_tpu_torch import knobs
 from torchft_tpu_torch.healthwatch import HealthConfig
 from torchft_tpu_torch.retry import RetryBudgetExhausted, RetryPolicy, retry_call
 
 __all__ = [
     "AggregatorServer",
     "FallbackPeer",
+    "Quorum",
+    "QuorumMember",
     "QuorumResult",
     "LighthouseServer",
     "LighthouseClient",
@@ -79,6 +82,9 @@ _LDFLAGS = ("-shared", "-pthread", "-Wl,--exclude-libs,ALL")
 
 # status codes from native/capi.cc
 _OK, _TIMEOUT, _ERROR, _NOT_FOUND, _INVALID, _UNAVAILABLE = range(6)
+
+# the lighthouse's cap on per-replica /metrics series
+METRICS_PER_REPLICA_LIMIT_ENV = "TORCHFT_METRICS_PER_REPLICA_LIMIT"
 
 
 def _so_path(cxx: str) -> str:
@@ -338,7 +344,10 @@ class LighthouseServer(_Server):
     ``:413-425``): it polls this lighthouse's ``/health`` to drain
     unhealthy sources at ``serve_drain_on`` ("warn" or "eject"; None reads
     ``TORCHFT_SERVE_DRAIN_ON``, "warn" when unset); ``serve_registry_url()``
-    is its URL (None without it)."""
+    is its URL (None without it). ``metrics_per_replica_limit`` caps the
+    per-replica series of ``/metrics`` (the rest fold into min / median /
+    max aggregates); None reads ``TORCHFT_METRICS_PER_REPLICA_LIMIT``, 64
+    when unset (reference ``coordination.py:388-392``)."""
 
     _prefix = "lighthouse"
 
@@ -354,9 +363,12 @@ class LighthouseServer(_Server):
         history_path: str = "",
         serve_registry: bool = False,
         serve_drain_on: Optional[str] = None,
+        metrics_per_replica_limit: Optional[int] = None,
     ) -> None:
         if health is None:
             health = HealthConfig.from_env().to_json()
+        if metrics_per_replica_limit is None:
+            metrics_per_replica_limit = int(knobs.env_raw(METRICS_PER_REPLICA_LIMIT_ENV, "") or 64)
         opts = {
             "bind": bind,
             "min_replicas": min_replicas,
@@ -365,6 +377,7 @@ class LighthouseServer(_Server):
             "heartbeat_timeout_ms": heartbeat_timeout_ms,
             "health": health,
             "history_path": history_path,
+            "metrics_per_replica_limit": metrics_per_replica_limit,
         }
         super().__init__(*_new_handle(
             "tft_lighthouse_new_v2", json.dumps(opts).encode(),
@@ -374,7 +387,6 @@ class LighthouseServer(_Server):
         if serve_registry:
             # lazy: serving.py imports LighthouseClient back from here for
             # the registry's health poll
-            from torchft_tpu_torch import knobs
             from torchft_tpu_torch.serving import SERVE_DRAIN_ON_ENV, SnapshotRegistry
 
             drain_on = serve_drain_on
@@ -675,11 +687,66 @@ class _Client:
         self._client.on_retry = fn
 
 
-class LighthouseClient(_Client):
-    """Client for the lighthouse service (status, heartbeats and health)."""
+@dataclass
+class QuorumMember:
+    """A member of a lighthouse quorum, as the wire carries it (reference
+    ``coordination.py:214``)."""
 
-    def heartbeat(self, replica_id: str, timeout: "float | timedelta" = 5.0) -> dict:
-        return self._client.call("heartbeat", {"replica_id": replica_id}, timeout)
+    replica_id: str
+    address: str = ""
+    store_address: str = ""
+    step: int = 0
+    world_size: int = 1
+    shrink_only: bool = False
+    commit_failures: int = 0
+    data: str = ""
+
+    @staticmethod
+    def _from_json(d: dict) -> "QuorumMember":
+        return QuorumMember(
+            replica_id=d["replica_id"], address=d.get("address", ""),
+            store_address=d.get("store_address", ""), step=d.get("step", 0),
+            world_size=d.get("world_size", 1), shrink_only=d.get("shrink_only", False),
+            commit_failures=d.get("commit_failures", 0), data=d.get("data", ""),
+        )
+
+
+
+@dataclass
+class Quorum:
+    """A lighthouse quorum (reference ``coordination.py:253``)."""
+
+    quorum_id: int
+    participants: List[QuorumMember]
+    created_ms: int = 0
+
+    @staticmethod
+    def _from_json(d: dict) -> "Quorum":
+        return Quorum(quorum_id=d["quorum_id"],
+                      participants=[QuorumMember._from_json(p) for p in d["participants"]],
+                      created_ms=d.get("created_ms", 0))
+
+
+class LighthouseClient(_Client):
+    """Client for the lighthouse service (quorum, status, heartbeats and
+    health)."""
+
+    def quorum(self, replica_id: str, timeout: "float | timedelta") -> Quorum:
+        """Join the next quorum as a member of one rank at step 0 and return
+        it (reference ``coordination.py:957``, its other fields at their
+        defaults)."""
+        resp = self._client.call("quorum", {"requester": asdict(QuorumMember(replica_id))},
+                                 timeout)
+        return Quorum._from_json(resp["quorum"])
+
+    def heartbeat(self, replica_id: str, timeout: "float | timedelta" = 5.0,
+                  telemetry: Optional[dict] = None) -> dict:
+        """Beat once, with a healthwatch telemetry payload when given; the
+        answer carries this replica's health summary under ``health``."""
+        params: Dict = {"replica_id": replica_id}
+        if telemetry is not None:
+            params["telemetry"] = telemetry
+        return self._client.call("heartbeat", params, timeout)
 
     def status(self, timeout: "float | timedelta" = 5.0) -> dict:
         return self._client.call("status", {}, timeout)

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchft_tpu_torch import knobs
 from torchft_tpu_torch.utils import resolve_device, true_divide
 
 __all__ = ["CNN", "Fleet", "build_trainer", "demo", "main", "train"]
@@ -143,7 +144,7 @@ def train(args: argparse.Namespace) -> None:
 
     device = resolve_device(args.device)
     replica_id = int(os.environ.get("REPLICA_GROUP_ID", args.replica_id))
-    lighthouse = os.environ.get("TORCHFT_LIGHTHOUSE", args.lighthouse)
+    lighthouse = knobs.env_raw("TORCHFT_LIGHTHOUSE", args.lighthouse)
     model, grad_fn, optimizer, _make_batch = build_trainer(
         replica_id, args.batch_size, args.lr, device
     )

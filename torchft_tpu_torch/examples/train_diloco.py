@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchft_tpu_torch import knobs
 from torchft_tpu_torch.utils import resolve_device, tensors_sha256
 
 __all__ = ["MLP", "build_trainer", "demo", "main", "train"]
@@ -132,7 +133,7 @@ def train(args: argparse.Namespace) -> None:
 
     device = resolve_device(args.device)
     replica_id = int(os.environ.get("REPLICA_GROUP_ID", args.replica_id))
-    lighthouse = os.environ.get("TORCHFT_LIGHTHOUSE", args.lighthouse)
+    lighthouse = knobs.env_raw("TORCHFT_LIGHTHOUSE", args.lighthouse)
     model, optimizer = build_trainer(replica_id, device)
     params = dict(model.named_parameters())
 

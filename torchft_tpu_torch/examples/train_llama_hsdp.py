@@ -77,6 +77,7 @@ timings, whether its local tensors kept their storage, the last save's
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -93,6 +94,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torchft_tpu_torch import knobs
 from torchft_tpu_torch.models.llama import CONFIGS
 from torchft_tpu_torch.utils import local_shard, resolve_device, tensors_sha256
 
@@ -149,9 +151,11 @@ def train(args: argparse.Namespace, init_state: Optional[Dict[str, torch.Tensor]
         raise ValueError(f"a replica group of {world} ranks cannot hold fsdp={fsdp} x sp={sp} "
                          f"x tp={tp}")
     replica_id = int(os.environ.get("REPLICA_GROUP_ID", args.replica_id))
-    lighthouse = os.environ.get("TORCHFT_LIGHTHOUSE", args.lighthouse)
+    lighthouse = knobs.env_raw("TORCHFT_LIGHTHOUSE", args.lighthouse)
     tag = f"[replica {replica_id} rank {rank}]"
     cfg = CONFIGS[args.config]
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
     # the in-group mesh: dp 1 (the replicated dim lives across groups, via
     # the Manager)
@@ -428,8 +432,9 @@ def _group_argv(args: argparse.Namespace) -> "tuple[List[str], int]":
     if layout == (None, None, None):
         layout = (2, 1, 1) if args.device == "cpu" else (1, 1, 1)
     fsdp, sp, tp = (x or 1 for x in layout)
-    argv = ["--config", args.config, "--steps", str(args.steps), "--batch-size",
-            str(args.batch_size), "--seq-len", str(args.seq_len), "--lr", str(args.lr),
+    argv = ["--config", args.config, "--layers", str(args.layers), "--steps", str(args.steps),
+            "--batch-size", str(args.batch_size), "--seq-len", str(args.seq_len), "--lr",
+            str(args.lr),
             "--fsdp", str(fsdp), "--sp", str(sp), "--tp", str(tp), "--attention", args.attention,
             "--transport", args.transport, "--timeout", str(args.timeout),
             "--min-replica-size", str(args.min_replica_size), "--device", args.device]
@@ -805,6 +810,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default="tiny", choices=sorted(CONFIGS),
                         help="model config (CONFIGS key)")
+    parser.add_argument("--layers", type=int, default=0,
+                        help="cut the model to this many layers at its full width (0: the "
+                             "config's), as the trainer's --layers")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--batch-size", type=int, default=4)
     parser.add_argument("--seq-len", type=int, default=128)

@@ -20,7 +20,9 @@ from contextlib import contextmanager
 from datetime import timedelta
 from typing import Callable, Generator, Optional
 
-WATCHDOG_TIMEOUT_SEC = float(os.environ.get("TORCHFT_WATCHDOG_TIMEOUT_SEC", 30.0))
+from torchft_tpu_torch import knobs
+
+WATCHDOG_TIMEOUT_SEC = float(knobs.env_raw("TORCHFT_WATCHDOG_TIMEOUT_SEC", 30.0))
 
 __all__ = ["context_timeout", "arm_deadline"]
 

@@ -205,6 +205,9 @@ CONNECT_TIMEOUT_SEC_ENV = "TORCHFT_CONNECT_TIMEOUT_SEC"
 QUORUM_RETRIES_ENV = "TORCHFT_QUORUM_RETRIES"
 BUCKET_CAP_MB_ENV = "TORCHFT_BUCKET_CAP_MB"
 STREAM_BUCKETS_ENV = "TORCHFT_STREAM_BUCKETS"
+# the group leader's ManagerServer binds this port (0: any free one), as a
+# spare's does when promote() starts it
+MANAGER_PORT_ENV = "TORCHFT_MANAGER_PORT"
 # cumulative resilience counters, kept in timings()
 _COUNTERS = ("heal_attempts", "heal_failovers", "rpc_retries", "chunk_crc_failures",
              "collective_reroute", "standby_skipped",
@@ -351,29 +354,29 @@ class Manager:
             logger.info("pg %s requires sync quorum; overriding use_async_quorum",
                         type(pg).__name__)
             self._use_async_quorum = False
-        self._timeout = float(os.environ.get(TIMEOUT_SEC_ENV, _to_seconds(timeout)))
-        self._quorum_timeout = float(os.environ.get(
+        self._timeout = float(knobs.env_raw(TIMEOUT_SEC_ENV, _to_seconds(timeout)))
+        self._quorum_timeout = float(knobs.env_raw(
             QUORUM_TIMEOUT_SEC_ENV,
             _to_seconds(quorum_timeout) if quorum_timeout is not None else self._timeout,
         ))
-        self._connect_timeout = float(os.environ.get(
+        self._connect_timeout = float(knobs.env_raw(
             CONNECT_TIMEOUT_SEC_ENV,
             _to_seconds(connect_timeout) if connect_timeout is not None else 10.0,
         ))
         self._replica_world_size_mode = world_size_mode
         self._max_retries = max_retries
         if quorum_retries is None:
-            quorum_retries = int(os.environ.get(QUORUM_RETRIES_ENV, 0))
+            quorum_retries = int(knobs.env_raw(QUORUM_RETRIES_ENV, 0))
         self._init_sync = init_sync
 
-        env_cap = os.environ.get(BUCKET_CAP_MB_ENV)
+        env_cap = knobs.env_raw(BUCKET_CAP_MB_ENV)
         if env_cap is not None:
             self._bucket_cap_bytes = int(float(env_cap) * 1024 * 1024)
         elif bucket_cap_bytes is not None:
             self._bucket_cap_bytes = int(bucket_cap_bytes)
         else:
             self._bucket_cap_bytes = bucketing.DEFAULT_BUCKET_CAP_BYTES
-        env_stream = os.environ.get(STREAM_BUCKETS_ENV)
+        env_stream = knobs.env_raw(STREAM_BUCKETS_ENV)
         if env_stream is not None:
             self._stream_buckets = env_stream.strip().lower() not in ("0", "false", "no", "off")
         elif stream_buckets is not None:
@@ -559,12 +562,14 @@ class Manager:
             self._store = KvStoreServer("0.0.0.0:0")
             store_addr = f"{hostname}:{self._store.port}"
         if lighthouse_addr is None:
-            lighthouse_addr = os.environ[LIGHTHOUSE_ENV]
+            lighthouse_addr = knobs.env_raw(LIGHTHOUSE_ENV)
+            if lighthouse_addr is None:
+                raise KeyError(LIGHTHOUSE_ENV)
         self._manager = ManagerServer(
             replica_id=self._replica_id,
             lighthouse_addr=lighthouse_addr,
             hostname=hostname,
-            bind="0.0.0.0:0",
+            bind=f"0.0.0.0:{int(knobs.env_raw(MANAGER_PORT_ENV, 0))}",
             store_addr=store_addr,
             world_size=group_world_size,
             heartbeat_interval=self._heartbeat_interval,

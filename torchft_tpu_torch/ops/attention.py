@@ -73,11 +73,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import os
 import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from torchft_tpu_torch import knobs
 
 __all__ = [
     "causal_attention",
@@ -594,7 +595,7 @@ def resolve_impl(impl: Optional[str], q_shape, kv_heads: int, cuda: bool,
     ``KERNEL_DTYPES``). Like the reference's rule, it has no other dtype
     clause."""
     if impl is None:
-        impl = os.environ.get(ATTENTION_ENV, "auto")
+        impl = knobs.env_raw(ATTENTION_ENV, "auto")
         if impl not in IMPLS:
             raise ValueError(f"unknown {ATTENTION_ENV} value {impl!r}: expected one of {IMPLS}")
         if not cuda:

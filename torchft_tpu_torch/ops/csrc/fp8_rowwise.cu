@@ -28,7 +28,10 @@
 //   divide (no fast-math, no flush-to-zero), rounded to nearest even.
 //   The host rule (kHostRule): scale = amax / 448 and codes =
 //   x * (1 / scale), each an IEEE f32 divide or multiply as numpy takes it,
-//   NaN signs included (host_rule_code).
+//   NaN signs included (host_rule_code). One repair: a row whose scale has
+//   no finite reciprocal (every value under 448 * 2^-128, which error
+//   feedback reaches as a residual decays) is coded as a zero row (scale 1,
+//   codes +-0), where the reference's x * inf codes it all NaN.
 //   A quotient of magnitude above 464 (which would round past 448) and any
 //   NaN become the NaN code 0x7f | sign, as ml_dtypes / XLA convert; the
 //   hardware cvt alone would saturate to 448. amax propagates NaN as
@@ -119,11 +122,15 @@ __global__ void quantize_fp8_rowwise_kernel(const float* __restrict__ x,
   for (int off = 16; off > 0; off >>= 1)
     amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
 
-  const float scale =
+  float scale =
       amax > 0.0f ? (kHostRule ? __fdiv_rn(amax, 448.0f) : amax * (1.0f / 448.0f))
                   : 1.0f;
+  float inv = kHostRule ? __fdiv_rn(1.0f, scale) : 0.0f;
+  if (kHostRule && isinf(inv)) {  // no finite reciprocal: a zero row
+    scale = 1.0f;
+    inv = 1.0f;
+  }
   if (lane == 0) scales[r] = scale;
-  const float inv = kHostRule ? __fdiv_rn(1.0f, scale) : 0.0f;
 
 #pragma unroll
   for (int j = 0; j < kVecPerLane; ++j) {

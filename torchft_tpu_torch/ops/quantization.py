@@ -44,12 +44,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 import threading
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from torchft_tpu_torch import knobs
 
 FP8_MAX = 448.0  # float8_e4m3fn max normal value
 INT8_MAX = 127.0
@@ -139,15 +140,35 @@ def quantize_fp8_rowwise(
     flat: np.ndarray, row: int = ROW
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """Quantize a flat f32 array to (uint8 codes [rows,row], f32 scales
-    [rows], n) exactly as the reference's host codec does (scale = amax/448,
-    codes = x * (1/scale))."""
+    [rows], n) as the reference's host codec does (scale = amax/448, codes
+    = x * (1/scale)), but a row whose scale has no finite reciprocal: it
+    is coded as a zero row (scale 1, codes +-0), where the reference codes
+    it all NaN (``_finite_reciprocals``)."""
     mat, _rows, n = _pad_rows(flat, row)
     amax = np.max(np.abs(mat), axis=1, keepdims=True)
-    scales = np.where(amax > 0, amax / FP8_MAX, 1.0).astype(np.float32)
+    scales, inv = _finite_reciprocals(
+        np.where(amax > 0, amax / FP8_MAX, 1.0).astype(np.float32))
     with np.errstate(over="ignore", invalid="ignore"):
-        scaled = mat * (np.float32(1.0) / scales)
+        scaled = mat * inv
     q = _to_e4m3fn(torch.from_numpy(scaled)).view(torch.uint8).numpy()
     return q, scales[:, 0], n
+
+
+def _finite_reciprocals(scales: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(scales, 1 / scales)`` with every row whose reciprocal overflows
+    (a scale under 2^-128: each of its values under the code range's top
+    times 2^-128) set to scale 1. Error feedback drives a row there: the
+    residual of a row that stops receiving gradient shrinks by the code's
+    rounding each step, and x * (1/scale) = x * inf would code the whole
+    row NaN (the reference's codec does, ~20 steps on). Scale 1 codes its
+    values to +-0 and leaves them in the residual."""
+    with np.errstate(divide="ignore", over="ignore"):
+        inv = np.float32(1.0) / scales
+    tiny = np.isinf(inv)
+    if tiny.any():
+        scales = np.where(tiny, np.float32(1.0), scales)
+        inv = np.where(tiny, np.float32(1.0), inv)
+    return scales, inv
 
 
 def dequantize_fp8_rowwise(
@@ -221,7 +242,8 @@ def quantize_fp8_host_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The host codec's rule in torch: (e4m3fn codes [rows,ROW], f32 scales
     [rows,1], n) with scale = amax / 448 and codes = x * (1 / scale), each
-    step one IEEE f32 operation as numpy takes it."""
+    step one IEEE f32 operation as numpy takes it; a row whose scale has
+    no finite reciprocal is a zero row (``_finite_reciprocals``)."""
     flat = x.reshape(-1).to(torch.float32)
     n = flat.numel()
     rows = _rows_for(n, rows)
@@ -231,7 +253,10 @@ def quantize_fp8_host_plain(
     amax = mat.abs().amax(dim=1, keepdim=True)
     one = torch.ones_like(amax)
     scales = torch.where(amax > 0, amax / torch.full_like(amax, FP8_MAX), one)
-    prod = mat * (one / scales)
+    inv = one / scales
+    tiny = torch.isinf(inv)
+    scales = torch.where(tiny, one, scales)
+    prod = mat * torch.where(tiny, one, inv)
     # NaNs as numpy makes them on an x86 host: a NaN input keeps its sign,
     # an invalid product (inf * 0) is the negative default NaN; CUDA's
     # multiply gives a positive NaN for both
@@ -400,10 +425,9 @@ def codec(mode: str):
 def resolve_compress_mode(mode: Optional[str] = None) -> str:
     """The wire-compression mode: ``TORCHFT_COMPRESS`` > ``mode`` > "off".
 
-    Reads ``os.environ``; the reference also honours a policy-plane
-    override of the variable (``knobs.env_raw``), which is not ported.
-    Raises ValueError on a value outside ``COMPRESS_MODES``."""
-    raw = os.environ.get(COMPRESS_ENV)
+    Read through ``knobs.env_raw``, so an override of the knob wins over
+    the environment. Raises ValueError on a value outside ``COMPRESS_MODES``."""
+    raw = knobs.env_raw(COMPRESS_ENV)
     if raw is not None:
         value = raw.strip().lower() or "off"
     elif mode is not None:

@@ -40,6 +40,12 @@ applies the commit it returns, if any, from the main thread at the next
 safe point. Every process group here configures fully in the prepare and
 returns None.
 
+``ProcessGroupBaby`` / ``ProcessGroupBabyHost`` (``:1693-2102``) run a
+``ProcessGroupHost`` in a child process (the ``spawn`` context, or a
+thread under ``multiprocessing_dummy_context.DummyContext``), anew at each
+configure, so a wedged communicator is killed without the trainer; host
+arrays cross its pipes, their bytes out of band.
+
 Wrappers: ``ErrorSwallowingProcessGroupWrapper`` (``:2104-2268``) turns a
 failed op into its input and keeps the error until the next configure;
 ``ManagedProcessGroup`` (``:2461``) routes ``allreduce`` through a
@@ -87,7 +93,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "ReduceOp", "ProcessGroup", "ProcessGroupDummy", "ProcessGroupHost",
-    "ErrorSwallowingProcessGroupWrapper", "FakeProcessGroupWrapper", "ManagedProcessGroup",
+    "ProcessGroupBaby", "ProcessGroupBabyHost", "ErrorSwallowingProcessGroupWrapper", "FakeProcessGroupWrapper", "ManagedProcessGroup",
 ]
 
 
@@ -1393,6 +1399,22 @@ class ProcessGroupHost(ProcessGroup):
 
         return self._submit(_run, "alltoall")
 
+    def reduce_scatter(self, input_chunks, op=ReduceOp.SUM):
+        """``input_chunks[r]`` is this rank's contribution to rank r; the
+        future resolves to this rank's reduced chunk (reference ``:1573``)."""
+        host = [[_to_host(a) for a in chunk] for chunk in input_chunks]
+
+        def _run(comm: _Comm):
+            if comm.world == 1:
+                return [_copy_payload(h) for h in host[0]]
+            if len(host) != comm.world:
+                raise ValueError(f"reduce_scatter needs {comm.world} chunks, got {len(host)}")
+            gathered = comm.exchange({r: host[r] for r in range(comm.world)})
+            return [_reduce_np(op, [gathered[r][i] for r in range(comm.world)])
+                    for i in range(len(host[0]))]
+
+        return self._submit(_run, "reduce_scatter")
+
     # -- point to point -----------------------------------------------------
     streams_raw_frames = True
 
@@ -1464,6 +1486,421 @@ class ProcessGroupHost(ProcessGroup):
             return out
 
         return self._submit(_run, "recv", mode="p2p")
+
+
+# ---------------------------------------------------------------------------
+# Subprocess-isolated ("Baby") process groups
+# ---------------------------------------------------------------------------
+
+
+class _PipeTensor:
+    """A CPU tensor on a Baby process group's pipe, as a numpy array of its
+    bits. ``import torch`` registers torch's reductions on the pipe's
+    pickler, which would send a tensor as a shared-memory file descriptor
+    (a heal's worth of ``/dev/shm`` segments pinned in both processes);
+    numpy crosses as bytes, as the reference's host arrays do."""
+
+    __slots__ = ("bits", "dtype")
+
+    def __init__(self, t: torch.Tensor) -> None:
+        t = t.detach().contiguous()
+        self.dtype = dtype_name(t.dtype)
+        # numpy has no bf16: its 16-bit patterns ride as int16
+        self.bits = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+    def tensor(self) -> torch.Tensor:
+        t = torch.from_numpy(self.bits)
+        return t.view(torch.bfloat16) if self.dtype == "bfloat16" else t
+
+
+def _pipe_out(x: Any) -> Any:
+    """``x`` with every CPU tensor in it (lists, tuples, dicts) wrapped for
+    the pipe."""
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            raise TypeError("a CUDA tensor reached a Baby process group's pipe: its child "
+                            "never touches the card")
+        return _PipeTensor(x)
+    if isinstance(x, CompressedWire):
+        if x.device is not None:
+            raise TypeError(f"a wire coded on {x.device} reached a Baby process group: its "
+                            "child never touches the card")
+        return x
+    if isinstance(x, list):
+        return [_pipe_out(v) for v in x]
+    if isinstance(x, tuple):
+        return tuple(_pipe_out(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _pipe_out(v) for k, v in x.items()}
+    return x
+
+
+def _pipe_in(x: Any) -> Any:
+    """The inverse of ``_pipe_out``."""
+    if isinstance(x, _PipeTensor):
+        return x.tensor()
+    if isinstance(x, CompressedWire):
+        return x
+    if isinstance(x, list):
+        return [_pipe_in(v) for v in x]
+    if isinstance(x, tuple):
+        return tuple(_pipe_in(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _pipe_in(v) for k, v in x.items()}
+    return x
+
+
+def _call_quietly(fn: Any) -> None:
+    try:
+        fn()
+    except Exception:  # noqa: BLE001 - the abort path does its best
+        pass
+
+
+def _baby_worker(
+    pg_class: type,
+    store_addr: str,
+    rank: int,
+    world: int,
+    quorum_id: int,
+    timeout: float,
+    req_conn: Any,
+    fut_conn: Any,
+    abort_cell: Optional[list] = None,
+) -> None:
+    """The child's loop of a Baby process group (reference ``:1693``):
+    configure the real process group, then serve the parent's
+    ``("func", op_id, name, args, kwargs)`` requests, posting each op's
+    result or exception on the future pipe as it completes. Module level,
+    so the spawn context pickles it by name."""
+    from torchft_tpu_torch.multiprocessing import _MonitoredPipe
+
+    req, fut_pipe = _MonitoredPipe(req_conn), _MonitoredPipe(fut_conn)
+
+    def _post(op_id: Any, payload: Any, kind: str) -> None:
+        try:
+            fut_pipe.send((op_id, kind, _pipe_out(payload) if kind == "result" else payload))
+        except (OSError, EOFError, BrokenPipeError):
+            pass  # the parent is gone: the next recv ends the loop
+        except Exception as e:  # noqa: BLE001 - e.g. a payload that does not pickle
+            # never lose an op: a picklable error resolves its future
+            try:
+                fut_pipe.send((op_id, "exception",
+                               RuntimeError(f"baby worker could not ship {kind}: {e!r}")))
+            except (OSError, EOFError, BrokenPipeError):
+                pass
+
+    try:
+        pg = pg_class(timeout=timeout)
+        pg.configure(store_addr, rank, world, quorum_id=quorum_id)
+    except Exception as e:  # noqa: BLE001 - the parent's configure raises it
+        _post("init", e, "exception")
+        return
+    if abort_cell is not None:
+        # the parent's way to the inner group's abort under DummyContext,
+        # whose "child" is a thread: kill() cannot stop it, and closing the
+        # request pipe ends only this loop, not an op wedged in the inner
+        # group. Under spawn this is the child's own copy (kill() works)
+        abort_cell.append(pg.abort)
+    _post("init", None, "result")
+
+    while True:
+        try:
+            cmd = req.recv(None)
+        except (EOFError, OSError):
+            break
+        if cmd is None:
+            break
+        if cmd[0] == "func":
+            _, op_id, name, args, kwargs = cmd
+            try:
+                work = getattr(pg, name)(*_pipe_in(args), **kwargs)
+            except Exception as e:  # noqa: BLE001 - resolves the op's future
+                _post(op_id, e, "exception")
+                continue
+
+            def _done(f: Future, op_id: Any = op_id) -> None:
+                exc = f.exception()
+                if exc is not None:
+                    if not isinstance(exc, Exception):
+                        exc = RuntimeError(str(exc))
+                    _post(op_id, exc, "exception")
+                else:
+                    _post(op_id, f.value(), "result")
+
+            work.get_future().add_done_callback(_done)
+    pg.shutdown()
+
+
+class ProcessGroupBaby(ProcessGroup):
+    """The real process group in a child process, so a hung or wedged
+    communicator can be killed without killing the trainer (reference
+    ``ProcessGroupBaby``, ``:1776``).
+
+    ``ctx`` is a ``multiprocessing`` context, ``spawn`` by default: the
+    child is a fresh interpreter that imports this module and never the
+    trainer's CUDA state (it imports no module that initializes the card).
+    ``multiprocessing_dummy_context.DummyContext()`` runs the child in a
+    thread instead, for fast tests. Every ``configure`` starts a new
+    generation: a new child and its two pipes, the old ones torn down. A
+    timeout or a dead child fails every outstanding op and sets
+    ``errored()``; ``abort()`` kills the child (under ``DummyContext`` it
+    calls the inner group's ``abort``).
+
+    Tensors cross the pipe as host arrays: ``_to_host`` stages them (a
+    CUDA tensor is copied to the host), and CPU tensors (bf16) ride as
+    numpy bits (``_PipeTensor``). Results come back on the host, as
+    ``ProcessGroupHost``'s do. There is no ``recv_into`` and no raw frame:
+    ``PGTransport`` takes its windowed per-leaf wire over a Baby group."""
+
+    PG_CLASS: type = None  # type: ignore[assignment]  # set by subclasses
+
+    class _Gen:
+        """One configure() generation: the child, its pipes and the
+        outstanding ops."""
+
+        def __init__(self, proc: Any, req: Any, fut: Any,
+                     abort_cell: Optional[list] = None) -> None:
+            self.proc = proc
+            self.req = req
+            self.fut_pipe = fut
+            self.futures: Dict[int, Future] = {}
+            self.lock = threading.Lock()
+            self.error: Optional[Exception] = None
+            self.stopped = False
+            # the inner group's abort, reachable only under DummyContext
+            self.abort_cell: list = [] if abort_cell is None else abort_cell
+
+    def __init__(self, timeout: "float | timedelta" = 60.0, ctx: Any = None) -> None:
+        super().__init__()
+        self.set_timeout(timeout)
+        self._ctx = ctx
+        self._gen: Optional[ProcessGroupBaby._Gen] = None
+        self._rank = 0
+        self._world = 1
+        self._next_op_id = 0
+        self._lock = threading.Lock()
+
+    # -- lifecycle ----------------------------------------------------------
+    def configure(self, store_addr, replica_rank, replica_world_size, quorum_id=0):
+        import multiprocessing
+        import multiprocessing.connection
+
+        from torchft_tpu_torch.multiprocessing import _MonitoredPipe
+
+        self._teardown(terminal=False)
+        ctx = self._ctx if self._ctx is not None else multiprocessing.get_context("spawn")
+        req_local, req_remote = ctx.Pipe()
+        fut_local, fut_remote = ctx.Pipe()
+        abort_cell: list = []
+        proc = ctx.Process(
+            target=_baby_worker,
+            args=(type(self).PG_CLASS, store_addr, replica_rank, replica_world_size, quorum_id,
+                  self._timeout, req_remote, fut_remote, abort_cell),
+            daemon=True,
+            name=f"baby_pg_r{replica_rank}",
+        )
+        proc.start()
+        # the parent drops its copies of the child's ends, so a dead child
+        # reads as EOF (a dummy pipe's close signals its peer instead)
+        for remote in (req_remote, fut_remote):
+            if isinstance(remote, multiprocessing.connection.Connection):
+                remote.close()
+        gen = ProcessGroupBaby._Gen(proc, _MonitoredPipe(req_local), _MonitoredPipe(fut_local),
+                                    abort_cell)
+        # the child's configure meets its peers: the op timeout, plus the
+        # child's start. On any failure the child and its pipes are reaped:
+        # a trainer reconfigures every quorum and must not orphan children
+        try:
+            op_id, kind, payload = gen.fut_pipe.recv(self._timeout + 30.0)  # type: ignore[misc]
+            if op_id != "init":
+                raise RuntimeError(f"baby process group child answered {op_id!r} before init")
+            if kind == "exception":
+                raise payload
+        except BaseException:
+            gen.stopped = True
+            gen.req.close()
+            gen.fut_pipe.close()
+            proc.kill()
+            proc.join(5.0)
+            raise
+        with self._lock:
+            self._gen = gen
+            self._rank = replica_rank
+            self._world = replica_world_size
+        threading.Thread(target=self._future_handler, args=(gen,), daemon=True,
+                         name=f"baby_pg_futures_r{replica_rank}").start()
+
+    def _future_handler(self, gen: "ProcessGroupBaby._Gen") -> None:
+        """The parent's pump: resolves the parent's futures from the future
+        pipe (reference ``_future_handler``)."""
+        while True:
+            if gen.stopped:
+                return
+            try:
+                if not gen.fut_pipe.poll(0.1):
+                    continue
+                op_id, kind, payload = gen.fut_pipe.recv(0)  # type: ignore[misc]
+            except TimeoutError:
+                continue
+            except (EOFError, OSError):
+                self._fail_gen(gen, gen.error or RuntimeError("baby process group child died"))
+                return
+            with gen.lock:
+                fut = gen.futures.pop(op_id, None)
+            if fut is None:
+                continue
+            try:
+                if kind == "exception":
+                    gen.error = payload
+                    fut.set_exception(payload)
+                else:
+                    fut.set_result(_pipe_in(payload))
+            except RuntimeError:
+                pass  # resolved already (an abort)
+
+    def _fail_gen(self, gen: "ProcessGroupBaby._Gen", err: Exception) -> None:
+        gen.error = gen.error or err
+        with gen.lock:
+            outstanding, gen.futures = dict(gen.futures), {}
+        for fut in outstanding.values():
+            try:
+                fut.set_exception(err)
+            except RuntimeError:
+                pass
+
+    def _teardown(self, terminal: bool) -> None:
+        with self._lock:
+            gen, self._gen = self._gen, None
+        if gen is None:
+            return
+        gen.stopped = True
+        try:
+            gen.req.send(None)  # a polite stop, for a thread-backed child
+        except (OSError, EOFError, BrokenPipeError):
+            pass
+        gen.req.close()
+        gen.fut_pipe.close()
+        gen.proc.kill()
+        gen.proc.join(5.0)
+        self._fail_gen(gen, RuntimeError(
+            "process group shut down" if terminal
+            else "process group torn down for reconfiguration"))
+
+    def abort(self) -> None:
+        with self._lock:
+            gen = self._gen
+        if gen is None:
+            return
+        gen.error = gen.error or RuntimeError("process group aborted")
+        gen.stopped = True
+        gen.proc.kill()
+        gen.req.close()
+        gen.fut_pipe.close()
+        # under DummyContext the child is a thread: call its inner group's
+        # abort, on a thread of its own, since abort() returns promptly
+        # even if that one wedges
+        for hook in list(gen.abort_cell):
+            threading.Thread(target=lambda h=hook: _call_quietly(h), daemon=True,
+                             name="baby_pg_inner_abort").start()
+        self._fail_gen(gen, gen.error)
+        # the child (and its own abort-time dump) is gone: the postmortem
+        # is the parent's
+        log_error_event(source="baby_process_group", event="abort", replica_rank=self._rank,
+                        replica_world_size=self._world)
+        _fr.recorder.record("baby_pg_abort", rank=self._rank, world=self._world)
+        _fr.recorder.dump(reason="baby_pg_abort")
+
+    def shutdown(self) -> None:
+        self._teardown(terminal=True)
+
+    def errored(self) -> Optional[Exception]:
+        with self._lock:
+            gen = self._gen
+        if gen is None:
+            return None
+        if gen.error is None and not gen.proc.is_alive() and not gen.stopped:
+            gen.error = RuntimeError(
+                f"baby process group child exited (exitcode={gen.proc.exitcode})")
+        return gen.error
+
+    def size(self) -> int:
+        return self._world
+
+    def rank(self) -> int:
+        return self._rank
+
+    def num_active_work(self) -> int:
+        """Ops submitted and not resolved yet."""
+        with self._lock:
+            gen = self._gen
+        if gen is None:
+            return 0
+        with gen.lock:
+            return len(gen.futures)
+
+    # -- dispatch -----------------------------------------------------------
+    def _submit(self, name: str, *args: Any, **kwargs: Any) -> Work:
+        with self._lock:
+            gen = self._gen
+            if gen is None:
+                raise RuntimeError("process group is not configured")
+            if gen.error is not None:
+                raise gen.error
+            op_id = self._next_op_id
+            self._next_op_id += 1
+        fut: Future = Future()
+        with gen.lock:
+            gen.futures[op_id] = fut
+        _fr.recorder.record("collective", op=name, rank=self._rank, world=self._world)
+        try:
+            gen.req.send(("func", op_id, name, _pipe_out(list(args)), kwargs))
+        except (OSError, EOFError, BrokenPipeError) as e:
+            err = RuntimeError(f"baby process group pipe broken: {e}")
+            self._fail_gen(gen, err)
+            raise err from e
+        # the register/fail race: _fail_gen swaps the table under gen.lock
+        # and sets gen.error first, so a future registered after the swap
+        # is failed here instead of waiting out its timeout
+        if gen.stopped or gen.error is not None:
+            with gen.lock:
+                orphan = gen.futures.pop(op_id, None)
+            if orphan is not None:
+                try:
+                    orphan.set_exception(gen.error or RuntimeError("process group stopped"))
+                except RuntimeError:
+                    pass
+        return FutureWork(fut)
+
+    # -- collectives --------------------------------------------------------
+    def allreduce(self, arrays, op=ReduceOp.SUM):
+        return self._submit("allreduce", [_to_host(a) for a in arrays], op)
+
+    def allgather(self, arrays):
+        return self._submit("allgather", [_to_host(a) for a in arrays])
+
+    def broadcast(self, arrays, root=0):
+        return self._submit("broadcast", [_to_host(a) for a in arrays], root)
+
+    def reduce_scatter(self, input_chunks, op=ReduceOp.SUM):
+        return self._submit("reduce_scatter",
+                            [[_to_host(a) for a in chunk] for chunk in input_chunks], op)
+
+    def alltoall(self, input_chunks):
+        return self._submit("alltoall", [_to_host(a) for a in input_chunks])
+
+    def send(self, arrays, dst, tag=0):
+        return self._submit("send", [_to_host(a) for a in arrays], dst, tag)
+
+    def recv(self, src, tag=0):
+        return self._submit("recv", src, tag)
+
+
+class ProcessGroupBabyHost(ProcessGroupBaby):
+    """A Baby process group running ``ProcessGroupHost`` in its child (the
+    reference's ``ProcessGroupBabyHost``, ``:2092``)."""
+
+    PG_CLASS = ProcessGroupHost
 
 
 class _ErrorSwallowingWork(Work):

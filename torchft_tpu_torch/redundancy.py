@@ -82,6 +82,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torchft_tpu_torch import knobs
 from torchft_tpu_torch.checkpointing._serialization import (
     describe_state,
     place_state_like,
@@ -131,10 +132,10 @@ def pod_identity(default: str = "pod0") -> str:
     """The replica's placement pod: ``TORCHFT_POD`` when set, else one
     derived from the aggregator it beats through, else ``default`` (a flat
     fleet is one pod)."""
-    pod = os.environ.get(POD_ENV, "").strip()
+    pod = knobs.env_raw(POD_ENV, "").strip()
     if pod:
         return pod
-    agg = os.environ.get(_AGGREGATOR_ENV, "").strip()
+    agg = knobs.env_raw(_AGGREGATOR_ENV, "").strip()
     if agg:
         return "pod-" + re.sub(r"[^A-Za-z0-9_.-]", "-", agg)
     return default
@@ -164,7 +165,7 @@ class RedundancyConfig:
         def _pick(env: str, key: str, cast: Callable[[str], Any]) -> Any:
             if overrides.get(key) is not None:
                 return overrides[key]
-            raw = os.environ.get(env)
+            raw = knobs.env_raw(env)
             if raw is None or not raw.strip():
                 return getattr(base if base is not None else cls, key)
             try:

@@ -18,11 +18,12 @@ loop (``process_group._ring_allreduce_compressed``) run under it.
 
 from __future__ import annotations
 
-import os
 import random
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple, Type
+
+from torchft_tpu_torch import knobs
 
 RETRY_MAX_ATTEMPTS_ENV = "TORCHFT_RETRY_MAX_ATTEMPTS"
 RETRY_BASE_S_ENV = "TORCHFT_RETRY_BASE_S"
@@ -119,7 +120,7 @@ class RetryPolicy:
         binary without code changes)."""
 
         def _pick(env: str, arg: Any, default: Any, cast: Callable[[str], Any]) -> Any:
-            raw = os.environ.get(env)
+            raw = knobs.env_raw(env)
             if raw is not None and raw != "":
                 return cast(raw)
             return default if arg is None else arg

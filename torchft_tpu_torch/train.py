@@ -14,7 +14,10 @@ and busy seconds of its wire. A replica told to crash raises, restarts
 with a fresh model and Manager, and heals from a peer: over HTTP
 (wire v3: crc32-checked chunks that resume mid-body and fail over to the
 other up-to-date replicas), or with ``transport="pg"`` (``--transport
-pg``) over a recovery ``ProcessGroupHost`` each replica owns. Either way
+pg``) over a recovery ``ProcessGroupHost`` each replica owns, or with
+``"pg-baby"`` over a ``ProcessGroupBabyHost``: the recovery PG runs in a
+spawned child, made anew at every quorum change (the reference test
+runner's ``transport="pg-baby"``). Either way
 the heal lands in place in the replica's live model and optimizer state
 on its device (the transport's template is ``Manager.state_dict_template``;
 AdamW's state exists, zero, from the start so every heal carries the same
@@ -38,7 +41,12 @@ crash there makes the survivors discard the step; ``--fail-at N`` is
 ``crash`` (the replica raises and restarts), ``kill_heal_chunk`` and
 ``corrupt_heal_chunk`` (its HTTP transport drops or corrupts the serves of
 ``chunk``, ``times`` times, -1 for every serve), ``flake_rpc`` (the next
-``times`` calls of RPC ``method``, by any replica, fail once each).
+``times`` calls of RPC ``method``, by any replica, fail once each),
+``kill_recovery_child`` (under ``pg-baby``: the next heal this replica
+sends has its Baby child SIGKILLed once ``chunk`` leaf messages are
+submitted; ``run_replicas(..., fleet={})`` leaves each kill's record, with
+how long every replica's Baby took to show ``errored()``, in
+``fleet["recovery_child_kills"]``).
 ``--http-timeout`` sets the HTTP transport's own timeout (its serve
 socket's and its serving window's grace). ``slow`` makes a straggler: from
 its step the replica sleeps on the host before each allreduce, for
@@ -172,7 +180,7 @@ from torchft_tpu_torch.models.moe import MOE_CONFIGS, MoE
 from torchft_tpu_torch.models.remat import REMAT_MODES
 from torchft_tpu_torch.ops import attention as attn_ops
 from torchft_tpu_torch.optim import OptimizerWrapper
-from torchft_tpu_torch.process_group import ProcessGroupHost
+from torchft_tpu_torch.process_group import ProcessGroupBaby, ProcessGroupBabyHost, ProcessGroupHost
 from torchft_tpu_torch.tracing import merge_traces
 from torchft_tpu_torch.redundancy import (
     DirectoryClient,
@@ -205,7 +213,7 @@ class InjectedDeath(InjectedFailure):
 
 
 FAULT_KINDS = ("crash", "kill_heal_chunk", "corrupt_heal_chunk", "flake_rpc",
-               "corrupt_shard", "kill_shard_source", "die", "slow")
+               "corrupt_shard", "kill_shard_source", "die", "slow", "kill_recovery_child")
 # where in a step a fault fires: before its quorum, or after its backward pass
 FAULT_POINTS = ("start", "backward")
 
@@ -218,7 +226,9 @@ class Fault:
     replica: int
     step: int
     kind: str
-    chunk: int = 0  # the heal chunk of kill_heal_chunk / corrupt_heal_chunk
+    # the heal chunk of kill_heal_chunk / corrupt_heal_chunk; the leaf
+    # messages a heal has sent when kill_recovery_child strikes
+    chunk: int = 0
     times: int = 1  # serves (-1: every serve) or RPC calls that fail
     method: str = "should_commit"  # the RPC of flake_rpc
     at: str = "start"  # FAULT_POINTS
@@ -232,6 +242,12 @@ class Fault:
             raise ValueError(f"unknown fault kind {self.kind!r}: expected one of {FAULT_KINDS}")
         if self.at not in FAULT_POINTS:
             raise ValueError(f"unknown fault point {self.at!r}: expected one of {FAULT_POINTS}")
+
+
+def _baby_of(transport: Any) -> Optional[ProcessGroupBaby]:
+    """The Baby recovery PG under a PGTransport, else None."""
+    pg = getattr(transport, "_pg", None) if isinstance(transport, PGTransport) else None
+    return pg if isinstance(pg, ProcessGroupBaby) else None
 
 
 class _FaultScript:
@@ -252,9 +268,16 @@ class _FaultScript:
         self._slow: Dict[int, int] = {}
         self._before_fault = before_fault
         self.fired: List[Fault] = []
+        # replica -> the Baby recovery PG of its live incarnation
+        self._recovery_pgs: Dict[int, ProcessGroupBaby] = {}
+        # one record a kill_recovery_child that struck (_kill_child)
+        self.child_kills: List[Dict[str, Any]] = []
 
     def check(self, replica: int, step: int, at: str, transport: Any) -> None:
+        baby = _baby_of(transport)
         with self._lock:
+            if baby is not None:
+                self._recovery_pgs[replica] = baby
             due = [f for f in self._pending if (f.replica, f.step, f.at) == (replica, step, at)]
             for f in due:
                 self._pending.remove(f)
@@ -276,6 +299,10 @@ class _FaultScript:
                 with self._lock:
                     self._shard_faults[(verdict, f"replica_{owner}:", shard)] = f.times
                 set_redundancy_fault_hook(self._shard_hook)
+            elif f.kind == "kill_recovery_child":
+                if baby is None:
+                    raise ValueError(f"{f.kind} needs the pg-baby transport")
+                self._arm_child_kill(replica, step, baby, f.chunk)
             elif f.kind == "flake_rpc":
                 with self._lock:
                     self._rpc_flakes[f.method] = self._rpc_flakes.get(f.method, 0) + f.times
@@ -285,6 +312,50 @@ class _FaultScript:
                     raise ValueError(f"{f.kind} needs the HTTP transport")
                 mode = "die" if f.kind == "kill_heal_chunk" else "corrupt"
                 transport.inject_chunk_fault(f.chunk, mode, times=f.times)
+
+    def _arm_child_kill(self, replica: int, step: int, pg: "ProcessGroupBaby",
+                        after: int) -> None:
+        """The next heal this replica sends over ``pg`` has its Baby child
+        killed (SIGKILL) once ``after`` leaf messages are submitted: the
+        leaves in flight die with it, as the reference's test kills
+        ``pgs[1]._gen.proc``. Then every registered Baby of the run is
+        watched for ``errored()``, and the record of the kill says how
+        long each took to show it."""
+        send = pg.send
+        sent = [0]
+
+        def send_then_kill(arrays: Any, dst: int, tag: int = 0) -> Any:
+            work = send(arrays, dst, tag)
+            if tag == 2:  # a leaf (tag 1 is the header)
+                sent[0] += 1
+                if sent[0] == after:
+                    del pg.send  # one kill: the class's send again
+                    self._kill_child(replica, step, pg, after)
+            return work
+
+        pg.send = send_then_kill  # type: ignore[method-assign]
+
+    def _kill_child(self, replica: int, step: int, pg: "ProcessGroupBaby", after: int) -> None:
+        proc = pg._gen.proc
+        proc.kill()
+        t_kill = time.monotonic()
+        record: Dict[str, Any] = {"replica": replica, "step": step, "leaves_sent": after,
+                                  "pid": proc.pid, "t_kill": t_kill, "errored_after_s": {}}
+        with self._lock:
+            self.child_kills.append(record)
+            watched = dict(self._recovery_pgs)
+
+        def watch(j: int, baby: ProcessGroupBaby) -> None:
+            deadline = t_kill + 2 * baby._timeout
+            while time.monotonic() < deadline:
+                if baby.errored() is not None:
+                    record["errored_after_s"][j] = time.monotonic() - t_kill
+                    return
+                time.sleep(0.001)
+
+        for j, baby in watched.items():
+            threading.Thread(target=watch, args=(j, baby), daemon=True,
+                             name=f"watch_baby_r{j}").start()
 
     def is_slow(self, replica: int, ejected: bool) -> bool:
         """Whether ``replica`` sleeps before this step's allreduce (a slow
@@ -349,6 +420,11 @@ PIPELINE_TIMINGS = ("allreduce_pack_s", "allreduce_wire_s", "allreduce_unpack_s"
                     "allreduce_buckets", "overlap_efficiency")
 # RPC, allreduce and heal deadline: well above a bench_1b step and heal
 TIMEOUT_S = 120.0
+# the pg-baby transport's Baby recovery PG: each op's deadline in its
+# child (one leaf of a heal) and, with 30 s more, a child's start and
+# rendezvous. A heal whose source child dies fails at once; this bounds
+# what a wedged child costs the step it strikes
+RECOVERY_TIMEOUT_S = 30.0
 # the lighthouse's wait for every heartbeating member to join a quorum
 JOIN_TIMEOUT_MS = 30000
 # the model families --model chooses from, each with its configs
@@ -373,7 +449,8 @@ class TrainConfig:
     batch_size: int = 1
     seq_len: int = 2048
     quantize: bool = True
-    # the heal's checkpoint transport: "http" or "pg"
+    # the heal's checkpoint transport: "http", "pg" or "pg-baby" (PGTransport
+    # over a ProcessGroupBabyHost: the recovery PG in a spawned child)
     transport: str = "http"
     # semi-synchronous DiLoCo instead of the per-step allreduce; steps and
     # faults then count inner steps
@@ -493,9 +570,10 @@ def _train_replica(
     recovery_pg = None
     manager: Optional[Manager] = None
     transport: Any
-    if cfg.transport == "pg":
+    if cfg.transport in ("pg", "pg-baby"):
         # its own PG: one generation carries p2p or collective traffic
-        recovery_pg = ProcessGroupHost(timeout=TIMEOUT_S)
+        recovery_pg = (ProcessGroupHost(timeout=TIMEOUT_S) if cfg.transport == "pg"
+                       else ProcessGroupBabyHost(timeout=RECOVERY_TIMEOUT_S))
         transport = PGTransport(recovery_pg, timeout=TIMEOUT_S,
                                 state_dict_template=lambda: manager.state_dict_template())
     elif cfg.transport == "http":
@@ -1022,6 +1100,7 @@ def run_replicas(
                 f.exception()
         if fleet is not None:
             fleet["health"] = LighthouseClient(addr).health()
+            fleet["recovery_child_kills"] = script.child_kills
         if serving and not errors:
             summary = _finish_serving(
                 [(i, f.result()["serve_publisher"]) for i, f in enumerate(futs)
@@ -1212,8 +1291,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="replica 1 crashes after this step's backward pass")
     p.add_argument("--replicas", type=int, default=REPLICAS,
                    help="replica groups (threads); the lighthouse wants all of them")
-    p.add_argument("--transport", choices=["http", "pg"], default="http",
-                   help="heal transport: http, or pg (a recovery process group)")
+    p.add_argument("--transport", choices=["http", "pg", "pg-baby"], default="http",
+                   help="heal transport: http, pg (a recovery process group) or pg-baby (a "
+                        "recovery process group in a spawned child process)")
     p.add_argument("--http-timeout", type=float, default=0.0,
                    help="the HTTP transport's own timeout in seconds (default: the "
                         f"trainer's {TIMEOUT_S:.0f} s)")
