@@ -96,8 +96,13 @@
    the restarted replica joined mid-run and healed, that both replicas'
    parameter checksums agree, and that the host-rule quantize and the
    dequantize launched in each child (their ``done:`` lines carry the
-   counts); prints each replica's step times and heal seconds. A failed
-   check raises with the end of the processes' transcript.
+   counts); prints each replica's step times and heal seconds. The policy
+   plane observes: the lighthouse CLI runs with ``--policy builtin`` and
+   the lighthouse and both replicas with ``TORCHFT_POLICY=observe``, so
+   the builtin "calm" rule's frame reaches both; each ``done:`` line must
+   show ``policy_intents`` >= 1, ``policy_applies`` 0 and the same
+   ``policy_seq``. A failed check raises with the end of the processes'
+   transcript.
 9. Trains bench_1b semi-synchronously (``--diloco``): full width, a
    quarter of its depth (``QUARTER_LAYERS``: 5 of its 20 layers),
    batch 1, seq 2048, two replica threads, inner AdamW steps, one of two
@@ -313,9 +318,33 @@
    It runs right after phase 7.
 19. Runs ``python -m torchft_tpu_torch.doctor`` on the card with a 300 s
    timeout, beside phases 8 and 10 (all three are processes that barely
-   load the card), and prints its lines. Checks its exit 0, its 17 checks all
+   load the card), and prints its lines. Checks its exit 0, its 18 checks all
    ``ok`` (no ``warn``, no ``FAIL``) and the accelerator check naming the
    H100.
+20. The policy plane in enforce mode at bench_1b (full width, a quarter of
+   its depth: 5 layers, B 1, S 2048): two replica threads as phase 6 (fp8
+   streamed buckets, HTTP heal, the lighthouse's history recorded) under
+   ``TORCHFT_POLICY=enforce``, ``TORCHFT_POLICY_INTERVAL_S=0.25`` and
+   ``TORCHFT_POLICY_WINDOW_S=8``, with a spec of one rule on
+   ``churn_per_min``: above 7.5 (one replica's replacement is 2 membership
+   units in 8 s, 15 a minute) it sets ``TORCHFT_HEALTH_EJECT_Z=9.0``
+   (clamped to [3, 12]); at 0.5 or below it releases. Replica 1 crashes
+   after step 3's backward pass, restarts and heals; the run goes on until
+   both replicas have applied the release frame, at most 60 steps. Checks:
+   the lighthouse published seq 1 (the rule fired), then seq 2 (released);
+   every live Manager applied each at a ``start_quorum`` once (its
+   ``torchft_policy`` records and the flight recorder's, their count its
+   ``policy_applies``); the override layer held ``EJECT_Z`` 9.0 while both
+   replicas were at seq 1 and nothing once both were at seq 2; the
+   ledger's ``eject_z`` 9.0 after seq 1 and still 9.0 after the release
+   (the reference's release retunes nothing back); the lighthouse's
+   ``torchft_lighthouse_policy_seq`` equal to the last seq; finite losses,
+   the discarded step, the heal, replicas bitwise equal; K1's three
+   kernels, K3-host and K4 launched. Then replays the phase's history
+   through ``python -m torchft_tpu_torch.policy replay --policy builtin
+   <the spec>`` and checks its exit 0 and its winner. Prints the step at
+   which each replica applied each frame, the fold's seconds a pass and
+   the ranking.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -331,6 +360,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -350,7 +380,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet peak
 # width (cut for time when phase 12 grew the whole-job outage, and phase
 # 12 itself when phase 18 came): bench_1b 10 of its 20 layers, bench_moe
 # 12 of its 24; phases 9, 13 (b) and 15, whose cost is the host's (heals,
-# staging, the bf16 wire), at a quarter: bench_1b 5 layers
+# staging, the bf16 wire), and phase 20 (chosen for time), at a quarter:
+# bench_1b 5 layers
 CUT_LAYERS = {"bench_1b": 10, "bench_moe": 12}
 QUARTER_LAYERS = 5
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 and fp16 tensor-core peak
@@ -1012,8 +1043,8 @@ def check_doctor_on_card() -> list:
         raise RuntimeError(f"doctor exited {out.returncode}:\n{out.stdout[-3000:]}\n"
                            f"{out.stderr[-3000:]}")
     status = {ln.split()[1]: ln[:4].strip() for ln in lines}
-    if len(lines) != 17 or set(status.values()) != {"ok"}:
-        raise RuntimeError(f"doctor: {len(lines)} checks, not 17 all ok: {status}")
+    if len(lines) != 18 or set(status.values()) != {"ok"}:
+        raise RuntimeError(f"doctor: {len(lines)} checks, not 18 all ok: {status}")
     accel = next(ln for ln in lines if ln.split()[1] == "accelerator")
     if "H100" not in accel:
         raise RuntimeError(f"doctor: the accelerator check does not name the H100: {accel!r}")
@@ -1021,7 +1052,8 @@ def check_doctor_on_card() -> list:
 
 
 def check_train_ddp_processes() -> dict:
-    """The train_ddp example as processes on the card (docstring, 8)."""
+    """The train_ddp example as processes on the card, the policy plane
+    observing (docstring, 8)."""
     from torchft_tpu_torch.examples.train_ddp import Fleet
 
     steps, kill_at = 10, 3
@@ -1031,7 +1063,8 @@ def check_train_ddp_processes() -> dict:
         # min 2 holds the survivor in quorum until the restarted replica
         # joins, so the rejoin always goes through a heal
         ["--min-replicas", "2", "--join-timeout-ms", "500", "--quorum-tick-ms", "20",
-         "--heartbeat-timeout-ms", "2000"],
+         "--heartbeat-timeout-ms", "2000", "--policy", "builtin"],
+        env=dict(os.environ, TORCHFT_POLICY="observe", TORCHFT_POLICY_INTERVAL_S="0.25"),
     )
     t0 = time.perf_counter()
 
@@ -1064,6 +1097,17 @@ def check_train_ddp_processes() -> dict:
     if done[0]["params_sha256"] != done[1]["params_sha256"]:
         raise fail(f"train_ddp replicas differ: {done[0]['params_sha256']} vs "
                    f"{done[1]['params_sha256']}")
+    if not any("policy engine attached (spec=builtin mode=observe)" in line
+               for line in fleet.transcript):
+        raise fail("train_ddp: the lighthouse attached no policy engine")
+    counters = {rid: (d["policy_seq"], d["policy_intents"], d["policy_applies"])
+                for rid, d in done.items()}
+    if len({c[0] for c in counters.values()}) != 1 or any(
+            seq < 1 or intents < 1 or applies for seq, intents, applies in counters.values()):
+        raise fail(f"train_ddp: observe mode's (policy_seq, intents, applies): {counters}")
+    log("train_ddp policy (observe): " + ", ".join(
+        f"replica {rid} policy_seq {d['policy_seq']} intents {d['policy_intents']} applies "
+        f"{d['policy_applies']}" for rid, d in done.items()))
     for rid, d in done.items():
         for kernel in ("quantize_fp8_rowwise_host", "dequantize_fp8_rowwise"):
             if d["launches"][kernel] == 0:
@@ -3310,6 +3354,254 @@ def check_serving_bench_1b(device: torch.device, cfg, steady_step_ms: float) -> 
             "serving_dequantize_fp8_rowwise": serve_k4}
 
 
+# phase 20: the policy plane in enforce mode at bench_1b (docstring, 20)
+PL_CRASH = (1, 3)  # replica 1 crashes after this step's backward pass
+PL_MAX_STEPS = 60
+PL_KNOBS = {"TORCHFT_POLICY": "enforce", "TORCHFT_POLICY_INTERVAL_S": "0.25",
+            "TORCHFT_POLICY_WINDOW_S": "8"}
+# one replica's replacement is 2 membership units (a departure and a join)
+# in the 8 s window, 15 a minute: the rule fires at half that and releases
+# once the replacement has left the window
+PL_SPEC = {
+    "name": "churn-widen-eject",
+    "rules": [{"name": "churn-widen-eject", "signal": "churn_per_min", "op": ">",
+               "threshold": 7.5, "release": 0.5,
+               "actions": {"TORCHFT_HEALTH_EJECT_Z": "9.0"}}],
+    "clamps": {"TORCHFT_HEALTH_EJECT_Z": [3.0, 12.0]},
+}
+
+
+class _Records(logging.Handler):
+    """Keeps every record of a structured event stream, parsed."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.events: list = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.events.append(json.loads(record.getMessage()))
+
+
+def check_policy_bench_1b(device: torch.device, cfg) -> dict:
+    """Phase 20: bench_1b as two replica threads under the policy plane in
+    enforce mode, replica 1 crashing and healing, until both applied the
+    release frame (docstring, 20). Returns the phase's launches."""
+    import urllib.request
+
+    from torchft_tpu_torch import flight_recorder as fr
+    from torchft_tpu_torch import knobs
+    from torchft_tpu_torch.coordination import LighthouseClient, LighthouseServer
+    from torchft_tpu_torch.observability import POLICY_EVENTS, get_event_drain
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.policy import PolicyController
+    from torchft_tpu_torch.train import Fault, run_replicas
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                           "trace_policy")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    spec_path = os.path.join(out_dir, "policy_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(PL_SPEC, f)
+    pcfg = dataclasses.replace(
+        cfg, replicas=2, steps=PL_CRASH[1] + 2, quantize=True, transport="http",
+        layers=QUARTER_LAYERS, trace_dir=out_dir, policy=spec_path,
+        faults=(Fault(PL_CRASH[0], PL_CRASH[1], "crash", at="backward"),))
+
+    # the harness's view: each frame the lighthouse publishes, each pass of
+    # its loop timed, the Managers' torchft_policy records
+    published: list = []
+    passes: list = []
+    set_policy, step_pass = LighthouseServer.set_policy, PolicyController.step
+
+    def recording_set_policy(self, frame):
+        published.append(dict(frame))
+        set_policy(self, frame)
+
+    def timed_pass(self, now_ms=None):
+        t = time.perf_counter()
+        try:
+            return step_pass(self, now_ms)
+        finally:
+            passes.append(time.perf_counter() - t)
+
+    records = _Records()
+    stream = logging.getLogger(POLICY_EVENTS)
+    level, propagate = stream.level, stream.propagate
+    fleet: dict = {}
+    lock = threading.Lock()
+    latest: dict = {}  # replica -> the policy_seq in force at its last step
+    layers: list = []  # the override layer after each change (the process's)
+    ledger: dict = {}  # seq -> the ledger's eject_z when a replica first ran under it
+    fr_policy: dict = {}  # (replica id, kind, seq) -> the flight recorder's record
+    scraped: dict = {}
+    set_override = knobs.set_override
+
+    def recording_set_override(name, value):
+        set_override(name, value)
+        with lock:
+            layers.append(knobs.get_overrides())
+
+    def on_step(e: dict) -> None:
+        log(f"policy step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+            f"participants={e['participants']} committed={e['committed']} "
+            f"healed={e['healed']} policy_seq={e['policy_seq']:.0f} step_ms={e['step_ms']:.1f}")
+        with lock:
+            latest[e["replica"]] = seq = e["policy_seq"]
+            if seq not in ledger:
+                ledger[seq] = LighthouseClient(fleet["lighthouse"]).health()["opts"]["eject_z"]
+        with fr.recorder._lock:
+            ring = list(fr.recorder._events)
+        for ev in ring:
+            if ev["kind"].startswith("policy_"):
+                fr_policy[(ev["replica"], ev["kind"], ev["policy_seq"])] = ev
+
+    def until(step: int) -> bool:
+        # every live Manager applied the release frame
+        with lock:
+            done = len(latest) == 2 and set(latest.values()) == {2.0}
+        if done:
+            with urllib.request.urlopen(f"http://{fleet['lighthouse']}/metrics",
+                                        timeout=10.0) as r:
+                m = re.search(r"^torchft_lighthouse_policy_seq (\S+)$", r.read().decode(), re.M)
+            scraped["policy_seq"] = float(m.group(1)) if m else None
+        return done
+
+    q.reset_launches()
+    ta.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stream.addHandler(records)
+    stream.setLevel(logging.INFO)
+    stream.propagate = False
+    LighthouseServer.set_policy = recording_set_policy
+    PolicyController.step = timed_pass
+    knobs.set_override = recording_set_override
+    t0 = time.perf_counter()
+    try:
+        with _Env(PL_KNOBS):
+            results = run_replicas(pcfg, device, on_step=on_step, fleet=fleet, until=until,
+                                   max_steps=PL_MAX_STEPS)
+        get_event_drain().flush()
+    finally:
+        LighthouseServer.set_policy, PolicyController.step = set_policy, step_pass
+        knobs.set_override = set_override
+        stream.removeHandler(records)
+        stream.setLevel(level)
+        stream.propagate = propagate
+        knobs.clear_overrides()
+    elapsed = time.perf_counter() - t0
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+
+    # the frames: seq 0 (nothing active), 1 (the rule fired), 2 (released)
+    seqs = [f["policy_seq"] for f in published]
+    if seqs[-2:] != [1, 2] or published[-2]["knob_overrides"] != {
+            "TORCHFT_HEALTH_EJECT_Z": "9.0"} or published[-1]["knob_overrides"]:
+        raise RuntimeError(f"policy: the lighthouse published {published}")
+    if fleet["policy"] != published[-1] or scraped.get("policy_seq") != 2.0:
+        raise RuntimeError(f"policy: the last frame {fleet['policy']}, /metrics policy_seq "
+                           f"{scraped.get('policy_seq')}")
+    # each live Manager applied each frame once, at a start_quorum (the
+    # stream's records come from there alone)
+    applies: dict = {}  # replica id -> [(seq, step)]
+    for ev in records.events:
+        if ev["action"] != "apply":
+            raise RuntimeError(f"policy: a Manager in enforce mode only observed: {ev}")
+        applies.setdefault(ev["replica_id"], []).append((ev["policy_seq"], ev["step"]))
+    steps_at = {}
+    for i, r in enumerate(results):
+        mine = {rid: a for rid, a in applies.items() if rid.startswith(f"replica_{i}:")}
+        live = [(rid, a) for rid, a in mine.items() if 2 in dict(a)]
+        if len(live) != 1:
+            raise RuntimeError(f"policy: replica {i}'s incarnations applied {mine}")
+        rid, seen = live[0][0], [s for s, _ in live[0][1]]
+        if seen != sorted(set(seen)) or not {1, 2} <= set(seen):
+            raise RuntimeError(f"policy: replica {i}'s live Manager applied {live[0][1]}")
+        missing = [s for s in seen if (rid, "policy_apply", s) not in fr_policy]
+        # policy_applies sums the incarnations', as every counter of a result
+        n = sum(len(a) for a in mine.values())
+        if missing or r["timings"]["policy_applies"] != n:
+            raise RuntimeError(f"policy: replica {i}: the flight recorder lacks seqs {missing}; "
+                               f"policy_applies {r['timings']['policy_applies']} against {n} "
+                               "torchft_policy records")
+        steps_at[i] = dict(live[0][1])
+    # the layer is the process's: each Manager sets the knob at seq 1 and
+    # clears it at seq 2, so it held 9.0 from the first apply of seq 1 to the
+    # first of seq 2, and nothing after
+    changes = [x for i, x in enumerate(layers) if i == 0 or x != layers[i - 1]]
+    if changes != [{"TORCHFT_HEALTH_EJECT_Z": "9.0"}, {}] or knobs.get_overrides():
+        raise RuntimeError(f"policy: the override layer went {layers}")
+    kept = fleet["health"]["opts"]["eject_z"]
+    if ledger.get(1.0) != 9.0 or ledger.get(2.0) != 9.0 or kept != 9.0:
+        raise RuntimeError(f"policy: the ledger's eject_z {ledger} at seq 1 and 2, {kept} at the "
+                           "end (the reference's release retunes nothing back: 9.0)")
+    history = [json.loads(line) for line in open(os.path.join(out_dir,
+                                                              "lighthouse_history.jsonl"))]
+    retunes = [e["opts"]["eject_z"] for e in history if e.get("kind") == "health_retune"]
+    if retunes != [9.0]:
+        raise RuntimeError(f"policy: the history's health retunes {retunes}")
+    # the fold sees the replacement only while the last quorum before the
+    # crash is inside the window with it
+    quorums = [e for e in history if e.get("kind") == "quorum"]
+    swap = next(i for i in range(1, len(quorums))
+                if quorums[i]["participants"] != quorums[i - 1]["participants"])
+    gap_s = (quorums[swap]["ts_ms"] - quorums[swap - 1]["ts_ms"]) / 1e3
+
+    # the run itself: finite losses, the discarded step, the heal, equal bits
+    losses = [e["loss"] for r in results for e in r["log"]]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"policy: non-finite loss: {losses}")
+    if results[1]["restarts"] != 1 or results[1]["metrics"]["heals"] < 1:
+        raise RuntimeError(f"policy: replica 1 did not crash and heal: {results[1]['metrics']}")
+    if results[0]["metrics"]["commit_failures"] < 1:
+        raise RuntimeError(f"policy: no step was discarded: {results[0]['metrics']}")
+    if results[0]["step"] != results[1]["step"] or results[0]["step"] > PL_MAX_STEPS:
+        raise RuntimeError(f"policy: replicas stopped at {[r['step'] for r in results]}")
+    p0, p1 = results[0]["params"], results[1]["params"]
+    unequal = [k for k in p0 if not same_bits(p0[k], p1[k])]
+    if unequal:
+        raise RuntimeError(f"policy: replicas differ in {unequal[:5]}")
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv", "quantize_fp8_rowwise_host",
+                   "dequantize_fp8_rowwise"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} never launched on the policy path")
+
+    # the recorded history replayed against the builtin spec
+    replay = subprocess.run(
+        [sys.executable, "-m", "torchft_tpu_torch.policy", "replay", "--history",
+         os.path.join(out_dir, "lighthouse_history.jsonl"), "--policy", "builtin", spec_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=120)
+    winner = [ln for ln in replay.stdout.splitlines() if ln.startswith("winner: ")]
+    if replay.returncode != 0 or len(winner) != 1:
+        raise RuntimeError(f"policy replay exited {replay.returncode}:\n{replay.stdout}\n"
+                           f"{replay.stderr[-2000:]}")
+    for ln in replay.stdout.splitlines():
+        log(f"policy replay: {ln.strip()}")
+    steady = [e["step_ms"] for r in results for e in r["log"]
+              if e["committed"] and e["participants"] == 2 and not e["healed"] and e["step"] > 0]
+    log(f"policy bench_1b ({elapsed:.1f} s, {pcfg.layers} layers, 2 replicas, fp8 allreduce, "
+        f"enforce, window {PL_KNOBS['TORCHFT_POLICY_WINDOW_S']} s, a pass every "
+        f"{PL_KNOBS['TORCHFT_POLICY_INTERVAL_S']} s): {gap_s:.3f} s from the last quorum before "
+        f"the crash to the replacement's; frames published {seqs}; applied at steps "
+        f"{steps_at} (replica: {{seq: step}}); "
+        f"the override layer {changes[0]} from seq 1, {changes[1]} from seq 2 ({len(layers)} "
+        f"writes); the ledger's eject_z {ledger.get(1.0)} at seq 1, {kept} after the release; "
+        f"/metrics "
+        f"policy_seq {scraped['policy_seq']:.0f}; "
+        f"{len(passes)} passes of the fold, median {statistics.median(passes) * 1e3:.3f} ms, "
+        f"max {max(passes) * 1e3:.3f} ms; replicas bitwise equal over {len(p0)} tensors at step "
+        f"{results[0]['step']}; steady step median "
+        f"{statistics.median(steady) if steady else float('nan'):.1f} ms over {len(steady)}; "
+        f"device peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+    del results, p0, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3518,6 +3810,8 @@ def main() -> int:
     mark("16 health and tracing")
     serve_launches = check_serving_bench_1b(device, cfg, ddp_step_ms)
     mark("17 serving")
+    policy_launches = check_policy_bench_1b(device, cfg)
+    mark("20 policy plane")
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -3564,6 +3858,8 @@ def main() -> int:
                                  "serving_path": serve_launches.get(f"serving_{kname}", 0)},
             # phase 18: bench_1b healed over a Baby recovery PG
             "launches_baby": baby_launches[kname],
+            # phase 20: bench_1b under the policy plane in enforce mode
+            "launches_policy": policy_launches[kname],
             # K3-host checked and timed at the serving plane's flat too
             **({"serving_flat": {k: v for k, v in host_rule["serving_flat"].items()
                                  if k != "bytes"}}
@@ -3602,7 +3898,9 @@ def main() -> int:
                         # phase 17: bench_1b with the serving plane
                         "launches_serving": serve_launches[key],
                         # phase 18: bench_1b healed over a Baby recovery PG
-                        "launches_baby": baby_launches[key]}
+                        "launches_baby": baby_launches[key],
+                        # phase 20: bench_1b under the policy plane
+                        "launches_policy": policy_launches[key]}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],

@@ -1,5 +1,5 @@
 """The port's doctor against the JAX package's (``torchft_tpu/doctor.py``):
-the same status (ok / warn / FAIL) from each of the 17 checks the port has,
+the same status (ok / warn / FAIL) from each of the 18 checks the port has,
 at defaults and under broken environments, the same exit code from both
 CLIs, and the knob registry's doctor names all pointing at checks the
 port's doctor runs."""
@@ -19,23 +19,25 @@ NAMES = [name for name, _ in doctor.CHECKS]
 REF = dict(ref_doctor.CHECKS)
 PORT = dict(doctor.CHECKS)
 # the reference's checks that come with their planes
-LATER = {"degrade-env", "policy-env", "fleetlint"}
+LATER = {"degrade-env", "fleetlint"}
 STATUS = {True: "ok", None: "warn", False: "FAIL"}
 LINE = re.compile(r"^(ok  |warn|FAIL) (\S+)\s+(.*)$")
 
 
 def test_the_port_runs_the_reference_checks_in_its_order():
-    assert len(NAMES) == 17
+    assert len(NAMES) == 18
     assert NAMES == [name for name, _ in ref_doctor.CHECKS if name not in LATER]
 
 
 def test_registry_doctor_names_are_checks_of_the_port():
-    """Every knob's doctor names a check the port's doctor has, but
-    TORCHFT_SYNC_EVERY's: the reference's policy-env, which comes with the
-    policy plane (LocalSGD and DiLoCo read the knob today)."""
+    """Every knob's doctor names a check the port's doctor has (the policy
+    plane's five and TORCHFT_SYNC_EVERY: policy-env)."""
     named = {k.name: k.doctor for k in knobs.REGISTRY.values() if k.doctor is not None}
     missing = {n: d for n, d in named.items() if d not in PORT}
-    assert missing == {"TORCHFT_SYNC_EVERY": "policy-env"}
+    assert missing == {}
+    assert sorted(n for n, d in named.items() if d == "policy-env") == [
+        "TORCHFT_POLICY", "TORCHFT_POLICY_INTERVAL_S", "TORCHFT_POLICY_RING",
+        "TORCHFT_POLICY_SPEC", "TORCHFT_POLICY_WINDOW_S", "TORCHFT_SYNC_EVERY"]
     assert knobs.REGISTRY["TORCHFT_TPU_ATTENTION"].doctor is None
 
 
@@ -84,7 +86,7 @@ def clean_env(monkeypatch):
 # round trip with explicit settings do not), and heal, whose retry policy
 # is its own whatever the environment says
 ENV_CHECKS = ["aggregator", "retry-env", "health-env", "compress-env", "serve-env",
-              "redundancy-env", "trace-env", "tuning-env"]
+              "redundancy-env", "trace-env", "policy-env", "tuning-env"]
 
 
 def _unwritable(tmp_path):
@@ -119,6 +121,11 @@ SCENARIOS = {
                               "TORCHFT_LIGHTHOUSE": "127.0.0.1:1"}, {"aggregator": "FAIL"}),
     "aggregator_without_root": ({"TORCHFT_LIGHTHOUSE_AGGREGATOR": "127.0.0.1:29520"},
                                 {"aggregator": "FAIL"}),
+    # the aggregator check's loopback lighthouse attaches the engine, which
+    # refuses the mode
+    "bad_policy_mode": ({"TORCHFT_POLICY": "yolo"}, {"policy-env": "FAIL", "aggregator": "FAIL"}),
+    "bad_policy_interval": ({"TORCHFT_POLICY_INTERVAL_S": "often"}, {"policy-env": "FAIL"}),
+    "policy_enforce": ({"TORCHFT_POLICY": "enforce"}, {}),
 }
 
 

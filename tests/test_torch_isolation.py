@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "flight_recorder", "observability", "healthwatch", "serving",
                  "parameter_server", "checkpointing.durable", "launcher", "aggregator",
                  "examples.punisher", "multiprocessing", "multiprocessing_dummy_context",
-                 "doctor"):
+                 "doctor", "policy"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -120,7 +120,7 @@ def test_redundancy_plane_imports_no_jax_even_lazily(module):
 
 
 @pytest.mark.parametrize("module", ["tracing", "trace", "flight_recorder", "observability",
-                                    "healthwatch", "knobs", "process_group"])
+                                    "healthwatch", "knobs", "process_group", "policy", "doctor"])
 def test_observability_and_health_plane_import_no_jax_even_lazily(module):
     """The health and observability planes: every import, at top level or
     inside a function (``history_replay``'s loader, the OpenTelemetry
@@ -211,3 +211,52 @@ def test_spawned_baby_child_imports_no_jax_and_no_cuda(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_LIGHTHOUSE_WITH_POLICY = """
+import os, signal, sys, threading, time
+
+from torchft_tpu_torch import lighthouse
+
+servers = []
+
+
+class Recorded(lighthouse.LighthouseServer):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        servers.append(self)
+
+
+lighthouse.LighthouseServer = Recorded
+
+
+def watch():
+    # the engine's first pass has run once a frame is published
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and not (servers and servers[0].policy()):
+        time.sleep(0.05)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"))
+    print("frame", servers[0].policy().get("policy_seq"), "bad", bad, flush=True)
+    os.kill(os.getpid(), signal.SIGTERM)
+
+
+threading.Thread(target=watch, daemon=True).start()
+lighthouse.main(["--bind", "127.0.0.1:0", "--policy", "builtin"])
+"""
+
+
+def test_the_lighthouse_cli_with_a_policy_imports_no_jax(tmp_path):
+    """``python -m torchft_tpu_torch.lighthouse --policy builtin`` under
+    ``TORCHFT_POLICY=observe``: once its engine has published a frame, its
+    process holds neither JAX nor the JAX package, and it exits 0 on
+    SIGTERM."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTHONPATH" and not k.startswith("TORCHFT_")}
+    env.update(PYTHONPATH=REPO, TORCHFT_POLICY="observe", TORCHFT_POLICY_INTERVAL_S="0.05")
+    (tmp_path / "lh.py").write_text(_LIGHTHOUSE_WITH_POLICY)
+    out = subprocess.run([sys.executable, str(tmp_path / "lh.py")], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "frame 1 bad []"
+    assert "policy engine attached (spec=builtin mode=observe)" in out.stderr

@@ -21,9 +21,6 @@ NAME = re.compile(r"^TORCHFT_[A-Z0-9_]+$")
 
 # the reference's knobs the port does not read yet, each with its plane
 UNREAD = {
-    # the policy plane (ROADMAP item 8.3)
-    "TORCHFT_POLICY", "TORCHFT_POLICY_SPEC", "TORCHFT_POLICY_INTERVAL_S",
-    "TORCHFT_POLICY_WINDOW_S", "TORCHFT_POLICY_RING",
     # the degrade plane (item 6)
     "TORCHFT_DEGRADE", "TORCHFT_DEGRADE_MIN_DEGREE", "TORCHFT_DEGRADE_RESTORE",
     # the XLA process group (item 5)

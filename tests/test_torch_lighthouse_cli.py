@@ -127,7 +127,8 @@ def _parsed(module, argv):
                                   ["--redundancy-directory"], ["--redundancy_directory"],
                                   ["--history", "history.jsonl"], ["--serve-registry"],
                                   ["--serve_registry", "--serve_drain_on", "eject"],
-                                  ["--serve-registry", "--serve-drain-on", "warn"]])
+                                  ["--serve-registry", "--serve-drain-on", "warn"],
+                                  ["--policy", "builtin"], ["--policy", "spec.json"]])
 def test_cli_options_are_the_references(argv):
     """Defaults and spellings: the port's CLI hands its server what the
     reference's hands its own, for every option the port takes."""
@@ -138,13 +139,13 @@ def test_cli_options_are_the_references(argv):
     ref = _parsed(jax_lighthouse, argv)
     assert port == {k: ref[k] for k in port}
     assert sorted(port) == ["bind", "heartbeat_timeout_ms", "history_path", "join_timeout_ms",
-                            "min_replicas", "quorum_tick_ms", "redundancy_directory",
+                            "min_replicas", "policy", "quorum_tick_ms", "redundancy_directory",
                             "serve_drain_on", "serve_registry"]
 
 
 def test_cli_exits_nonzero_on_an_unknown_flag():
-    # the reference's --policy comes with the policy plane
-    out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--policy", "x"],
+    out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.lighthouse",
+                          "--no-such-flag", "x"],
                          cwd=REPO, capture_output=True, text=True, timeout=60)
     assert out.returncode != 0 and "unrecognized arguments" in out.stderr
 

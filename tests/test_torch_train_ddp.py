@@ -284,15 +284,17 @@ def test_fault_free_run_matches_the_reference(grad_accum, quantize):
 DEADLINE_S = 120
 
 
-@pytest.mark.parametrize("transport", ["http", "pg"])
-def test_processes_survive_a_sigkill_and_heal(transport):
+def _sigkill_demo(transport, lighthouse_argv=(), **env):
+    """Two replica processes, replica 1 SIGKILLed after its step 3 and
+    restarted; returns (exit codes, done lines, lighthouse exit code, the
+    transcript's tail, replica 1's first step line)."""
     kill_at, steps = 3, 8
     fleet = port_ex.Fleet(
         ["--steps", str(steps), "--batch-size", "4", "--device", "cpu",
          "--transport", transport],
         ["--min-replicas", "2", "--join-timeout-ms", "500", "--quorum-tick-ms", "20",
-         "--heartbeat-timeout-ms", "2000"],
-        env=dict(os.environ, OMP_NUM_THREADS="1"),
+         "--heartbeat-timeout-ms", "2000", *lighthouse_argv],
+        env=dict(os.environ, OMP_NUM_THREADS="1", **env),
     )
     deadline = time.monotonic() + DEADLINE_S
     left = lambda: max(1.0, deadline - time.monotonic())  # noqa: E731
@@ -309,14 +311,37 @@ def test_processes_survive_a_sigkill_and_heal(transport):
         raise AssertionError(f"{e!r}\n--- transcript ---\n" + "\n".join(fleet.transcript[-200:]))
     lighthouse_rc = fleet.close()
     transcript = "\n".join(fleet.transcript[-200:])
-    assert rcs == {0: 0, 1: 0} and lighthouse_rc == 0, transcript
     first = next(line for line in fleet.lines[1] if "] step=" in line)
+    return rcs, done, lighthouse_rc, transcript, first
+
+
+@pytest.mark.parametrize("transport", ["http", "pg"])
+def test_processes_survive_a_sigkill_and_heal(transport):
+    kill_at, steps = 3, 8
+    rcs, done, lighthouse_rc, transcript, first = _sigkill_demo(transport)
+    assert rcs == {0: 0, 1: 0} and lighthouse_rc == 0, transcript
     assert int(first.split("step=", 1)[1].split()[0]) > kill_at, transcript
     assert done[1]["metrics"]["heals"] >= 1, transcript
     assert done[0]["step"] == done[1]["step"] == steps
     assert done[0]["params_sha256"] == done[1]["params_sha256"], transcript
     if transport == "pg":
         assert done[1]["timings"]["heal_chunks"] >= 1
+
+
+def test_processes_record_policy_intents_in_observe_mode():
+    """The same demo with the lighthouse CLI's ``--policy builtin`` and
+    ``TORCHFT_POLICY=observe`` everywhere: the "calm" rule's frame reaches
+    both replicas, each records an intent and applies nothing, and they
+    still end bitwise equal."""
+    rcs, done, lighthouse_rc, transcript, _ = _sigkill_demo(
+        "http", ("--policy", "builtin"), TORCHFT_POLICY="observe",
+        TORCHFT_POLICY_INTERVAL_S="0.25")
+    assert rcs == {0: 0, 1: 0} and lighthouse_rc == 0, transcript
+    assert "policy engine attached (spec=builtin mode=observe)" in transcript
+    for d in done.values():
+        assert d["policy_intents"] >= 1 and d["policy_applies"] == 0, d
+    assert done[0]["policy_seq"] == done[1]["policy_seq"] >= 1
+    assert done[0]["params_sha256"] == done[1]["params_sha256"], transcript
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

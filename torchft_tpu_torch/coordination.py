@@ -37,6 +37,7 @@ import hashlib
 import json
 import os
 import subprocess
+import threading
 from dataclasses import asdict, dataclass, field
 from datetime import timedelta
 from typing import Callable, Dict, List, Optional, Tuple
@@ -168,6 +169,10 @@ def _load() -> ctypes.CDLL:
         "tft_lighthouse_shutdown": ([vp], None),
         "tft_lighthouse_free": ([vp], None),
         "tft_lighthouse_retune_health": ([vp, cp, _P(cp), _P(cp)], ctypes.c_int),
+        # the policy plane: in-process calls, not RPCs
+        "tft_lighthouse_set_policy": ([vp, cp, _P(cp)], ctypes.c_int),
+        "tft_lighthouse_policy": ([vp], vp),
+        "tft_lighthouse_drain_events": ([vp], vp),
         "tft_aggregator_new": ([cp, _P(vp), _P(cp)], ctypes.c_int),
         "tft_aggregator_address": ([vp], vp),
         "tft_aggregator_port": ([vp], ctypes.c_int),
@@ -178,6 +183,7 @@ def _load() -> ctypes.CDLL:
         "tft_manager_control_status": ([vp], vp),
         "tft_manager_publish_telemetry": ([vp, cp, _P(cp)], ctypes.c_int),
         "tft_manager_health": ([vp], vp),
+        "tft_manager_policy": ([vp], vp),
         "tft_manager_clock_skew": ([vp], vp),
         "tft_manager_address": ([vp], vp),
         "tft_manager_port": ([vp], ctypes.c_int),
@@ -347,7 +353,17 @@ class LighthouseServer(_Server):
     is its URL (None without it). ``metrics_per_replica_limit`` caps the
     per-replica series of ``/metrics`` (the rest fold into min / median /
     max aggregates); None reads ``TORCHFT_METRICS_PER_REPLICA_LIMIT``, 64
-    when unset (reference ``coordination.py:388-392``)."""
+    when unset (reference ``coordination.py:388-392``).
+    ``policy`` attaches the adaptive policy engine (``policy.py``;
+    reference ``:349``, ``:368-384``, ``:437-549``): ``"builtin"`` or a
+    ``PolicySpec`` JSON path; None reads ``TORCHFT_POLICY_SPEC`` when
+    ``TORCHFT_POLICY`` is not ``off``. With a spec and a mode other than
+    ``off`` the native side keeps a ring of ``TORCHFT_POLICY_RING``
+    history events, and a thread folds it every
+    ``TORCHFT_POLICY_INTERVAL_S`` over ``TORCHFT_POLICY_WINDOW_S`` and
+    publishes each new frame on the heartbeat and ``agg_tick`` replies
+    (``policy_controller``, ``policy()``, ``set_policy``). ``off`` leaves
+    all of it out: no ring, no frame, no reply key."""
 
     _prefix = "lighthouse"
 
@@ -364,7 +380,12 @@ class LighthouseServer(_Server):
         serve_registry: bool = False,
         serve_drain_on: Optional[str] = None,
         metrics_per_replica_limit: Optional[int] = None,
+        policy: Optional[str] = None,
     ) -> None:
+        policy_mode = knobs.env_str("TORCHFT_POLICY", "off").strip() or "off"
+        if policy is None and policy_mode != "off":
+            policy = knobs.env_str("TORCHFT_POLICY_SPEC", "builtin") or "builtin"
+        attach = policy is not None and policy_mode != "off"
         if health is None:
             health = HealthConfig.from_env().to_json()
         if metrics_per_replica_limit is None:
@@ -377,12 +398,17 @@ class LighthouseServer(_Server):
             "heartbeat_timeout_ms": heartbeat_timeout_ms,
             "health": health,
             "history_path": history_path,
+            "policy_ring": knobs.env_int("TORCHFT_POLICY_RING", 4096) if attach else 0,
             "metrics_per_replica_limit": metrics_per_replica_limit,
         }
         super().__init__(*_new_handle(
             "tft_lighthouse_new_v2", json.dumps(opts).encode(),
             "lighthouse start failed",
         ))
+        self.policy_controller = None
+        self.policy_mode = policy_mode
+        self._policy_thread: Optional[threading.Thread] = None
+        self._policy_stop: Optional[threading.Event] = None
         self.serve_registry = None
         if serve_registry:
             # lazy: serving.py imports LighthouseClient back from here for
@@ -401,6 +427,53 @@ class LighthouseServer(_Server):
             from torchft_tpu_torch.redundancy import ShardDirectory
 
             self.redundancy_directory = ShardDirectory(lighthouse_addr=self.address())
+        if attach:
+            self._attach_policy(policy, policy_mode)
+
+    def _attach_policy(self, policy: str, mode: str) -> None:
+        """A ``PolicyController`` over this lighthouse's event ring, stepped
+        on a daemon thread every ``TORCHFT_POLICY_INTERVAL_S`` (at least
+        50 ms). A failed pass is dropped: the plane never takes the quorum
+        coordinator down (reference ``:444-483``)."""
+        # lazy: the plane is optional
+        from torchft_tpu_torch.policy import PolicyController, PolicyEngine, PolicySpec
+
+        engine = PolicyEngine(PolicySpec.load(policy), mode=mode,
+                              window_s=knobs.env_float("TORCHFT_POLICY_WINDOW_S", 300.0))
+        controller = PolicyController(engine, drain_fn=self._policy_drain,
+                                      set_policy_fn=self.set_policy,
+                                      retune_health_fn=self.retune_health)
+        interval_s = max(knobs.env_float("TORCHFT_POLICY_INTERVAL_S", 5.0), 0.05)
+        stop = threading.Event()
+
+        def loop() -> None:
+            while not stop.wait(interval_s):
+                try:
+                    controller.step()
+                except Exception:  # noqa: BLE001 - the plane is advisory
+                    pass
+
+        self.policy_controller = controller
+        self._policy_stop = stop
+        self._policy_thread = threading.Thread(target=loop, name="torchft-policy", daemon=True)
+        self._policy_thread.start()
+
+    def _policy_drain(self) -> List[dict]:
+        return json.loads(
+            _take_str(self._lib, self._lib.tft_lighthouse_drain_events(self._handle)) or "[]")
+
+    def set_policy(self, frame: dict) -> None:
+        """Publish ``frame`` on the heartbeat and ``agg_tick`` replies;
+        ``{}`` clears it (the kill switch): the replies lose the key."""
+        err = ctypes.c_char_p()
+        status = self._lib.tft_lighthouse_set_policy(
+            self._handle, json.dumps(frame).encode(), ctypes.byref(err))
+        _raise_for_status(status, _take_str(self._lib, err), "set_policy failed")
+
+    def policy(self) -> dict:
+        """The published frame, ``{}`` when none."""
+        return json.loads(
+            _take_str(self._lib, self._lib.tft_lighthouse_policy(self._handle)) or "{}")
 
     def address(self) -> str:
         return _take_str(self._lib, self._lib.tft_lighthouse_address(self._handle))
@@ -423,6 +496,13 @@ class LighthouseServer(_Server):
         return json.loads(out_s or "{}")
 
     def shutdown(self) -> None:
+        if self._policy_stop is not None:
+            self._policy_stop.set()
+            if self._policy_thread is not None:
+                self._policy_thread.join(timeout=5.0)
+            self._policy_stop = None
+            self._policy_thread = None
+            self.policy_controller = None
         if self.serve_registry is not None:
             self.serve_registry.shutdown()
             self.serve_registry = None
@@ -533,6 +613,14 @@ class ManagerServer(_Server):
         (``state``, ``state_code``, ``score``, ``ejections``,
         ``readmissions``); ``{}`` until a beat has returned."""
         return json.loads(_take_str(self._lib, self._lib.tft_manager_health(self._handle)) or "{}")
+
+    def policy(self) -> dict:
+        """The newest policy frame a heartbeat reply carried (from the
+        lighthouse, or fanned out by a pod aggregator): ``{"policy_seq",
+        "mode", "knob_overrides", "active_rules"}``, ``{}`` before one. The
+        Manager reads it at its quorum safe point; the beat loop never
+        interprets it."""
+        return json.loads(_take_str(self._lib, self._lib.tft_manager_policy(self._handle)) or "{}")
 
     def clock_skew(self) -> dict:
         """This host's clock minus the lighthouse's, from heartbeat round

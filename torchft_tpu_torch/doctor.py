@@ -21,8 +21,10 @@ and exit 0 if and only if no check fails. The checks:
   aggregator (``aggregator.check_aggregator``);
 - ``retry-env``, ``health-env``, ``compress-env``, ``serve-env``,
   ``redundancy-env``, ``trace-env``: each plane's knobs parse and agree
-  with one another; ``tuning-env``: every knob whose registry entry names
-  it parses as its type (``knobs.REGISTRY``);
+  with one another; ``policy-env``: the policy plane's mode and numbers
+  parse, and its spec loads and folds a synthetic churn burst into a
+  frame; ``tuning-env``: every knob whose registry entry names it parses
+  as its type (``knobs.REGISTRY``);
 - ``health-http`` and ``metrics-http``: loopback scrapes of the
   lighthouse's ``/health`` and both ``/metrics`` exporters;
 - ``heal``: a loopback HTTP heal in place with one connection dropped
@@ -30,8 +32,8 @@ and exit 0 if and only if no check fails. The checks:
   a worker on the host, two versions pulled bitwise; ``redundancy``: a
   k=2 m=1 erasure round trip through one corrupt shard.
 
-Every knob is read through ``knobs``. The reference's ``degrade-env``,
-``policy-env`` and ``fleetlint`` come with their planes (``ROADMAP.md``).
+Every knob is read through ``knobs``. The reference's ``degrade-env`` and
+``fleetlint`` come with their planes (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -581,6 +583,62 @@ def check_redundancy_roundtrip() -> Result:
         directory.shutdown()
 
 
+def churn_burst(n: int, period_s: float, replicas: int = 4) -> List[dict]:
+    """A synthetic history: ``n`` cycles, one every ``period_s`` seconds, of
+    replica ``i % replicas`` leaving the quorum and the full set back half a
+    period later (the reference's test helper ``churn_burst``, which the
+    port does not import)."""
+    full = [f"replica_{r}" for r in range(replicas)]
+    events = [{"ts_ms": 0, "seq": 0, "kind": "quorum", "participants": list(full)}]
+    period_ms = int(period_s * 1000.0)
+    for i in range(n):
+        t = (i + 1) * period_ms
+        down = [p for p in full if p != full[i % replicas]]
+        events.append({"ts_ms": t, "seq": 2 * i + 1, "kind": "quorum", "participants": down})
+        events.append({"ts_ms": t + period_ms // 2, "seq": 2 * i + 2, "kind": "quorum",
+                       "participants": list(full)})
+    return events
+
+
+def check_policy_env() -> Result:
+    """``TORCHFT_POLICY*``: the mode is one of ``POLICY_MODES``, the numeric
+    knobs parse, the spec (builtin or ``TORCHFT_POLICY_SPEC``'s file) loads
+    and validates, and an observe-mode engine folds a synthetic churn burst
+    into a well-formed frame, the fold and evaluate a lighthouse runs, so a
+    bad spec fails here and not at the fleet's start (reference
+    ``doctor.py:853-905``)."""
+    from torchft_tpu_torch.policy import POLICY_MODES, PolicyEngine, PolicySpec
+
+    mode = (knobs.env_raw("TORCHFT_POLICY") or "").strip() or "off"
+    if mode not in POLICY_MODES:
+        return False, f"TORCHFT_POLICY={mode!r} invalid: pick one of {'/'.join(POLICY_MODES)}"
+    try:
+        knobs.env_float("TORCHFT_POLICY_INTERVAL_S", 5.0)
+        window_s = knobs.env_float("TORCHFT_POLICY_WINDOW_S", 300.0)
+        knobs.env_int("TORCHFT_POLICY_RING", 4096)
+        knobs.env_int("TORCHFT_SYNC_EVERY", 0)
+    except ValueError as e:
+        return False, f"TORCHFT_POLICY_* numeric knob invalid: {e}"
+    spec_src = (knobs.env_raw("TORCHFT_POLICY_SPEC") or "").strip() or "builtin"
+    try:
+        spec = PolicySpec.load(spec_src)
+    except (ValueError, OSError, KeyError) as e:
+        return False, f"policy spec {spec_src!r} failed to load: {e}"
+    try:
+        engine = PolicyEngine(spec, mode="observe", window_s=window_s)
+        engine.feed(churn_burst(8, period_s=5.0))
+        frame = engine.evaluate()
+        if "policy_seq" not in frame:
+            raise ValueError(f"malformed frame: {frame!r}")
+    except Exception as e:  # noqa: BLE001 - the probe's failure is the finding
+        return False, f"observe probe failed on spec {spec_src!r}: {e}"
+    if mode == "off":
+        return True, (f"policy off (byte-identical path); spec {spec_src!r} validates "
+                      f"({len(spec.rules)} rule(s)) and probes clean")
+    return True, (f"policy {mode}: spec {spec_src!r} ({len(spec.rules)} rule(s)) probed clean, "
+                  f"frame seq={frame['policy_seq']}")
+
+
 def check_tuning_env() -> Result:
     """Every knob whose registry entry names this check parses as its
     declared type (JSON knobs decode to objects, enums name a member):
@@ -631,6 +689,7 @@ CHECKS: List[Tuple[str, Callable[[], Result]]] = [
     ("serve-env", check_serve_env),
     ("redundancy-env", check_redundancy_env),
     ("trace-env", check_trace_env),
+    ("policy-env", check_policy_env),
     ("tuning-env", check_tuning_env),
     ("health-http", check_health_endpoint),
     ("metrics-http", check_metrics_endpoints),

@@ -27,7 +27,10 @@ Or the pieces by hand::
 Runs on ``cuda`` unless ``--device cpu`` is given; replicas may share one
 card. Each replica prints ``[replica i] step=N ...`` per committed step and
 ends with ``[replica i] done: {json}``: a sha256 of its parameters, its
-Manager's metrics and heal timings, and the fp8 kernels' launch counts.
+Manager's metrics and heal timings, the fp8 kernels' launch counts and the
+policy plane's ``policy_seq``, ``policy_intents`` and ``policy_applies``
+(``TORCHFT_POLICY=observe`` with the lighthouse's ``--policy builtin``
+records an intent a frame).
 """
 
 from __future__ import annotations
@@ -235,6 +238,10 @@ def _train_loop(args: argparse.Namespace, manager: Any, model: nn.Module,
         "metrics": manager.metrics(),
         "timings": manager.timings(),
         "launches": dict(quantization.LAUNCHES),
+        # the policy plane (TORCHFT_POLICY): the newest frame seen, and the
+        # frames applied (enforce) or only recorded (observe)
+        **{k: int(manager.timings()[k]) for k in ("policy_seq", "policy_intents",
+                                                   "policy_applies")},
     }
     print(f"[replica {replica_id}] done: {json.dumps(done)}", flush=True)
 

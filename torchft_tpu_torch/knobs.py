@@ -6,9 +6,9 @@ its ``Knob``: type, default, where the port documents it (``doc``: the
 README's knob table), the doctor check that validates it (``doctor``,
 ``python -m torchft_tpu_torch.doctor``) and a one-line summary; type,
 default, doctor check and summary are the reference's. It holds the
-reference's knobs that the port reads and no other: the policy plane's,
-the degrade plane's, the XLA process group's and the JAX package's scan
-and Pallas tile knobs join with their planes (``ROADMAP.md``).
+reference's knobs that the port reads and no other: the degrade plane's,
+the XLA process group's and the JAX package's scan and Pallas tile knobs
+join with their planes (``ROADMAP.md``).
 
 Every read goes through ``env_raw`` or a typed reader (``env_str``,
 ``env_int``, ``env_float``, ``env_bool``), which raise ``KeyError`` on a
@@ -175,6 +175,18 @@ REGISTRY: Dict[str, Knob] = {
            "Shard generations retained per owner in each store."),
         _k("TORCHFT_POD", "str", "", "tuning-env",
            "Placement pod identity (defaults to the aggregator-derived pod)."),
+        # the policy plane
+        _k("TORCHFT_POLICY", "enum(off|observe|enforce)", "off", "policy-env",
+           "Adaptive policy engine mode: off = byte-identical legacy"
+           " behavior, observe = log would-be actions, enforce = apply."),
+        _k("TORCHFT_POLICY_SPEC", "str", "builtin", "policy-env",
+           "PolicySpec source: 'builtin' or a path to a PolicySpec JSON."),
+        _k("TORCHFT_POLICY_INTERVAL_S", "float", "5", "policy-env",
+           "Engine evaluation cadence in seconds (fold + rule pass)."),
+        _k("TORCHFT_POLICY_WINDOW_S", "float", "300", "policy-env",
+           "Rolling window the fleet signals (MTBF, churn, ...) cover."),
+        _k("TORCHFT_POLICY_RING", "int", "4096", "policy-env",
+           "Lighthouse in-memory event-ring capacity feeding the engine."),
         # the device
         _k("TORCHFT_WATCHDOG_TIMEOUT_SEC", "float", "30", "tuning-env",
            "Future-watchdog deadline that converts a wedged wait into an error."),

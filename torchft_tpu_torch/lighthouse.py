@@ -23,8 +23,11 @@ snapshot registry, which drains a source at ``--serve-drain-on`` (``warn``
 or ``eject``; default ``$TORCHFT_SERVE_DRAIN_ON``, else ``warn``) of this
 lighthouse's health ledger, and logs ``snapshot registry serving at <url>
 (epoch <epoch>)``; point publishers and workers at it with
-``TORCHFT_SERVE_REGISTRY=<url>``. The reference's ``--policy`` comes with
-its plane.
+``TORCHFT_SERVE_REGISTRY=<url>``. ``--policy PATH|builtin`` (reference
+``:74-104``) attaches the adaptive policy engine (``policy.py``) and logs
+``policy engine attached (spec=<spec> mode=<mode>)``; the mode is
+``TORCHFT_POLICY`` (``off`` by default, which attaches nothing), and the
+Managers' own ``TORCHFT_POLICY`` decides what they do with its frames.
 """
 
 from __future__ import annotations
@@ -66,6 +69,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="append-only JSONL of quorum transitions, heals, health events "
                              "and telemetry snapshots; fold it with `python -m "
                              "torchft_tpu_torch.trace history PATH` (default: off)")
+    parser.add_argument("--policy", default=None, metavar="PATH|builtin",
+                        help="attach the adaptive policy engine: a PolicySpec JSON file or "
+                             "'builtin'. Frames ride the heartbeat and agg_tick replies; "
+                             "TORCHFT_POLICY (off|observe|enforce, default off) governs what "
+                             "the Managers do with them. Replay candidates first: `python -m "
+                             "torchft_tpu_torch.policy replay --history F --policy A B`")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -82,6 +91,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         history_path=args.history,
         serve_registry=args.serve_registry,
         serve_drain_on=args.serve_drain_on,
+        policy=args.policy,
     )
     try:
         logging.info("lighthouse listening at %s", server.address())
@@ -91,6 +101,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         if server.redundancy_directory is not None:
             logging.info("shard directory serving at %s (epoch %s)",
                          server.redundancy_directory.url, server.redundancy_directory.epoch)
+        if server.policy_controller is not None:
+            logging.info("policy engine attached (spec=%s mode=%s)", args.policy,
+                         server.policy_mode)
         stop.wait()
     finally:
         server.shutdown()

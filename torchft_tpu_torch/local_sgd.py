@@ -145,8 +145,8 @@ class LocalSGD:
         self._sync_every = env_sync if env_sync > 0 else sync_every
         self._arg_sync_every = self._sync_every
         self._local_step = 0
-        # dormant until the port's Manager has a policy plane (it has no
-        # register_policy_adjuster yet); kept so the reference's API holds
+        # the policy plane retargets the cadence live at the Manager's safe
+        # point (a Manager without the plane, or a stub, has no adjusters)
         register = getattr(manager, "register_policy_adjuster", None)
         if register is not None:
             register("TORCHFT_SYNC_EVERY", self._policy_set_sync_every)
@@ -417,7 +417,8 @@ class DiLoCo:
         self._pending_sync_every: Optional[int] = None
         # what the last step() did: ("prepare" | "perform", fragment) pairs
         self.last_step_syncs: List[Tuple[str, int]] = []
-        # dormant, as in LocalSGD: the port's Manager has no policy plane yet
+        # the policy plane's retarget, queued to the next cycle boundary
+        # (_policy_set_sync_every)
         register = getattr(manager, "register_policy_adjuster", None)
         if register is not None:
             register("TORCHFT_SYNC_EVERY", self._policy_set_sync_every)

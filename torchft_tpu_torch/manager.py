@@ -103,8 +103,20 @@ thread, the allreduce, the commit and the reconfigure's halves are also
 streams (``observability.py``) carry quorum, commit, error, timing and
 health events; the flight recorder is dumped on a reported error, an
 exhausted heal and an ejection. ``metrics_port`` serves ``/metrics``.
-The device-plane streaming branch (an XLA process group) and the policy,
-degrade and serving planes are not ported yet.
+The device-plane streaming branch (an XLA process group) and the degrade
+plane are not ported yet.
+
+The policy plane (reference ``:523-541``, ``:850-991``; ``policy.py``):
+with ``TORCHFT_POLICY`` other than ``off``, ``start_quorum`` reads the
+newest frame off the heartbeat mirror after its per-step resets and
+before it submits the quorum, and acts on a new ``policy_seq`` once: in
+observe mode it records an intent (``policy_intents``), in enforce mode
+(the Manager's and the frame's) it installs the frame's overrides in
+``knobs``, reverts the ones a later frame released, runs each knob's
+``register_policy_adjuster`` setter and retargets ``TORCHFT_COMPRESS``
+(``policy_applies``). ``policy_seq``, ``policy_applies`` and
+``policy_intents`` are in ``timings()`` and on ``/metrics``;
+``policy_status()`` is the operator's view.
 
 Knobs, each environment variable > constructor argument > default:
 ``TORCHFT_TIMEOUT_SEC`` / ``timeout``, ``TORCHFT_QUORUM_TIMEOUT_SEC`` /
@@ -155,6 +167,7 @@ from torchft_tpu_torch.observability import (
     COMMIT_EVENTS,
     HEALTH_EVENTS,
     METRICS_PORT_ENV,
+    POLICY_EVENTS,
     TIMING_EVENTS,
     MetricsRegistry,
     MetricsServer,
@@ -216,7 +229,10 @@ _COUNTERS = ("heal_attempts", "heal_failovers", "rpc_retries", "chunk_crc_failur
              "shard_stage_failed", "shard_put_failed", "shard_announce_rejected",
              "reconstructs", "reconstruct_failures", "shard_corrupt", "shard_fetch_failed",
              # the serving plane's publishes (attach_serve_publisher)
-             "serve_published_total", "serve_publish_errors_total")
+             "serve_published_total", "serve_publish_errors_total",
+             # the policy plane's frames applied (enforce) and only recorded
+             # (observe) at the safe point; policy_seq is a gauge
+             "policy_applies", "policy_intents")
 # timings() keys /metrics renders as counters (``_total``): the bumped ones,
 # the health plane's cumulative ejections and readmissions (the lighthouse
 # counts them) and the observability planes' losses; every other number is
@@ -465,7 +481,16 @@ class Manager:
         }
         # the last quorum cycle's phase seconds and the cumulative
         # resilience counters
-        self._timings: Dict[str, float] = {name: 0.0 for name in (*_COUNTERS, *_HEALTH_TIMINGS)}
+        self._timings: Dict[str, float] = {
+            name: 0.0 for name in (*_COUNTERS, *_HEALTH_TIMINGS, "policy_seq")}
+        # the policy plane (_poll_policy_safe_point; reference :523-541):
+        # the mode, the newest frame seen, each knob's live setter and the
+        # overrides this Manager last applied (the diff base of a release:
+        # the override layer is shared by every Manager of the process)
+        self._policy_mode = knobs.env_str("TORCHFT_POLICY", "off").strip() or "off"
+        self._policy_seq_seen = -1
+        self._policy_adjusters: Dict[str, Callable[[Optional[str]], None]] = {}
+        self._policy_overrides_applied: Dict[str, str] = {}
         # healthwatch telemetry (_publish_step_telemetry): the last vote's
         # time, outcome and quorum, the transform tests install, and the
         # last health state seen
@@ -550,6 +575,13 @@ class Manager:
             logger.exception("redundancy plane failed to attach; continuing without it")
             self._redundancy_cfg = None
             self._shard_stager = None
+        if self._shard_stager is not None:
+            # the policy plane retunes the staging cadence and the parity
+            # count live; both hold from the next commit's stage
+            self._policy_red_defaults = (red_cfg.interval, red_cfg.m)
+            self.register_policy_adjuster("TORCHFT_REDUNDANCY_INTERVAL",
+                                          self._policy_set_red_interval)
+            self.register_policy_adjuster("TORCHFT_REDUNDANCY_M", self._policy_set_red_m)
 
     def _start_control_plane(
         self, hostname: str, store_addr: Optional[str], lighthouse_addr: Optional[str],
@@ -658,6 +690,10 @@ class Manager:
         self._errored = None
         self._healing = False
         self._last_quorum_healed = False
+        # a policy frame lands here, the safe point: no collective in
+        # flight, the last configure committed (off: never polled)
+        if self._policy_mode != "off":
+            self._poll_policy_safe_point()
         self._quorum_future = self._executor.submit(
             self._async_quorum,
             allow_heal=allow_heal,
@@ -678,6 +714,102 @@ class Manager:
             raise RuntimeError("must call start_quorum first")
         with trace_span("torchft::manager::wait_quorum"):
             self._quorum_future.result()
+
+    # --------------------------------------------------------------- policy
+    def register_policy_adjuster(self, knob: str, fn: Callable[[Optional[str]], None]) -> None:
+        """A live setter of ``knob`` (LocalSGD and DiLoCo register their
+        ``sync_every``, the redundancy plane its cadence and parity count).
+        In enforce mode it runs at the safe point with the frame's value,
+        or with None when a frame releases the knob (the plane restores
+        its own value). The last registration of a knob wins."""
+        self._policy_adjusters[knob] = fn
+
+    def policy_status(self) -> Dict[str, Any]:
+        """The policy plane on this replica: the mode, the newest frame's
+        seq, the override layer and the adjusted knobs."""
+        with self._metrics_lock:
+            seq = int(self._timings.get("policy_seq", 0.0))
+        return {
+            "mode": self._policy_mode,
+            "policy_seq": seq,
+            "overrides": knobs.get_overrides(),
+            "adjusters": sorted(self._policy_adjusters),
+        }
+
+    def _policy_set_red_interval(self, value: Optional[str]) -> None:
+        cfg = self._redundancy_cfg
+        if cfg is not None:
+            cfg.interval = self._policy_red_defaults[0] if value is None else max(1, int(value))
+
+    def _policy_set_red_m(self, value: Optional[str]) -> None:
+        cfg = self._redundancy_cfg
+        if cfg is not None:
+            # within the GF(256) shard limit the config enforces
+            cfg.m = (self._policy_red_defaults[1] if value is None
+                     else min(max(1, int(value)), 255 - cfg.k))
+
+    def _poll_policy_safe_point(self) -> None:
+        """Read the heartbeat mirror's policy frame and act on a new one
+        (reference ``:893-991``). Only registered knobs are taken. Observe
+        (or a frame that does not say enforce) records an intent; enforce
+        also diffs the frame against what this Manager last applied: a
+        released knob reverts and its adjuster gets None, a set one is
+        installed in ``knobs`` and its adjuster gets the value, and
+        ``TORCHFT_COMPRESS`` retargets the wire codec in place. Either is
+        recorded in ``timings()``, the ``torchft_policy`` stream, the flight
+        recorder and a span instant. Never raises: a bad frame costs a
+        logged warning, not a step."""
+        try:
+            frame = self._manager.policy() if self._manager is not None else {}
+        except Exception:  # noqa: BLE001 - the mirror's read must not cost a step
+            return
+        if not frame:
+            return
+        try:
+            seq = int(frame.get("policy_seq", 0))
+            if seq <= self._policy_seq_seen:
+                return
+            self._policy_seq_seen = seq
+            overrides = {str(k): str(v) for k, v in (frame.get("knob_overrides") or {}).items()
+                         if knobs.is_registered(str(k))}
+            enforce = self._policy_mode == "enforce" and str(frame.get("mode", "")) == "enforce"
+            with self._metrics_lock:
+                self._timings["policy_seq"] = float(seq)
+                self._timings["policy_applies" if enforce else "policy_intents"] += 1.0
+            action = "apply" if enforce else "intent"
+            rules = list(frame.get("active_rules", []))
+            self._log(logging.INFO, f"policy: {action} seq={seq} overrides={overrides} "
+                                    f"rules={rules}")
+            emit_event_async(POLICY_EVENTS, replica_id=self._replica_id,
+                             group_rank=self._group_rank, step=self._step,
+                             quorum_id=self._quorum_id, policy_seq=seq, action=action,
+                             overrides=overrides, active_rules=rules)
+            _fr.recorder.record("policy_" + action, policy_seq=seq, overrides=overrides,
+                                step=self._step, replica=self._replica_id)
+            self._tracer.instant("policy_" + action, cat="policy", policy_seq=seq)
+            if not enforce:
+                return
+            previous = self._policy_overrides_applied
+            for name in previous:
+                if name not in overrides:
+                    knobs.set_override(name, None)
+                    adjuster = self._policy_adjusters.get(name)
+                    if adjuster is not None:
+                        adjuster(None)
+            for name, value in overrides.items():
+                knobs.set_override(name, value)
+                adjuster = self._policy_adjusters.get(name)
+                if adjuster is not None:
+                    adjuster(value)
+            # the Manager's own knob: the next streamed allreduce codes with
+            # it (error-feedback residuals are kept per plan)
+            if "TORCHFT_COMPRESS" in overrides:
+                self._compress = resolve_compress_mode(overrides["TORCHFT_COMPRESS"])
+            elif "TORCHFT_COMPRESS" in previous:
+                self._compress = resolve_compress_mode(None)
+            self._policy_overrides_applied = dict(overrides)
+        except Exception:  # noqa: BLE001 - the plane is advisory
+            logger.exception("policy frame handling failed (ignored)")
 
     @traced("torchft::manager::_async_quorum")
     def _async_quorum(self, allow_heal: bool, shrink_only: bool, quorum_timeout: float) -> None:

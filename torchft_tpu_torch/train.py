@@ -61,7 +61,10 @@ while its peers wait on the wire (the reference's ``slow_replica``,
 Under ``eject`` the lighthouse wants all replicas but one in a quorum, so
 one can be ejected and the rest train on; a readmitted replica heals like
 any replica behind, and a replica past ``--steps`` trains on until a step
-every replica took part in (so the run ends with all of them in). The
+every replica took part in while the lighthouse's ledger holds no replica
+warned or ejected (so the run ends with all of them in, and an ejection
+that lands after the last quorum of ``--steps`` is readmitted and healed
+first), at most ``SETTLE_STEPS`` past ``--steps``. The
 members' first incarnations start together, models built. ``--trace-dir
 DIR``: each Manager dumps its span ring there when its incarnation ends
 (``trace_<replica id>.json``), the trainer
@@ -70,7 +73,12 @@ it in Perfetto) and the lighthouse records its history in
 ``DIR/lighthouse_history.jsonl``; ``--profile-step N`` also runs replica
 0's step N under ``torch.profiler`` (CPU and, on the card, CUDA) into
 ``DIR/profile_step<N>.json``, where the Manager's ``torchft::manager::*``
-ranges lie beside the step's kernels.
+ranges lie beside the step's kernels. ``--policy PATH|builtin`` attaches
+the adaptive policy engine (``policy.py``) to the lighthouse under
+``TORCHFT_POLICY`` (``observe`` or ``enforce``; ``off``, the default,
+attaches nothing); each step's log entry carries the ``policy_seq`` its
+Manager last saw, and ``run_replicas(..., fleet={})`` leaves the
+lighthouse's last frame in ``fleet["policy"]``.
 
 ``--redundancy K,M`` turns the redundancy plane on (``redundancy.py``):
 a shard directory runs beside the lighthouse, every replica's Manager
@@ -427,6 +435,9 @@ TIMEOUT_S = 120.0
 RECOVERY_TIMEOUT_S = 30.0
 # the lighthouse's wait for every heartbeating member to join a quorum
 JOIN_TIMEOUT_MS = 30000
+# the most steps past --steps a run trains on for its end condition
+# (_RunEnd): an ejecting ledger's settling, or run_replicas' ``until``
+SETTLE_STEPS = 64
 # the model families --model chooses from, each with its configs
 MODELS = {"llama": (Llama, CONFIGS), "moe": (MoE, MOE_CONFIGS)}
 # the serving plane's closed-loop /infer load: its threads and each one's
@@ -487,6 +498,10 @@ class TrainConfig:
     # the model's depth: 0 keeps the config's layers, N cuts it to N layers
     # at the config's full width
     layers: int = 0
+    # the policy plane's spec on the lighthouse: a PolicySpec JSON path or
+    # "builtin" ("": the lighthouse's own TORCHFT_POLICY_SPEC); the mode is
+    # TORCHFT_POLICY's
+    policy: str = ""
 
 
 def build_trainer(cfg: TrainConfig, replica_id: int, device: torch.device):
@@ -541,6 +556,7 @@ def _train_replica(
     shadowing: Optional[Dict[int, Manager]] = None,
     metrics_ports: Optional[Dict[int, int]] = None,
     ejecting: bool = False,
+    run_end: Optional[Callable[[int], bool]] = None,
     start: Optional[threading.Barrier] = None,
     serve_cfg: Optional[ServeConfig] = None,
 ) -> Dict[str, Any]:
@@ -550,7 +566,9 @@ def _train_replica(
     Manager, ``shadowing`` each spare not yet promoted, ``metrics_ports``
     each member to its ``/metrics`` port. ``ejecting``: the health plane
     may eject a replica, so one that reached ``cfg.steps`` trains on until
-    a step of every replica (``_all_in``). ``start``: the members' first
+    a step of every replica (``_all_in``). ``run_end``: past ``cfg.steps``
+    it also trains on until ``run_end(step)`` says the run may end
+    (``_RunEnd``). ``start``: the members' first
     incarnations meet there, models built and Managers up, before their
     first quorum. ``serve_cfg``: the serving plane's config; the
     incarnation's Manager publishes each committed step through a
@@ -657,7 +675,10 @@ def _train_replica(
             if publisher is not None:
                 out["serve_publisher"], publisher = publisher, None
             return out
-        while manager.current_step() < cfg.steps or (ejecting and not _all_in(manager, cfg)):
+        while manager.current_step() < cfg.steps or (
+                run_end is not None
+                and not ((not ejecting or _all_in(manager, cfg))
+                         and run_end(manager.current_step()))):
             if stop.is_set():
                 raise RuntimeError(f"replica {replica_id}: a peer replica failed")
             step = manager.current_step()
@@ -721,6 +742,8 @@ def _train_replica(
                 "health_state": manager.timings()["health_state"],
                 # the commit path's hand-off to the serve publisher
                 "serve_publish_ms": manager.timings().get("serve_publish_s", 0.0) * 1e3,
+                # the newest policy frame this Manager saw at a safe point
+                "policy_seq": manager.timings()["policy_seq"],
                 "at": time.monotonic(),
                 **_moe_stats(model),
             })
@@ -780,6 +803,39 @@ def _await_release(refs: Tuple[Any, ...], timeout: float) -> bool:
         if time.monotonic() >= deadline:
             return False
         time.sleep(0.02)
+
+
+class _RunEnd:
+    """Whether a run past ``cfg.steps`` may end at ``step``: when every
+    check says so, or at ``bound``. One answer a step, shared by the
+    replica threads, which ask at the same step at slightly different
+    times: they stop at one step."""
+
+    def __init__(self, checks: List[Callable[[int], bool]], bound: int) -> None:
+        self._checks = checks
+        self._bound = bound
+        self._answers: Dict[int, bool] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, step: int) -> bool:
+        with self._lock:
+            if step not in self._answers:
+                self._answers[step] = step >= self._bound or all(c(step) for c in self._checks)
+            return self._answers[step]
+
+
+def _ledger_settled(addr: str) -> Callable[[int], bool]:
+    """The ejecting run's check: the lighthouse's ledger holds no replica
+    warned or ejected, so a straggler's ejection that lands after the last
+    quorum of ``cfg.steps`` was formed is readmitted and healed before the
+    run ends."""
+    client = LighthouseClient(addr)
+
+    def settled(step: int) -> bool:
+        states = {r.get("state") for r in client.health().get("replicas", {}).values()}
+        return not states & {"warn", "ejected"}
+
+    return settled
 
 
 def _all_in(manager: Manager, cfg: TrainConfig) -> bool:
@@ -914,6 +970,8 @@ def run_replicas(
     device: "str | torch.device | None" = None,
     on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
     fleet: Optional[Dict[str, Any]] = None,
+    until: Optional[Callable[[int], bool]] = None,
+    max_steps: Optional[int] = None,
 ) -> List[Dict[str, Any]]:
     """Train ``cfg.replicas`` replica groups (and ``cfg.spares`` hot spares)
     as threads against an in-process lighthouse; returns each one's final
@@ -925,7 +983,11 @@ def run_replicas(
     ``/metrics`` port, while it runs and serves one), and at the end
     ``health`` (the lighthouse's ``/health`` payload), with a
     ``trace_dir``, ``trace`` (the merged trace's path), and with serve
-    workers ``serving`` (``_finish_serving``)."""
+    workers ``serving`` (``_finish_serving``), and ``policy`` (the
+    lighthouse's last policy frame). ``until(step)``: the replicas train
+    past ``cfg.steps`` until it answers True, asked once a step (the answer
+    shared by the replicas); ``max_steps`` bounds that, and an ejecting
+    run's settling (default ``cfg.steps + SETTLE_STEPS``)."""
     dev = resolve_device(device)
     n_replicas = cfg.replicas
     n_all = n_replicas + cfg.spares
@@ -954,6 +1016,7 @@ def run_replicas(
         min_replicas=max(1, n_replicas - 1) if health.mode == "eject" else n_replicas,
         join_timeout_ms=JOIN_TIMEOUT_MS, quorum_tick_ms=20, heartbeat_timeout_ms=2000,
         health=health.to_json(), history_path=history, serve_registry=serving,
+        policy=cfg.policy or None,
     )
     addr = f"127.0.0.1:{lighthouse.port}"
     if fleet is not None:
@@ -1019,6 +1082,10 @@ def run_replicas(
 
     script = _FaultScript(cfg.faults, before_fault=before_fault)
     log_lock = threading.Lock()
+    checks = ([_ledger_settled(addr)] if health.mode == "eject" else []) + (
+        [until] if until is not None else [])
+    run_end = _RunEnd(checks, cfg.steps + SETTLE_STEPS if max_steps is None else max_steps) \
+        if checks else None
 
     def record(entry: Dict[str, Any]) -> None:
         with log_lock:
@@ -1041,6 +1108,7 @@ def run_replicas(
                                          metrics_ports=None if fleet is None
                                          else fleet["metrics_ports"],
                                          ejecting=health.mode == "eject",
+                                         run_end=run_end,
                                          start=None if spare or restarts else start,
                                          serve_cfg=serve_cfg)
                     out["restarts"] = restarts
@@ -1100,6 +1168,7 @@ def run_replicas(
                 f.exception()
         if fleet is not None:
             fleet["health"] = LighthouseClient(addr).health()
+            fleet["policy"] = lighthouse.policy()
             fleet["recovery_child_kills"] = script.child_kills
         if serving and not errors:
             summary = _finish_serving(
@@ -1328,6 +1397,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                         "(0: off)")
     p.add_argument("--serve-compress", default="fp8", choices=["off", "fp8", "int8"],
                    help="the codec of the published deltas")
+    p.add_argument("--policy", default="", metavar="PATH|builtin",
+                   help="attach the adaptive policy engine to the lighthouse with this spec; "
+                        "TORCHFT_POLICY (observe or enforce) is the mode (default: the "
+                        "environment's TORCHFT_POLICY_SPEC)")
     args = p.parse_args(argv)
     try:
         red_k, red_m = (int(x) for x in args.redundancy.split(","))
@@ -1349,6 +1422,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         redundancy_retain=args.redundancy_retain, spares=args.spares,
         health=args.health, trace_dir=args.trace_dir, profile_step=args.profile_step,
         serve_workers=args.serve_workers, serve_compress=args.serve_compress,
+        policy=args.policy,
     )
     # the serving plane's summary comes back in the fleet dict
     fleet: Dict[str, Any] = {}
