@@ -316,11 +316,14 @@
    time from the kill to each Baby's ``errored()``, the peak device
    memory, and the pids ``nvidia-smi`` saw on the card during the phase.
    It runs right after phase 7.
-19. Runs ``python -m torchft_tpu_torch.doctor`` on the card with a 300 s
-   timeout, beside phases 8 and 10 (all three are processes that barely
-   load the card), and prints its lines. Checks its exit 0, its 18 checks all
-   ``ok`` (no ``warn``, no ``FAIL``) and the accelerator check naming the
-   H100.
+19. Runs ``python -m torchft_tpu_torch.analysis --ci`` (fleetlint's five
+   checkers over the port against its baseline) and then ``python -m
+   torchft_tpu_torch.doctor`` on the card, each with a 300 s timeout,
+   beside phases 8, 10 and 21 (all are processes that barely load the
+   card), and prints fleetlint's summary line and seconds and the doctor's
+   lines. Checks fleetlint's exit 0, the doctor's exit 0, its 19 checks
+   all ``ok`` (no ``warn``, no ``FAIL``), ``fleetlint`` among them, and the
+   accelerator check naming the H100.
 20. The policy plane in enforce mode at bench_1b (full width, a quarter of
    its depth: 5 layers, B 1, S 2048): two replica threads as phase 6 (fp8
    streamed buckets, HTTP heal, the lighthouse's history recorded) under
@@ -344,7 +347,31 @@
    through ``python -m torchft_tpu_torch.policy replay --policy builtin
    <the spec>`` and checks its exit 0 and its winner. Prints the step at
    which each replica applied each frame, the fold's seconds a pass and
-   the ranking.
+   the ranking. The trainers, the lighthouse and its policy controller are
+   built inside the port's lock-order detector (``with
+   lockgraph.watch()``: every Python ``Lock`` and ``RLock`` created in the
+   run is instrumented): ``lockgraph.assert_clean`` must find no
+   acquisition-order cycle. Prints the detector's locks, nodes (creation
+   sites), edges, cycles and three longest holds, and the steady step
+   beside the phase's without the detector (615.9-671.4 ms on an H100
+   80GB HBM3 at 700.00 W).
+21. The orchestrator on the card, beside phases 8, 10 and 19: ``python -m
+   torchft_tpu_torch.examples.orchestrator --replicas 2 --steps
+   ORCH_STEPS --inject-kill-after ORCH_KILL_AFTER_S`` with
+   ``TORCHFT_COMPRESS=fp8`` (every worker's streamed gradient buckets on
+   K3-host and K4): its lighthouse, two actors each supervising a ``python
+   -m torchft_tpu_torch.examples.train_ddp`` worker on the card, and its
+   failure controller killing one worker through the lighthouse; the
+   transcript, each line with its seconds, stays in
+   ``chiprun_out/orchestrator.log``. Checks, on the evidence of the
+   transcript: exit 0; one ``[chaos] killed`` line, landing after at least
+   5 committed steps of the victim and at least 20 steps before the end;
+   that actor's ``worker died rc=`` line with ``restart 1/3``; both actors
+   ``succeeded`` (0 and 1 restarts); the restarted incarnation's ``done:``
+   line with a heal; equal parameter digests; K3-host and K4 launched in
+   each final incarnation. Prints the time from the kill to the supervisor
+   seeing the death, to the restarted worker up and to its first commit,
+   each worker's median step and the restarts per actor.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -365,6 +392,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1026,9 +1054,19 @@ def check_baby_heal_bench_1b(device: torch.device, cfg, pg_heal: dict, pg_peak: 
 
 
 def check_doctor_on_card() -> list:
-    """``python -m torchft_tpu_torch.doctor`` on the card (docstring, 19);
-    returns its lines."""
+    """``python -m torchft_tpu_torch.analysis --ci``, then ``python -m
+    torchft_tpu_torch.doctor`` on the card (docstring, 19); returns the
+    doctor's lines."""
     root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    lint = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.analysis", "--ci"], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    summary = [ln for ln in lint.stdout.splitlines() if ln.startswith("fleetlint: ")]
+    log(f"fleetlint --ci: exit {lint.returncode} in {time.perf_counter() - t0:.2f} s; "
+        f"{summary[-1] if summary else 'no summary line'}")
+    if lint.returncode != 0 or not summary:
+        raise RuntimeError(f"fleetlint --ci exited {lint.returncode}:\n{lint.stdout[-3000:]}\n"
+                           f"{lint.stderr[-3000:]}")
     t0 = time.perf_counter()
     try:
         out = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.doctor"], cwd=root,
@@ -1043,8 +1081,8 @@ def check_doctor_on_card() -> list:
         raise RuntimeError(f"doctor exited {out.returncode}:\n{out.stdout[-3000:]}\n"
                            f"{out.stderr[-3000:]}")
     status = {ln.split()[1]: ln[:4].strip() for ln in lines}
-    if len(lines) != 18 or set(status.values()) != {"ok"}:
-        raise RuntimeError(f"doctor: {len(lines)} checks, not 18 all ok: {status}")
+    if len(lines) != 19 or set(status.values()) != {"ok"} or "fleetlint" not in status:
+        raise RuntimeError(f"doctor: {len(lines)} checks, not 19 all ok with fleetlint: {status}")
     accel = next(ln for ln in lines if ln.split()[1] == "accelerator")
     if "H100" not in accel:
         raise RuntimeError(f"doctor: the accelerator check does not name the H100: {accel!r}")
@@ -1121,6 +1159,132 @@ def check_train_ddp_processes() -> dict:
             f"{t.get('heal_recv_s', float('nan')):.4f}, heal_chunks {t.get('heal_chunks', 0):.0f}, "
             f"metrics {d['metrics']}, launches {d['launches']}, params sha256 "
             f"{d['params_sha256'][:16]}")
+    return {rid: d["launches"] for rid, d in done.items()}
+
+
+# phase 21: the orchestrator's workers train this many steps, and its
+# failure controller kills one this many seconds after the start. On the
+# card beside phases 8, 10 and 19 (H100 80GB HBM3, 700.00 W): the workers'
+# first lines came 27.5-28.8 s after the start, paired steps ran ~11-13 ms
+# (median), the survivor alone ~8-9 ms, and the killed worker's restart
+# took 18.7-25.3 s, in which the survivor trained 1,780-1,915 steps alone.
+# The kill lands well after the workers' start, and the steps outlast the
+# restart (else the restarted worker starts over alone and never heals)
+ORCH_STEPS = 4000
+ORCH_KILL_AFTER_S = 40.0
+ORCH_TIMEOUT_S = 420
+
+
+def check_orchestrator_processes() -> dict:
+    """Phase 21: the orchestrator supervising two train_ddp workers on the
+    card, fp8 buckets, one worker killed through the lighthouse (docstring,
+    21). Returns each final incarnation's fp8 launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torchft_tpu_torch.examples.orchestrator", "--replicas", "2",
+           "--steps", str(ORCH_STEPS), "--inject-kill-after", str(ORCH_KILL_AFTER_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=dict(os.environ, TORCHFT_COMPRESS="fp8"),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def kill_group() -> None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    timer = threading.Timer(ORCH_TIMEOUT_S, kill_group)
+    timer.start()
+    lines = []  # (seconds since the start, line)
+    try:
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            kill_group()
+            proc.wait()
+        save_transcript("orchestrator.log", [f"{t:9.3f} {ln}" for t, ln in lines])
+    elapsed = time.perf_counter() - t0
+    text = [ln for _, ln in lines]
+
+    def fail(msg: str) -> RuntimeError:
+        keep = [ln for ln in text if ln.startswith(("[orchestrator]", "[chaos]", "[actor",
+                                                     "  replica", "[replica"))
+                and "] step=" not in ln]
+        return RuntimeError(f"orchestrator: {msg}\n--- transcript (chiprun_out/"
+                            "orchestrator.log) ---\n" + "\n".join(keep[-40:]))
+
+    if rc != 0:
+        raise fail(f"exit {rc} after {elapsed:.1f} s")
+    # the workers share the orchestrator's stdout: a long line (a done:
+    # line's JSON) can be written in pieces, so another process's line may
+    # start inside it; every record is found wherever it starts
+    def find(pattern: str) -> list:
+        return [(i, m) for i, ln in enumerate(text) for m in re.finditer(pattern, ln)]
+
+    def step_of(m) -> int:
+        return int(m.group(2))
+
+    steps = find(r"\[replica (\d+)\] step=(\d+) ")
+    kills = find(r"\[chaos\] killed train_ddp_(\d+):")
+    if len(kills) != 1:
+        raise fail(f"{len(kills)} [chaos] killed lines")
+    k, km = kills[0]
+    victim = int(km.group(1))
+    survivor = 1 - victim
+    before = [m for i, m in steps if i < k and int(m.group(1)) == victim]
+    last = step_of(before[-1]) if before else 0
+    if len(before) < 5 or last > ORCH_STEPS - 20:
+        raise fail(f"the kill landed after {len(before)} committed steps of replica {victim} "
+                   f"(last step {last} of {ORCH_STEPS}): not mid-run")
+    died = next((i for i, m in find(rf"\[actor {victim}\] worker died rc=\S+; restart 1/3")
+                 if i >= k), None)
+    if died is None:
+        raise fail(f"no death and restart 1/3 of actor {victim} after the kill")
+    up = next((i for i, _ in find(rf"\[replica {victim}\] starting at step") if i > died),
+              None)
+    first = next(((i, m) for i, m in steps if up is not None and i > up
+                  and int(m.group(1)) == victim), None)
+    if up is None or first is None:
+        raise fail(f"the restarted replica {victim} never started or never committed")
+    summary = {int(m.group(1)): (m.group(2), int(m.group(3))) for _, m in
+               find(r"^  replica (\d+): (\w+) after (\d+) restart\(s\)$")}
+    if summary != {survivor: ("succeeded", 0), victim: ("succeeded", 1)}:
+        raise fail(f"the summary says {summary}")
+    done = {}
+    decoder = json.JSONDecoder()
+    for i, m in find(r"\[replica (\d+)\] done: "):
+        try:  # the last incarnation's line wins
+            done[int(m.group(1))] = decoder.raw_decode(text[i], m.end())[0]
+        except ValueError as e:
+            raise fail(f"an unreadable done: line ({e}): {text[i][:200]}") from e
+    if sorted(done) != [0, 1] or any(d["step"] != ORCH_STEPS for d in done.values()):
+        raise fail(f"done lines of {sorted(done)} at steps {[d['step'] for d in done.values()]}")
+    if done[victim]["metrics"]["heals"] < 1:
+        raise fail(f"the restarted replica {victim} did not heal: {done[victim]['metrics']}")
+    if done[0]["params_sha256"] != done[1]["params_sha256"]:
+        raise fail(f"digests differ: {done[0]['params_sha256']} vs {done[1]['params_sha256']}")
+    for rid, d in done.items():
+        for kernel in ("quantize_fp8_rowwise_host", "dequantize_fp8_rowwise"):
+            if d["launches"][kernel] == 0:
+                raise fail(f"{kernel} never launched in the final incarnation of replica {rid}")
+    t_kill = lines[k][0]
+    restarts = {rid: summary[rid][1] for rid in sorted(summary)}
+    log(f"orchestrator ({elapsed:.1f} s, 2 train_ddp workers, {ORCH_STEPS} steps, fp8 "
+        f"buckets, kill after {ORCH_KILL_AFTER_S:.0f} s): killed replica {victim} at "
+        f"{t_kill:.1f} s after {len(before)} committed steps (its step {last}); from the kill "
+        f"{lines[died][0] - t_kill:.2f} s to the supervisor seeing the death, "
+        f"{lines[up][0] - t_kill:.2f} s to the restarted worker up, "
+        f"{lines[first[0]][0] - t_kill:.2f} s to its first commit (step {step_of(first[1])}, "
+        f"{step_of(first[1]) - last} steps after the victim's last); restarts {restarts}")
+    for rid in sorted(done):
+        d = done[rid]
+        n = sum(1 for _, m in steps if int(m.group(1)) == rid)
+        log(f"orchestrator replica {rid}: step_ms median {d['step_ms_median']:.2f} over the final "
+            f"incarnation's steps ({n} step lines in all), heals {d['metrics']['heals']}, "
+            f"launches {d['launches']}, params sha256 {d['params_sha256'][:16]}")
     return {rid: d["launches"] for rid, d in done.items()}
 
 
@@ -3390,6 +3554,7 @@ def check_policy_bench_1b(device: torch.device, cfg) -> dict:
 
     from torchft_tpu_torch import flight_recorder as fr
     from torchft_tpu_torch import knobs
+    from torchft_tpu_torch.analysis import lockgraph
     from torchft_tpu_torch.coordination import LighthouseClient, LighthouseServer
     from torchft_tpu_torch.observability import POLICY_EVENTS, get_event_drain
     from torchft_tpu_torch.ops import attention as ta
@@ -3481,7 +3646,9 @@ def check_policy_bench_1b(device: torch.device, cfg) -> dict:
     knobs.set_override = recording_set_override
     t0 = time.perf_counter()
     try:
-        with _Env(PL_KNOBS):
+        # the trainers, the lighthouse and its policy controller are built
+        # inside the detector: every Python lock they create is instrumented
+        with _Env(PL_KNOBS), lockgraph.watch() as graph:
             results = run_replicas(pcfg, device, on_step=on_step, fleet=fleet, until=until,
                                    max_steps=PL_MAX_STEPS)
         get_event_drain().flush()
@@ -3494,6 +3661,17 @@ def check_policy_bench_1b(device: torch.device, cfg) -> dict:
         knobs.clear_overrides()
     elapsed = time.perf_counter() - t0
     launches = {**q.LAUNCHES, **ta.LAUNCHES}
+
+    # the lock-order detector: no acquisition-order cycle (a cycle is a
+    # port fault, fixed with a CPU test of its edge pair, never waived)
+    report = graph.report()
+    nodes = set(report["max_hold_ms"]) | {site for edge in graph.edges() for site in edge}
+    holds = sorted(report["max_hold_ms"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"policy lockgraph: {report['locks']} locks instrumented, {report['acquires']} "
+        f"acquisitions, {len(nodes)} nodes (creation sites), {report['edges']} edges, "
+        f"{len(report['cycles'])} cycles; longest holds "
+        + ", ".join(f"{site} {ms:.1f} ms" for site, ms in holds))
+    lockgraph.assert_clean(graph)
 
     # the frames: seq 0 (nothing active), 1 (the rule fired), 2 (released)
     seqs = [f["policy_seq"] for f in published]
@@ -3594,7 +3772,9 @@ def check_policy_bench_1b(device: torch.device, cfg) -> dict:
         f"{len(passes)} passes of the fold, median {statistics.median(passes) * 1e3:.3f} ms, "
         f"max {max(passes) * 1e3:.3f} ms; replicas bitwise equal over {len(p0)} tensors at step "
         f"{results[0]['step']}; steady step median "
-        f"{statistics.median(steady) if steady else float('nan'):.1f} ms over {len(steady)}; "
+        f"{statistics.median(steady) if steady else float('nan'):.1f} ms over {len(steady)} "
+        f"under the lock-order detector (without it, on an H100 80GB HBM3 at 700.00 W: "
+        f"615.9-671.4 ms); "
         f"device peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
     del results, p0, p1
     gc.collect()
@@ -3779,14 +3959,17 @@ def main() -> int:
     mark("18 Baby recovery PG heal")
     # the two small examples' processes barely load the card or the host:
     # they run side by side, each with its own lighthouse, and beside them
-    # the doctor (phase 19), whose checks are loopback probes and subprocesses
-    with ThreadPoolExecutor(3) as pool:
+    # fleetlint and the doctor (phase 19), whose checks are loopback probes
+    # and subprocesses, and the orchestrator's two workers (phase 21)
+    with ThreadPoolExecutor(4) as pool:
         ddp_run = pool.submit(check_train_ddp_processes)
         diloco_proc_run = pool.submit(check_train_diloco_processes)
         doctor_run = pool.submit(check_doctor_on_card)
+        orch_run = pool.submit(check_orchestrator_processes)
         ddp_launches, diloco_proc_launches = ddp_run.result(), diloco_proc_run.result()
         doctor_run.result()
-    mark("8 and 10 example processes, 19 the doctor beside them")
+        orch_launches = orch_run.result()
+    mark("8 and 10 example processes, 19 fleetlint and the doctor, 21 the orchestrator")
     diloco_launches = check_diloco_bench_1b(device, cfg)
     mark("9 DiLoCo")
     check_local_sgd_on_card(device)
@@ -3842,6 +4025,9 @@ def main() -> int:
             "library_ms": None,
             # the train_ddp example's children (none runs the serial engine)
             "launches_train_ddp": {f"replica {rid}": d[kname] for rid, d in ddp_launches.items()},
+            # phase 21: the orchestrator's workers, each final incarnation
+            "launches_orchestrator": {f"replica {rid}": d[kname]
+                                      for rid, d in orch_launches.items()},
             # bench_1b under DiLoCo, and the train_diloco example's children
             "launches_diloco": {"bench_1b": diloco_launches[kname], **{
                 f"train_diloco replica {rid}": d[kname]

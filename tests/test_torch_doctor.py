@@ -1,5 +1,5 @@
 """The port's doctor against the JAX package's (``torchft_tpu/doctor.py``):
-the same status (ok / warn / FAIL) from each of the 18 checks the port has,
+the same status (ok / warn / FAIL) from each of the 19 checks the port has,
 at defaults and under broken environments, the same exit code from both
 CLIs, and the knob registry's doctor names all pointing at checks the
 port's doctor runs."""
@@ -19,13 +19,13 @@ NAMES = [name for name, _ in doctor.CHECKS]
 REF = dict(ref_doctor.CHECKS)
 PORT = dict(doctor.CHECKS)
 # the reference's checks that come with their planes
-LATER = {"degrade-env", "fleetlint"}
+LATER = {"degrade-env"}
 STATUS = {True: "ok", None: "warn", False: "FAIL"}
 LINE = re.compile(r"^(ok  |warn|FAIL) (\S+)\s+(.*)$")
 
 
 def test_the_port_runs_the_reference_checks_in_its_order():
-    assert len(NAMES) == 18
+    assert len(NAMES) == 19
     assert NAMES == [name for name, _ in ref_doctor.CHECKS if name not in LATER]
 
 

@@ -37,7 +37,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "flight_recorder", "observability", "healthwatch", "serving",
                  "parameter_server", "checkpointing.durable", "launcher", "aggregator",
                  "examples.punisher", "multiprocessing", "multiprocessing_dummy_context",
-                 "doctor", "policy"):
+                 "doctor", "policy", "analysis", "analysis.core", "analysis.lockgraph",
+                 "examples.orchestrator", "examples.cluster.gke_runner",
+                 "examples.cluster.slurm_runner"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys
@@ -260,3 +262,26 @@ def test_the_lighthouse_cli_with_a_policy_imports_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "frame 1 bad []"
     assert "policy engine attached (spec=builtin mode=observe)" in out.stderr
+
+
+TOOLCHAIN = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for sub in ("analysis", os.path.join("examples", "cluster"))
+    for d, _, files in os.walk(os.path.join(REPO, "torchft_tpu_torch", sub))
+    for f in files if f.endswith(".py")
+) + [os.path.join("torchft_tpu_torch", "examples", "orchestrator.py"),
+     os.path.join("torchft_tpu_torch", "doctor.py")]
+
+
+@pytest.mark.parametrize("path", TOOLCHAIN)
+def test_operator_toolchain_imports_no_jax_even_lazily(path):
+    """fleetlint (``analysis/``: its checkers are pure stdlib, and the port
+    keeps its own copy of each), the cluster runners, the orchestrator and
+    the doctor that runs fleetlint's env contract: every import, at top
+    level or inside a function, stays in the port."""
+    roots = _import_roots(path)
+    assert not roots & {"jax", "jaxlib", "optax", "ml_dtypes", "torchft_tpu"}
+    name = path[:-3].replace(os.sep, ".")
+    if name.endswith(".__init__"):
+        name = name[: -len(".__init__")]
+    assert name in _port_modules() + ["torchft_tpu_torch"]

@@ -59,7 +59,21 @@ def _no_plane_env(monkeypatch):
 
 
 @pytest.fixture()
-def directory():
+def lockwatch():
+    """The port's lock-order detector under every directory-backed test,
+    as the reference's tests run under their own: locks created while the
+    plane runs are instrumented, and an A->B / B->A acquisition inversion
+    fails the test even if the deadlocking schedule never fires
+    (``torchft_tpu_torch/analysis/lockgraph.py``)."""
+    from torchft_tpu_torch.analysis import lockgraph
+
+    with lockgraph.watch() as g:
+        yield g
+    lockgraph.assert_clean(g)
+
+
+@pytest.fixture()
+def directory(lockwatch):
     # a long dead_after_s: the announce-gap detector must not act in tests
     # that hold generations at different steps
     d = port.ShardDirectory(poll_s=0.05, dead_after_s=60.0)

@@ -18,7 +18,9 @@ Everything runs on loopback HTTP with small flats.
 
 from __future__ import annotations
 
+import os
 import pickle
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -498,27 +500,35 @@ class TestWorkerFailover:
 
     def test_infer_never_fails_during_source_loss(self):
         """``/infer`` answers from the applied snapshot under the worker's
-        lock: killing every source fails no request, over HTTP too."""
+        lock: killing every source fails no request, over HTTP too. The
+        fleet runs under the port's lock-order detector, as the
+        reference's test runs under its own: an acquisition inversion
+        among the registry, the publishers and the worker fails here even
+        when the deadlocking schedule never fires."""
         import json
         import urllib.request
 
-        reg, cfg, pubs, _ = self._fleet()
-        w = _worker(reg.url, cfg, "w")
-        try:
-            assert w.pull_once()
-            before = w.answer(seed=42)
-            for p in pubs:
-                p.kill()
-            assert w.pull_once() is False  # nothing new reachable
-            after = w.answer(seed=42)
-            assert before["result"] == after["result"] is not None
-            assert after["version"] == [1, 1]
-            with urllib.request.urlopen(f"{w.url}/infer?seed=42", timeout=5) as r:
-                body = json.loads(r.read().decode())
-            assert body["result"] == before["result"]
-            assert before["result"] == ref.answer_from_flat(_np(w.params_flat()), 42)
-        finally:
-            self._teardown(reg, pubs, w)
+        from torchft_tpu_torch.analysis import lockgraph
+
+        with lockgraph.watch() as graph:
+            reg, cfg, pubs, _ = self._fleet()
+            w = _worker(reg.url, cfg, "w")
+            try:
+                assert w.pull_once()
+                before = w.answer(seed=42)
+                for p in pubs:
+                    p.kill()
+                assert w.pull_once() is False  # nothing new reachable
+                after = w.answer(seed=42)
+                assert before["result"] == after["result"] is not None
+                assert after["version"] == [1, 1]
+                with urllib.request.urlopen(f"{w.url}/infer?seed=42", timeout=5) as r:
+                    body = json.loads(r.read().decode())
+                assert body["result"] == before["result"]
+                assert before["result"] == ref.answer_from_flat(_np(w.params_flat()), 42)
+            finally:
+                self._teardown(reg, pubs, w)
+        lockgraph.assert_clean(graph)
 
 
 # ------------------------------------------------------- publisher lifecycle
@@ -549,6 +559,80 @@ class TestPublisherLifecycle:
         finally:
             p0.shutdown()
             reg.shutdown()
+
+    def test_counters_exact_under_concurrent_publishes(self):
+        """Every count and every read of the publisher's counters takes
+        their lock: synchronous publishes from four threads (serialized by
+        the publish lock, as the publish thread's and publish()'s are)
+        and more counting threads than cores against two threads reading
+        ``counters`` the whole time end with ``published_total`` equal to
+        the publishes that returned a version (one at or below the newest
+        is covered and returns None), ``delta_bytes_total`` equal to that
+        many deltas' bytes and every count made; every read is a copy, and
+        no read sees a total move backwards."""
+        cfg = _cfg(port)
+        one = port.SnapshotPublisher("one", config=cfg)
+        try:
+            one.publish(1, 0, _params(256))
+            delta_bytes = one.counters["delta_bytes_total"]
+        finally:
+            one.shutdown()
+        pub = port.SnapshotPublisher("r0", config=cfg)
+        writers, per = 4, 12
+        stop = threading.Event()
+        published: List[int] = []
+        seen: List[Dict[str, int]] = []
+        errors: List[BaseException] = []
+
+        def publish(t: int) -> None:
+            try:
+                for i in range(per):
+                    if pub.publish(1, i * writers + t, _params(256, seed=t * per + i)):
+                        published.append(1)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        def read() -> None:
+            while not stop.is_set():
+                c = pub.counters
+                c["published_total"] = -1  # a copy: the publisher's stay
+                seen.append(pub.counters)
+
+        def count(n: int) -> None:
+            for _ in range(n):
+                pub._count("skipped_total")
+
+        readers = [threading.Thread(target=read) for _ in range(2)]
+        threads = [threading.Thread(target=publish, args=(t,)) for t in range(writers)]
+        # more counting threads than cores, switching as often as the
+        # interpreter allows: a read-modify-write outside the lock loses
+        # counts here
+        counters = [threading.Thread(target=count, args=(5000,))
+                    for _ in range(2 * (os.cpu_count() or 1) + 2)]
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for th in readers + threads + counters:
+                th.start()
+            for th in threads + counters:
+                th.join(60)
+                assert not th.is_alive()
+            stop.set()
+            for th in readers:
+                th.join(10)
+                assert not th.is_alive()
+            assert not errors, errors
+            c = pub.counters
+            assert published and c["published_total"] == len(published)
+            assert c["delta_bytes_total"] == len(published) * delta_bytes
+            assert c["skipped_total"] == 5000 * len(counters)
+            assert c["k3_host_launches"] == c["k4_launches"] == 0
+            totals = [x["published_total"] for x in seen]
+            assert seen and totals == sorted(totals) and totals[-1] <= len(published)
+        finally:
+            sys.setswitchinterval(interval)
+            stop.set()
+            pub.shutdown()
 
     def test_async_publish_drop_oldest(self):
         """publish_async never blocks on the encode and keeps the newest

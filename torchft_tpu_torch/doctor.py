@@ -24,7 +24,9 @@ and exit 0 if and only if no check fails. The checks:
   with one another; ``policy-env``: the policy plane's mode and numbers
   parse, and its spec loads and folds a synthetic churn burst into a
   frame; ``tuning-env``: every knob whose registry entry names it parses
-  as its type (``knobs.REGISTRY``);
+  as its type (``knobs.REGISTRY``); ``fleetlint``: fleetlint's env
+  contract over the package, in process, against the port's committed
+  baseline (``torchft_tpu_torch.analysis``);
 - ``health-http`` and ``metrics-http``: loopback scrapes of the
   lighthouse's ``/health`` and both ``/metrics`` exporters;
 - ``heal``: a loopback HTTP heal in place with one connection dropped
@@ -32,8 +34,8 @@ and exit 0 if and only if no check fails. The checks:
   a worker on the host, two versions pulled bitwise; ``redundancy``: a
   k=2 m=1 erasure round trip through one corrupt shard.
 
-Every knob is read through ``knobs``. The reference's ``degrade-env`` and
-``fleetlint`` come with their planes (``ROADMAP.md``).
+Every knob is read through ``knobs``. The reference's ``degrade-env``
+comes with the degrade plane (``ROADMAP.md``, item 6).
 """
 
 from __future__ import annotations
@@ -677,6 +679,30 @@ def check_tuning_env() -> Result:
     return True, f"{checked} tuning knob(s) registered, {n_set} set, all parse"
 
 
+def check_fleetlint() -> Result:
+    """In-process fleetlint env-contract run: every TORCHFT_* read in the
+    package is registered, in the README's knob table and doctored, and
+    nothing is found beyond the committed baseline
+    (``torchft_tpu_torch/analysis/baseline.json``). The five-checker run is
+    ``python -m torchft_tpu_torch.analysis --ci``; the env contract is the
+    part that drifts with the operator-facing surface, so the doctor checks
+    it again on any host. Stale baseline entries warn."""
+    from torchft_tpu_torch.analysis import core
+
+    findings = core.run_all(checkers=["env-contract"])
+    baseline = core.load_baseline()
+    new, stale = core.diff_baseline(findings, baseline)
+    if new:
+        head = "; ".join(f"{f.rule}:{f.key}" for f in new[:5])
+        more = f" (+{len(new) - 5} more)" if len(new) > 5 else ""
+        return False, (f"{len(new)} env-contract finding(s) beyond baseline: {head}{more} "
+                       "— run python -m torchft_tpu_torch.analysis")
+    detail = f"{len(findings)} finding(s), all baselined" if findings else "env contract clean"
+    if stale:
+        return None, f"{detail}; {len(stale)} stale baseline entr(y/ies)"
+    return True, detail
+
+
 CHECKS: List[Tuple[str, Callable[[], Result]]] = [
     ("native", check_native),
     ("accelerator", check_accelerator),
@@ -691,6 +717,7 @@ CHECKS: List[Tuple[str, Callable[[], Result]]] = [
     ("trace-env", check_trace_env),
     ("policy-env", check_policy_env),
     ("tuning-env", check_tuning_env),
+    ("fleetlint", check_fleetlint),
     ("health-http", check_health_endpoint),
     ("metrics-http", check_metrics_endpoints),
     ("heal", check_heal_roundtrip),

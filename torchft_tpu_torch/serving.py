@@ -883,10 +883,15 @@ class SnapshotPublisher:
         # version -> (its record's blob as parts, its prev)
         self._deltas: "OrderedDict[Version, Tuple[List[Any], Optional[Version]]]" = OrderedDict()
         # k3_host_launches / k4_launches: the kernels this publisher had
-        # launched (counted in ops.quantization.LAUNCHES too)
-        self.counters: Dict[str, int] = {"published_total": 0, "bootstrap_pulls_total": 0,
-                                         "announce_rejected_total": 0, "delta_bytes_total": 0,
-                                         "skipped_total": 0, "k3_host_launches": 0, "k4_launches": 0}
+        # launched (counted in ops.quantization.LAUNCHES too). The publish
+        # thread, publish() and publish_async() all count: every count and
+        # every read takes _counters_lock, a leaf lock (nothing is taken
+        # inside it); ``counters`` is a copy
+        self._counters_lock = threading.Lock()
+        self._counters: Dict[str, int] = {"published_total": 0, "bootstrap_pulls_total": 0,
+                                          "announce_rejected_total": 0, "delta_bytes_total": 0,
+                                          "skipped_total": 0, "k3_host_launches": 0,
+                                          "k4_launches": 0}
         self.splits: List[Dict[str, float]] = []
         self._killed = False
         self._stream: Optional[torch.cuda.Stream] = None
@@ -948,6 +953,16 @@ class SnapshotPublisher:
         self._worker = threading.Thread(target=self._publish_loop, daemon=True,
                                         name="torchft_serve_publish")
         self._worker.start()
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        """A copy of the publisher's counters, taken under their lock."""
+        with self._counters_lock:
+            return dict(self._counters)
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._counters_lock:
+            self._counters[key] += n
 
     # -- addresses ---------------------------------------------------------
     @property
@@ -1050,7 +1065,7 @@ class SnapshotPublisher:
             item = (int(quorum_id), int(step), layout, self._snap_gen, ready)
         with self._queue_lock:
             if self._queue_item is not None:
-                self.counters["skipped_total"] += 1
+                self._count("skipped_total")
             self._queue_item = item
         self._queue_event.set()
 
@@ -1143,8 +1158,7 @@ class SnapshotPublisher:
                 if gen != self._snap_gen:
                     # publish_async wrote a newer version into the buffer
                     # after this one was taken: that one is queued
-                    with self._queue_lock:
-                        self.counters["skipped_total"] += 1
+                    self._count("skipped_total")
                     return None
                 with self._on_stream():
                     if ready is not None:
@@ -1165,7 +1179,7 @@ class SnapshotPublisher:
             # replay our own decode: R_v = R_{v-1} + decode(delta_v) is what
             # every worker computes
             if q is not None:
-                self.counters["k4_launches"] += _decode_add_(ref, q, s, n)
+                self._count("k4_launches", _decode_add_(ref, q, s, n))
             else:
                 ref.add_(decode_delta(wire, self.cfg.compress, n, ref.device))
         self._sync()
@@ -1188,8 +1202,8 @@ class SnapshotPublisher:
             self._deltas[version] = (parts, prev)
             while len(self._deltas) > self.cfg.max_lag:
                 self._deltas.popitem(last=False)
-            self.counters["published_total"] += 1
-            self.counters["delta_bytes_total"] += delta_nbytes(wire)
+            self._count("published_total")
+            self._count("delta_bytes_total", delta_nbytes(wire))
             meta = {"quorum_id": quorum_id, "step": step, "chain": chain,
                     "mode": self.cfg.compress, "layout": json.dumps(layout)}
         del wire, record, parts
@@ -1212,7 +1226,7 @@ class SnapshotPublisher:
         scales) on the card: one K3-host launch."""
         if delta.is_cuda and self.cfg.compress == "fp8":
             q, s, _ = fused_quantize_fp8_host(delta)
-            self.counters["k3_host_launches"] += 1
+            self._count("k3_host_launches")
             return None, q, s
         return encode_delta(delta, self.cfg.compress), None, None
 
@@ -1291,7 +1305,7 @@ class SnapshotPublisher:
             self._version = (int(meta["quorum_id"]), int(meta["step"]))
             self._chain = meta["chain"]
             self._deltas.clear()  # our old ring forked from a stale ref
-            self.counters["bootstrap_pulls_total"] += 1
+            self._count("bootstrap_pulls_total")
 
     def _tip_extends(self, sources: List[Dict[str, Any]], ours: Version, version: Version) -> bool:
         """Whether a source at ``version`` published it with ``prev`` =
@@ -1333,7 +1347,7 @@ class SnapshotPublisher:
                 self._epoch = None
                 self._seq = 0
                 continue
-            self.counters["announce_rejected_total"] += 1
+            self._count("announce_rejected_total")
             logger.info("announce rejected: %s", resp)
             return
 
