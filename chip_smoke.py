@@ -372,6 +372,29 @@
    each final incarnation. Prints the time from the kill to the supervisor
    seeing the death, to the restarted worker up and to its first commit,
    each worker's median step and the restarts per actor.
+22. The device plane at bench_1b (full width and depth, B 1, S 2048,
+   AdamW, full remat). First, the fp8 allreduce of bench_1b's gradient
+   tree (random bf16 leaves from a seed) over two ``ProcessGroupDevice``
+   rank threads (the packed device wire) against the same inputs over two
+   ``ProcessGroupHost`` ranks (the host tuple wire): bitwise equal, each
+   timed. Then the trainer with ``--plane device``: two replica threads,
+   fp8 (the whole tree through ``allreduce_quantized``'s packed wire, K3
+   ``<false>`` and K4 on the card, never streamed), ``DP_STEPS`` steps,
+   replica 1 crashing after step 3's backward pass and healing over
+   ``PGTransport`` on a host recovery group; replica 0's last step runs
+   under ``torch.profiler``. Checks: the crashed step discarded, a heal,
+   replicas bitwise equal, finite losses, no step's bytes on the host
+   wire, no device-to-host copy over ``DP_D2H_BAR`` in the profiled step
+   (which must show K3), K1's three kernels, K3 and K4 launched and
+   K3-host not. Then FIXED_WITH_SPARES at a quarter depth: three replica
+   threads, one forward and backward each, the world pinned at 2, every
+   replica's reduced gradient the participants' mean bitwise (the spare's
+   zeros made on the card). Then the distributed mode with one NCCL rank,
+   configured at two quorum ids and aborted: each allreduce returns its
+   input, ``device_world_epoch`` 2, the abort within ``DP_ABORT_BOUND_S``.
+   Prints the steady step split, ``heal_recv_s``, the launches and the
+   profiled step's copies beside phase 6's host-plane step and heals and
+   the two wires' times.
 
 Any failed check raises, so the exit code is non-zero. The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before the card's
@@ -3782,6 +3805,296 @@ def check_policy_bench_1b(device: torch.device, cfg) -> dict:
     return launches
 
 
+# phase 22: the device plane at bench_1b (docstring, 22)
+DP_STEPS = 7
+DP_CRASH = (1, 3)  # replica 1 crashes after step 3's backward pass
+# replica 0's last step, steady, runs under torch.profiler
+DP_PROFILE_STEP = DP_STEPS - 1
+DP_D2H_BAR = 1 << 20  # bytes: no larger device-to-host copy in that step
+DP_SPARE_REPLICAS = 3  # FIXED_WITH_SPARES: three replicas, the world pinned at 2
+DP_ABORT_BOUND_S = 10.0  # the one-rank NCCL group's abort returns within this
+
+
+def _two_ranks_on(pg_cls, store, prefix: str, fn) -> list:
+    """``fn(rank, pg)`` on two rank threads of ``pg_cls`` groups; their
+    results."""
+    out: list = [None, None]
+    errors: list = []
+
+    def rank(r: int) -> None:
+        pg = pg_cls(timeout=120)
+        try:
+            pg.configure(f"127.0.0.1:{store.port}/{prefix}", r, 2, quorum_id=1)
+            out[r] = fn(r, pg)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        finally:
+            pg.shutdown()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors or any(o is None for o in out):
+        raise RuntimeError(f"{prefix}: the two ranks failed: {errors}")
+    return out
+
+
+def check_device_wire(device: torch.device, specs: dict) -> dict:
+    """Gate 2 of phase 22: the fp8 allreduce of bench_1b's gradient tree
+    (random bf16 leaves made from a seed) over two ProcessGroupDevice ranks
+    (the packed device wire) against the same inputs over two
+    ProcessGroupHost ranks (the host tuple wire): bitwise equal, since both
+    carry the same K3 <false> codes. Returns each wire's seconds."""
+    from torchft_tpu_torch.collectives import allreduce_quantized
+    from torchft_tpu_torch.coordination import KvStoreServer
+    from torchft_tpu_torch.process_group import ProcessGroupHost, ReduceOp
+    from torchft_tpu_torch.process_group_device import ProcessGroupDevice
+
+    def leaves(r: int) -> list:
+        g = torch.Generator(device=device).manual_seed(2200 + r)
+        return [torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dt)
+                for shape, dt in specs.values()]
+
+    store = KvStoreServer("127.0.0.1:0")
+    results, seconds = {}, {}
+    try:
+        for label, cls in (("device", ProcessGroupDevice), ("host", ProcessGroupHost)):
+            inputs = [leaves(0), leaves(1)]
+            torch.cuda.synchronize()
+
+            def run(r: int, pg, inputs=inputs) -> tuple:
+                t0 = time.perf_counter()
+                out = allreduce_quantized(inputs[r], ReduceOp.SUM, pg).get_future().wait(300)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0
+
+            got = _two_ranks_on(cls, store, f"wire_{label}", run)
+            results[label] = [o for o, _s in got]
+            seconds[label] = max(s for _o, s in got)
+            del inputs, got
+    finally:
+        store.shutdown()
+    for r in range(2):
+        for a, b in zip(results["device"][r], results["host"][r]):
+            if not same_bits(a, b):
+                raise RuntimeError("device wire: the packed device wire's reduced gradient "
+                                   "differs from the host tuple wire's")
+    if not all(t.is_cuda for t in results["device"][0]):
+        raise RuntimeError("device wire: a reduced leaf left the card")
+    n = sum(math.prod(shape) for shape, _dt in specs.values())
+    del results
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device wire: bench_1b's gradient tree ({n} elements, fp8, world 2) over the packed "
+        f"device wire == over the host tuple wire, bitwise, every leaf; one allreduce "
+        f"{seconds['device'] * 1e3:.1f} ms on the device wire, {seconds['host'] * 1e3:.1f} ms on "
+        "the host wire (two rank threads on one card, wall clock)")
+    return seconds
+
+
+def _d2h_copies(path: str) -> tuple:
+    """(device-to-host copies' bytes, kernel names) of a profiled step's
+    chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    d2h = [int(e.get("args", {}).get("bytes", 0)) for e in events
+           if e.get("cat") in ("gpu_memcpy", "Memcpy") and "DtoH" in str(e.get("name", ""))]
+    kernels = {str(e.get("name", "")) for e in events if e.get("cat") == "kernel"}
+    return d2h, kernels
+
+
+def check_device_plane_spares(device: torch.device) -> None:
+    """Gate 4 of phase 22: FIXED_WITH_SPARES on the device plane at
+    bench_1b's width and a quarter of its depth (``_dryrun_fixed_with_spares``,
+    ``__graft_entry__.py:537``): three replica threads, each one
+    forward and backward of its own model, the world pinned at 2; the spare
+    contributes zeros on the card, so every replica gets the participants'
+    mean."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.manager import Manager, WorldSizeMode
+    from torchft_tpu_torch.models.llama import CONFIGS, Llama
+    from torchft_tpu_torch.process_group_device import ProcessGroupDevice
+
+    mcfg = dataclasses.replace(CONFIGS["bench_1b"], n_layers=QUARTER_LAYERS)
+    lh = LighthouseServer(bind="127.0.0.1:0", min_replicas=DP_SPARE_REPLICAS,
+                          join_timeout_ms=10000, quorum_tick_ms=20, heartbeat_timeout_ms=5000)
+
+    def replica(rid: int) -> tuple:
+        model = Llama(mcfg, device=device, remat="full")
+        gen = torch.Generator(device=device).manual_seed(rid)
+        model.init_weights(gen)
+        toks = torch.randint(0, mcfg.vocab_size, (1, 2049), generator=gen, device=device)
+        model.loss(toks[:, :-1], toks[:, 1:]).backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        manager = Manager(pg=ProcessGroupDevice(timeout=120, mode="local"),
+                          load_state_dict=lambda sd: None, state_dict=lambda: {},
+                          min_replica_size=2, use_async_quorum=False,
+                          replica_id=f"dp_spares_{rid}", lighthouse_addr=f"127.0.0.1:{lh.port}",
+                          timeout=120, quorum_timeout=120,
+                          world_size_mode=WorldSizeMode.FIXED_WITH_SPARES)
+        try:
+            manager.start_quorum()
+            out = manager.allreduce(grads).get_future().wait(120)
+            return manager.num_participants(), manager.is_participating(), grads, out
+        finally:
+            manager.shutdown(wait=False)
+
+    try:
+        with ThreadPoolExecutor(DP_SPARE_REPLICAS) as pool:
+            results = list(pool.map(replica, range(DP_SPARE_REPLICAS)))
+    finally:
+        lh.shutdown()
+    if any(n != 2 for n, _p, _g, _o in results):
+        raise RuntimeError(f"spares: participants {[n for n, *_ in results]}, not 2 each")
+    spares = [i for i, (_n, p, _g, _o) in enumerate(results) if not p]
+    if len(spares) != 1:
+        raise RuntimeError(f"spares: {len(spares)} spares, not one")
+    a, b = (results[i][2] for i in range(DP_SPARE_REPLICAS) if i not in spares)
+    for name in a:
+        want = torch.stack([a[name], b[name]]).sum(0, dtype=a[name].dtype) / 2
+        for _n, _p, _g, out in results:
+            if not out[name].is_cuda or not same_bits(out[name], want):
+                raise RuntimeError(f"spares: {name} is not the participants' mean on the card")
+    log(f"device plane FIXED_WITH_SPARES ({QUARTER_LAYERS} layers, {DP_SPARE_REPLICAS} replicas, "
+        f"the world pinned at 2): replica {spares[0]} the spare, its zeros in the sum; every "
+        f"replica's {len(a)} reduced tensors == the participants' mean on the card, bitwise")
+    del results, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_device_plane_nccl(device: torch.device) -> float:
+    """Gate 5 of phase 22: ProcessGroupDevice's distributed mode with one
+    NCCL rank (all one card allows), configured at two quorum ids (a
+    rebuild) and then aborted: the allreduce returns its input, the abort
+    returns within DP_ABORT_BOUND_S. Returns the abort's seconds."""
+    from torchft_tpu_torch.coordination import KvStoreServer
+    from torchft_tpu_torch.process_group_device import NCCL_ERROR_HANDLING, ProcessGroupDevice
+
+    store = KvStoreServer("127.0.0.1:0")
+    pg = ProcessGroupDevice(timeout=60, mode="distributed")
+    try:
+        x = torch.randn(1 << 20, device=device)
+        for qid in (1, 2):
+            pg.configure(f"127.0.0.1:{store.port}/nccl_one", 0, 1, quorum_id=qid)
+            if "nccl" not in pg._world.groups:
+                raise RuntimeError("nccl: no NCCL group was built")
+            out = pg.allreduce([x]).get_future().wait(60)
+            if not out[0].is_cuda or not same_bits(out[0], x):
+                raise RuntimeError(f"nccl: quorum {qid}'s one-rank allreduce changed its input")
+        if pg.device_world_epoch != 2:
+            raise RuntimeError(f"nccl: device_world_epoch {pg.device_world_epoch}, not 2")
+        if os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING") != NCCL_ERROR_HANDLING:
+            raise RuntimeError("nccl: the group's error handling was not set")
+        t0 = time.perf_counter()
+        pg.abort()
+        abort_s = time.perf_counter() - t0
+    finally:
+        pg.shutdown()
+        store.shutdown()
+    if abort_s >= DP_ABORT_BOUND_S or pg.errored() is None:
+        raise RuntimeError(f"nccl: abort took {abort_s:.3f} s (bound {DP_ABORT_BOUND_S} s) or "
+                           "left the group unerrored")
+    log(f"device plane distributed mode: one NCCL rank configured at quorum ids 1 and 2 "
+        f"(device_world_epoch 2), each allreduce returned its input bitwise, error handling "
+        f"TORCH_NCCL_ASYNC_ERROR_HANDLING={NCCL_ERROR_HANDLING}; abort {abort_s * 1e3:.1f} ms")
+    return abort_s
+
+
+def check_device_plane_bench_1b(device: torch.device, cfg, host: dict) -> dict:
+    """Phase 22: bench_1b on the device plane (docstring, 22). ``host`` is
+    phase 6's steady medians and phase 6's and 7's heals, printed beside
+    this phase's. Returns the main run's launches."""
+    from torchft_tpu_torch.ops import attention as ta
+    from torchft_tpu_torch.ops import quantization as q
+    from torchft_tpu_torch.train import Fault, run_replicas
+
+    wire_s = check_device_wire(device, bench_1b_grad_specs())
+    out_dir = os.path.join("chiprun_out", "device_plane")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    dp_cfg = dataclasses.replace(
+        cfg, steps=DP_STEPS, plane="device", transport="pg", trace_dir=out_dir,
+        profile_step=DP_PROFILE_STEP, faults=(Fault(*DP_CRASH, "crash", at="backward"),))
+    q.reset_launches()
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = run_replicas(dp_cfg, device, on_step=lambda e: log(
+        f"device step replica={e['replica']} step={e['step']} loss={e['loss']:.4f} "
+        f"participants={e['participants']} committed={e['committed']} healed={e['healed']} "
+        f"step_ms={e['step_ms']:.1f} compute_ms={e['compute_ms']:.1f} "
+        f"allreduce_ms={e['allreduce_ms']:.1f} wire_bytes_sent={e['wire_bytes_sent']}"))
+    launches = {**q.LAUNCHES, **ta.LAUNCHES}
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    d2h, kernels = _d2h_copies(os.path.join(out_dir, f"profile_step{DP_PROFILE_STEP}.json"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0, r1 = results
+    if any(r["step"] != DP_STEPS for r in results):
+        raise RuntimeError(f"device plane: replicas stopped at {[r['step'] for r in results]}")
+    if r1["restarts"] != 1 or r1["metrics"]["heals"] < 1:
+        raise RuntimeError(f"device plane: replica 1 did not crash and heal: {r1['metrics']}")
+    crashed = [e for e in r0["log"] if e["step"] == DP_CRASH[1] and not e["committed"]]
+    if not crashed or r0["metrics"]["commit_failures"] < 1:
+        raise RuntimeError("device plane: the crashed step was not discarded on replica 0")
+    p0, p1 = r0["params"], r1["params"]
+    unequal = [k for k in p0 if not torch.equal(p0[k].view(torch.int16), p1[k].view(torch.int16))]
+    if unequal:
+        raise RuntimeError(f"device plane: replicas differ in {unequal[:5]}")
+    losses = [e["loss"] for r in results for e in r["log"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"device plane: non-finite loss: {losses}")
+    if any(e["wire_bytes_sent"] for r in results for e in r["log"]):
+        raise RuntimeError("device plane: a step's allreduce rode the host wire")
+    for kernel in ("quantize_fp8_rowwise", "dequantize_fp8_rowwise",
+                   "splash_fwd", "splash_dq", "splash_dkv"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"device plane: {kernel} never launched")
+    if launches["quantize_fp8_rowwise_host"]:
+        raise RuntimeError("device plane: the host codec (K3-host) ran: a bucket was streamed")
+    if not any("quantize_fp8_rowwise_kernel" in k for k in kernels):
+        raise RuntimeError(f"device plane: the profiled step saw no K3 launch: {len(kernels)} "
+                           "kernels")
+    big = [b for b in d2h if b > DP_D2H_BAR]
+    if big:
+        raise RuntimeError(f"device plane: device-to-host copies over {DP_D2H_BAR} bytes in the "
+                           f"profiled steady step: {sorted(big)[-5:]}")
+    steady = [e for r in results for e in r["log"]
+              if e["committed"] and e["participants"] == 2 and not e["healed"] and e["step"] > 0]
+    if not steady:
+        raise RuntimeError("device plane: no steady step")
+    med = {k: statistics.median(e[k] for e in steady)
+           for k in ("step_ms", "compute_ms", "allreduce_ms", "tokens_per_s")}
+    heal = heal_numbers(results)
+    log(f"device plane bench_1b ({elapsed:.1f} s, {DP_STEPS} steps, fp8, PG heal, replica 1 "
+        f"crashing after step {DP_CRASH[1]}'s backward pass): replicas bitwise equal over "
+        f"{len(p0)} tensors, the crashed step discarded, storage kept "
+        f"{[r['storage_kept'] for r in results]}; profiled step {DP_PROFILE_STEP}: "
+        f"{len(d2h)} device-to-host copies, largest {max(d2h, default=0)} bytes (bar "
+        f"{DP_D2H_BAR}); device peak {peak / 2**30:.2f} GiB; launches {launches}")
+    log(f"device plane steady steps (median of {len(steady)}): step {med['step_ms']:.1f} ms = "
+        f"quorum+fwd+bwd {med['compute_ms']:.1f} ms + allreduce {med['allreduce_ms']:.1f} ms + "
+        f"commit+optimizer {med['step_ms'] - med['compute_ms'] - med['allreduce_ms']:.1f} ms, "
+        f"{med['tokens_per_s']:.1f} tokens/s per replica; heal_send_s {heal['heal_send_s']:.3f} "
+        f"heal_recv_s {heal['heal_recv_s']:.3f}")
+    hm = host["med"]
+    log(f"host plane in this call (phase 6, fp8 streamed buckets on the TCP ring): step "
+        f"{hm['step_ms']:.1f} ms = {hm['compute_ms']:.1f} + allreduce {hm['allreduce_ms']:.1f} + "
+        f"{hm['step_ms'] - hm['compute_ms'] - hm['allreduce_ms']:.1f} ms, "
+        f"{hm['tokens_per_s']:.1f} tokens/s; heal_recv_s HTTP {host['http']['heal_recv_s']:.3f}, "
+        f"PG (phase 7) {host['pg']['heal_recv_s']:.3f}; the fp8 allreduce alone: device wire "
+        f"{wire_s['device'] * 1e3:.1f} ms, host wire {wire_s['host'] * 1e3:.1f} ms")
+    del results, p0, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_device_plane_spares(device)
+    check_device_plane_nccl(device)
+    return launches
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3995,6 +4308,9 @@ def main() -> int:
     mark("17 serving")
     policy_launches = check_policy_bench_1b(device, cfg)
     mark("20 policy plane")
+    device_launches = check_device_plane_bench_1b(
+        device, cfg, {"med": med, "http": http_heal, "pg": pg_heal})
+    mark("22 device plane")
 
     # the serial engine's quantize runs on its own path (stream_buckets=False)
     serial_launches = serial_vs_streamed["launches"]["quantize_fp8_rowwise"]
@@ -4046,6 +4362,9 @@ def main() -> int:
             "launches_baby": baby_launches[kname],
             # phase 20: bench_1b under the policy plane in enforce mode
             "launches_policy": policy_launches[kname],
+            # phase 22: bench_1b on the device plane (K3 <false> on its
+            # packed wire; K3-host 0: no bucket is streamed)
+            "launches_device_plane": device_launches[kname],
             # K3-host checked and timed at the serving plane's flat too
             **({"serving_flat": {k: v for k, v in host_rule["serving_flat"].items()
                                  if k != "bytes"}}
@@ -4086,7 +4405,9 @@ def main() -> int:
                         # phase 18: bench_1b healed over a Baby recovery PG
                         "launches_baby": baby_launches[key],
                         # phase 20: bench_1b under the policy plane
-                        "launches_policy": policy_launches[key]}
+                        "launches_policy": policy_launches[key],
+                        # phase 22: bench_1b on the device plane
+                        "launches_device_plane": device_launches[key]}
                        if key in on_path else {}),
                     "max_abs_err": attn_stats[key]["err"],
                     **attn_timing[key],

@@ -160,8 +160,11 @@ class _DeviceNativePG(ProcessGroupDummy):
 
 @pytest.mark.parametrize("fn", ["reduce_scatter_quantized", "allreduce_quantized"])
 def test_device_native_process_group_is_refused(fn):
-    with pytest.raises(NotImplementedError, match="device_native"):
-        getattr(tcoll, fn)([torch.ones(8)], ReduceOp.SUM, _DeviceNativePG())
+    """A device-native group takes torch tensors (the packed device wire,
+    tests/test_torch_process_group_device.py); the host engine's numpy wire
+    over it is refused."""
+    with pytest.raises(TypeError, match="device-native"):
+        getattr(tcoll, fn)([np.ones(8, np.float32)], ReduceOp.SUM, _DeviceNativePG())
 
 
 @pytest.mark.parametrize("fn", ["reduce_scatter_quantized", "allreduce_compressed"])

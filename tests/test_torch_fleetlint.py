@@ -605,8 +605,8 @@ def test_port_contract_against_the_reference():
     ref_keys = set(r_counter.DECLARED_TIMINGS)
     port_keys = set(p_contracts.DECLARED_TIMINGS)
     assert port_keys - ref_keys == {"standby_send_s", "reconstruct_shards_ok", "shard_put_s"}
-    assert ref_keys - port_keys == {"allreduce_s", "degrade_events", "degraded_reshard_s",
-                                    "restored_events"}
+    # the device plane brought allreduce_s; the degrade plane's three wait
+    assert ref_keys - port_keys == {"degrade_events", "degraded_reshard_s", "restored_events"}
     assert p_contracts.DECLARED_SERIES == r_counter.DECLARED_SERIES
     assert CHECKER_NAMES == ("env-contract", "counter-contract", "lock-discipline",
                              "blocking-calls", "stale-guard")

@@ -39,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "examples.punisher", "multiprocessing", "multiprocessing_dummy_context",
                  "doctor", "policy", "analysis", "analysis.core", "analysis.lockgraph",
                  "examples.orchestrator", "examples.cluster.gke_runner",
-                 "examples.cluster.slurm_runner"):
+                 "examples.cluster.slurm_runner", "process_group_device"):
         assert f"torchft_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, json, sys

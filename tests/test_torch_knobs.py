@@ -23,8 +23,6 @@ NAME = re.compile(r"^TORCHFT_[A-Z0-9_]+$")
 UNREAD = {
     # the degrade plane (item 6)
     "TORCHFT_DEGRADE", "TORCHFT_DEGRADE_MIN_DEGREE", "TORCHFT_DEGRADE_RESTORE",
-    # the XLA process group (item 5)
-    "TORCHFT_XLA_HEARTBEAT_SEC", "TORCHFT_HOST",
     # the JAX package's layer scan and Pallas splash tiles: no reader in
     # the port (its CUDA tiles are fixed, ops/attention.py)
     "TORCHFT_TPU_SCAN_UNROLL", "TORCHFT_TPU_SPLASH_BLOCK", "TORCHFT_TPU_SPLASH_BLOCK_KV",

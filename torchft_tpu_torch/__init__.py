@@ -20,6 +20,11 @@ it. What runs today (see ROADMAP.md for what is still to port):
   ring, the compressed self-healing ring and point-to-point sends;
   ``bucketing`` its buckets; ``ProcessGroupBabyHost`` runs it in a child
   process (``multiprocessing``, ``multiprocessing_dummy_context``);
+- ``process_group_device.ProcessGroupDevice`` (exported here): the device
+  plane, whose collectives keep the payload on the device: local mode
+  (replicas as threads of one process, as on one card) and a
+  ``torch.distributed`` mode (NCCL, gloo on the CPU), with the packed fp8
+  device wire of ``collectives`` and the Manager's device-plane allreduce;
 - ``knobs``: the registry of every ``TORCHFT_*`` variable the port reads,
   with process-local overrides; ``doctor`` (``python -m
   torchft_tpu_torch.doctor``): the host's diagnostic;
@@ -62,6 +67,7 @@ _EXPORTS = {
     "DiLoCo": "torchft_tpu_torch.local_sgd",
     "DurableCheckpointer": "torchft_tpu_torch.checkpointing.durable",
     "LocalSGD": "torchft_tpu_torch.local_sgd",
+    "ProcessGroupDevice": "torchft_tpu_torch.process_group_device",
     "MoE": "torchft_tpu_torch.models.moe",
     "MoEConfig": "torchft_tpu_torch.models.moe",
     "MOE_CONFIGS": "torchft_tpu_torch.models.moe",

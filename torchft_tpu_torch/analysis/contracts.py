@@ -14,9 +14,8 @@ declared key must also be mentioned in the README's ``### Counters``.
 
 Against the reference's contract: ``standby_send_s``,
 ``reconstruct_shards_ok`` and ``shard_put_s`` are the port's own; the
-device plane's ``allreduce_s`` and the degrade plane's ``degrade_events``,
-``degraded_reshard_s`` and ``restored_events`` join with their planes
-(``ROADMAP.md``, items 5 and 6).
+degrade plane's ``degrade_events``, ``degraded_reshard_s`` and
+``restored_events`` join with their plane (``ROADMAP.md``, item 6).
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ DECLARED_TIMINGS: Dict[str, str] = {
     "heal_failovers": "cumulative mid-heal source switches",
     "chunk_crc_failures": "chunks refetched after integrity mismatch",
     # allreduce pipeline
+    "allreduce_s": "submission-to-resolve wall clock of the last allreduce",
     "allreduce_pack_s": "summed per-bucket pack stage",
     "allreduce_wire_s": "summed per-bucket wire stage",
     "allreduce_unpack_s": "summed per-bucket unpack stage",

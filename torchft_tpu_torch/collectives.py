@@ -13,11 +13,16 @@ codes, f32 row scales, element count), so a quorum may mix them:
   padded buffer is quantized in one launch (``fused_quantize_fp8``), the
   received chunks dequantized in one (``fused_dequantize_fp8``): the
   hand-written CUDA kernels on a CUDA device, their plain versions on the
-  CPU. Only the ~1 byte/element fp8 payload crosses to the host for the
-  wire; the sum over ranks is f32 on the device, in rank order. A process
-  group with a device-native wire (``device_native``) is refused.
+  CPU. The sum over ranks is f32 on the device, in rank order. The wire
+  depends on the process group's plane: a host process group gets the
+  tuple wire, and only the ~1 byte/element fp8 payload crosses to the
+  host; a device-native one (``device_native``, ``ProcessGroupDevice``)
+  gets the packed device wire (``_pack_wire_device``, ``:172``: the codes'
+  bytes, then the f32 scales' bytes, in one flat uint8 tensor on the
+  device), so the exchange never leaves the device. Both wires carry the
+  same codes, so both give the same sum bit for bit.
 - **host** (``:558``, ``:685``): numpy inputs, the numpy codec, an f64
-  accumulator.
+  accumulator, over a host process group only.
 
 ``allreduce_compressed`` (``:653``) codes host inputs into one
 ``CompressedWire`` (fp8 or int8) and hands it to ``pg.allreduce``: on
@@ -176,49 +181,82 @@ def _sum_ranks(deq: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _check_host_wire(pg: ProcessGroup) -> None:
-    if getattr(pg, "device_native", False):
-        raise NotImplementedError(
-            "the device engine's packed device wire (a device_native process "
-            "group) is not ported: use a host process group"
-        )
+def _pack_wire_device(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(rows, ROW) fp8 codes + (rows, 1) f32 scales -> ONE flat uint8
+    tensor on their device: the codes' bytes, then the scales' bytes
+    (little-endian, as the reference's bitcast). A device-native process
+    group moves it without leaving the device."""
+    return torch.cat([
+        q.reshape(-1).view(torch.uint8),
+        scales.to(torch.float32).reshape(-1).view(torch.uint8),
+    ])
+
+
+def _unpack_dequant_device(bufs: Sequence[torch.Tensor], rows: int) -> torch.Tensor:
+    """Inverse of ``_pack_wire_device`` over same-shaped wires: ONE
+    dequantize launch over all of them; (len(bufs), rows * ROW) f32."""
+    world = len(bufs)
+    codes = rows * ROW
+    q = torch.cat([b[:codes] for b in bufs]).view(torch.float8_e4m3fn).reshape(world * rows, ROW)
+    s = torch.cat([b[codes:] for b in bufs]).view(torch.float32).reshape(world * rows, 1)
+    return fused_dequantize_fp8(q, s, world * codes).reshape(world, codes)
+
+
+def _device_pg(pg: ProcessGroup) -> bool:
+    return bool(getattr(pg, "device_native", False))
 
 
 def _reduce_scatter_core_device(flat: torch.Tensor, op: ReduceOp, pg: ProcessGroup):
     """The device engine's reduce-scatter: one quantize launch over the
-    buffer padded to whole rows per destination chunk, the chunks' codes
-    to the host wire, alltoall, one dequantize launch over the received
-    chunks, the f32 sum in rank order (then AVG). Returns (this rank's
-    reduced f32 chunk on ``flat``'s device, chunk size)."""
+    buffer padded to whole rows per destination chunk, the chunks' wires
+    (packed on the device for a device-native group, else the host tuple
+    wire), alltoall, one dequantize launch over the received chunks, the
+    f32 sum in rank order (then AVG). Returns (this rank's reduced f32
+    chunk on ``flat``'s device, rows per chunk)."""
     world = pg.size()
     chunk_rows = max(1, _ceil_div(_ceil_div(flat.numel(), world), ROW))
     chunk = chunk_rows * ROW
     # the kernel zero-fills the rows past the data: no padded copy
     q, scales, _ = fused_quantize_fp8(flat, rows=world * chunk_rows)
-    sends = [
-        _wire_from_device(
-            q[r * chunk_rows:(r + 1) * chunk_rows],
-            scales[r * chunk_rows:(r + 1) * chunk_rows],
-            chunk,
-        )
-        for r in range(world)
-    ]
-    del q, scales
-    recvd = pg.alltoall(sends).get_future().wait()
-    acc = _sum_ranks(_device_from_wire(list(recvd), flat.device))
+    parts = [(q[r * chunk_rows:(r + 1) * chunk_rows], scales[r * chunk_rows:(r + 1) * chunk_rows])
+             for r in range(world)]
+    if _device_pg(pg):
+        sends: List[Any] = [_pack_wire_device(qr, sr) for qr, sr in parts]
+    else:
+        sends = [_wire_from_device(qr, sr, chunk) for qr, sr in parts]
+    del q, scales, parts
+    recvd = list(pg.alltoall(sends).get_future().wait())
+    del sends
+    if _device_pg(pg):
+        deq = _unpack_dequant_device(recvd, chunk_rows)
+    else:
+        deq = _device_from_wire(recvd, flat.device)
+    del recvd
+    acc = _sum_ranks(deq)
     if op == ReduceOp.AVG:
         acc = acc / world
-    return acc, chunk
+    return acc, chunk_rows
 
 
 def _allreduce_quantized_device(flat, like, op, pg):
     world = pg.size()
-    acc, chunk = _reduce_scatter_core_device(flat, op, pg)
+    acc, chunk_rows = _reduce_scatter_core_device(flat, op, pg)
+    chunk = chunk_rows * ROW
     q, scales, _ = fused_quantize_fp8(acc)
     del acc
-    gathered = pg.allgather([_wire_from_device(q, scales, chunk)]).get_future().wait()
-    deq = _device_from_wire([g[0] for g in gathered], flat.device)
+    if _device_pg(pg):
+        gathered = pg.allgather([_pack_wire_device(q, scales)]).get_future().wait()
+        deq = _unpack_dequant_device([g[0] for g in gathered], chunk_rows)
+    else:
+        gathered = pg.allgather([_wire_from_device(q, scales, chunk)]).get_future().wait()
+        deq = _device_from_wire([g[0] for g in gathered], flat.device)
     return _unflatten_torch(deq.reshape(world * chunk)[: flat.numel()], like)
+
+
+def _check_host_engine(pg: ProcessGroup) -> None:
+    if _device_pg(pg):
+        raise TypeError("a device-native process group takes torch tensors: the host engine's "
+                        "numpy wire rides a host process group")
 
 
 def allreduce_quantized(arrays: Sequence[Any], op: ReduceOp, pg: ProcessGroup) -> Work:
@@ -229,7 +267,6 @@ def allreduce_quantized(arrays: Sequence[Any], op: ReduceOp, pg: ProcessGroup) -
         raise ValueError(f"allreduce_quantized supports SUM/AVG, got {op}")
 
     if arrays and all(isinstance(a, torch.Tensor) for a in arrays):
-        _check_host_wire(pg)
         like = list(arrays)
         flat = _flatten_torch(like)
 
@@ -240,6 +277,7 @@ def allreduce_quantized(arrays: Sequence[Any], op: ReduceOp, pg: ProcessGroup) -
 
         return _run_async(run_device)
 
+    _check_host_engine(pg)
     flat, shapes, dtypes = _flatten_np(arrays)
 
     def run() -> List[np.ndarray]:
@@ -263,7 +301,6 @@ def reduce_scatter_quantized(arrays: Sequence[Any], op: ReduceOp, pg: ProcessGro
         raise ValueError(f"reduce_scatter_quantized supports SUM/AVG, got {op}")
 
     if arrays and all(isinstance(a, torch.Tensor) for a in arrays):
-        _check_host_wire(pg)
         leaves = list(arrays)
 
         def run_device() -> torch.Tensor:
@@ -271,11 +308,12 @@ def reduce_scatter_quantized(arrays: Sequence[Any], op: ReduceOp, pg: ProcessGro
             flat = _flatten_torch(leaves)
             if pg.size() <= 1:
                 return flat
-            acc, _chunk = _reduce_scatter_core_device(flat, op, pg)
+            acc, _rows = _reduce_scatter_core_device(flat, op, pg)
             return acc
 
         return _run_async(run_device)
 
+    _check_host_engine(pg)
     flat, _, _ = _flatten_np(arrays)
 
     def run() -> np.ndarray:

@@ -5,9 +5,10 @@ loop arms timers for ``context_timeout`` (calls e.g. ``pg.abort`` when a
 block overruns) and ``arm_deadline`` (a bare timer with a cancel function);
 a watchdog thread hard-exits the process if the timer loop itself wedges
 (``TORCHFT_WATCHDOG_TIMEOUT_SEC``). The reference's ``future_timeout`` is
-not needed: the port's Manager paths (the host-plane serial and streamed
-allreduces) arm their deadline with ``arm_deadline`` when staging begins,
-as the reference does on those paths.
+``Manager.wrap_future(..., arm_timeout=True)`` in the port, on
+``arm_deadline``: the device plane's allreduces take their deadline at
+submission, the host plane's arm it when staging begins, as the
+reference's.
 """
 
 from __future__ import annotations

@@ -6,9 +6,11 @@ its ``Knob``: type, default, where the port documents it (``doc``: the
 README's knob table), the doctor check that validates it (``doctor``,
 ``python -m torchft_tpu_torch.doctor``) and a one-line summary; type,
 default, doctor check and summary are the reference's. It holds the
-reference's knobs that the port reads and no other: the degrade plane's,
-the XLA process group's and the JAX package's scan and Pallas tile knobs
-join with their planes (``ROADMAP.md``).
+reference's knobs that the port reads and no other: the degrade plane's
+join with its plane (``ROADMAP.md``), and the JAX package's scan and
+Pallas tile knobs have no reader in the port. The XLA process group's two
+(``TORCHFT_XLA_HEARTBEAT_SEC``, ``TORCHFT_HOST``) keep their names and
+meanings for ``ProcessGroupDevice``: the env contract is shared.
 
 Every read goes through ``env_raw`` or a typed reader (``env_str``,
 ``env_int``, ``env_float``, ``env_bool``), which raise ``KeyError`` on a
@@ -78,6 +80,8 @@ REGISTRY: Dict[str, Knob] = {
            "Quorum formation deadline; retry backoff budgets are ordered below it."),
         _k("TORCHFT_CONNECT_TIMEOUT_SEC", "float", "10", "tuning-env",
            "TCP connect deadline for control-plane clients."),
+        _k("TORCHFT_HOST", "str", "127.0.0.1", "tuning-env",
+           "Hostname the XLA store/transport advertises (multi-host fleets)."),
         _k("TORCHFT_QUORUM_RETRIES", "int", "0", "tuning-env",
            "Consecutive quorum failures tolerated before the manager raises."),
         _k("TORCHFT_HEARTBEAT_INTERVAL_MS", "float", "100", "health-env",
@@ -187,6 +191,9 @@ REGISTRY: Dict[str, Knob] = {
            "Rolling window the fleet signals (MTBF, churn, ...) cover."),
         _k("TORCHFT_POLICY_RING", "int", "4096", "policy-env",
            "Lighthouse in-memory event-ring capacity feeding the engine."),
+        # the device plane (process_group_device.py)
+        _k("TORCHFT_XLA_HEARTBEAT_SEC", "float", "10", "tuning-env",
+           "XLA process-group peer heartbeat timeout."),
         # the device
         _k("TORCHFT_WATCHDOG_TIMEOUT_SEC", "float", "30", "tuning-env",
            "Future-watchdog deadline that converts a wedged wait into an error."),

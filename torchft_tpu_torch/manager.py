@@ -65,6 +65,22 @@ asked (CUDA tensors take its device engine); an unquantized tree is
 bucketed into that one collective. A non-participant contributes zeros and
 never touches the residuals.
 
+The device plane (reference ``:1766-1768``, ``:1845-1861``,
+``:1988-2020``, ``:2204-2229``): a process group that says
+``device_native`` (``ProcessGroupDevice``) gets its collectives straight
+from the caller thread, with no staging worker (it rendezvouses ops by
+kind and sequence number, so issue order across threads cannot mismatch),
+and the payload stays on the device: a streamed tree's raw buckets one
+``allreduce`` each, a quantized tree whole through
+``collectives.allreduce_quantized``'s packed device wire (never streamed:
+no per-bucket coding or residuals), a spare's zeros made on the device.
+Its futures get the deadline at submission (``wrap_future(...,
+arm_timeout=True)``). ``device_world_epoch`` is recorded at
+``start_quorum`` and ``should_commit`` (``_sync_device_world``); a torch
+communicator's rebuild leaves live tensors valid, so nothing is re-landed.
+``timings()["allreduce_s"]`` is the last allreduce's submission to
+resolve.
+
 The redundancy plane (``redundancy.py``; reference ``:630-680``,
 ``:797-805``, ``:1326-1414``, ``:2818-2943``) attaches when
 ``TORCHFT_REDUNDANCY_K`` >= 1 and a shard directory is configured (each
@@ -515,6 +531,8 @@ class Manager:
         self._participating_replica_rank: Optional[int] = None
         self._participating_replica_world_size = 0
         self._num_replicas = 0
+        # the device plane's last seen group generation (_sync_device_world)
+        self._device_world_epoch = getattr(pg, "device_world_epoch", None)
 
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torchft_quorum")
         # one ordered worker stages every allreduce: collectives start in
@@ -703,11 +721,23 @@ class Manager:
         if not self._use_async_quorum:
             self.wait_quorum()
             self._commit_pending_configure()
+            self._sync_device_world()
             if self._healing and self._pending_state_dict is not None:
                 # the forward pass runs on the recovered state
                 self._apply_pending_state_dict()
             # a failed recovery has reported its error: retry at the next quorum
             self._healing = False
+
+    def _sync_device_world(self) -> None:
+        """Record the device plane's group generation at a main-thread sync
+        point. The reference re-lands user state here after a jax backend
+        rebuild (``:993-1022``); a rebuilt torch communicator leaves live
+        tensors valid, so the port only keeps the count."""
+        epoch = getattr(self._pg, "device_world_epoch", None)
+        if epoch is None or epoch == self._device_world_epoch:
+            return
+        self._log(logging.INFO, f"device world rebuilt (epoch {epoch}); live tensors stay valid")
+        self._device_world_epoch = epoch
 
     def wait_quorum(self) -> None:
         if self._quorum_future is None:
@@ -1151,14 +1181,19 @@ class Manager:
     ) -> Tuple[Work, Optional[GradStream]]:
         """The engine behind allreduce and allreduce_streamed: ``(work,
         stream)``, the stream a GradStream when the op streamed."""
+        t_allreduce0 = time.perf_counter()
         self._bump_metric("allreduces")
         leaves, treedef = bucketing.tree_flatten(values)
         cap = self._bucket_cap_bytes if bucket_cap_bytes is None else int(bucket_cap_bytes)
+        # read before the plan gate: a device-native group gets no streamed
+        # quantization (reference :1766-1768)
+        device_native = bool(getattr(self._pg, "device_native", False))
         # the serial quantized path is never pre-bucketed: it flattens the
         # tree into one wire itself, and packing first would move its fp8
         # row boundaries; streamed, a quantized tree rides compressed buckets
+        streamable_quant = should_quantize and self._stream_buckets and not device_native
         plan: Optional[bucketing.BucketPlan] = None
-        if (not should_quantize or self._stream_buckets) and len(leaves) > 1 and cap > 0:
+        if (not should_quantize or streamable_quant) and len(leaves) > 1 and cap > 0:
             try:
                 plan = bucketing.plan_for(leaves, cap, treedef=treedef)
             except Exception:  # noqa: BLE001 - exotic leaves go unbucketed
@@ -1193,14 +1228,24 @@ class Manager:
                 return true_divide(x, num_participants)
             return x
 
+        def timed(fut: Future) -> Future:
+            # submission to resolve (reference :1874-1880)
+            fut.add_done_callback(lambda _f: self._record_timing(
+                "allreduce_s", time.perf_counter() - t_allreduce0))
+            return fut
+
         try:
             if plan is not None and self._stream_buckets:
-                return self._allreduce_streaming(
-                    leaves, treedef, plan, should_quantize, pg_reduce_op, divide, zeros
+                work, stream = self._allreduce_streaming(
+                    leaves, treedef, plan, should_quantize, pg_reduce_op, divide, zeros,
+                    device_native,
                 )
-            return FutureWork(self._allreduce_serial(
-                leaves, plan, should_quantize, pg_reduce_op, divide, rebuild, zeros
-            )), None
+                timed(stream.get_future())
+                return work, stream
+            return FutureWork(timed(self._allreduce_serial(
+                leaves, plan, should_quantize, pg_reduce_op, divide, rebuild, zeros,
+                device_native,
+            ))), None
         except Exception as e:  # noqa: BLE001 - swallowed into the vote
             self._log(logging.ERROR, f"allreduce failed: {e}")
             self.report_error(e)
@@ -1215,12 +1260,17 @@ class Manager:
         divide: Callable[[Any], Any],
         rebuild: Callable[[List[Any]], Any],
         zeros: Callable[[], Any],
+        device_native: bool = False,
     ) -> Future:
-        """One collective for the whole tree (its buckets, when ``plan``)
-        on the ordered staging worker."""
-        # capture on the caller thread: the staging thread reads these
-        # after allreduce() returns, when the caller may already be
-        # mutating its gradients. Non-participants contribute zeros.
+        """One collective for the whole tree (its buckets, when ``plan``):
+        on the ordered staging worker, or on the device plane straight from
+        the caller thread (reference :2204-2229: a device-native group
+        rendezvouses ops by kind and sequence number, and its future takes
+        the deadline at submission)."""
+        # capture on the caller thread: the collective reads these after
+        # allreduce() returns, when the caller may already be mutating its
+        # gradients. Non-participants contribute zeros (on the leaves'
+        # device).
         if plan is not None:
             if self.is_participating():
                 capture, _pooled = bucketing.pack(leaves, plan)
@@ -1236,6 +1286,22 @@ class Manager:
             ]
         else:
             capture = [_zeros_like(l) for l in leaves]
+
+        def normalize(f: Future) -> Any:
+            reduced = [divide(r) for r in f.value()]
+            if plan is not None:
+                reduced = bucketing.unpack(reduced, plan)
+            return rebuild(reduced)
+
+        if device_native:
+            if should_quantize:
+                from torchft_tpu_torch.collectives import allreduce_quantized
+
+                work = allreduce_quantized(capture, pg_reduce_op, self._pg)
+            else:
+                work = self._pg.allreduce(capture, pg_reduce_op)
+            return self.wrap_future(work.get_future().then(normalize), zeros, arm_timeout=True)
+
         staged_fut: Future = Future()
         stage_timeout = self._timeout
 
@@ -1276,14 +1342,9 @@ class Manager:
                 except RuntimeError:
                     pass
 
-        def normalize(f: Future) -> Any:
-            reduced = [divide(r) for r in f.value()]
-            if plan is not None:
-                reduced = bucketing.unpack(reduced, plan)
-            return rebuild(reduced)
-
         self._staging_executor.submit(stage)
-        return self.wrap_future(staged_fut.then(normalize), zeros)
+        # the deadline is the staging's, armed when staging begins
+        return self.wrap_future(staged_fut.then(normalize), zeros, arm_timeout=False)
 
     def _allreduce_streaming(
         self,
@@ -1294,12 +1355,15 @@ class Manager:
         pg_reduce_op: ReduceOp,
         divide: Callable[[Any], Any],
         zeros: Callable[[], Any],
+        device_native: bool = False,
     ) -> Tuple[Work, GradStream]:
         """One collective per bucket, three stages each: pack (on the
         staging worker: the coding with error feedback, or the staging of
         the raw bucket), wire (the PG's dispatch thread), unpack (decode,
         divide, slice and land one bucket, on the unpack worker). Numerics
-        are the serial path's per bucket."""
+        are the serial path's per bucket. On the device plane the buckets
+        are packed and issued from the caller thread (reference
+        :1988-2020), raw: a device-native group never gets a coded bucket."""
         n_buckets = len(plan)
         # per-bucket (start, end) perf_counter marks of each stage
         marks: List[Dict[str, Tuple[float, float]]] = [{} for _ in range(n_buckets)]
@@ -1364,7 +1428,24 @@ class Manager:
                 except RuntimeError:
                     pass
 
+        def _wire_done(f: Future, i: int, t0w: float, pooled_buf: Any) -> None:
+            # on the PG's dispatch (or resolving) thread: record and hand off at once
+            marks[i]["wire"] = (t0w, time.perf_counter())
+            try:
+                flat = f.value()[0]
+                self._unpack_executor.submit(_land_bucket, i, flat, pooled_buf)
+            except Exception as e:  # noqa: BLE001 - the wire's or shutdown's
+                try:
+                    bucket_futs[i].set_exception(e)
+                except RuntimeError:
+                    pass
+
         participating = self.is_participating()
+        if device_native:
+            self._issue_device_buckets(leaves, plan, participating, devices, marks,
+                                       bucket_futs, pg_reduce_op, _wire_done)
+            wrapped = self.wrap_future(final_fut, zeros, arm_timeout=True)
+            return FutureWork(wrapped), GradStream(bucket_futs, wrapped)
         if participating:
             capture, pooled = bucketing.pack(leaves, plan, pool=self._buffer_pool)
         else:
@@ -1397,18 +1478,6 @@ class Manager:
                 final_fut.set_exception(TimeoutError("allreduce staging timed out"))
             except RuntimeError:
                 pass
-
-        def _wire_done(f: Future, i: int, t0w: float, pooled_buf: Any) -> None:
-            # on the PG's dispatch thread: record and hand off at once
-            marks[i]["wire"] = (t0w, time.perf_counter())
-            try:
-                flat = f.value()[0]
-                self._unpack_executor.submit(_land_bucket, i, flat, pooled_buf)
-            except Exception as e:  # noqa: BLE001 - the wire's or shutdown's
-                try:
-                    bucket_futs[i].set_exception(e)
-                except RuntimeError:
-                    pass
 
         def stage() -> None:
             cancel = arm_deadline(_stage_deadline, stage_timeout)
@@ -1444,8 +1513,43 @@ class Manager:
                         pass
 
         self._staging_executor.submit(stage)
-        wrapped = self.wrap_future(final_fut, zeros)
+        wrapped = self.wrap_future(final_fut, zeros, arm_timeout=False)
         return FutureWork(wrapped), GradStream(bucket_futs, wrapped)
+
+    def _issue_device_buckets(
+        self,
+        leaves: List[Any],
+        plan: bucketing.BucketPlan,
+        participating: bool,
+        devices: List[torch.device],
+        marks: List[Dict[str, Tuple[float, float]]],
+        bucket_futs: List[Future],
+        pg_reduce_op: ReduceOp,
+        wire_done: Callable[[Future, int, float, Any], None],
+    ) -> None:
+        """The device plane's streamed buckets: packed on the caller
+        thread (a spare's zeros made on the device) and one ``allreduce``
+        each, issued from here in bucket order; each lands on the unpack
+        worker as it resolves. A failed issue fails every bucket."""
+        try:
+            t0 = time.perf_counter()
+            if participating:
+                flats, _pooled = bucketing.pack(leaves, plan)
+            else:
+                flats = [torch.zeros(size, dtype=dtype, device=dev)
+                         for size, dtype, dev in zip(plan.sizes, plan.dtypes, devices)]
+            marks[0]["pack"] = (t0, time.perf_counter())
+            for i, flat in enumerate(flats):
+                t0w = time.perf_counter()
+                w = self._pg.allreduce([flat], pg_reduce_op)
+                w.get_future().add_done_callback(
+                    lambda f, i=i, t0w=t0w: wire_done(f, i, t0w, None))
+        except Exception as e:  # noqa: BLE001 - fails every bucket
+            for bf in bucket_futs:
+                try:
+                    bf.set_exception(e)
+                except RuntimeError:
+                    pass
 
     def _bucket_residuals(self, plan: bucketing.BucketPlan) -> List[Any]:
         """The per-bucket error-feedback residual slots of one plan (None
@@ -1529,11 +1633,37 @@ class Manager:
     def errored(self) -> Optional[ExceptionWithTraceback]:
         return self._errored
 
-    def wrap_future(self, fut: Future, default: Any) -> Future:
+    def wrap_future(
+        self,
+        fut: Future,
+        default: Any,
+        timeout: "float | timedelta | None" = None,
+        arm_timeout: bool = True,
+    ) -> Future:
         """Swallow errors of ``fut`` into ``default`` (a value, or a zero-arg
-        factory called only on the error path), reporting them. The
-        deadline is the caller's (the allreduce arms one when staging
-        begins)."""
+        factory called only on the error path), reporting them.
+        ``arm_timeout`` fails it with ``TimeoutError`` after ``timeout``
+        (default the Manager's) from now; ``arm_timeout=False`` is for a
+        caller that arms its own deadline when its work starts (the host
+        plane's staged paths: a timer from submission would charge the
+        queue ahead of them)."""
+        if arm_timeout:
+            timed: Future = Future()
+            cancel = arm_deadline(
+                lambda: _settle(timed, exc=TimeoutError("future timed out")),
+                _to_seconds(timeout) if timeout is not None else self._timeout,
+            )
+
+            def _forward(f: Future) -> None:
+                cancel()
+                exc = f.exception()
+                if exc is not None:
+                    _settle(timed, exc=exc)
+                else:
+                    _settle(timed, value=f.value())
+
+            fut.add_done_callback(_forward)
+            fut = timed
 
         def callback(f: Future) -> Any:
             try:
@@ -1567,6 +1697,7 @@ class Manager:
         self._commit_pending_configure()
         if (err := self._pg.errored()) is not None:
             self.report_error(err)
+        self._sync_device_world()
         if self._healing and self._pending_state_dict is not None:
             self._apply_pending_state_dict()
         self._healing = False
@@ -2152,6 +2283,17 @@ class Manager:
         self._pg.shutdown()
         # what the drain still holds is written before the log handlers go
         get_event_drain().flush(timeout=2.0)
+
+
+def _settle(fut: Future, value: Any = None, exc: Optional[BaseException] = None) -> None:
+    """Resolve ``fut`` unless something resolved it first."""
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(value)
+    except RuntimeError:
+        pass
 
 
 def _zeros_like(x: Any) -> Any:

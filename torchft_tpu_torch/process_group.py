@@ -2103,6 +2103,11 @@ class FakeProcessGroupWrapper(ProcessGroup):
         # thread): it can stall the prepare past a step boundary
         self._on_prepare: Optional[Callable[[], None]] = None
 
+    @property
+    def device_native(self) -> bool:
+        # the wrapped group's plane: the Manager reads it off the outermost
+        return getattr(self._pg, "device_native", False)
+
     def set_prepare_hook(self, fn: Optional[Callable[[], None]]) -> None:
         """``fn()`` runs at the start of every ``prepare_configure``."""
         self._on_prepare = fn

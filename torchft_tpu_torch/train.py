@@ -155,6 +155,15 @@ counters: ``rpc_retries``, heals, ...) over all its incarnations, so what a cras
 incarnation counted (an RPC flake fired on any replica's next call) is not
 lost with it.
 
+``--plane device`` (``TrainConfig.plane``; ``host`` by default) gives
+each replica's Manager a ``ProcessGroupDevice(mode="local")`` instead of
+a ``ProcessGroupHost`` (the counterpart of ``benchmarks/recovery_bench.py``'s
+``--plane``, ``:345``): the replica threads hand their gradients to each
+other on the device and the quantized allreduce rides the packed fp8
+device wire whole; a heal's recovery process group (``--transport pg``)
+stays a ``ProcessGroupHost``. A step's ``wire_bytes_sent`` and
+``wire_busy_s`` count the host wire, so they are 0 there.
+
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -188,7 +197,13 @@ from torchft_tpu_torch.models.moe import MOE_CONFIGS, MoE
 from torchft_tpu_torch.models.remat import REMAT_MODES
 from torchft_tpu_torch.ops import attention as attn_ops
 from torchft_tpu_torch.optim import OptimizerWrapper
-from torchft_tpu_torch.process_group import ProcessGroupBaby, ProcessGroupBabyHost, ProcessGroupHost
+from torchft_tpu_torch.process_group import (
+    ProcessGroup,
+    ProcessGroupBaby,
+    ProcessGroupBabyHost,
+    ProcessGroupHost,
+)
+from torchft_tpu_torch.process_group_device import ProcessGroupDevice
 from torchft_tpu_torch.tracing import merge_traces
 from torchft_tpu_torch.redundancy import (
     DirectoryClient,
@@ -460,6 +475,10 @@ class TrainConfig:
     batch_size: int = 1
     seq_len: int = 2048
     quantize: bool = True
+    # the Manager's process group: "host" (ProcessGroupHost) or "device"
+    # (ProcessGroupDevice in local mode: the replica threads' collectives
+    # stay on the device)
+    plane: str = "host"
     # the heal's checkpoint transport: "http", "pg" or "pg-baby" (PGTransport
     # over a ProcessGroupBabyHost: the recovery PG in a spawned child)
     transport: str = "http"
@@ -584,7 +603,7 @@ def _train_replica(
     def save_state() -> Dict[str, Any]:
         return {"model": model.state_dict(), "optim": optim.state_dict()}
 
-    pg = ProcessGroupHost(timeout=TIMEOUT_S)
+    pg = _make_pg(cfg.plane)
     recovery_pg = None
     manager: Optional[Manager] = None
     transport: Any
@@ -697,12 +716,12 @@ def _train_replica(
                     time.sleep(max(0.0, 2.0 * min(compute_s or [0.0])))
                 t_slow = time.perf_counter()
                 grads = {n: p.grad for n, p in model.named_parameters()}
-                wire0 = pg.wire_stats()
+                wire0 = _wire_stats(pg)
                 avg = manager.allreduce(grads, should_quantize=cfg.quantize).get_future().wait()
                 for n, p in model.named_parameters():
                     p.grad = avg[n]
                 t2 = sync()
-                wire1 = pg.wire_stats()
+                wire1 = _wire_stats(pg)
                 timings = manager.timings()
                 committed = optimizer.step()
                 t3 = sync()
@@ -788,6 +807,21 @@ def _train_replica(
             recovery_pg.shutdown()
 
 
+def _make_pg(plane: str) -> ProcessGroup:
+    """A replica's Manager process group for ``plane``."""
+    if plane == "host":
+        return ProcessGroupHost(timeout=TIMEOUT_S)
+    if plane == "device":
+        return ProcessGroupDevice(timeout=TIMEOUT_S, mode="local")
+    raise ValueError(f"unknown plane {plane!r}: host or device")
+
+
+def _wire_stats(pg: ProcessGroup) -> Dict[str, float]:
+    """The host wire's counters (a device-plane group has no host wire)."""
+    stats = getattr(pg, "wire_stats", None)
+    return stats() if stats is not None else {"bytes_sent": 0, "busy_s": 0.0}
+
+
 def _await_release(refs: Tuple[Any, ...], timeout: float) -> bool:
     """Collect until every weak reference in ``refs`` is dead (True), or
     ``timeout`` passed (False). A crashed incarnation's Manager shuts down
@@ -870,7 +904,7 @@ def _moe_stats(model: Llama) -> Dict[str, float]:
 
 
 def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.optim.Optimizer,
-                 make_batch: Callable, manager: Manager, pg: ProcessGroupHost, transport: Any,
+                 make_batch: Callable, manager: Manager, pg: ProcessGroup, transport: Any,
                  sync: Callable[[], float], on_step: Callable[[Dict[str, Any]], None],
                  stop: threading.Event, script: _FaultScript) -> Dict[str, Any]:
     """Inner AdamW steps with a DiLoCo step after each; returns the final
@@ -908,11 +942,11 @@ def _diloco_loop(cfg: TrainConfig, replica_id: int, model: Llama, optim: torch.o
         script.check(replica_id, inner, "backward", transport)
         optim.step()
         t1 = sync()
-        wire0 = pg.wire_stats()
+        wire0 = _wire_stats(pg)
         commits0 = manager.metrics()["commits"]
         diloco.step(params)
         t2 = sync()
-        wire1 = pg.wire_stats()
+        wire1 = _wire_stats(pg)
         syncs = diloco.last_step_syncs
         entry: Dict[str, Any] = {
             "replica": replica_id,
@@ -1360,6 +1394,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="replica 1 crashes after this step's backward pass")
     p.add_argument("--replicas", type=int, default=REPLICAS,
                    help="replica groups (threads); the lighthouse wants all of them")
+    p.add_argument("--plane", choices=["host", "device"], default="host",
+                   help="the Manager's process group: host (ProcessGroupHost, the TCP wire) "
+                        "or device (ProcessGroupDevice in local mode: collectives stay on "
+                        "the device)")
     p.add_argument("--transport", choices=["http", "pg", "pg-baby"], default="http",
                    help="heal transport: http, pg (a recovery process group) or pg-baby (a "
                         "recovery process group in a spawned child process)")
@@ -1414,7 +1452,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, quantize=args.quantize,
         faults=() if args.fail_at is None else (Fault(1, args.fail_at, "crash", at="backward"),),
-        transport=args.transport, diloco=args.diloco,
+        plane=args.plane, transport=args.transport, diloco=args.diloco,
         sync_every=args.sync_every, num_fragments=args.num_fragments,
         fragment_sync_delay=args.fragment_sync_delay, outer_lr=args.outer_lr,
         replicas=args.replicas, http_timeout=args.http_timeout,
